@@ -1,17 +1,24 @@
 """Problem library: the objectives the ported L-BFGS-B slice uses.
 
 PyTorch counterpart of :mod:`optimization_solvers_tpu.core.problems`
-(rosenbrock, diag_quadratic, shifted_quadratic_2d, example_gd), plus the
-generic :func:`weighted_squares` that carries its coefficients as problem
-data (``data=(d, t)``).
+(rosenbrock, quadratic, diag_quadratic, log_sum_exp, shifted_quadratic_2d,
+example_gd), plus the generic :func:`weighted_squares` that carries its
+coefficients as problem data (``data=(d, t)``).
 
 Each entry is an :class:`Objective`: a per-instance ``f(x, *data)`` in torch,
 its batched analytic ``value`` / ``value_and_grad`` over ``(B, n)``, and a
-``kernel_form`` naming the CUDA objective functor and the 1-D data arrays
-that functor reads.  Two functors cover the library:
+``kernel_form`` naming the CUDA objective functor and the data arrays that
+functor reads.  Four functors cover the library:
 
 * ``ROSENBROCK``: ``sum_i 100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2``, no data;
-* ``WEIGHTED_SQUARES``: ``0.5 sum_i d_i (x_i - t_i)^2`` with data ``(d, t)``.
+* ``WEIGHTED_SQUARES``: ``0.5 sum_i d_i (x_i - t_i)^2`` with data ``(d, t)``,
+  both ``(n,)``;
+* ``QUADRATIC``: ``0.5 x^T Q x + b^T x`` with data ``Q (n, n)``, ``b (n,)``;
+* ``LOG_SUM_EXP``: ``log sum_r exp(a_r^T x + b_r)`` with data
+  ``A (rows, n)``, ``b (rows,)``.
+
+The K1 kernel (``ops/csrc/lbfgsb_fused.cu``) compiles the first two, the
+K2 kernel (``ops/csrc/lbfgsb_tall.cu``) all four.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch
 
 ROSENBROCK = "ROSENBROCK"
 WEIGHTED_SQUARES = "WEIGHTED_SQUARES"
+QUADRATIC = "QUADRATIC"
+LOG_SUM_EXP = "LOG_SUM_EXP"
 
 
 class Objective:
@@ -30,14 +39,17 @@ class Objective:
     ``fn(x, *data)`` is the per-instance objective on an ``(n,)`` tensor;
     ``value(X, *data)`` and ``value_and_grad(X, *data)`` evaluate a
     ``(B, n)`` batch, sharing every data array across instances.
-    ``kernel_form(*data)`` returns ``(functor, arrays)``."""
+    ``functor`` names the CUDA functor; ``kernel_form(*data)`` returns
+    ``(functor, arrays)``, the arrays being ``arrays(*data)`` (by default
+    the call-time data itself)."""
 
     def __init__(self, fn: Callable, value: Callable, value_and_grad: Callable,
-                 kernel_form: Callable):
+                 functor: str, arrays: Callable = lambda *data: data):
         self._fn = fn
         self._value = value
         self._value_and_grad = value_and_grad
-        self._kernel_form = kernel_form
+        self.functor = functor
+        self._arrays = arrays
 
     def __call__(self, x, *data):
         return self._fn(x, *data)
@@ -49,7 +61,7 @@ class Objective:
         return self._value_and_grad(X, *data)
 
     def kernel_form(self, *data):
-        return self._kernel_form(*data)
+        return self.functor, tuple(self._arrays(*data))
 
 
 def _rosen_value(X):
@@ -90,8 +102,8 @@ def rosenbrock() -> Objective:
         return torch.sum(100.0 * (x[1:] - x[:-1] ** 2) ** 2
                          + (1.0 - x[:-1]) ** 2)
 
-    return Objective(f, _rosen_value, _rosen_value_and_grad,
-                     lambda: (ROSENBROCK, ()))
+    return Objective(f, _rosen_value, _rosen_value_and_grad, ROSENBROCK,
+                     lambda: ())
 
 
 def weighted_squares() -> Objective:
@@ -101,16 +113,72 @@ def weighted_squares() -> Objective:
     def f(x, d, t):
         return 0.5 * torch.sum(d * (x - t) ** 2)
 
-    return Objective(f, _ws_value, _ws_value_and_grad,
-                     lambda d, t: (WEIGHTED_SQUARES, (d, t)))
+    return Objective(f, _ws_value, _ws_value_and_grad, WEIGHTED_SQUARES)
 
 
 def _bound_weighted_squares(fn, d, t) -> Objective:
     """A weighted-squares objective whose ``(d, t)`` are fixed at
     construction (no problem data at call time)."""
     return Objective(fn, lambda X: _ws_value(X, d, t),
-                     lambda X: _ws_value_and_grad(X, d, t),
-                     lambda: (WEIGHTED_SQUARES, (d, t)))
+                     lambda X: _ws_value_and_grad(X, d, t), WEIGHTED_SQUARES,
+                     lambda: (d, t))
+
+
+def quadratic(Q, b=None) -> Objective:
+    """General quadratic ``f = 0.5 x^T Q x + b^T x``.
+
+    The gradient is ``0.5 (Q x + Q^T x) + b``, what autodiff of the JAX
+    form gives, so a ``Q`` that is not exactly symmetric agrees too."""
+    Q = torch.as_tensor(Q)
+    b = torch.zeros(Q.shape[0], dtype=Q.dtype) if b is None else (
+        torch.as_tensor(b))
+
+    def f(x):
+        return 0.5 * torch.sum(x * (_like(Q, x) @ x)) + torch.sum(
+            _like(b, x) * x)
+
+    def value(X):
+        Qx = X @ _like(Q, X).T
+        return 0.5 * torch.sum(X * Qx, dim=-1) + torch.sum(_like(b, X) * X,
+                                                          dim=-1)
+
+    def value_and_grad(X):
+        Qm = _like(Q, X)
+        Qx = X @ Qm.T
+        v = 0.5 * torch.sum(X * Qx, dim=-1) + torch.sum(_like(b, X) * X,
+                                                        dim=-1)
+        return v, 0.5 * (Qx + X @ Qm) + _like(b, X)
+
+    return Objective(f, value, value_and_grad, QUADRATIC, lambda: (Q, b))
+
+
+def log_sum_exp(A, b) -> Objective:
+    """``f = log sum_r exp(a_r^T x + b_r)`` in the max-shifted form
+    ``z_max + log sum_r exp(z_r - z_max)``; gradient ``A^T softmax(z)``.
+    The config-4 objective (10,000-dim, 512 rows)."""
+    A = torch.as_tensor(A)
+    b = torch.as_tensor(b)
+
+    def f(x):
+        z = _like(A, x) @ x + _like(b, x)
+        mx = torch.max(z)
+        return mx + torch.log(torch.sum(torch.exp(z - mx)))
+
+    def _z(X):
+        z = X @ _like(A, X).T + _like(b, X)
+        return z, torch.amax(z, dim=-1, keepdim=True)
+
+    def value(X):
+        z, mx = _z(X)
+        return mx[:, 0] + torch.log(torch.sum(torch.exp(z - mx), dim=-1))
+
+    def value_and_grad(X):
+        z, mx = _z(X)
+        e = torch.exp(z - mx)
+        s = torch.sum(e, dim=-1, keepdim=True)
+        return (mx + torch.log(s))[:, 0], (e / s) @ _like(A, X)
+
+    return Objective(f, value, value_and_grad, LOG_SUM_EXP, lambda: (A, b))
 
 
 def diag_quadratic(d) -> Objective:

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``ops/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
 library with a plain C interface, loaded with ctypes.  The library is built
 at first use and rebuilt when a source is newer, into
 ``optimization_solvers_tpu_torch/_build/`` (not tracked by git).  Nothing
@@ -22,7 +23,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD_DIR, "libost_torch_kernels.so")
 LOG = os.path.join(BUILD_DIR, "build.log")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -55,14 +56,28 @@ def build(force: bool = False) -> str:
         return LIB
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()],
-                          capture_output=True, text=True)
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+            for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(_sources(), objs)]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    tmp = f"{LIB}.{tag}"
+    if all(rc == 0 for _, rc in outs):
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        outs.append((link.stdout + link.stderr, link.returncode))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    log = "".join(out for out, _ in outs)
     with open(LOG, "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        fh.write(log)
+    failed = [rc for _, rc in outs if rc != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, LIB)          # atomic: a concurrent loader sees old or new
     return LIB
 
@@ -84,6 +99,20 @@ def load() -> ctypes.CDLL:
                 i, i, i,                 # B, n, m
                 d, d, i, i, d,           # pgtol, factr, max_iter, ls, c1
                 vp, vp, vp, vp,          # x, f, iterations, status
+                vp,                      # stream
+            ]
+            lib.lbfgsb_tall_work_elems.restype = ctypes.c_longlong
+            lib.lbfgsb_tall_work_elems.argtypes = [i, i, i]
+            lib.lbfgsb_tall_launch.restype = i
+            lib.lbfgsb_tall_launch.argtypes = [
+                i, i,                    # dtype, objective
+                vp, vp, vp, i,           # x0, lower, upper, bound stride
+                vp, vp, i,               # objective data, LOG_SUM_EXP rows
+                i, i, i,                 # B, n, m
+                d, d, i, i, d,           # pgtol, factr, max_iter, ls, c1
+                i, i, i,                 # bisect_iters, guard, line search
+                vp,                      # workspace
+                vp, vp, vp, vp, vp,      # x, f, iterations, status, flag
                 vp,                      # stream
             ]
             lib.ost_error_string.restype = ctypes.c_char_p

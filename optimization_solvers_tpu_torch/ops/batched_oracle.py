@@ -15,8 +15,21 @@ from typing import Callable
 
 import torch
 
-# objective functors compiled into ops/csrc/lbfgsb_fused.cu (enum Objective)
-KERNEL_OBJECTIVES = {"ROSENBROCK": 0, "WEIGHTED_SQUARES": 1}
+# objective functors of the CUDA kernels (enum ObjectiveCode in ops/csrc);
+# K1 (lbfgsb_fused.cu) compiles the first two, K2 (lbfgsb_tall.cu) all four
+KERNEL_OBJECTIVES = {"ROSENBROCK": 0, "WEIGHTED_SQUARES": 1, "QUADRATIC": 2,
+                     "LOG_SUM_EXP": 3}
+
+
+def _data_shapes(name, arrays, n):
+    """The shapes a functor's data arrays must have; ``rows`` is taken from
+    the first array of ``LOG_SUM_EXP``."""
+    if name == "QUADRATIC":
+        return [(n, n), (n,)]
+    if name == "LOG_SUM_EXP":
+        rows = tuple(torch.as_tensor(arrays[0]).shape)[:1] if arrays else (0,)
+        return [rows + (n,), rows]
+    return [(n,)] * len(arrays)
 
 
 def batched_value_and_grad(f: Callable, data=()):
@@ -43,8 +56,10 @@ def batched_value(f: Callable, data=()):
 
 def kernel_operands(f, data, x0: torch.Tensor):
     """The kernel form of ``f``: its functor code and its data arrays as
-    contiguous ``(n,)`` tensors of x0's dtype on x0's device.  Raises
-    ``NotImplementedError`` for an objective without a kernel form."""
+    contiguous tensors of x0's dtype on x0's device, each of the shape its
+    functor reads (``(n,)``; ``Q (n, n)``; ``A (rows, n)``, ``b (rows,)``).
+    Raises ``NotImplementedError`` for an objective without a kernel form
+    and ``ValueError`` for data of another shape."""
     form = getattr(f, "kernel_form", None)
     if form is None:
         raise NotImplementedError(
@@ -55,11 +70,13 @@ def kernel_operands(f, data, x0: torch.Tensor):
     name, arrays = form(*data)
     n = x0.shape[-1]
     packed = []
-    for a in arrays:
+    for a, shape in zip(arrays, _data_shapes(name, arrays, n)):
         t = torch.as_tensor(a)
-        if t.dim() != 1 or t.shape[0] != n:
+        if tuple(t.shape) != shape:
             raise ValueError(
-                f"{name} data must be 1-D of length {n}, got {tuple(t.shape)}")
+                (f"{name} data must be 1-D of length {n}" if shape == (n,)
+                 else f"{name} data must have shape {shape}")
+                + f", got {tuple(t.shape)}")
         if t.device.type != "cpu" and t.device != x0.device:
             raise ValueError(f"{name} data lies on {t.device}, x0 on "
                              f"{x0.device}")

@@ -36,53 +36,16 @@
 //    jnp.argmin does, and machine epsilon is the JAX kernel's literal
 //    (1.2e-7 / 2.2e-16), not FLT_EPSILON.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarp = 32;
 constexpr int kMaxWarpsPerBlock = 8;
-constexpr int kMaxM = 20;
-constexpr long long kSmemPerBlock = 232448;   // 227 KB opt-in per block
-
-enum ErrorCode { kErrArgs = -1, kErrSmem = -2 };
-enum ObjectiveCode { kRosenbrock = 0, kWeightedSquares = 1 };
-
-template <typename T> struct Lit;
-template <> struct Lit<float> { static constexpr double eps = 1.2e-7; };
-template <> struct Lit<double> { static constexpr double eps = 2.2e-16; };
 
 __host__ __device__ inline long long work_elems(int n, int m) {
   return (long long)(2 * m + 7) * n + 6LL * m * m + 17LL * m;
 }
 
-template <typename T> __device__ __forceinline__ T jmin(T a, T b) {
-  return (a != a || b != b) ? a + b : (b < a ? b : a);
-}
-template <typename T> __device__ __forceinline__ T jmax(T a, T b) {
-  return (a != a || b != b) ? a + b : (b > a ? b : a);
-}
-template <typename T> __device__ __forceinline__ T jclip(T x, T lo, T up) {
-  return jmin(jmax(x, lo), up);
-}
-
-template <typename T> __device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-template <typename T> __device__ __forceinline__ T warp_min(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = jmin(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-template <typename T> __device__ __forceinline__ T warp_max(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = jmax(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 // arg-min over the warp, ties to the lowest index (jnp.argmin)
 template <typename T> __device__ __forceinline__ void warp_argmin(T& v, int& idx) {
 #pragma unroll

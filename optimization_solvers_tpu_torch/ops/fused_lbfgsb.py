@@ -35,16 +35,30 @@ import torch
 
 from ..core.numerics import batched_pg_inf_norm
 from ..core.types import SolveResult, Status
-from .batched_oracle import (batched_value, batched_value_and_grad,
-                             kernel_operands)
+from .batched_oracle import (KERNEL_OBJECTIVES, batched_value,
+                             batched_value_and_grad, kernel_operands)
 
 # machine epsilon as the literal the JAX kernel uses: factr, the curvature
 # gate and the Cholesky floor agree across JAX, plain and CUDA only with it
 EPS_MACH = {torch.float64: 2.2e-16, torch.float32: 1.2e-7}
-# kMaxM and kSmemPerBlock of csrc/lbfgsb_fused.cu: the largest history the
+# kMaxM and kSmemPerBlock of csrc/common.cuh: the largest history the
 # reference recommends, and the shared memory a Hopper block may opt into
 MAX_M = 20
 SMEM_PER_BLOCK = 232448
+# the objective functors csrc/lbfgsb_fused.cu compiles
+K1_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
+
+
+def smem_per_instance(n: int, m: int, itemsize: int) -> int:
+    """Shared memory one instance takes in the CUDA kernel: ``work_elems``
+    of ``csrc/lbfgsb_fused.cu`` times the element size, mirrored here so
+    that the route can decide on a machine without the library."""
+    return ((2 * m + 7) * n + 6 * m * m + 17 * m) * itemsize
+
+
+def fits(n: int, m: int, itemsize: int) -> bool:
+    """Whether an instance of width ``n`` and history ``m`` fits a block."""
+    return smem_per_instance(n, m, itemsize) <= SMEM_PER_BLOCK
 
 
 def _chol(A, eps):
@@ -389,6 +403,12 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
     if lo.shape != up.shape:
         raise ValueError("lower and upper must have the same shape")
     code, arrays = kernel_operands(obj, data, x0)
+    name = next(k for k, v in KERNEL_OBJECTIVES.items() if v == code)
+    if name not in K1_OBJECTIVES:
+        raise ValueError(
+            f"this kernel compiles the functors {K1_OBJECTIVES}, not {name}; "
+            "the tall kernel ops.fused_lbfgsb_tall.lbfgsb_solve_fused_tall "
+            "takes it, and minimize routes it there")
     x0 = x0.contiguous()
     lib = _build.load()
     itemsize = x0.element_size()
@@ -396,8 +416,9 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
     if per_warp > SMEM_PER_BLOCK:
         raise ValueError(
             f"n={n}, m={m} needs {per_warp} bytes of shared memory per "
-            f"instance, more than a block's {SMEM_PER_BLOCK}; large n is the "
-            "tall kernel's (ROADMAP.md Queue 1 item 5)")
+            f"instance, more than a block's {SMEM_PER_BLOCK}; such a batch "
+            "is the tall kernel's (ops.fused_lbfgsb_tall."
+            "lbfgsb_solve_fused_tall), and minimize routes it there")
     unbounded = bool(torch.isneginf(lo).all() and torch.isposinf(up).all())
     x = torch.empty_like(x0)
     f = torch.empty((B,), dtype=x0.dtype, device=x0.device)

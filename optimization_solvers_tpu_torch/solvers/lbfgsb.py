@@ -5,8 +5,10 @@ Counterpart of ``LbfgsbConfig`` in
 defaults, so a config crosses between the two packages through
 ``dataclasses.asdict``.  The lockstep dcsrch solver that honours ``ls_c2``,
 ``rel_pg_stop``, ``verbose`` and ``curvature_eps`` is not ported yet
-(ROADMAP.md Queue 1 item 3); the fused route honours ``m``, ``pgtol``,
-``factr``, ``max_iter``, ``max_iter_ls`` and ``ls_c1``.
+(ROADMAP.md Queue 1 item 3); the fused routes honour ``m``, ``pgtol``,
+``factr``, ``max_iter``, ``max_iter_ls`` and ``ls_c1``, and the tall kernel
+also ``tall_line_search`` (``"armijo"`` or ``"dcsrch"``; any other value
+raises ``ValueError``).
 """
 
 from __future__ import annotations
@@ -32,3 +34,9 @@ class LbfgsbConfig:
     gcp_chunk: int = 256        # lockstep GCP walk chunk
     lockstep_unroll: int = 1    # lockstep iterations per loop trip
     tall_line_search: str = "armijo"   # line search of the tall kernel
+
+    def __post_init__(self):
+        if self.tall_line_search not in ("armijo", "dcsrch"):
+            raise ValueError(
+                "tall_line_search must be 'armijo' or 'dcsrch', got "
+                f"{self.tall_line_search!r}")

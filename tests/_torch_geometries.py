@@ -1,8 +1,8 @@
 """L-BFGS-B geometries shared by the port's tests and ``chip_smoke.py``.
 
-They are the geometries of ``tests/test_fused_lbfgsb.py``, with the port's
-objectives.  This module imports no JAX, so it also runs where only the
-port is installed.
+They are the geometries of ``tests/test_fused_lbfgsb.py`` (K1) and
+``tests/test_fused_lbfgsb_tall.py`` (K2), with the port's objectives.  This
+module imports no JAX, so it also runs where only the port is installed.
 """
 
 import numpy as np
@@ -52,6 +52,92 @@ def k1_geometries():
             np.random.RandomState(5).uniform(-2, 2, (4, 16)),
             np.full(16, -INF), np.full(16, INF), (),
             dict(pgtol=1e-7, factr=10.0, max_iter=800)),
+    }
+
+
+def mixed_quadratic_arrays():
+    """Q, lower, upper, x0 of K2's mixed-infinite-bounds geometry: a
+    rotated SPD quadratic (condition 1e2) with some bounds infinite."""
+    n = 16
+    rng = np.random.RandomState(5)
+    q, _ = np.linalg.qr(rng.randn(n, n))
+    Q = (q * np.logspace(0, 2, n)) @ q.T
+    lo = np.where(rng.rand(n) < 0.3, -INF, np.sort(rng.uniform(-2, 0, n)))
+    hi = np.where(rng.rand(n) < 0.3, INF, np.sort(rng.uniform(0.3, 2, n)))
+    return Q, lo, hi, rng.uniform(-2, 2, (8, n))
+
+
+def lse_arrays(n=400, rows=64):
+    """A, b of the bounded log-sum-exp (config 4 at n=10,000, rows=512):
+    A = standard normal / sqrt(n) from ``RandomState(0)``, b = linspace(-1,
+    1).  The JAX bench draws A from ``jax.random.PRNGKey(0)`` instead."""
+    A = np.random.RandomState(0).standard_normal((rows, n)) / np.sqrt(n)
+    return A, np.linspace(-1.0, 1.0, rows)
+
+
+def guard_arrays():
+    """Matrix, b, lower, upper, x0 (float32) of the GCP guard geometry: an
+    ill-conditioned, strongly coupled, bound-active quadratic
+    ``0.5 x^T A x - b^T x`` on which the bisection's path derivative
+    crosses zero more than once."""
+    rng = np.random.RandomState(0)
+    n = 8
+    Q = rng.normal(size=(n, n))
+    A = (Q @ Q.T + 0.05 * np.eye(n)).astype(np.float32)
+    scale = np.diag(np.exp(rng.uniform(0, 3, n))).astype(np.float32)
+    A = scale @ A @ scale
+    b = rng.normal(size=n).astype(np.float32) * 10
+    lo = rng.uniform(-1.5, -0.1, n).astype(np.float32)
+    hi = rng.uniform(0.1, 1.5, n).astype(np.float32)
+    return A, b, lo, hi, rng.uniform(lo, hi, (2, n)).astype(np.float32)
+
+
+def k2_geometries():
+    """name -> (port objective, x0, lower, upper, data, solver options) of
+    the tall kernel K2; every entry sets ``m``.  ``gcp_guard`` is float32
+    data, as in the JAX test; the rest are float64."""
+    Qm, lo_m, hi_m, x_m = mixed_quadratic_arrays()
+    A, b = lse_arrays()
+    Ag, bg, lo_g, hi_g, x_g = guard_arrays()
+    rng = np.random.RandomState(11)
+    lo_pl = rng.uniform(-2.0, -1.0, (4, 24))
+    hi_pl = rng.uniform(0.2, 3.0, (4, 24))
+    x_pl = rng.uniform(-0.5, 0.1, (4, 24))
+    return {
+        "bounded_rosenbrock": (
+            problems.rosenbrock(),
+            np.random.RandomState(0).uniform(-2, 2, (4, 20)),
+            np.full(20, -2.0), np.full(20, 2.0), (),
+            dict(m=5, pgtol=1e-6, factr=10.0, max_iter=500)),
+        "active_bounds": (
+            problems.shifted_quadratic_2d(),
+            np.random.RandomState(1).uniform(-0.5, 0.5, (4, 2)),
+            np.array([-10.0, -10.0]), np.array([1.0, 1.0]), (),
+            dict(m=5, pgtol=1e-8, factr=10.0, max_iter=200)),
+        "infeasible_start": (
+            problems.example_gd(), np.array([[-10.0, 10.0], [7.0, -3.0]]),
+            np.array([2.0, 2.0]), np.array([5.0, 5.0]), (),
+            dict(m=5, pgtol=1e-8, factr=10.0, max_iter=200)),
+        "mixed_infinite_bounds": (
+            problems.quadratic(Qm), x_m, lo_m, hi_m, (),
+            dict(m=5, pgtol=1e-7, factr=10.0, max_iter=500)),
+        "lse_config4_class": (
+            problems.log_sum_exp(A, b),
+            np.random.RandomState(4).uniform(-0.05, 0.05, (8, 400)),
+            np.full(400, -0.1), np.full(400, 0.1), (),
+            dict(m=10, pgtol=1e-7, factr=10.0, max_iter=300)),
+        "per_lane_boxes": (
+            problems.weighted_squares(), x_pl, lo_pl, hi_pl,
+            (np.linspace(1.0, 9.0, 24), np.full(24, 1.5)),
+            dict(m=5, pgtol=1e-8, factr=10.0, max_iter=300)),
+        "gcp_guard": (
+            problems.quadratic(Ag, -bg), x_g, lo_g, hi_g, (),
+            dict(m=3, pgtol=1e-6, factr=0.0, max_iter=30)),
+        "max_iter_1": (
+            problems.rosenbrock(),
+            np.random.RandomState(2).uniform(-2, 2, (2, 8)),
+            np.full(8, -2.0), np.full(8, 2.0), (),
+            dict(m=5, pgtol=1e-12, factr=0.0, max_iter=1)),
     }
 
 

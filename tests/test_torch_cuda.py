@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+route between them, on the card.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one.  The file imports no JAX, so it runs where only the port
@@ -8,16 +9,22 @@ is installed; without the repository's JAX conftest and the xdist default:
 
 Tolerances (float64): status equal per instance, x within 1e-6, iteration
 counts within ``max(2, spread)`` with ``spread`` the plain version's own
-range under a 1e-15 relative change of x0 (see ``_torch_geometries``).
+range under a 1e-15 relative change of x0 (see ``_torch_geometries``); on
+the tall kernel's quadratic and log-sum-exp geometries iteration counts
+equal and f within 1e-10 relative.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_geometries import k1_geometries, perturbation_spread, tiled
+from _torch_geometries import (k1_geometries, k2_geometries, lse_arrays,
+                               perturbation_spread, tiled)
 from optimization_solvers_tpu_torch import interop, minimize, problems
-from optimization_solvers_tpu_torch.ops import fused_lbfgsb
+from optimization_solvers_tpu_torch.ops import (_build, fused_lbfgsb,
+                                                fused_lbfgsb_tall)
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +116,98 @@ def test_refuses_what_does_not_fit(cuda):
     with pytest.raises(ValueError, match="lies on"):
         fused_lbfgsb.lbfgsb_solve_fused(problems.rosenbrock(), x0[:, :4],
                                         lo[:4].cpu(), -lo[:4])
+
+
+# ---- the tall kernel K2 and the route by fit ---------------------------------
+
+@pytest.mark.parametrize("line_search", ["armijo", "dcsrch"])
+@pytest.mark.parametrize("name", ["lse_config4_class", "mixed_infinite_bounds"])
+def test_tall_kernel_matches_plain(name, line_search, cuda):
+    obj, x0, lo, up, data, opts = k2_geometries()[name]
+    x0, lo, up = tiled(x0, lo, up, ROWS)
+    x0_t, lo_t, up_t, *data_t = interop.tensors_from_numpy(
+        x0, lo, up, *data, device=cuda)
+    kw = dict(opts, line_search=line_search)
+    before = fused_lbfgsb_tall.lbfgsb_solve_fused_tall.launches
+    r = fused_lbfgsb_tall.lbfgsb_solve_fused_tall(obj, x0_t, lo_t, up_t,
+                                                  tuple(data_t), **kw)
+    torch.cuda.synchronize()
+    assert fused_lbfgsb_tall.lbfgsb_solve_fused_tall.launches == before + 1
+    x, f, it, st, flag = fused_lbfgsb_tall.lbfgsb_solve_tall_plain(
+        obj, x0_t, lo_t, up_t, tuple(data_t), **kw)
+    assert torch.equal(r.status, st) and torch.equal(r.iterations, it)
+    assert (r.status == 1).all()
+    assert (r.x - x).abs().max().item() <= 1e-6
+    torch.testing.assert_close(r.f, f, rtol=1e-10, atol=1e-10)
+    assert r.gcp_multimodal.shape == flag.shape
+    assert r.x.device.type == "cuda"
+
+
+def test_route_on_cuda_by_fit(cuda):
+    """A config-4-shaped batch (n = 10,000, log-sum-exp) launches K2 and
+    not K1; the headline shape launches K1 and not K2."""
+    k1 = fused_lbfgsb.lbfgsb_solve_fused
+    k2 = fused_lbfgsb_tall.lbfgsb_solve_fused_tall
+    before = (k1.launches, k2.launches)
+    lse = problems.log_sum_exp(*lse_arrays(10_000, 64))
+    x0 = torch.tensor(np.random.RandomState(4).uniform(-0.5, 0.5, (2, 10_000)),
+                      dtype=torch.float32, device=cuda)
+    r = minimize(lse, x0, method="lbfgsb", bounds=(-1.0, 1.0), m=10, tol=1e-5,
+                 factr=1e3, max_iter=2)
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches) == (before[0], before[1] + 1)
+    assert (r.iterations == 2).all() and r.x.device.type == "cuda"
+    assert bool((r.f < lse.value(x0)).all())
+    headline = torch.tensor(np.random.RandomState(42).uniform(-2, 2, (64, 100)),
+                            dtype=torch.float32, device=cuda)
+    minimize(problems.rosenbrock(), headline, method="lbfgsb",
+             bounds=(-5.0, 5.0), tol=1e-3, factr=100.0, max_iter=5)
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="tall kernel"):
+        k1(problems.log_sum_exp(np.ones((3, 8)), np.zeros(3)), x0[:, :8],
+           x0[0, :8] - 1.0, x0[0, :8] + 1.0)
+
+
+def test_shared_memory_mirror_matches_the_library(cuda):
+    """The route decides K1's fit in Python (``smem_per_instance``); it
+    must equal the kernel's own ``work_elems`` formula."""
+    lib = _build.load()
+    for n in (1, 2, 31, 100, 1000, 3404, 3405, 10_000):
+        for m in (1, 5, 10, 20):
+            for itemsize in (4, 8):
+                assert fused_lbfgsb.smem_per_instance(n, m, itemsize) == (
+                    lib.lbfgsb_fused_smem_per_warp(n, m, itemsize)), (
+                        n, m, itemsize)
+
+
+def test_broken_build_raises(cuda, tmp_path, monkeypatch):
+    """A kernel source that does not compile makes the wrapper raise; the
+    plain version does not run in its place and no launch is counted."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "broken.cu").write_text("#error this source does not compile\n")
+    build = tmp_path / "build"
+    monkeypatch.setattr(_build, "_SRC_DIR", str(src))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build))
+    monkeypatch.setattr(_build, "LIB", str(build / "lib.so"))
+    monkeypatch.setattr(_build, "LOG", str(build / "build.log"))
+    monkeypatch.setattr(_build, "_lib", None)
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fused_lbfgsb_tall, "lbfgsb_solve_tall_plain", plain)
+    monkeypatch.setattr(fused_lbfgsb, "lbfgsb_solve_plain", plain)
+    before = (fused_lbfgsb.lbfgsb_solve_fused.launches,
+              fused_lbfgsb_tall.lbfgsb_solve_fused_tall.launches)
+    x0 = torch.zeros((2, 8), dtype=torch.float64, device=cuda)
+    for bounds in ((-1.0, 1.0), None):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            minimize(problems.log_sum_exp(np.ones((3, 8)), np.zeros(3)), x0,
+                     method="lbfgsb", bounds=bounds)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            minimize(problems.rosenbrock(), x0, method="lbfgsb", bounds=bounds)
+    assert not os.path.exists(build / "lib.so")
+    assert before == (fused_lbfgsb.lbfgsb_solve_fused.launches,
+                      fused_lbfgsb_tall.lbfgsb_solve_fused_tall.launches)

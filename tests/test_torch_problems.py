@@ -26,6 +26,13 @@ def _cases():
     rng = np.random.RandomState(3)
     d8 = rng.uniform(0.5, 4.0, 8)
     t8 = rng.uniform(-1.0, 1.0, 8)
+    # not exactly symmetric, as the tall kernel's test matrix: the gradient
+    # must be autodiff's 0.5 (Q + Q^T) x + b
+    Q6 = rng.standard_normal((6, 6))
+    Q6 = Q6 @ Q6.T + 0.1 * rng.standard_normal((6, 6))
+    b6 = rng.standard_normal(6)
+    A = rng.standard_normal((5, 8)) * 3.0
+    bA = np.linspace(-1.0, 1.0, 5)
     return {
         "rosenbrock": (tprob.rosenbrock(), jprob.rosenbrock(), 12, ()),
         "diag_quadratic": (tprob.diag_quadratic(torch.from_numpy(d8)),
@@ -34,6 +41,12 @@ def _cases():
         "shifted_quadratic_2d": (tprob.shifted_quadratic_2d(),
                                  jprob.shifted_quadratic_2d(), 2, ()),
         "weighted_squares": (tprob.weighted_squares(), _ws_jax, 8, (d8, t8)),
+        "quadratic": (tprob.quadratic(Q6, b6),
+                      jprob.quadratic(jnp.asarray(Q6), jnp.asarray(b6)), 6,
+                      ()),
+        "log_sum_exp": (tprob.log_sum_exp(A, bA),
+                        jprob.log_sum_exp(jnp.asarray(A), jnp.asarray(bA)),
+                        8, ()),
     }
 
 
@@ -97,6 +110,18 @@ def test_kernel_forms():
     code, (dd, tt) = batched_oracle.kernel_operands(
         tprob.weighted_squares(), (d, -d), x0)
     assert dd.dtype == torch.float64 and tt.tolist() == [-1.0, -3.0]
+    # the tall kernel's functors carry 2-D data
+    Q = np.arange(4.0).reshape(2, 2)
+    code, (qq, bb) = batched_oracle.kernel_operands(tprob.quadratic(Q), (),
+                                                     x0)
+    assert code == batched_oracle.KERNEL_OBJECTIVES["QUADRATIC"]
+    assert qq.tolist() == Q.tolist() and bb.tolist() == [0.0, 0.0]
+    A = np.ones((3, 2), np.float32)
+    code, (aa, ba) = batched_oracle.kernel_operands(
+        tprob.log_sum_exp(A, np.zeros(3)), (), x0)
+    assert code == batched_oracle.KERNEL_OBJECTIVES["LOG_SUM_EXP"]
+    assert aa.shape == (3, 2) and aa.dtype == torch.float64
+    assert ba.shape == (3,) and aa.is_contiguous()
 
 
 def test_kernel_operands_refuse():
@@ -106,3 +131,8 @@ def test_kernel_operands_refuse():
     with pytest.raises(ValueError, match="length 4"):
         batched_oracle.kernel_operands(
             tprob.weighted_squares(), (torch.ones(3), torch.ones(3)), x0)
+    with pytest.raises(ValueError, match=r"shape \(4, 4\)"):
+        batched_oracle.kernel_operands(tprob.quadratic(np.eye(3)), (), x0)
+    with pytest.raises(ValueError, match=r"shape \(2,\)"):
+        batched_oracle.kernel_operands(
+            tprob.log_sum_exp(np.ones((2, 4)), np.ones(3)), (), x0)
