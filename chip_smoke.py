@@ -3,8 +3,8 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, and drives the
-batched L-BFGS-B path through ``optimization_solvers_tpu_torch.minimize``
-at two sizes:
+batched L-BFGS-B path and the first-order template path through
+``optimization_solvers_tpu_torch.minimize``:
 
 * the headline (10,240 x Rosenbrock-100, float32, box [-5, 5], pgtol 1e-3,
   factr 100, m 5, max_iter 600), which the route sends to K1
@@ -15,15 +15,25 @@ at two sizes:
   ``policy="fast"`` (Armijo) and ``policy="reference"`` (dcsrch).  A and the
   starts come from numpy seeds (A: ``RandomState(0)``; the JAX bench draws
   it from ``jax.random.PRNGKey(0)``), and 4 instances are anchored to
-  scipy's ``fmin_l_bfgs_b`` in float64.
+  scipy's ``fmin_l_bfgs_b`` in float64;
+* config 3 (10,240 x the 64-dim box quadratic ``0.5 sum d x^2`` with
+  ``d = logspace(0, 3)``, float32, box [-2, 2], SPG + GLL, tol 1e-4,
+  max_iter 1000, max_iter_ls 30, ``policy="fast"`` and ``"reference"``) and
+  config 6 (4,096 x the 100-dim diagonal quadratic with ``d = linspace(1,
+  100)``, float32, GD + BackTracking, tol 1e-6, max_iter 3000), which go to
+  the generic driver kernel K3 (``ops/csrc/driver.cu``).  The objective is
+  the port's ``weighted_squares`` with ``t = 0`` (config 3) and
+  ``diag_quadratic`` (config 6): the same function as the JAX bench's.
 
 It prints, last, a JSON line of per-kernel results, the card's name and
 power limit, and one JSON line naming the device.  Any failed check exits
 non-zero; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # the checked run
+    python3 chip_smoke.py --breakdown   # also where K3's time goes
 """
 
+import argparse
 import json
 import os
 import statistics
@@ -63,6 +73,39 @@ SCIPY_ROWS = 4
 SCIPY_RTOL_F64 = 1e-4
 C4_F32_RTOL = 1e-3
 
+CONFIG3 = dict(B=10240, n=64, box=2.0, tol=1e-4, max_iter=1000,
+               max_iter_ls=30)
+CONFIG6 = dict(B=4096, n=100, tol=1e-6, max_iter=3000, max_iter_ls=40)
+CONV_ATOL = 0.01          # kernel vs plain converged fraction, float32
+# K3 vs plain per instance at the main path's shapes, float64.  SPG + GLL
+# at config 3 is chaotic: a last-bit change of x0 moves most full solves'
+# iteration counts (phase 11 prints the share that kernel and plain agree
+# on).  Over its first K3_CAPPED_ITERS iterations a 1e-15 relative change
+# moves x far less than K3_X_ATOL (phase 10 prints it; GLL's history of 10
+# wraps three times), so config 3 is held per instance there; config 6
+# (GD + BackTracking) is held over its full solve.
+K3_CAPPED_ITERS = 30
+K3_X_ATOL = 1e-9
+# full float32 solves, kernel vs plain on the same inputs: median
+# iterations within 3% and median f within 15% relative (config 3's two
+# policies differ by about half in both)
+MED_IT_RTOL = 0.03
+MED_F_RTOL = 0.15
+
+# the card's rates for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
+# HBM3 bytes per second and float32 operations per second outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes, ops):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory
+    rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
 
 def log(*args):
     print(*args, flush=True)
@@ -80,7 +123,13 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--breakdown", action="store_true",
+        help="also print where K3's time goes at configs 3 and 6 (a "
+        "profiled solve, a batch sweep and an iteration cap; ~40 s)")
+    breakdown = parser.parse_args(argv).breakdown
     import torch
 
     if not torch.cuda.is_available():
@@ -264,10 +313,20 @@ def main():
         log(f"plain full solve would exceed {PLAIN_BUDGET_S:.0f} s; ms and "
             f"plain_ms below are the {CAPPED_ITERS}-iteration runs")
 
-    tall = tall_slice(dev, card, tensors, sync_time)
-
-    # ---- 9. results
-    log(json.dumps({"kernels": [{
+    # bound at the headline: x0 read and x, f, iterations, status written
+    # once; per iteration at least the interior-path arithmetic of
+    # csrc/lbfgsb_fused.cu (two-loop 8mn, W^T d0 4mn, Gram rows 6mn, one
+    # Rosenbrock trial 8n and value-and-gradient 15n, gate, clip and
+    # convergence ~18n).  Cauchy walks and further trials depend on the
+    # data and are not counted, so this is a floor.
+    m1 = HEADLINE["m"]
+    bound_ms, bound_by = bound(
+        2 * B * n * 4 + 2 * n * 4 + 3 * B * 4,
+        res.iterations.double().sum().item() * (18 * m1 * n + 41 * n)
+        + B * 15 * n)
+    log(f"K1 bound at the headline: {bound_ms:.4f} ms ({bound_by}); kernel "
+        f"{ms:.2f} ms  [{card}]")
+    k1 = {
         "name": "lbfgsb_fused",
         "route": "cuda",
         "source": "optimization_solvers_tpu_torch/ops/csrc/lbfgsb_fused.cu",
@@ -276,7 +335,17 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }, tall]}))
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+    tall = tall_slice(dev, card, tensors, sync_time)
+    driver = driver_slice(dev, card, tensors, sync_time)
+    if breakdown:
+        driver_breakdown(dev, card, tensors, sync_time)
+
+    # ---- 14. results
+    log(json.dumps({"kernels": [k1, tall, driver]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -441,6 +510,18 @@ def tall_slice(dev, card, tensors, sync_time):
         log(f"config 4 {what}: solves/s median {statistics.median(sps):.1f}, "
             f"min {min(sps):.1f}, max {max(sps):.1f}; "
             f"{1e3 * statistics.median(ts):.1f} ms per call  [{card}]")
+    # bound at config 4: x0, A, b and the bounds read once, x, f,
+    # iterations, status and flag written once; per iteration at least
+    # the objective's three passes over A (the trial's A x, then A x and
+    # A^T softmax: 6 rows n) and the history products of
+    # csrc/lbfgsb_tall.cu (W^T v and W c 8mn, Gram rows 6mn).  The
+    # bisection probes depend on the data and are not counted: a floor.
+    rows, m2 = c["rows"], c["m"]
+    bound_ms, bound_by = bound(
+        2 * B * n * 4 + rows * n * 4 + rows * 4 + 2 * n * 4 + B * 13,
+        res.iterations.double().sum().item() * (6 * rows * n + 14 * m2 * n)
+        + B * 4 * rows * n)
+    log(f"K2 bound at config 4: {bound_ms:.4f} ms ({bound_by})  [{card}]")
     return {
         "name": "lbfgsb_tall",
         "route": "cuda",
@@ -450,7 +531,352 @@ def tall_slice(dev, card, tensors, sync_time):
         "max_abs_err": max_abs_err,
         "ms": 1e3 * statistics.median(kernel_s),
         "plain_ms": 1e3 * statistics.median(plain_s),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     }
+
+
+def driver_slice(dev, card, tensors, sync_time):
+    """Phases 9-11: the driver kernel K3 against its plain version on every
+    K3 geometry, config 3 (both policies) and config 6 through
+    ``minimize``, the times and the bound.  Returns K3's entry of the
+    ``kernels`` line."""
+    import torch
+
+    from _torch_geometries import k3_geometries, perturbation_spread
+    from optimization_solvers_tpu_torch import (linesearch as ls, minimize,
+                                                problems, solvers)
+    from optimization_solvers_tpu_torch.ops import (fused_driver,
+                                                    fused_lbfgsb,
+                                                    fused_lbfgsb_tall)
+
+    K1 = fused_lbfgsb.lbfgsb_solve_fused
+    K2 = fused_lbfgsb_tall.lbfgsb_solve_fused_tall
+    K3 = fused_driver.fused_minimize
+    plain = fused_driver.fused_minimize_plain
+
+    def opt(a, dtype=torch.float64):
+        return None if a is None else tensors(a, dtype=dtype)[0]
+
+    # ---- 9. K3 vs plain on the card, float64, every geometry
+    geom_err = 0.0
+    for name, g in k3_geometries().items():
+        x0, lo, up = (opt(a) for a in (g["x0"], g["lower"], g["upper"]))
+        data = tensors(*g["data"])
+        kw = dict(max_iter=g["max_iter"], max_iter_ls=g["max_iter_ls"])
+        spec = fused_driver.build_spec(g["method"], g["search"])
+        x, f, it, st, nfev = fused_driver._launch_cuda(
+            spec, g["objective"], x0, lo, up, data, **kw)
+        torch.cuda.synchronize()
+
+        def run_plain(v):
+            return plain(g["method"], g["search"], g["objective"], opt(v),
+                         lo, up, data, **kw)
+
+        xp, _, itp, stp, nfevp = run_plain(g["x0"])
+        spread = perturbation_spread(
+            lambda v: run_plain(v)[2].cpu().numpy(), g["x0"],
+            runs=6 if g["chaotic"] else 3)
+        budget = max(2, spread) if g["chaotic"] else spread
+        finite = torch.isfinite(f)
+        err = (x - xp)[finite].abs().max().item()
+        far_ok = torch.allclose(x[~finite], xp[~finite], rtol=1e-12,
+                                atol=0.0, equal_nan=True)
+        dit = (it.long() - itp.long()).abs().max().item()
+        geom_err = max(geom_err, err)
+        log(f"K3 vs plain f64 {name}: status equal "
+            f"{bool((st == stp).all())}, max|dx| {err:.3g}, max|d iters| "
+            f"{dit} (budget {budget}), trials equal "
+            f"{bool((nfev == nfevp).all())}, converged "
+            f"{(st == 1).float().mean().item():.3f}")
+        check(bool((st == stp).all()), f"K3 {name}: status differs")
+        check(err <= g["x_atol"] and far_ok,
+              f"K3 {name}: max|dx| {err} > {g['x_atol']}")
+        check(dit <= budget, f"K3 {name}: iterations differ by {dit}")
+
+    def per_instance(what, method, search, obj, x0, lo, up, data, kw):
+        """K3, launched directly, against the plain version in float64 on
+        the main path's inputs: status, iterations and trials equal and x
+        within K3_X_ATOL for every instance.  Returns max |dx|."""
+        spec = fused_driver.build_spec(method, search)
+        x, _, it, st, nfev = fused_driver._launch_cuda(
+            spec, obj, x0, lo, up, data, **kw)
+        torch.cuda.synchronize()
+        xp, _, itp, stp, nfevp = plain(method, search, obj, x0, lo, up, data,
+                                       **kw)
+        noise = tensors(np.random.RandomState(100).standard_normal(
+            tuple(x0.shape)))[0]
+        xq = plain(method, search, obj, x0 * (1 + 1e-15 * noise), lo, up,
+                   data, **kw)[0]
+        err = (x - xp).abs().max().item()
+        same = [(a == b).float().mean().item()
+                for a, b in ((st, stp), (it, itp), (nfev, nfevp))]
+        log(f"K3 vs plain f64 {what}, {x0.shape[0]} x {x0.shape[1]}, at most "
+            f"{kw['max_iter']} iterations: status equal {same[0]:.5f}, "
+            f"iterations equal {same[1]:.5f}, trials equal {same[2]:.5f}, "
+            f"max|dx| {err:.3g} (plain vs plain with x0 moved by 1e-15 "
+            f"relative: {(xq - xp).abs().max().item():.3g}); trials per "
+            f"iteration {nfev.sum().item() / max(1, it.sum().item()):.3f}, "
+            f"converged {(st == 1).float().mean().item():.4f}")
+        check(min(same) == 1.0,
+              f"K3 {what}: status, iterations or trials differ per instance")
+        check(err <= K3_X_ATOL, f"K3 {what}: max|dx| {err} > {K3_X_ATOL}")
+        return err
+
+    def medians_agree(what, r, fp, itp):
+        """Full float32 solves, kernel vs plain on the same inputs."""
+        mi, mip = (v.float().median().item() for v in (r.iterations, itp))
+        mf, mfp = r.f.median().item(), fp.median().item()
+        log(f"{what} K3 vs plain f32: median iterations {mi:.0f} vs "
+            f"{mip:.0f}, median f {mf:.6g} vs {mfp:.6g}; iterations equal "
+            f"per instance {(r.iterations == itp).float().mean().item():.4f}")
+        check(abs(mi - mip) <= MED_IT_RTOL * mip,
+              f"{what}: median iterations {mi} vs plain {mip}")
+        check(abs(mf - mfp) <= MED_F_RTOL * mfp,
+              f"{what}: median f {mf} vs plain {mfp}")
+
+    def report(what, r, seconds=None):
+        conv = (r.status == 1).float().mean().item()
+        text = (f"{what}: converged {conv:.4f}, median f "
+                f"{r.f.median().item():.6g}, median iterations "
+                f"{r.iterations.float().median().item():.0f} (max "
+                f"{r.iterations.max().item()})")
+        if seconds is not None:
+            text += f", {seconds:.3f} s"
+        log(text)
+        return conv
+
+    def main_path(what, solve, x, B, n):
+        """Drive ``solve(x)`` with every count at 0; K3 alone must launch."""
+        K1.launches = K2.launches = K3.launches = 0
+        r, wall = sync_time(lambda: solve(x))
+        counts = (K1.launches, K2.launches, K3.launches)
+        log(f"{what} via minimize: K3 launches {counts[2]}, K1 "
+            f"{counts[0]}, K2 {counts[1]}")
+        check(counts[2] >= 1 and counts[:2] == (0, 0),
+              f"{what}: launches {counts}, not K3 alone")
+        check(r.x.shape == (B, n) and r.f.shape == (B,), f"{what}: shapes")
+        check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
+              f"{what}: non-finite result")
+        return r, wall, counts[2]
+
+    def timed(what, solve, run_plain, B, n, lo_hi, seed):
+        """Median of 3 calls on distinct seeded inputs, kernel (through
+        minimize) and plain in turns."""
+        rng = np.random.RandomState(seed)
+        kernel_s, plain_s = [], []
+        for _ in range(3):
+            (x,) = tensors(rng.uniform(*lo_hi, (B, n)), dtype=torch.float32)
+            kernel_s.append(sync_time(lambda: solve(x))[1])
+            plain_s.append(sync_time(lambda: run_plain(x))[1])
+        for who, ts in (("K3 via minimize", kernel_s), ("K3 plain", plain_s)):
+            sps = [B / t for t in ts]
+            log(f"{what} {who}: solves/s median {statistics.median(sps):.1f}, "
+                f"min {min(sps):.1f}, max {max(sps):.1f}; "
+                f"{1e3 * statistics.median(ts):.2f} ms per call  [{card}]")
+        return 1e3 * statistics.median(kernel_s), 1e3 * statistics.median(
+            plain_s)
+
+    c, c6 = CONFIG3, CONFIG6
+    B, n = c["B"], c["n"]
+    B6, n6 = c6["B"], c6["n"]
+    obj3 = problems.weighted_squares()
+    data3 = tensors(np.logspace(0, 3, n), np.zeros(n), dtype=torch.float32)
+    lo3 = torch.full((n,), -c["box"], device=dev)
+    up3 = torch.full((n,), c["box"], device=dev)
+    starts3 = np.random.RandomState(3).uniform(-2.0, 2.0, (B, n))
+    (x3,) = tensors(starts3, dtype=torch.float32)
+    kw3 = dict(max_iter=c["max_iter"], max_iter_ls=c["max_iter_ls"])
+    obj6 = problems.diag_quadratic(np.linspace(1.0, 100.0, n6))
+    starts6 = np.random.RandomState(0).uniform(-5.0, 5.0, (B6, n6))
+    (x6,) = tensors(starts6, dtype=torch.float32)
+    kw6 = dict(max_iter=c6["max_iter"], max_iter_ls=c6["max_iter_ls"])
+
+    def spg(policy):
+        # the configs minimize builds for method="spg" under each policy
+        return solvers.SpectralProjectedGradient(
+            grad_tol=c["tol"],
+            bb_variant="alternate" if policy == "fast" else "bb1")
+
+    # ---- 10. K3 vs plain per instance at the main path's shapes, float64
+    max_abs_err = 0.0
+    x3d, lo3d, up3d, *data3d = tensors(
+        starts3, np.full(n, -c["box"]), np.full(n, c["box"]),
+        np.logspace(0, 3, n), np.zeros(n))
+    for policy in ("fast", "reference"):
+        max_abs_err = max(max_abs_err, per_instance(
+            f"config 3 ({policy})", spg(policy), ls.GLLQuadratic(), obj3,
+            x3d, lo3d, up3d, tuple(data3d),
+            dict(kw3, max_iter=K3_CAPPED_ITERS)))
+    (x6d,) = tensors(starts6)
+    max_abs_err = max(max_abs_err, per_instance(
+        "config 6", solvers.GradientDescent(grad_tol=c6["tol"]),
+        ls.BackTracking(), obj6, x6d, None, None, (), kw6))
+    log(f"K3 max|dx| vs plain: {max_abs_err:.3g} at the main path's shapes, "
+        f"{geom_err:.3g} on the geometries")
+
+    # ---- 11. config 3 through minimize, both policies
+
+    def solve3(x, policy="fast"):
+        return minimize(obj3, x, method="spg", bounds=(-c["box"], c["box"]),
+                        data=data3, tol=c["tol"], policy=policy, **kw3)
+
+    def plain3(x, policy="fast"):
+        return plain(spg(policy), ls.GLLQuadratic(), obj3, x, lo3, up3,
+                     data3, **kw3)
+
+    results = {}
+    for policy in ("fast", "reference"):
+        res, wall, launches3 = main_path(
+            f"config 3 ({policy})", lambda x: solve3(x, policy), x3, B, n)
+        conv = report(f"config 3 ({policy}) K3", res, wall)
+        (_, fp, itp, stp, _), plain_wall = sync_time(
+            lambda: plain3(x3, policy))
+        cp = (stp == 1).float().mean().item()
+        log(f"config 3 ({policy}) plain on the card: converged {cp:.4f}, "
+            f"median f {fp.median().item():.6g}, median iterations "
+            f"{itp.float().median().item():.0f}, {plain_wall:.3f} s")
+        check(abs(conv - cp) <= CONV_ATOL,
+              f"config 3 ({policy}): converged {conv} vs plain {cp}")
+        medians_agree(f"config 3 ({policy})", res, fp, itp)
+        results[policy] = (res, launches3)
+    res3, launches = results["fast"]
+    conv3 = (res3.status == 1).float().mean().item()
+    check(conv3 >= 0.99, f"config 3 (fast) converged fraction {conv3} < 0.99")
+    ms, plain_ms = timed("config 3 (fast)", solve3, plain3, B, n,
+                         (-2.0, 2.0), 33)
+
+    # bound at config 3, from the kernel's own counts on the main path's
+    # inputs: x0, d, t and the bounds read once, x, f, iterations, status
+    # and trial counts written once; per iteration (csrc/driver.cu, SPG +
+    # GLL) the direction 5n, g.d 2n, the step, its clip and the
+    # value-and-gradient 8n, the BB update 8n and the convergence test 6n,
+    # and per trial the trial point and its value 6n
+    spec = fused_driver.build_spec(spg("fast"), ls.GLLQuadratic())
+    _, _, itk, _, nfevk = fused_driver._launch_cuda(
+        spec, obj3, x3, lo3, up3, data3, **kw3)
+    bound_ms, bound_by = bound(
+        2 * B * n * 4 + 4 * n * 4 + 4 * B * 4,
+        n * (29 * itk.double().sum().item() + 6 * nfevk.double().sum().item()
+             + 10 * B))
+    log(f"K3 bound at config 3 (fast): {bound_ms:.4f} ms ({bound_by}); "
+        f"trials per iteration {nfevk.sum().item() / itk.sum().item():.3f}; "
+        f"kernel {ms:.2f} ms  [{card}]")
+
+    # ---- 12. config 6 through minimize
+    def solve6(x):
+        return minimize(obj6, x, method="gd", tol=c6["tol"],
+                        max_iter=c6["max_iter"])
+
+    def plain6(x):
+        return plain(solvers.GradientDescent(grad_tol=c6["tol"]),
+                     ls.BackTracking(), obj6, x, **kw6)
+
+    res6, wall6, _ = main_path("config 6", solve6, x6, B6, n6)
+    conv6 = report("config 6 K3", res6, wall6)
+    (_, fp6, itp6, stp6, _), plain_wall6 = sync_time(lambda: plain6(x6))
+    cp6 = (stp6 == 1).float().mean().item()
+    log(f"config 6 plain on the card: converged {cp6:.4f}, median f "
+        f"{fp6.median().item():.6g}, median iterations "
+        f"{itp6.float().median().item():.0f}, {plain_wall6:.3f} s")
+    check(conv6 >= 0.99, f"config 6 converged fraction {conv6} < 0.99")
+    check(abs(conv6 - cp6) <= CONV_ATOL,
+          f"config 6: converged {conv6} vs plain {cp6}")
+    medians_agree("config 6", res6, fp6, itp6)
+    ms6, _ = timed("config 6", solve6, plain6, B6, n6, (-5.0, 5.0), 66)
+    spec6 = fused_driver.build_spec(
+        solvers.GradientDescent(grad_tol=c6["tol"]), ls.BackTracking())
+    _, _, itk6, _, nfevk6 = fused_driver._launch_cuda(
+        spec6, obj6, x6, None, None, (), **kw6)
+    # per iteration (GD + BackTracking): direction n, g.d 2n, step and
+    # value-and-gradient 6n, convergence 2n; per trial 6n
+    b6, by6 = bound(
+        2 * B6 * n6 * 4 + 2 * n6 * 4 + 4 * B6 * 4,
+        n6 * (11 * itk6.double().sum().item()
+              + 6 * nfevk6.double().sum().item() + 4 * B6))
+    log(f"K3 bound at config 6: {b6:.4f} ms ({by6}); trials per iteration "
+        f"{nfevk6.sum().item() / itk6.sum().item():.3f}; kernel {ms6:.2f} ms"
+        f"  [{card}]")
+    return {
+        "name": "driver",
+        "route": "cuda",
+        "source": "optimization_solvers_tpu_torch/ops/csrc/driver.cu",
+        "replaces": "optimization_solvers_tpu/ops/pallas_driver.py:1874",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def driver_breakdown(dev, card, tensors, sync_time):
+    """Phase 13, with ``--breakdown`` only: where K3's time goes at configs
+    3 and 6: the device time by kernel in one profiled solve, a batch sweep
+    and an iteration cap.  Only printed; nothing here is held."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from optimization_solvers_tpu_torch import minimize, problems
+
+    c, c6 = CONFIG3, CONFIG6
+    obj3 = problems.weighted_squares()
+    data3 = tensors(np.logspace(0, 3, c["n"]), np.zeros(c["n"]),
+                    dtype=torch.float32)
+    obj6 = problems.diag_quadratic(np.linspace(1.0, 100.0, c6["n"]))
+
+    def solve3(x, max_iter=c["max_iter"]):
+        return minimize(obj3, x, method="spg", bounds=(-c["box"], c["box"]),
+                        data=data3, tol=c["tol"], max_iter=max_iter,
+                        max_iter_ls=c["max_iter_ls"])
+
+    def solve6(x, max_iter=c6["max_iter"]):
+        return minimize(obj6, x, method="gd", tol=c6["tol"],
+                        max_iter=max_iter)
+
+    def starts(B, n, half, seed):
+        return tensors(np.random.RandomState(seed).uniform(-half, half,
+                                                           (B, n)),
+                       dtype=torch.float32)[0]
+
+    cells = (("config 3", solve3, c["n"], 2.0, c["B"]),
+             ("config 6", solve6, c6["n"], 5.0, c6["B"]))
+    for what, solve, n, half, B in cells:
+        x = starts(B, n, half, 5)
+        solve(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = sync_time(lambda: solve(x))
+        rows = [(e.key, e.device_time_total) for e in prof.key_averages()
+                if e.device_time_total > 0]
+        total = sum(t for _, t in rows)
+        top = sorted(rows, key=lambda r: -r[1])[:4]
+        log(f"{what} profile: wall {1e3 * wall:.3f} ms, device "
+            f"{total / 1e3:.3f} ms in {len(rows)} kernels; "
+            + "; ".join(f"{k[:40]} {t / 1e3:.3f} ms" for k, t in top))
+        sweep = []
+        for b in (132, 1056, 2112, 4224, 8448, 10240, 20480):
+            xb = starts(b, n, half, 6)
+            solve(xb)
+            ts = [sync_time(lambda: solve(xb))[1] for _ in range(3)]
+            sweep.append(f"B={b}: {1e3 * statistics.median(ts):.3f} ms")
+        log(f"{what} batch sweep (median of 3): " + ", ".join(sweep)
+            + f"  [{card}]")
+        caps = []
+        for cap in (1, 10, 100, 300):
+            ts = [sync_time(lambda: solve(x, cap))[1] for _ in range(3)]
+            caps.append(f"{cap}: {1e3 * statistics.median(ts):.3f} ms")
+        log(f"{what} iteration cap at B={B} (median of 3): "
+            + ", ".join(caps) + f"  [{card}]")
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    log(f"after the K3 runs: {out.stdout.strip()}")
 
 
 if __name__ == "__main__":

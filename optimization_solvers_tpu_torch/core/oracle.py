@@ -1,0 +1,79 @@
+"""Oracle layer: batched function evaluation with a value-only fast path.
+
+PyTorch counterpart of :mod:`optimization_solvers_tpu.core.oracle`
+(``Oracle``, ``make_oracle``), built on :mod:`..ops.batched_oracle`: an
+objective of :mod:`.problems` brings its analytic batched forms, any other
+torch callable ``f(x, *data)`` is batched with ``torch.func``.  The oracle
+keeps the raw objective and its problem data (``raw_f``, ``data``), which is
+what the whole-solve kernels take: :func:`..solvers.driver.batch_minimize`
+reads them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..ops.batched_oracle import batched_value, batched_value_and_grad
+from .types import FuncEval
+
+
+class Oracle:
+    """A function-evaluation oracle ``x -> FuncEval``.
+
+    ``x`` is a ``(B, n)`` batch (the port's solvers are batched) or one
+    ``(n,)`` point.  ``value(x)`` is the value-only path the Armijo-family
+    searches use; without a value function it falls back to the full
+    evaluation."""
+
+    def __init__(self, full_fn: Callable[[torch.Tensor], FuncEval],
+                 value_fn: Optional[Callable] = None):
+        self._full = full_fn
+        self._value = value_fn
+
+    def __call__(self, x: torch.Tensor) -> FuncEval:
+        ev = self._full(x)
+        if not isinstance(ev, FuncEval):
+            ev = FuncEval(*ev)
+        return ev
+
+    def value(self, x: torch.Tensor) -> torch.Tensor:
+        if self._value is not None:
+            return self._value(x)
+        return self(x).f
+
+
+def _one_or_batch(fn):
+    """Apply a ``(B, n)`` batched function to a ``(B, n)`` batch or to one
+    ``(n,)`` point."""
+    def wrapped(x):
+        if x.dim() == 1:
+            out = fn(x[None])
+            return tuple(o[0] for o in out) if isinstance(out, tuple) else (
+                out[0])
+        return fn(x)
+    return wrapped
+
+
+def make_oracle(f: Callable, *, with_hessian: bool = False,
+                data: tuple = ()) -> Oracle:
+    """An oracle from a scalar objective ``f(x, *data)``.
+
+    ``data`` carries the problem-data arrays explicitly, as in the JAX
+    package, so that a whole-solve kernel can take them as operands.
+    ``with_hessian`` (the Newton family's AD Hessians) waits for the Newton
+    slice (ROADMAP.md Queue 1 item 7 / Queue 2 item 3) and raises
+    ``NotImplementedError``."""
+    if with_hessian:
+        raise NotImplementedError(
+            "make_oracle(with_hessian=True) is not ported yet: the Newton "
+            "family comes with the next K3 slice (ROADMAP.md Queue 1 item 7, "
+            "Queue 2 item 3)")
+    data = tuple(torch.as_tensor(c) for c in data)
+    vg = _one_or_batch(batched_value_and_grad(f, data))
+    oracle = Oracle(lambda x: FuncEval(*vg(x)),
+                    value_fn=_one_or_batch(batched_value(f, data)))
+    oracle.raw_f = f
+    oracle.data = data
+    return oracle

@@ -1,43 +1,88 @@
 """One-call front end: ``optimization_solvers_tpu_torch.minimize(f, x0, ...)``.
 
-Counterpart of ``optimization_solvers_tpu/frontend.py``; so far it carries
-the batched ``method="lbfgsb"`` route onto two kernels:
+Counterpart of ``optimization_solvers_tpu/frontend.py``.  Two routes are
+ported:
 
-* K1 (:mod:`.ops.fused_lbfgsb`, one warp per instance, the whole instance
-  in shared memory) takes the batch when its objective is one of K1's
-  functors (or, on the CPU, any torch callable) and one instance fits a
-  block's shared memory (:func:`.ops.fused_lbfgsb.fits`);
-* every other batch goes to K2, the tall kernel
-  (:mod:`.ops.fused_lbfgsb_tall`, one block per instance, state in device
-  memory): config 4's 10,000-dim log-sum-exp, any ``quadratic``.
+* ``method="lbfgsb"`` onto two kernels: K1 (:mod:`.ops.fused_lbfgsb`, one
+  warp per instance, the whole instance in shared memory) takes the batch
+  when its objective is one of K1's functors (or, on the CPU, any torch
+  callable) and one instance fits a block's shared memory
+  (:func:`.ops.fused_lbfgsb.fits`); every other batch goes to K2, the tall
+  kernel (:mod:`.ops.fused_lbfgsb_tall`, one block per instance, state in
+  device memory): config 4's 10,000-dim log-sum-exp, any ``quadratic``.
+  The JAX front end picks by the TPU kernels' VMEM footprint instead
+  (``frontend.py:391-425`` there): the two chips hold different amounts on
+  chip, so the boundary moves.
+* the first-order template methods ``gd``, ``cd``, ``pgd``, ``pnorm``,
+  ``spg`` and ``ncg``, with their default searches or a ``search=`` of
+  :mod:`.linesearch`, through :func:`.solvers.batch_minimize` onto the
+  generic driver kernel K3 (:mod:`.ops.fused_driver`).
 
 The rule is the same on both devices; x0's device then picks the version:
 a CPU tensor runs the plain PyTorch version of the chosen kernel, a CUDA
-tensor the hand-written CUDA kernel.  The JAX front end picks by the TPU
-kernels' VMEM footprint instead (``frontend.py:391-425`` there): the two
-chips hold different amounts on chip, so the boundary moves.
+tensor the hand-written CUDA kernel.  An ``x0`` that is not a tensor goes
+to the GPU.
 
 Example::
 
     import optimization_solvers_tpu_torch as ostt
     res = ostt.minimize(ostt.problems.rosenbrock(), x0_batch.cuda(),
                         method="lbfgsb", bounds=(-5.0, 5.0), tol=1e-3)
+    res = ostt.minimize(ostt.problems.diag_quadratic(d), x0_batch.cuda(),
+                        method="gd", tol=1e-6, max_iter=3000)
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from . import linesearch as ls
+from .core.oracle import Oracle, make_oracle
 from .ops import fused_lbfgsb
 from .ops.fused_lbfgsb import lbfgsb_solve_fused
 from .ops.fused_lbfgsb_tall import lbfgsb_solve_fused_tall
+from .solvers import nonlinear_cg, steepest
+from .solvers.driver import as_batch, batch_minimize
 from .solvers.lbfgsb import LbfgsbConfig
 
 # LbfgsbConfig fields only the lockstep dcsrch solver honours
 _LOCKSTEP_ONLY = ("ls_c2", "rel_pg_stop", "verbose", "curvature_eps")
 # keywords of the JAX front end whose machinery is not ported yet
-_NOT_PORTED = {"search": "items 7-9", "precision": "item 10",
-               "polish_max_iter": "item 10"}
+_NOT_PORTED = {"precision": "item 10", "polish_max_iter": "item 10"}
+
+# name: (method config, default search, bounded) -- the template methods of
+# this slice, as in the JAX front end's table
+_TEMPLATE = {
+    "gd": (steepest.GradientDescent, ls.BackTracking, False),
+    "cd": (steepest.CoordinateDescent, ls.BackTracking, False),
+    "pgd": (steepest.ProjectedGradientDescent, ls.BackTrackingB, True),
+    "pnorm": (steepest.PnormDescent, ls.BackTracking, False),
+    "spg": (steepest.SpectralProjectedGradient, ls.GLLQuadratic, True),
+    "ncg": (nonlinear_cg.NonlinearCG, ls.BackTracking, False),
+}
+# the rest of the JAX table, with the ROADMAP items that bring them
+_NEXT_SLICE = {
+    "newton": "Queue 2 item 3 (the next K3 slice: Newton specs)",
+    "pn": "Queue 2 item 3 (the next K3 slice: Newton specs)",
+    "spn": "Queue 2 item 3 (the next K3 slice: Newton specs)",
+    "bfgs": "Queue 2 item 3 (the next K3 slice: QN specs with More-Thuente)",
+    "dfp": "Queue 2 item 3 (the next K3 slice: QN specs with More-Thuente)",
+    "broyden": "Queue 2 item 3 (the next K3 slice: QN specs)",
+    "bfgsb": "Queue 2 item 3 (the next K3 slice: QNB specs)",
+    "dfpb": "Queue 2 item 3 (the next K3 slice: QNB specs)",
+    "broydenb": "Queue 2 item 3 (the next K3 slice: QNB specs)",
+    "sr1b": "Queue 2 item 3 (the next K3 slice: QNB specs)",
+    "lbfgs": "Queue 2 item 3 (the next K3 slice: L-BFGS with Hager-Zhang)",
+}
+_ALIASES = {"gradient_descent": "gd", "coordinate_descent": "cd",
+            "projected_gradient": "pgd", "projected_newton": "pn",
+            "nonlinear_cg": "ncg", "l_bfgs": "lbfgs"}
+# policy="fast" overlays of the JAX front end that fall in this slice: the
+# alternating BB scalar for spg (conv 0.985 -> 1.000 on config 3 in the JAX
+# package's records); a user option always wins
+_FAST_METHOD_OVERLAY = {"spg": {"bb_variant": "alternate"}}
 
 
 def takes_k1(f, x0, m) -> bool:
@@ -66,22 +111,38 @@ def _bounds(bounds, x0):
 
 def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
              tol: float | None = None, max_iter: int = 1000,
-             max_iter_ls=None, policy: str = "fast", **options):
+             max_iter_ls=None, search=None, policy: str = "fast",
+             **options):
     """Minimize a scalar objective from a batch of starts ``x0`` (B, n).
 
-    ``f`` is an objective of :mod:`.core.problems` or, on the CPU, any
-    torch callable ``f(x, *data)``.  ``bounds`` is ``(lower, upper)``:
-    scalars, ``(n,)`` or per-instance ``(B, n)``; ``None`` means unbounded.
-    ``tol`` defaults to 1e-6 for float64 and 1e-4 for float32, ``factr``
-    to 1e7 and 100.  Float ``data`` is cast to x0's dtype.  ``policy`` is
-    ``"fast"`` or ``"reference"``; ``"reference"`` runs the tall kernel's
-    line search as MINPACK dcsrch (the Fortran core's pairing) unless
-    ``tall_line_search`` is given.  Extra options name
-    :class:`LbfgsbConfig` fields (``m``, ``pgtol``, ``ls_c1``,
-    ``tall_line_search``, ...); an unknown one raises ``TypeError``; one of
-    the JAX front end whose machinery is not ported yet (``search``,
-    ``precision``, ``polish_max_iter``, the lockstep-only config fields)
-    raises ``NotImplementedError``."""
+    ``f`` is an objective of :mod:`.core.problems`, an oracle from
+    :func:`.core.oracle.make_oracle` (template methods) or, on the CPU, any
+    torch callable ``f(x, *data)``.  A torch ``x0`` keeps its device; any
+    other ``x0`` goes to the GPU.  ``bounds`` is ``(lower, upper)``:
+    scalars, ``(n,)`` or, for ``lbfgsb``, per-instance ``(B, n)``; ``None``
+    means unbounded.  ``tol`` defaults to 1e-6 for float64 and 1e-4 for
+    float32.  Float ``data`` is cast to x0's dtype.  ``policy`` is
+    ``"fast"`` or ``"reference"``.
+
+    ``method="lbfgsb"``: ``factr`` defaults to 1e7 (float64) and 100
+    (float32); ``"reference"`` runs the tall kernel's line search as MINPACK
+    dcsrch unless ``tall_line_search`` is given; ``max_iter_ls`` defaults to
+    20; extra options name :class:`LbfgsbConfig` fields (``m``, ``pgtol``,
+    ``ls_c1``, ``tall_line_search``, ...).  It runs its own line search, so
+    a ``search`` raises ``ValueError``.
+
+    Template methods (``gd``, ``cd``, ``pgd``, ``pnorm``, ``spg``,
+    ``ncg``): ``search`` overrides the default search, ``max_iter_ls``
+    defaults to 40, extra options name fields of the method's config
+    (``inverse_p`` for ``pnorm``, ``variant`` for ``ncg``, ...);
+    ``policy="fast"`` runs ``spg`` with ``bb_variant="alternate"``.  The
+    bounded methods (``pgd``, ``spg``) need ``bounds``, the others refuse
+    them.
+
+    An unknown option raises ``TypeError``, as in the JAX front end; a
+    method, search or option whose machinery is not ported yet raises
+    ``NotImplementedError`` naming its ROADMAP item; so does a 1-D ``x0``
+    (the single-instance drivers)."""
     if policy not in ("fast", "reference"):
         raise ValueError(
             f"policy must be 'fast' or 'reference', got {policy!r}")
@@ -90,16 +151,7 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
         raise NotImplementedError(
             f"option(s) {unported} are not ported yet (ROADMAP.md Queue 1 "
             f"{', '.join(_NOT_PORTED[k] for k in unported)})")
-    name = method.lower().replace("-", "_")
-    if name not in ("lbfgsb", "l_bfgs_b"):
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet; only 'lbfgsb' is "
-            "(ROADMAP.md Queue 1 items 7-9)")
-    x0 = torch.as_tensor(x0)
-    if x0.dim() != 2:
-        raise NotImplementedError(
-            "single-instance (1-D x0) L-BFGS-B runs the lockstep solver, "
-            "not ported yet (ROADMAP.md Queue 1 item 3); pass x0 as (1, n)")
+    x0 = as_batch(x0)
     if not x0.dtype.is_floating_point:
         x0 = x0.to(torch.get_default_dtype())
     data = tuple(torch.as_tensor(c, device=x0.device) for c in data)
@@ -107,8 +159,28 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
                  for c in data)
     if tol is None:
         tol = 1e-6 if x0.dtype == torch.float64 else 1e-4
-    lower, upper = _bounds(bounds, x0)
+    name = method.lower().replace("-", "_")
+    if name in ("lbfgsb", "l_bfgs_b"):
+        if search is not None:
+            raise ValueError(
+                "method 'lbfgsb' runs its own line search (ls_c1, "
+                "tall_line_search); search= applies to the template methods")
+        return _lbfgsb(f, x0, bounds, data, tol, max_iter, max_iter_ls,
+                       policy, options)
+    if name == "newton_cg":
+        raise NotImplementedError(
+            "method 'newton_cg' runs the Newton-CG kernel K4, not ported yet "
+            "(ROADMAP.md Queue 2 item 4)")
+    return _template(f, x0, method, bounds, data, tol, max_iter, max_iter_ls,
+                     search, policy, options)
 
+
+def _lbfgsb(f, x0, bounds, data, tol, max_iter, max_iter_ls, policy, options):
+    if x0.dim() != 2:
+        raise NotImplementedError(
+            "single-instance (1-D x0) L-BFGS-B runs the lockstep solver, "
+            "not ported yet (ROADMAP.md Queue 1 item 3); pass x0 as (1, n)")
+    lower, upper = _bounds(bounds, x0)
     factr = options.pop("factr", 1e7 if x0.dtype == torch.float64 else 100.0)
     if policy == "reference":
         options.setdefault("tall_line_search", "dcsrch")
@@ -138,3 +210,55 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
         return lbfgsb_solve_fused(f, x0, lower, upper, data, **kw)
     return lbfgsb_solve_fused_tall(f, x0, lower, upper, data,
                                    line_search=cfg.tall_line_search, **kw)
+
+
+def _template(f, x0, method, bounds, data, tol, max_iter, max_iter_ls,
+              search, policy, options):
+    name = method.lower().replace("-", "_").replace(" ", "_")
+    name = _ALIASES.get(name, name)
+    if name in _NEXT_SLICE:
+        raise NotImplementedError(
+            f"method {name!r} is not ported yet (ROADMAP.md "
+            f"{_NEXT_SLICE[name]})")
+    if name not in _TEMPLATE:
+        raise ValueError(
+            f"unknown method {name!r}; choose from "
+            f"{sorted([*_TEMPLATE, *_NEXT_SLICE]) + ['lbfgsb', 'newton_cg']}")
+    cls, default_search, needs_bounds = _TEMPLATE[name]
+    fields = set(cls.__dataclass_fields__)
+    m = cls(**{"grad_tol": tol,
+               **{k: options[k] for k in options if k in fields}})
+    if policy == "fast":
+        overlay = {k: v for k, v in _FAST_METHOD_OVERLAY.get(name, {}).items()
+                   if k not in options}
+        if overlay:
+            m = dataclasses.replace(m, **overlay)
+    unknown = set(options) - fields
+    if unknown:
+        raise TypeError(
+            f"unknown option(s) {sorted(unknown)} for method {method!r}")
+    if getattr(m, "inverse_p", False) is None:
+        raise ValueError(
+            "method 'pnorm' requires the inverse_p option "
+            "(the inverse preconditioner matrix, pnorm_descent.rs:30-37)")
+    if max_iter_ls is None:
+        max_iter_ls = 40
+    s = search if search is not None else default_search()
+    if needs_bounds and bounds is None:
+        raise ValueError(f"method {method!r} requires bounds=(lower, upper)")
+    if bounds is not None:
+        n = x0.shape[-1]
+        bounds = tuple(torch.as_tensor(b, dtype=x0.dtype, device=x0.device)
+                       .expand(n) for b in bounds)
+        if not needs_bounds:
+            raise ValueError(
+                f"method {method!r} is unconstrained; use its bounded "
+                "sibling (pgd/spg/pn/spn/bfgsb/dfpb/broydenb/sr1b/lbfgsb) "
+                "for box constraints")
+    if x0.dim() != 2:
+        raise NotImplementedError(
+            "a single instance (1-D x0) runs the single-solve driver, not "
+            "ported yet (ROADMAP.md Queue 1 item 7); pass x0 as (1, n)")
+    oracle = f if isinstance(f, Oracle) else make_oracle(f, data=data)
+    return batch_minimize(m, s, oracle, x0, bounds=bounds, max_iter=max_iter,
+                          max_iter_ls=max_iter_ls)

@@ -16,7 +16,8 @@ from typing import Callable
 import torch
 
 # objective functors of the CUDA kernels (enum ObjectiveCode in ops/csrc);
-# K1 (lbfgsb_fused.cu) compiles the first two, K2 (lbfgsb_tall.cu) all four
+# K1 (lbfgsb_fused.cu) and K3 (driver.cu) compile the first two, K2
+# (lbfgsb_tall.cu) all four
 KERNEL_OBJECTIVES = {"ROSENBROCK": 0, "WEIGHTED_SQUARES": 1, "QUADRATIC": 2,
                      "LOG_SUM_EXP": 3}
 
@@ -54,19 +55,21 @@ def batched_value(f: Callable, data=()):
     return lambda X: bf(X, *data)
 
 
-def kernel_operands(f, data, x0: torch.Tensor):
+def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",
+                    lockstep: str = "ROADMAP.md Queue 1 item 3"):
     """The kernel form of ``f``: its functor code and its data arrays as
     contiguous tensors of x0's dtype on x0's device, each of the shape its
     functor reads (``(n,)``; ``Q (n, n)``; ``A (rows, n)``, ``b (rows,)``).
     Raises ``NotImplementedError`` for an objective without a kernel form
-    and ``ValueError`` for data of another shape."""
+    (naming ``kernel``, the kernel that asked, and ``lockstep``, the item of
+    the lockstep solver that would take such a callable) and
+    ``ValueError`` for data of another shape."""
     form = getattr(f, "kernel_form", None)
     if form is None:
         raise NotImplementedError(
-            "the CUDA L-BFGS-B kernel needs an objective with a kernel_form "
+            f"{kernel} needs an objective with a kernel_form "
             "(optimization_solvers_tpu_torch.core.problems); arbitrary torch "
-            "callables on CUDA wait for the lockstep solver "
-            "(ROADMAP.md Queue 1 item 3)")
+            f"callables on CUDA wait for the lockstep solver ({lockstep})")
     name, arrays = form(*data)
     n = x0.shape[-1]
     packed = []

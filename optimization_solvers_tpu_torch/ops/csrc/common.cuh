@@ -19,7 +19,8 @@ constexpr long long kSmemPerBlock = 232448;   // 227 KB opt-in per block
 
 // error codes of the C entry points (a cudaError_t is positive)
 enum ErrorCode { kErrArgs = -1, kErrSmem = -2 };
-// objective functors; K1 compiles the first two, K2 all four
+// objective functors; K1 and K3 compile the first two (objectives.cuh),
+// K2 all four
 enum ObjectiveCode {
   kRosenbrock = 0, kWeightedSquares = 1, kQuadratic = 2, kLogSumExp = 3
 };

@@ -37,6 +37,7 @@
 //    (1.2e-7 / 2.2e-16), not FLT_EPSILON.
 
 #include "common.cuh"
+#include "objectives.cuh"
 
 namespace {
 
@@ -55,61 +56,6 @@ template <typename T> __device__ __forceinline__ void warp_argmin(T& v, int& idx
     if (v2 < v || (v2 == v && i2 < idx)) { v = v2; idx = i2; }
   }
 }
-
-// ---- objective functors: value (warp-reduced) and value + gradient -------
-
-template <typename T> struct Rosenbrock {
-  const T* d0;
-  const T* d1;
-  __device__ T value(const T* x, int n, int lane) const {
-    T s = 0;
-    for (int i = lane; i < n - 1; i += kWarp) {
-      T a = x[i + 1] - x[i] * x[i];
-      T b = T(1) - x[i];
-      s += T(100) * (a * a) + b * b;
-    }
-    return warp_sum(s);
-  }
-  __device__ T value_grad(const T* x, T* g, int n, int lane) const {
-    T s = 0;
-    for (int i = lane; i < n; i += kWarp) {
-      T gi = 0;
-      if (i < n - 1) {
-        T a = x[i + 1] - x[i] * x[i];
-        T b = T(1) - x[i];
-        s += T(100) * (a * a) + b * b;
-        gi = T(-400) * x[i] * a - T(2) * b;
-      }
-      if (i > 0) gi += T(200) * (x[i] - x[i - 1] * x[i - 1]);
-      g[i] = gi;
-    }
-    return warp_sum(s);
-  }
-};
-
-// 0.5 sum_i d_i (x_i - t_i)^2 with problem data d = d0, t = d1
-template <typename T> struct WeightedSquares {
-  const T* d0;
-  const T* d1;
-  __device__ T value(const T* x, int n, int lane) const {
-    T s = 0;
-    for (int i = lane; i < n; i += kWarp) {
-      T r = x[i] - d1[i];
-      s += d0[i] * r * r;
-    }
-    return T(0.5) * warp_sum(s);
-  }
-  __device__ T value_grad(const T* x, T* g, int n, int lane) const {
-    T s = 0;
-    for (int i = lane; i < n; i += kWarp) {
-      T r = x[i] - d1[i];
-      T gi = d0[i] * r;
-      g[i] = gi;
-      s += gi * r;
-    }
-    return T(0.5) * warp_sum(s);
-  }
-};
 
 template <typename T> struct Params {
   const T* x0;

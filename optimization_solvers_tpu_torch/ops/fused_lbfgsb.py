@@ -402,7 +402,8 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
     lo, up = bounds
     if lo.shape != up.shape:
         raise ValueError("lower and upper must have the same shape")
-    code, arrays = kernel_operands(obj, data, x0)
+    code, arrays = kernel_operands(obj, data, x0,
+                                   kernel="the CUDA L-BFGS-B kernel K1")
     name = next(k for k, v in KERNEL_OBJECTIVES.items() if v == code)
     if name not in K1_OBJECTIVES:
         raise ValueError(

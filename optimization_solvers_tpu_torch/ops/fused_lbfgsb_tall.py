@@ -446,7 +446,8 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
     lo, up = bounds
     if lo.shape != up.shape:
         raise ValueError("lower and upper must have the same shape")
-    code, arrays = kernel_operands(obj, data, x0)
+    code, arrays = kernel_operands(obj, data, x0,
+                                   kernel="the tall CUDA L-BFGS-B kernel K2")
     rows = arrays[0].shape[0] if code == KERNEL_OBJECTIVES["LOG_SUM_EXP"] else 0
     if rows > MAX_ROWS:
         raise ValueError(f"LOG_SUM_EXP with {rows} rows: the kernel keeps at "

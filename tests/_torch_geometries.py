@@ -1,8 +1,9 @@
-"""L-BFGS-B geometries shared by the port's tests and ``chip_smoke.py``.
+"""Geometries shared by the port's tests and ``chip_smoke.py``.
 
-They are the geometries of ``tests/test_fused_lbfgsb.py`` (K1) and
-``tests/test_fused_lbfgsb_tall.py`` (K2), with the port's objectives.  This
-module imports no JAX, so it also runs where only the port is installed.
+They are the geometries of ``tests/test_fused_lbfgsb.py`` (K1),
+``tests/test_fused_lbfgsb_tall.py`` (K2) and ``tests/test_fused_driver.py``
+(K3), with the port's objectives.  This module imports no JAX, so it also
+runs where only the port is installed.
 """
 
 import numpy as np
@@ -139,6 +140,94 @@ def k2_geometries():
             np.full(8, -2.0), np.full(8, 2.0), (),
             dict(m=5, pgtol=1e-12, factr=0.0, max_iter=1)),
     }
+
+
+def k3_geometries():
+    """name -> geometry of the generic driver K3's first-order slice: the
+    combinations of ``tests/test_fused_driver.py`` that the slice covers,
+    with the port's objectives, plus the edge cases of its status rules.
+
+    Each entry is a dict: ``method`` and ``search`` (port configs),
+    ``objective``, ``x0`` (B, n), ``lower``/``upper`` (None, (n,) or
+    (B, n)), ``data``, ``max_iter``, ``max_iter_ls`` and ``chaotic``.  On a
+    chaotic entry a 1e-15 relative change of x0 moves the iteration counts
+    (Rosenbrock, and gradient descent under the non-monotone GLL search),
+    so counts are held to the measured spread and x to ``x_atol``; the
+    others are held to equal counts and x within 1e-9."""
+    from optimization_solvers_tpu_torch import linesearch as ls, solvers
+
+    n, B = 8, 16
+    quad = problems.weighted_squares()
+    d = np.linspace(1.0, 50.0, n)
+    x0 = np.random.RandomState(0).uniform(-2, 2, (B, n))
+    lo, up = np.full(n, -1.5), np.full(n, 2.5)
+    interior = (d, np.full(n, 0.3))
+    # a target outside the box for half the coordinates: active bounds
+    pinned = (d, np.linspace(-2.5, 3.5, n))
+    rng = np.random.RandomState(3)
+    lo_pl = rng.uniform(-2.0, -1.0, (B, n))
+    hi_pl = rng.uniform(0.1, 1.0, (B, n))
+    x_pl = rng.uniform(-0.9, 0.0, (B, n))
+    gd, bt = solvers.GradientDescent(grad_tol=1e-6), ls.BackTracking()
+
+    def entry(method, search, x, lower=None, upper=None, data=interior,
+              objective=quad, max_iter=500, max_iter_ls=40, chaotic=False,
+              x_atol=1e-9):
+        return dict(method=method, search=search, objective=objective, x0=x,
+                    lower=lower, upper=upper, data=data, max_iter=max_iter,
+                    max_iter_ls=max_iter_ls, chaotic=chaotic, x_atol=x_atol)
+
+    geoms = {
+        "gd_bt": entry(gd, bt, x0),
+        "gd_gll": entry(gd, ls.GLLQuadratic(), x0,
+                        data=(np.linspace(1.0, 2.5, n), np.full(n, 0.3))),
+        "cd_bt": entry(solvers.CoordinateDescent(grad_tol=1e-6), bt, x0),
+        "pgd_btb": entry(solvers.ProjectedGradientDescent(grad_tol=1e-6),
+                         ls.BackTrackingB(), x0, lo, up, data=pinned),
+        "spg_gll_bb1": entry(solvers.SpectralProjectedGradient(grad_tol=1e-6),
+                             ls.GLLQuadratic(), x0, lo, up, data=pinned),
+        "spg_gll_alternate": entry(
+            solvers.SpectralProjectedGradient(grad_tol=1e-6,
+                                              bb_variant="alternate"),
+            ls.GLLQuadratic(), x0, lo, up, data=pinned),
+        "pnorm_bt": entry(
+            solvers.PnormDescent(grad_tol=1e-6,
+                                 inverse_p=np.diag(1.0 / d) + 1e-3),
+            bt, x0),
+        "gd_nosearch": entry(gd, ls.NoSearch(), x0,
+                             data=(np.linspace(0.2, 1.8, n), np.full(n, 0.3))),
+        "spg_gll_per_instance_boxes": entry(
+            solvers.SpectralProjectedGradient(grad_tol=1e-8),
+            ls.GLLQuadratic(), x_pl, lo_pl, hi_pl,
+            data=(np.linspace(1.0, 12.0, n), np.full(n, 1.2))),
+        # one lane converges at its 191st iteration, exactly the budget: the
+        # kernel reports CONVERGED there (the lockstep driver would say
+        # MAX_ITER_REACHED); the other lanes end MAX_ITER_REACHED
+        "gd_bt_converge_at_budget": entry(gd, bt, x0, max_iter=191),
+        # one lane starts at the minimizer (converged at once); gradient
+        # steps of length 1 throw the others out of the domain (f overflows)
+        "out_of_domain": entry(
+            gd, ls.NoSearch(),
+            np.vstack([np.ones((1, 4)),
+                       np.random.RandomState(6).uniform(-2, 2, (3, 4))]),
+            data=(), objective=problems.rosenbrock(), max_iter=50),
+        # tests/test_fused_driver.py:410: GD + GLL on a cond-40 quadratic,
+        # which a relative-clip trial update would limit-cycle on
+        "gll_stiff_quadratic": entry(
+            solvers.GradientDescent(grad_tol=1e-4), ls.GLLQuadratic(),
+            np.random.RandomState(0).uniform(-1.4, 2.4, (64, 16)),
+            data=(np.linspace(1.0, 40.0, 16), np.zeros(16)), max_iter=300,
+            max_iter_ls=30, chaotic=True, x_atol=2e-4),
+        "ncg_rosenbrock": entry(
+            solvers.NonlinearCG(grad_tol=1e-10, variant="pr+"), bt,
+            np.random.RandomState(4).uniform(0.8, 1.2, (4, 8)), data=(),
+            objective=problems.rosenbrock(), max_iter=3000, chaotic=True,
+            x_atol=1e-6),
+    }
+    for variant in ("fr", "pr+", "hs", "dy"):
+        geoms[f"ncg_{variant}_bt"] = entry(
+            solvers.NonlinearCG(grad_tol=1e-6, variant=variant), bt, x0)
+    return geoms
 
 
 def tiled(x0, lo, up, rows):

@@ -135,3 +135,27 @@ def test_tensors_from_numpy_and_back():
     # the JAX result type takes the same numpy fields
     assert jtypes.SolveResult(*back).iterations.tolist() == [3, 4]
     assert jnp.asarray(back.x).shape == (2, 3)
+
+
+def test_port_and_smoke_script_import_no_jax():
+    """The port and chip_smoke.py import neither JAX nor anything of the
+    JAX package (only the tests import both)."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "optimization_solvers_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib",
+                                   "optimization_solvers_tpu"), (path, name)

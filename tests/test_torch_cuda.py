@@ -11,7 +11,10 @@ Tolerances (float64): status equal per instance, x within 1e-6, iteration
 counts within ``max(2, spread)`` with ``spread`` the plain version's own
 range under a 1e-15 relative change of x0 (see ``_torch_geometries``); on
 the tall kernel's quadratic and log-sum-exp geometries iteration counts
-equal and f within 1e-10 relative.
+equal and f within 1e-10 relative.  The driver kernel K3 is held to the
+tolerances of its geometries (``k3_geometries``): counts within the
+plain version's spread (0 on all but the chaotic entries), x within the
+entry's ``x_atol`` (1e-9 on all but the chaotic entries).
 """
 
 import os
@@ -20,10 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_geometries import (k1_geometries, k2_geometries, lse_arrays,
-                               perturbation_spread, tiled)
-from optimization_solvers_tpu_torch import interop, minimize, problems
-from optimization_solvers_tpu_torch.ops import (_build, fused_lbfgsb,
+from _torch_geometries import (k1_geometries, k2_geometries, k3_geometries,
+                               lse_arrays, perturbation_spread, tiled)
+from optimization_solvers_tpu_torch import (interop, linesearch as ls,
+                                            minimize, problems)
+from optimization_solvers_tpu_torch.ops import (_build, fused_driver,
+                                                fused_lbfgsb,
                                                 fused_lbfgsb_tall)
 
 pytestmark = pytest.mark.cuda
@@ -211,3 +216,107 @@ def test_broken_build_raises(cuda, tmp_path, monkeypatch):
     assert not os.path.exists(build / "lib.so")
     assert before == (fused_lbfgsb.lbfgsb_solve_fused.launches,
                       fused_lbfgsb_tall.lbfgsb_solve_fused_tall.launches)
+
+
+# ---- the generic driver K3, first-order slice -----------------------------
+
+def _k3_operands(g, device, dtype=torch.float64):
+    x0, *data = interop.tensors_from_numpy(g["x0"], *g["data"],
+                                           device=device, dtype=dtype)
+    lo, up = (None if b is None else interop.tensors_from_numpy(
+        b, device=device, dtype=dtype)[0] for b in (g["lower"], g["upper"]))
+    return x0, lo, up, tuple(data)
+
+
+@pytest.mark.parametrize("name", sorted(k3_geometries()))
+def test_driver_kernel_matches_plain(name, cuda):
+    """float64: status and iteration counts equal (chaotic entries within
+    max(2, spread)), x within the entry's tolerance, and the same number of
+    trial evaluations."""
+    g = k3_geometries()[name]
+    x0, lo, up, data = _k3_operands(g, cuda)
+    kw = dict(max_iter=g["max_iter"], max_iter_ls=g["max_iter_ls"])
+    spec = fused_driver.build_spec(g["method"], g["search"])
+    before = fused_driver.fused_minimize.launches
+    x, f, it, st, nfev = fused_driver._launch_cuda(spec, g["objective"], x0,
+                                                   lo, up, data, **kw)
+    torch.cuda.synchronize()
+    assert fused_driver.fused_minimize.launches == before + 1
+
+    def plain(v):
+        (xt,) = interop.tensors_from_numpy(v, device=cuda)
+        return fused_driver.fused_minimize_plain(
+            g["method"], g["search"], g["objective"], xt, lo, up, data, **kw)
+
+    xp, fp, itp, stp, nfevp = plain(g["x0"])
+    spread = perturbation_spread(lambda v: plain(v)[2].cpu().numpy(),
+                                 g["x0"], runs=6)
+    assert torch.equal(st, stp)
+    dit = (it.long() - itp.long()).abs().max().item()
+    assert dit <= (max(2, spread) if g["chaotic"] else spread), (dit, spread)
+    if not g["chaotic"] and spread == 0:
+        assert torch.equal(nfev, nfevp)
+    torch.testing.assert_close(x, xp, rtol=1e-12, atol=g["x_atol"],
+                               equal_nan=True)
+
+
+def test_driver_route_launches_the_kernel(cuda):
+    """minimize with every slice method, its default search and each slice
+    search that may override it, launches the kernel once per call."""
+    f = problems.weighted_squares()
+    d, t = np.linspace(1.0, 20.0, 12), np.linspace(-2.0, 2.0, 12)
+    x0 = torch.tensor(np.random.RandomState(1).uniform(-1, 1, (64, 12)),
+                      device=cuda)
+    searches = [None, ls.BackTracking(), ls.GLLQuadratic(), ls.NoSearch()]
+    for method, extra in (("gd", {}), ("cd", {}), ("ncg", {}),
+                          ("pnorm", {"inverse_p": np.diag(1.0 / d)}),
+                          ("pgd", {"bounds": (-1.0, 1.0)}),
+                          ("spg", {"bounds": (-1.0, 1.0)})):
+        bounded = "bounds" in extra
+        for search in searches + ([ls.BackTrackingB()] if bounded else []):
+            before = fused_driver.fused_minimize.launches
+            r = minimize(f, x0, method=method, data=(d, t), search=search,
+                         max_iter=200, **extra)
+            torch.cuda.synchronize()
+            assert fused_driver.fused_minimize.launches == before + 1, (
+                method, search)
+            assert r.x.device.type == "cuda" and r.status.shape == (64,)
+
+
+def test_driver_refuses_rather_than_falls_back(cuda, monkeypatch):
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fused_driver, "_solve_plain", plain)
+    before = fused_driver.fused_minimize.launches
+    x0 = torch.zeros((4, 6), dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError, match="kernel_form"):
+        minimize(lambda x: (x * x).sum(), x0, method="gd")
+    with pytest.raises(NotImplementedError, match="compiles the functors"):
+        minimize(problems.quadratic(np.eye(6)), x0, method="gd")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        minimize(problems.rosenbrock(), x0, method="gd",
+                 search=ls.LineSearch())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        minimize(problems.rosenbrock(), x0, method="bfgs")
+    assert fused_driver.fused_minimize.launches == before
+
+
+def test_driver_shared_memory_mirror_matches_the_library(cuda):
+    lib = _build.load()
+    for n in (1, 31, 64, 100, 4150, 4151):
+        for ring in (0, 1, 10):
+            for itemsize in (4, 8):
+                mirror = fused_driver.smem_per_instance(n, ring, itemsize)
+                assert mirror == lib.driver_smem_per_warp(n, ring, itemsize)
+
+
+def test_config6_shape_float32_quality(cuda):
+    """GD + BackTracking on the 100-dim diagonal quadratic in float32, as
+    config 6 runs it (B = 512 here)."""
+    f = problems.diag_quadratic(np.linspace(1.0, 100.0, 100))
+    x0 = torch.tensor(np.random.RandomState(0).uniform(-5, 5, (512, 100)),
+                      dtype=torch.float32, device=cuda)
+    r = minimize(f, x0, method="gd", tol=1e-6, max_iter=3000)
+    assert (r.status == 1).float().mean().item() >= 0.99
+    assert bool(torch.isfinite(r.x).all())

@@ -169,10 +169,13 @@ def test_unknown_and_unported_options_raise(spy):
         ostt.minimize(f, x0)                   # default method: lbfgs
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ostt.minimize(f, x0[0], method="lbfgsb")
-    for opt in (dict(precision="f32x2"), dict(search=None),
-                dict(polish_max_iter=10)):
+    for opt in (dict(precision="f32x2"), dict(polish_max_iter=10)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ostt.minimize(f, x0, method="lbfgsb", **opt)
+    # search= belongs to the template methods; lbfgsb runs its own search
+    with pytest.raises(ValueError, match="its own line search"):
+        ostt.minimize(f, x0, method="lbfgsb",
+                      search=ostt.linesearch.BackTracking())
     with pytest.raises(ValueError, match="policy must be"):
         ostt.minimize(f, x0, method="lbfgsb", policy="exact")
     with pytest.raises(ValueError, match="tall_line_search must be"):
@@ -181,5 +184,5 @@ def test_unknown_and_unported_options_raise(spy):
     # config fields the K1 route ignores in JAX too are accepted, and so is
     # either policy
     ostt.minimize(f, x0, method="lbfgsb", gcp_chunk=64,
-                  tall_line_search="dcsrch", policy="reference")
+                  tall_line_search="dcsrch", policy="reference", search=None)
     assert spy["m"] == 5
