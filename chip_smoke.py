@@ -3,8 +3,8 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, and drives the
-batched L-BFGS-B path and the first-order template path through
-``optimization_solvers_tpu_torch.minimize``:
+batched L-BFGS-B path and the template-method paths through
+``optimization_solvers_tpu_torch.minimize`` (and ``solvers.batch_minimize``):
 
 * the headline (10,240 x Rosenbrock-100, float32, box [-5, 5], pgtol 1e-3,
   factr 100, m 5, max_iter 600), which the route sends to K1
@@ -23,7 +23,13 @@ batched L-BFGS-B path and the first-order template path through
   100)``, float32, GD + BackTracking, tol 1e-6, max_iter 3000), which go to
   the generic driver kernel K3 (``ops/csrc/driver.cu``).  The objective is
   the port's ``weighted_squares`` with ``t = 0`` (config 3) and
-  ``diag_quadratic`` (config 6): the same function as the JAX bench's.
+  ``diag_quadratic`` (config 6): the same function as the JAX bench's;
+* config 2 (1,024 x Rosenbrock-100, float32, dense BFGS with tol 2e-4,
+  ``scale_b0`` and ``restart_on_degeneracy`` + More-Thuente, max_iter
+  1500, max_iter_ls 40) through ``solvers.batch_minimize`` as the JAX bench
+  calls it and through ``minimize(method="bfgs")`` in both policies, and
+  L-BFGS + Hager-Zhang (``minimize(method="lbfgs")``, tol 1e-4) at the same
+  shape, which K3 runs in its quasi-Newton form.
 
 It prints, last, a JSON line of per-kernel results, the card's name and
 power limit, and one JSON line naming the device.  Any failed check exits
@@ -31,6 +37,8 @@ non-zero; so does a machine without a CUDA device.
 
     python3 chip_smoke.py               # the checked run
     python3 chip_smoke.py --breakdown   # also where K3's time goes
+    python3 chip_smoke.py --first-order-times DIR   # only configs 3 and 6,
+                                        # with the package of checkout DIR
 """
 
 import argparse
@@ -91,6 +99,21 @@ K3_X_ATOL = 1e-9
 # policies differ by about half in both)
 MED_IT_RTOL = 0.03
 MED_F_RTOL = 0.15
+# config 2 (bench.py:361-377): 1,024 x Rosenbrock-100, float32, dense BFGS
+# (tol 2e-4, scale_b0, restart_on_degeneracy) + More-Thuente; and L-BFGS +
+# Hager-Zhang (minimize's default method) at the same shape
+CONFIG2 = dict(B=1024, n=100, tol=2e-4, max_iter=1500, max_iter_ls=40)
+LBFGS_RUN = dict(tol=1e-4, max_iter=1500)
+# full float32 solves there, kernel vs plain on the same inputs: success
+# class (CONVERGED or STALLED) within CONV_ATOL, median iterations within
+# 5% and median f within 20% relative; and what the algorithm must reach
+# on the bench call (the JAX package records 1.0 and 0.989)
+C2_MED_IT_RTOL = 0.05
+C2_MED_F_RTOL = 0.20
+C2_SUCCESS = 0.99
+C2_STATIONARY = 0.97
+# calls per configuration of --first-order-times
+FIRST_ORDER_REPEATS = 9
 
 # the card's rates for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM3 bytes per second and float32 operations per second outside the
@@ -127,14 +150,22 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--breakdown", action="store_true",
-        help="also print where K3's time goes at configs 3 and 6 (a "
-        "profiled solve, a batch sweep and an iteration cap; ~40 s)")
-    breakdown = parser.parse_args(argv).breakdown
+        help="also print where K3's time goes at configs 3, 6 and 2 (a "
+        "profiled solve, a batch sweep and an iteration cap)")
+    parser.add_argument(
+        "--first-order-times", metavar="ROOT",
+        help="only time configs 3 and 6 through minimize with the package "
+        "found under ROOT (a checkout; '.' for this one), to compare two "
+        "commits in turns on one card; prints no result line")
+    args = parser.parse_args(argv)
+    breakdown = args.breakdown
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.first_order_times:
+        return first_order_times(args.first_order_times)
     from _torch_geometries import k1_geometries, perturbation_spread, tiled
     from optimization_solvers_tpu_torch import minimize, problems
     from optimization_solvers_tpu_torch.ops import (_build, fused_lbfgsb,
@@ -340,11 +371,32 @@ def main(argv=None):
         "library_ms": None,
     }
     tall = tall_slice(dev, card, tensors, sync_time)
-    driver = driver_slice(dev, card, tensors, sync_time)
+    first_order = driver_slice(dev, card, tensors, sync_time)
+    quasi_newton = qn_slice(dev, card, tensors, sync_time)
     if breakdown:
         driver_breakdown(dev, card, tensors, sync_time)
 
-    # ---- 14. results
+    # ---- 18. results.  K3's entry takes this slice's main path, config 2
+    # through batch_minimize; "paths" lists every path that drove K3
+    paths = {k: v for d in (first_order, quasi_newton) for k, v in d.items()
+             if k != "max_abs_err"}
+    c2 = paths["config 2"]
+    driver = {
+        "name": "driver",
+        "forms": ["first-order", "quasi-Newton"],
+        "route": "cuda",
+        "source": "optimization_solvers_tpu_torch/ops/csrc/driver.cu",
+        "replaces": "optimization_solvers_tpu/ops/pallas_driver.py:1874",
+        "launches": c2["launches"],
+        "max_abs_err": max(first_order["max_abs_err"],
+                           quasi_newton["max_abs_err"]),
+        "ms": c2["ms"],
+        "plain_ms": c2["plain_ms"],
+        "bound_ms": c2["bound_ms"],
+        "bound_by": c2["bound_by"],
+        "library_ms": None,
+        "paths": paths,
+    }
     log(json.dumps({"kernels": [k1, tall, driver]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
@@ -537,16 +589,122 @@ def tall_slice(dev, card, tensors, sync_time):
     }
 
 
-def driver_slice(dev, card, tensors, sync_time):
-    """Phases 9-11: the driver kernel K3 against its plain version on every
-    K3 geometry, config 3 (both policies) and config 6 through
-    ``minimize``, the times and the bound.  Returns K3's entry of the
-    ``kernels`` line."""
+def k3_against_plain(name, g, tensors):
+    """K3, launched directly, against its plain version on one geometry of
+    ``tests/_torch_geometries.py`` in float64: status equal, iteration
+    counts within the plain version's own spread (``max(2, spread)`` on the
+    chaotic entries), trial counts equal where the counts must be, x within
+    the entry's ``x_atol``.  Returns max |dx| over the finite instances."""
     import torch
 
-    from _torch_geometries import k3_geometries, perturbation_spread
-    from optimization_solvers_tpu_torch import (linesearch as ls, minimize,
-                                                problems, solvers)
+    from _torch_geometries import perturbation_spread
+    from optimization_solvers_tpu_torch.ops import fused_driver
+
+    def opt(a):
+        return None if a is None else tensors(a)[0]
+
+    x0, lo, up = (opt(a) for a in (g["x0"], g["lower"], g["upper"]))
+    data = tensors(*g["data"])
+    kw = dict(max_iter=g["max_iter"], max_iter_ls=g["max_iter_ls"])
+    spec = fused_driver.build_spec(g["method"], g["search"])
+    x, f, it, st, nfev = fused_driver._launch_cuda(
+        spec, g["objective"], x0, lo, up, data, **kw)
+    torch.cuda.synchronize()
+
+    def run_plain(v):
+        return fused_driver.fused_minimize_plain(
+            g["method"], g["search"], g["objective"], opt(v), lo, up, data,
+            **kw)
+
+    xp, _, itp, stp, nfevp = run_plain(g["x0"])
+    spread = perturbation_spread(
+        lambda v: run_plain(v)[2].cpu().numpy(), g["x0"],
+        runs=6 if g["chaotic"] else 3)
+    budget = max(2, spread) if g["chaotic"] else spread
+    finite = torch.isfinite(f)
+    err = (x - xp)[finite].abs().max().item()
+    far_ok = torch.allclose(x[~finite], xp[~finite], rtol=1e-12, atol=0.0,
+                            equal_nan=True)
+    dit = (it.long() - itp.long()).abs().max().item()
+    same_trials = bool((nfev == nfevp).all())
+    log(f"K3 vs plain f64 {name}: status equal {bool((st == stp).all())}, "
+        f"max|dx| {err:.3g}, max|d iters| {dit} (budget {budget}), trials "
+        f"equal {same_trials}, converged "
+        f"{(st == 1).float().mean().item():.3f}")
+    check(bool((st == stp).all()), f"K3 {name}: status differs")
+    check(err <= g["x_atol"] and far_ok,
+          f"K3 {name}: max|dx| {err} > {g['x_atol']}")
+    check(dit <= budget, f"K3 {name}: iterations differ by {dit}")
+    if not g["chaotic"] and spread == 0:
+        check(same_trials, f"K3 {name}: trial counts differ")
+    return err
+
+
+def k3_per_instance(what, method, search, obj, x0, lo, up, data, kw,
+                    tensors):
+    """K3, launched directly, against the plain version in float64 on the
+    main path's inputs: status, iterations and trials equal and x within
+    K3_X_ATOL for every instance.  Returns max |dx|."""
+    import torch
+
+    from optimization_solvers_tpu_torch.ops import fused_driver
+
+    plain = fused_driver.fused_minimize_plain
+    spec = fused_driver.build_spec(method, search)
+    x, _, it, st, nfev = fused_driver._launch_cuda(
+        spec, obj, x0, lo, up, data, **kw)
+    torch.cuda.synchronize()
+    xp, _, itp, stp, nfevp = plain(method, search, obj, x0, lo, up, data,
+                                   **kw)
+    noise = tensors(np.random.RandomState(100).standard_normal(
+        tuple(x0.shape)))[0]
+    xq = plain(method, search, obj, x0 * (1 + 1e-15 * noise), lo, up, data,
+               **kw)[0]
+    err = (x - xp).abs().max().item()
+    same = [(a == b).float().mean().item()
+            for a, b in ((st, stp), (it, itp), (nfev, nfevp))]
+    log(f"K3 vs plain f64 {what}, {x0.shape[0]} x {x0.shape[1]}, at most "
+        f"{kw['max_iter']} iterations: status equal {same[0]:.5f}, "
+        f"iterations equal {same[1]:.5f}, trials equal {same[2]:.5f}, "
+        f"max|dx| {err:.3g} (plain vs plain with x0 moved by 1e-15 "
+        f"relative: {(xq - xp).abs().max().item():.3g}); trials per "
+        f"iteration {nfev.sum().item() / max(1, it.sum().item()):.3f}, "
+        f"converged {(st == 1).float().mean().item():.4f}")
+    check(min(same) == 1.0,
+          f"K3 {what}: status, iterations or trials differ per instance")
+    check(err <= K3_X_ATOL, f"K3 {what}: max|dx| {err} > {K3_X_ATOL}")
+    return err
+
+
+def medians_agree(what, r, fp, itp, it_rtol=MED_IT_RTOL, f_rtol=MED_F_RTOL):
+    """Full float32 solves, kernel vs plain on the same inputs."""
+    mi, mip = (v.float().median().item() for v in (r.iterations, itp))
+    mf, mfp = r.f.median().item(), fp.median().item()
+    log(f"{what} K3 vs plain f32: median iterations {mi:.0f} vs {mip:.0f}, "
+        f"median f {mf:.6g} vs {mfp:.6g}; iterations equal per instance "
+        f"{(r.iterations == itp).float().mean().item():.4f}")
+    check(abs(mi - mip) <= it_rtol * mip,
+          f"{what}: median iterations {mi} vs plain {mip}")
+    check(abs(mf - mfp) <= f_rtol * abs(mfp),
+          f"{what}: median f {mf} vs plain {mfp}")
+
+
+def report(what, r, seconds=None):
+    conv = (r.status == 1).float().mean().item()
+    text = (f"{what}: converged {conv:.4f}, median f "
+            f"{r.f.median().item():.6g}, median iterations "
+            f"{r.iterations.float().median().item():.0f} (max "
+            f"{r.iterations.max().item()})")
+    if seconds is not None:
+        text += f", {seconds:.3f} s"
+    log(text)
+    return conv
+
+
+def k3_main_path(what, solve, x, B, n, sync_time):
+    """Drive ``solve(x)`` with every count at 0; K3 alone must launch."""
+    import torch
+
     from optimization_solvers_tpu_torch.ops import (fused_driver,
                                                     fused_lbfgsb,
                                                     fused_lbfgsb_tall)
@@ -554,112 +712,35 @@ def driver_slice(dev, card, tensors, sync_time):
     K1 = fused_lbfgsb.lbfgsb_solve_fused
     K2 = fused_lbfgsb_tall.lbfgsb_solve_fused_tall
     K3 = fused_driver.fused_minimize
+    K1.launches = K2.launches = K3.launches = 0
+    r, wall = sync_time(lambda: solve(x))
+    counts = (K1.launches, K2.launches, K3.launches)
+    log(f"{what}: K3 launches {counts[2]}, K1 {counts[0]}, K2 {counts[1]}")
+    check(counts[2] >= 1 and counts[:2] == (0, 0),
+          f"{what}: launches {counts}, not K3 alone")
+    check(r.x.shape == (B, n) and r.f.shape == (B,), f"{what}: shapes")
+    check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
+          f"{what}: non-finite result")
+    return r, wall, counts[2]
+
+
+def driver_slice(dev, card, tensors, sync_time):
+    """Phases 9-12: the driver kernel K3's first-order form against its
+    plain version on every first-order geometry, config 3 (both policies)
+    and config 6 through ``minimize``, the times and the bound.  Returns a
+    dict of the numbers K3's entry of the ``kernels`` line takes."""
+    import torch
+
+    from _torch_geometries import k3_geometries
+    from optimization_solvers_tpu_torch import (linesearch as ls, minimize,
+                                                problems, solvers)
+    from optimization_solvers_tpu_torch.ops import fused_driver
+
     plain = fused_driver.fused_minimize_plain
 
-    def opt(a, dtype=torch.float64):
-        return None if a is None else tensors(a, dtype=dtype)[0]
-
-    # ---- 9. K3 vs plain on the card, float64, every geometry
-    geom_err = 0.0
-    for name, g in k3_geometries().items():
-        x0, lo, up = (opt(a) for a in (g["x0"], g["lower"], g["upper"]))
-        data = tensors(*g["data"])
-        kw = dict(max_iter=g["max_iter"], max_iter_ls=g["max_iter_ls"])
-        spec = fused_driver.build_spec(g["method"], g["search"])
-        x, f, it, st, nfev = fused_driver._launch_cuda(
-            spec, g["objective"], x0, lo, up, data, **kw)
-        torch.cuda.synchronize()
-
-        def run_plain(v):
-            return plain(g["method"], g["search"], g["objective"], opt(v),
-                         lo, up, data, **kw)
-
-        xp, _, itp, stp, nfevp = run_plain(g["x0"])
-        spread = perturbation_spread(
-            lambda v: run_plain(v)[2].cpu().numpy(), g["x0"],
-            runs=6 if g["chaotic"] else 3)
-        budget = max(2, spread) if g["chaotic"] else spread
-        finite = torch.isfinite(f)
-        err = (x - xp)[finite].abs().max().item()
-        far_ok = torch.allclose(x[~finite], xp[~finite], rtol=1e-12,
-                                atol=0.0, equal_nan=True)
-        dit = (it.long() - itp.long()).abs().max().item()
-        geom_err = max(geom_err, err)
-        log(f"K3 vs plain f64 {name}: status equal "
-            f"{bool((st == stp).all())}, max|dx| {err:.3g}, max|d iters| "
-            f"{dit} (budget {budget}), trials equal "
-            f"{bool((nfev == nfevp).all())}, converged "
-            f"{(st == 1).float().mean().item():.3f}")
-        check(bool((st == stp).all()), f"K3 {name}: status differs")
-        check(err <= g["x_atol"] and far_ok,
-              f"K3 {name}: max|dx| {err} > {g['x_atol']}")
-        check(dit <= budget, f"K3 {name}: iterations differ by {dit}")
-
-    def per_instance(what, method, search, obj, x0, lo, up, data, kw):
-        """K3, launched directly, against the plain version in float64 on
-        the main path's inputs: status, iterations and trials equal and x
-        within K3_X_ATOL for every instance.  Returns max |dx|."""
-        spec = fused_driver.build_spec(method, search)
-        x, _, it, st, nfev = fused_driver._launch_cuda(
-            spec, obj, x0, lo, up, data, **kw)
-        torch.cuda.synchronize()
-        xp, _, itp, stp, nfevp = plain(method, search, obj, x0, lo, up, data,
-                                       **kw)
-        noise = tensors(np.random.RandomState(100).standard_normal(
-            tuple(x0.shape)))[0]
-        xq = plain(method, search, obj, x0 * (1 + 1e-15 * noise), lo, up,
-                   data, **kw)[0]
-        err = (x - xp).abs().max().item()
-        same = [(a == b).float().mean().item()
-                for a, b in ((st, stp), (it, itp), (nfev, nfevp))]
-        log(f"K3 vs plain f64 {what}, {x0.shape[0]} x {x0.shape[1]}, at most "
-            f"{kw['max_iter']} iterations: status equal {same[0]:.5f}, "
-            f"iterations equal {same[1]:.5f}, trials equal {same[2]:.5f}, "
-            f"max|dx| {err:.3g} (plain vs plain with x0 moved by 1e-15 "
-            f"relative: {(xq - xp).abs().max().item():.3g}); trials per "
-            f"iteration {nfev.sum().item() / max(1, it.sum().item()):.3f}, "
-            f"converged {(st == 1).float().mean().item():.4f}")
-        check(min(same) == 1.0,
-              f"K3 {what}: status, iterations or trials differ per instance")
-        check(err <= K3_X_ATOL, f"K3 {what}: max|dx| {err} > {K3_X_ATOL}")
-        return err
-
-    def medians_agree(what, r, fp, itp):
-        """Full float32 solves, kernel vs plain on the same inputs."""
-        mi, mip = (v.float().median().item() for v in (r.iterations, itp))
-        mf, mfp = r.f.median().item(), fp.median().item()
-        log(f"{what} K3 vs plain f32: median iterations {mi:.0f} vs "
-            f"{mip:.0f}, median f {mf:.6g} vs {mfp:.6g}; iterations equal "
-            f"per instance {(r.iterations == itp).float().mean().item():.4f}")
-        check(abs(mi - mip) <= MED_IT_RTOL * mip,
-              f"{what}: median iterations {mi} vs plain {mip}")
-        check(abs(mf - mfp) <= MED_F_RTOL * mfp,
-              f"{what}: median f {mf} vs plain {mfp}")
-
-    def report(what, r, seconds=None):
-        conv = (r.status == 1).float().mean().item()
-        text = (f"{what}: converged {conv:.4f}, median f "
-                f"{r.f.median().item():.6g}, median iterations "
-                f"{r.iterations.float().median().item():.0f} (max "
-                f"{r.iterations.max().item()})")
-        if seconds is not None:
-            text += f", {seconds:.3f} s"
-        log(text)
-        return conv
-
-    def main_path(what, solve, x, B, n):
-        """Drive ``solve(x)`` with every count at 0; K3 alone must launch."""
-        K1.launches = K2.launches = K3.launches = 0
-        r, wall = sync_time(lambda: solve(x))
-        counts = (K1.launches, K2.launches, K3.launches)
-        log(f"{what} via minimize: K3 launches {counts[2]}, K1 "
-            f"{counts[0]}, K2 {counts[1]}")
-        check(counts[2] >= 1 and counts[:2] == (0, 0),
-              f"{what}: launches {counts}, not K3 alone")
-        check(r.x.shape == (B, n) and r.f.shape == (B,), f"{what}: shapes")
-        check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
-              f"{what}: non-finite result")
-        return r, wall, counts[2]
+    # ---- 9. K3 vs plain on the card, float64, every first-order geometry
+    geom_err = max(k3_against_plain(name, g, tensors)
+                   for name, g in k3_geometries().items())
 
     def timed(what, solve, run_plain, B, n, lo_hi, seed):
         """Median of 3 calls on distinct seeded inputs, kernel (through
@@ -705,16 +786,16 @@ def driver_slice(dev, card, tensors, sync_time):
         starts3, np.full(n, -c["box"]), np.full(n, c["box"]),
         np.logspace(0, 3, n), np.zeros(n))
     for policy in ("fast", "reference"):
-        max_abs_err = max(max_abs_err, per_instance(
+        max_abs_err = max(max_abs_err, k3_per_instance(
             f"config 3 ({policy})", spg(policy), ls.GLLQuadratic(), obj3,
             x3d, lo3d, up3d, tuple(data3d),
-            dict(kw3, max_iter=K3_CAPPED_ITERS)))
+            dict(kw3, max_iter=K3_CAPPED_ITERS), tensors))
     (x6d,) = tensors(starts6)
-    max_abs_err = max(max_abs_err, per_instance(
+    max_abs_err = max(max_abs_err, k3_per_instance(
         "config 6", solvers.GradientDescent(grad_tol=c6["tol"]),
-        ls.BackTracking(), obj6, x6d, None, None, (), kw6))
-    log(f"K3 max|dx| vs plain: {max_abs_err:.3g} at the main path's shapes, "
-        f"{geom_err:.3g} on the geometries")
+        ls.BackTracking(), obj6, x6d, None, None, (), kw6, tensors))
+    log(f"K3 first-order form max|dx| vs plain: {max_abs_err:.3g} at the "
+        f"main path's shapes, {geom_err:.3g} on the geometries")
 
     # ---- 11. config 3 through minimize, both policies
 
@@ -728,8 +809,9 @@ def driver_slice(dev, card, tensors, sync_time):
 
     results = {}
     for policy in ("fast", "reference"):
-        res, wall, launches3 = main_path(
-            f"config 3 ({policy})", lambda x: solve3(x, policy), x3, B, n)
+        res, wall, launches3 = k3_main_path(
+            f"config 3 ({policy}) via minimize", lambda x: solve3(x, policy),
+            x3, B, n, sync_time)
         conv = report(f"config 3 ({policy}) K3", res, wall)
         (_, fp, itp, stp, _), plain_wall = sync_time(
             lambda: plain3(x3, policy))
@@ -773,7 +855,8 @@ def driver_slice(dev, card, tensors, sync_time):
         return plain(solvers.GradientDescent(grad_tol=c6["tol"]),
                      ls.BackTracking(), obj6, x, **kw6)
 
-    res6, wall6, _ = main_path("config 6", solve6, x6, B6, n6)
+    res6, wall6, launches6 = k3_main_path("config 6 via minimize", solve6,
+                                          x6, B6, n6, sync_time)
     conv6 = report("config 6 K3", res6, wall6)
     (_, fp6, itp6, stp6, _), plain_wall6 = sync_time(lambda: plain6(x6))
     cp6 = (stp6 == 1).float().mean().item()
@@ -784,7 +867,8 @@ def driver_slice(dev, card, tensors, sync_time):
     check(abs(conv6 - cp6) <= CONV_ATOL,
           f"config 6: converged {conv6} vs plain {cp6}")
     medians_agree("config 6", res6, fp6, itp6)
-    ms6, _ = timed("config 6", solve6, plain6, B6, n6, (-5.0, 5.0), 66)
+    ms6, plain_ms6 = timed("config 6", solve6, plain6, B6, n6, (-5.0, 5.0),
+                           66)
     spec6 = fused_driver.build_spec(
         solvers.GradientDescent(grad_tol=c6["tol"]), ls.BackTracking())
     _, _, itk6, _, nfevk6 = fused_driver._launch_cuda(
@@ -799,34 +883,333 @@ def driver_slice(dev, card, tensors, sync_time):
         f"{nfevk6.sum().item() / itk6.sum().item():.3f}; kernel {ms6:.2f} ms"
         f"  [{card}]")
     return {
-        "name": "driver",
-        "route": "cuda",
-        "source": "optimization_solvers_tpu_torch/ops/csrc/driver.cu",
-        "replaces": "optimization_solvers_tpu/ops/pallas_driver.py:1874",
-        "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
+        "config 3 (fast)": dict(launches=launches, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by),
+        "config 6": dict(launches=launches6, ms=ms6, plain_ms=plain_ms6,
+                         bound_ms=b6, bound_by=by6),
     }
 
 
+def qn_slice(dev, card, tensors, sync_time):
+    """Phases 13-16: K3's quasi-Newton form against its plain version on
+    every quasi-Newton geometry and per instance at config 2's shape, then
+    config 2 (dense BFGS + More-Thuente, through ``batch_minimize`` as the
+    bench calls it and through ``minimize`` in both policies) and L-BFGS +
+    Hager-Zhang at the same shape, with times and bounds.  Returns a dict
+    of the numbers K3's entry of the ``kernels`` line takes."""
+    import torch
+
+    from _torch_geometries import k3_qn_geometries
+    from optimization_solvers_tpu_torch import (linesearch as ls, minimize,
+                                                problems, solvers)
+    from optimization_solvers_tpu_torch.core.oracle import make_oracle
+    from optimization_solvers_tpu_torch.ops import fused_driver
+
+    plain = fused_driver.fused_minimize_plain
+
+    # ---- 13. K3 vs plain on the card, float64, every quasi-Newton geometry
+    geom_err = max(k3_against_plain(name, g, tensors)
+                   for name, g in k3_qn_geometries().items())
+
+    # every quasi-Newton row of minimize, with its default search and each
+    # Wolfe search, launches K3 once per call (64 x 12 weighted squares)
+    d12, t12 = tensors(np.linspace(1.0, 20.0, 12), np.linspace(-0.8, 0.8, 12))
+    (x12,) = tensors(np.random.RandomState(1).uniform(-1, 1, (64, 12)))
+    free = [None, ls.MoreThuente(), ls.HagerZhang(), ls.StrongWolfe()]
+    boxed = [ls.MoreThuenteB(), ls.HagerZhangB(),
+             ls.StrongWolfe(bounded=True)]
+    K3 = fused_driver.fused_minimize
+    calls = 0
+    for method in ("bfgs", "dfp", "broyden", "lbfgs", "bfgsb", "dfpb",
+                   "broydenb", "sr1b"):
+        bounded = method.endswith("b")
+        for search in free + (boxed if bounded else []):
+            before = K3.launches
+            r = minimize(problems.weighted_squares(), x12, method=method,
+                         data=(d12, t12), search=search, tol=1e-6,
+                         bounds=(-1.0, 1.0) if bounded else None,
+                         max_iter=500)
+            torch.cuda.synchronize()
+            check(K3.launches == before + 1 and r.x.device == x12.device,
+                  f"minimize({method!r}, search={search}) did not launch K3")
+            check(bool(torch.isin(r.status, torch.tensor(
+                [1, 6], device=dev)).all()),
+                f"minimize({method!r}, search={search}): not all success")
+            calls += 1
+    log(f"K3 routes: {calls} quasi-Newton minimize calls (8 rows x their "
+        f"default and Wolfe searches), each launched K3 once; all success")
+
+    c = CONFIG2
+    B, n = c["B"], c["n"]
+    rosen = problems.rosenbrock()
+    kw = dict(max_iter=c["max_iter"], max_iter_ls=c["max_iter_ls"])
+    starts = np.random.RandomState(42).uniform(-2.0, 2.0, (B, n))
+
+    def bfgs():
+        # config 2's method, as bench.py builds it
+        return solvers.QuasiNewton(tol=c["tol"], update="bfgs", scale_b0=True,
+                                   restart_on_degeneracy=True)
+
+    lbfgs = solvers.LBFGS(tol=LBFGS_RUN["tol"])
+    cases = {
+        "config 2 (bench: MoreThuente)": (bfgs(), ls.MoreThuente()),
+        "config 2 (fast: MoreThuente approx_wolfe)": (
+            bfgs(), ls.MoreThuente(approx_wolfe=True)),
+        "L-BFGS + HagerZhang": (lbfgs, ls.HagerZhang()),
+    }
+
+    # ---- 14. K3 vs plain per instance at config 2's shape, float64, over
+    # the first K3_CAPPED_ITERS iterations (full Rosenbrock solves are
+    # chaotic per instance)
+    (xd,) = tensors(starts)
+    max_abs_err = max(
+        k3_per_instance(what, method, search, rosen, xd, None, None, (),
+                        dict(kw, max_iter=K3_CAPPED_ITERS), tensors)
+        for what, (method, search) in cases.items())
+    log(f"K3 quasi-Newton form max|dx| vs plain: {max_abs_err:.3g} at config "
+        f"2's shape, {geom_err:.3g} on the geometries")
+
+    # ---- 15. config 2 in float32, full solves
+    (x,) = tensors(starts, dtype=torch.float32)
+
+    def success(r):
+        return torch.isin(r.status, torch.tensor([1, 6], device=dev))
+
+    def stationary(f):
+        # bench.py:387-388: the global minimum or the local one near x0 = -1
+        return ((f < 1e-6) | ((f - 3.9866).abs() < 1e-2)).float().mean().item()
+
+    def describe(what, r, trials, seconds):
+        conv = (r.status == 1).float().mean().item()
+        stalled = (r.status == 6).float().mean().item()
+        succ = success(r).float().mean().item()
+        stat = stationary(r.f)
+        log(f"{what}: converged {conv:.4f}, STALLED {stalled:.4f}, success "
+            f"class {succ:.4f}, stationary {stat:.4f}, median f "
+            f"{r.f.median().item():.6g}, median iterations "
+            f"{r.iterations.float().median().item():.0f} (max "
+            f"{r.iterations.max().item()}), trials per iteration "
+            f"{trials.sum().item() / max(1, r.iterations.sum().item()):.3f},"
+            f" {seconds:.3f} s  [{card}]")
+        return succ, stat
+
+    def kernel_trials(method, search, xs):
+        spec = fused_driver.build_spec(method, search)
+        return fused_driver._launch_cuda(spec, rosen, xs, None, None, (),
+                                         **kw)[4]
+
+    def against_plain(what, r, method, search, xs, run_kw=kw):
+        """The plain version on the same inputs, with the epilogue; the
+        success-class (or converged) fractions within 0.01, medians as
+        C2_MED_IT_RTOL and C2_MED_F_RTOL.  Returns the plain wall time."""
+        (xp, fp, itp, stp, nfevp), wall = sync_time(
+            lambda: plain(method, search, rosen, xs, **run_kw))
+        rp = fused_driver.epilogue(method, rosen, (), xp, fp, itp, stp)
+        describe(f"{what} plain on the card", rp, nfevp, wall)
+        sk, sp = success(r).float().mean().item(), success(rp).float().mean(
+            ).item()
+        check(abs(sk - sp) <= CONV_ATOL,
+              f"{what}: success class {sk} vs plain {sp}")
+        medians_agree(what, r, fp, itp, C2_MED_IT_RTOL, C2_MED_F_RTOL)
+        return wall
+
+    def bench(xs):
+        return solvers.batch_minimize(bfgs(), ls.MoreThuente(),
+                                      make_oracle(rosen), xs, **kw)
+
+    def front(xs, policy):
+        return minimize(rosen, xs, method="bfgs", tol=c["tol"], scale_b0=True,
+                        restart_on_degeneracy=True, policy=policy, **kw)
+
+    r, wall, launches = k3_main_path("config 2 via batch_minimize", bench, x,
+                                     B, n, sync_time)
+    trials = kernel_trials(bfgs(), ls.MoreThuente(), x)
+    succ, stat = describe("config 2 (bench) K3", r, trials, wall)
+    check(succ >= C2_SUCCESS, f"config 2: success class {succ} < "
+          f"{C2_SUCCESS}")
+    check(stat >= C2_STATIONARY, f"config 2: stationary {stat} < "
+          f"{C2_STATIONARY}")
+    plain_s = against_plain("config 2 (bench)", r, bfgs(), ls.MoreThuente(),
+                            x)
+    for policy, search in (("fast", ls.MoreThuente(approx_wolfe=True)),
+                           ("reference", ls.MoreThuente())):
+        rp, wallp, _ = k3_main_path(
+            f"config 2 ({policy}) via minimize", lambda xs: front(xs, policy),
+            x, B, n, sync_time)
+        describe(f"config 2 ({policy}) K3", rp,
+                 kernel_trials(bfgs(), search, x), wallp)
+        if policy == "fast":
+            against_plain("config 2 (fast)", rp, bfgs(), search, x)
+        else:
+            check(torch.equal(rp.x, r.x) and torch.equal(rp.status, r.status),
+                  "config 2: the reference policy is not the bench call")
+    rng = np.random.RandomState(22)
+    walls = []
+    for _ in range(3):
+        (xs,) = tensors(rng.uniform(-2.0, 2.0, (B, n)), dtype=torch.float32)
+        walls.append(sync_time(lambda: bench(xs))[1])
+    ms = 1e3 * statistics.median(walls)
+    log(f"config 2 (bench) K3 via batch_minimize: {ms:.2f} ms per call "
+        f"(median of 3, distinct inputs; min {1e3 * min(walls):.2f}, max "
+        f"{1e3 * max(walls):.2f}), {B / (ms / 1e3):.0f} solves/s; plain "
+        f"{1e3 * plain_s:.0f} ms for one call  [{card}]")
+
+    # bound at config 2, from this run's counts: x0 read and x, f,
+    # iterations, status and trial counts written once (the slabs are the
+    # kernel's scratch); per iteration of dense BFGS (csrc/driver.cuh) the
+    # direction B g 2n^2, B y 2n^2 and the rank-2 update of the slab 6n^2,
+    # plus the step and the value-and-gradient at the new point (Rosenbrock
+    # 15n) and the s, y sums 8n; per More-Thuente trial the trial point 2n,
+    # the value-and-gradient 15n and g.d 2n.  The slab passes dominate:
+    # operations bound it.
+    its, nf = r.iterations.double().sum().item(), trials.double().sum().item()
+    bound_ms, bound_by = bound(2 * B * n * 4 + 4 * B * 4,
+                               its * (10 * n * n + 25 * n) + nf * 19 * n)
+    log(f"K3 bound at config 2: {bound_ms:.4f} ms ({bound_by}); kernel "
+        f"{ms:.2f} ms  [{card}]")
+
+    # ---- 16. L-BFGS + Hager-Zhang at the same shape, float32
+    def solve_l(xs):
+        return minimize(rosen, xs, method="lbfgs", tol=LBFGS_RUN["tol"],
+                        max_iter=LBFGS_RUN["max_iter"])
+
+    kw_l = dict(max_iter=LBFGS_RUN["max_iter"], max_iter_ls=40)
+    rl, wall_l, launches_l = k3_main_path("L-BFGS + HagerZhang via minimize",
+                                          solve_l, x, B, n, sync_time)
+    spec_l = fused_driver.build_spec(lbfgs, ls.HagerZhang())
+    trials_l = fused_driver._launch_cuda(spec_l, rosen, x, None, None, (),
+                                         **kw_l)[4]
+    describe("L-BFGS + HagerZhang K3", rl, trials_l, wall_l)
+    (xp, fp, itp, stp, nfevp), plain_l = sync_time(
+        lambda: plain(lbfgs, ls.HagerZhang(), rosen, x, **kw_l))
+    describe("L-BFGS + HagerZhang plain on the card",
+             fused_driver.epilogue(lbfgs, rosen, (), xp, fp, itp, stp), nfevp,
+             plain_l)
+    ck, cp = ((s == 1).float().mean().item() for s in (rl.status, stp))
+    check(abs(ck - cp) <= CONV_ATOL,
+          f"L-BFGS + HagerZhang: converged {ck} vs plain {cp}")
+    medians_agree("L-BFGS + HagerZhang", rl, fp, itp, C2_MED_IT_RTOL,
+                  C2_MED_F_RTOL)
+    walls = []
+    for _ in range(3):
+        (xs,) = tensors(rng.uniform(-2.0, 2.0, (B, n)), dtype=torch.float32)
+        walls.append(sync_time(lambda: solve_l(xs))[1])
+    ms_l = 1e3 * statistics.median(walls)
+    # per iteration of L-BFGS (m = 10): the two loops 8mn, the history
+    # update 4n, the step, the value-and-gradient 15n and the sums 8n; per
+    # Hager-Zhang trial 19n, as above
+    m = lbfgs.m
+    its_l = rl.iterations.double().sum().item()
+    b_l, by_l = bound(2 * B * n * 4 + 4 * B * 4,
+                      its_l * (8 * m * n + 27 * n)
+                      + trials_l.double().sum().item() * 19 * n)
+    log(f"L-BFGS + HagerZhang K3 via minimize: {ms_l:.2f} ms per call "
+        f"(median of 3, distinct inputs), plain {1e3 * plain_l:.0f} ms for "
+        f"one call; bound {b_l:.4f} ms ({by_l})  [{card}]")
+    return {
+        "max_abs_err": max_abs_err,
+        "config 2": dict(launches=launches, ms=ms, plain_ms=1e3 * plain_s,
+                         bound_ms=bound_ms, bound_by=bound_by),
+        "L-BFGS + HagerZhang": dict(launches=launches_l, ms=ms_l,
+                                    plain_ms=1e3 * plain_l, bound_ms=b_l,
+                                    bound_by=by_l),
+    }
+
+
+def first_order_times(root):
+    """Configs 3 (fast) and 6 through ``minimize``, built and imported from
+    the checkout at ``root``: median and spread of FIRST_ORDER_REPEATS calls
+    on distinct seeded inputs, after one warm-up call, and the kernel's
+    device time alone (CUDA events around the launch)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import optimization_solvers_tpu_torch as ostt
+    from optimization_solvers_tpu_torch import linesearch as ls, solvers
+    from optimization_solvers_tpu_torch.ops import _build, fused_driver
+
+    card = card_line()
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"package {os.path.dirname(ostt.__file__)}; build or load "
+        f"{time.perf_counter() - t0:.1f} s")
+    c, c6 = CONFIG3, CONFIG6
+    dev = torch.device("cuda")
+    data3 = tuple(torch.tensor(a, dtype=torch.float32, device=dev) for a in
+                  (np.logspace(0, 3, c["n"]), np.zeros(c["n"])))
+    obj6 = ostt.problems.diag_quadratic(np.linspace(1.0, 100.0, c6["n"]))
+
+    def solve3(x):
+        return ostt.minimize(ostt.problems.weighted_squares(), x,
+                             method="spg", bounds=(-c["box"], c["box"]),
+                             data=data3, tol=c["tol"], max_iter=c["max_iter"],
+                             max_iter_ls=c["max_iter_ls"])
+
+    def solve6(x):
+        return ostt.minimize(obj6, x, method="gd", tol=c6["tol"],
+                             max_iter=c6["max_iter"])
+
+    def launch3(x):
+        spec = fused_driver.build_spec(solvers.SpectralProjectedGradient(
+            grad_tol=c["tol"], bb_variant="alternate"), ls.GLLQuadratic())
+        box = torch.full((c["n"],), c["box"], device=dev)
+        return fused_driver._launch_cuda(
+            spec, ostt.problems.weighted_squares(), x, -box, box, data3,
+            c["max_iter"], c["max_iter_ls"])
+
+    def launch6(x):
+        spec = fused_driver.build_spec(
+            solvers.GradientDescent(grad_tol=c6["tol"]), ls.BackTracking())
+        return fused_driver._launch_cuda(spec, obj6, x, None, None, (),
+                                         c6["max_iter"], c6["max_iter_ls"])
+
+    for what, solve, launch, B, n, half, seed in (
+            ("config 3 (fast)", solve3, launch3, c["B"], c["n"], 2.0, 33),
+            ("config 6", solve6, launch6, c6["B"], c6["n"], 5.0, 66)):
+        rng = np.random.RandomState(seed)
+        xs = [torch.tensor(rng.uniform(-half, half, (B, n)),
+                           dtype=torch.float32, device=dev)
+              for _ in range(FIRST_ORDER_REPEATS + 1)]
+        solve(xs[0])
+        ts = []
+        for x in xs[1:]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            solve(x)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t))
+        dev_ms = []
+        for x in xs[1:]:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(x)
+            stop.record()
+            torch.cuda.synchronize()
+            dev_ms.append(start.elapsed_time(stop))
+        log(f"{what}: {statistics.median(ts):.3f} ms per call (median of "
+            f"{len(ts)}; min {min(ts):.3f}, max {max(ts):.3f}); the K3 "
+            f"wrapper alone {statistics.median(dev_ms):.3f} ms (min "
+            f"{min(dev_ms):.3f}, max {max(dev_ms):.3f})  [{card}]")
+    return 0
+
+
 def driver_breakdown(dev, card, tensors, sync_time):
-    """Phase 13, with ``--breakdown`` only: where K3's time goes at configs
-    3 and 6: the device time by kernel in one profiled solve, a batch sweep
-    and an iteration cap.  Only printed; nothing here is held."""
+    """Phase 17, with ``--breakdown`` only: where K3's time goes at configs
+    3, 6 and 2: the device time by kernel in one profiled solve, a batch
+    sweep and an iteration cap.  Only printed; nothing here is held."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from optimization_solvers_tpu_torch import minimize, problems
 
-    c, c6 = CONFIG3, CONFIG6
+    c, c6, c2 = CONFIG3, CONFIG6, CONFIG2
     obj3 = problems.weighted_squares()
     data3 = tensors(np.logspace(0, 3, c["n"]), np.zeros(c["n"]),
                     dtype=torch.float32)
     obj6 = problems.diag_quadratic(np.linspace(1.0, 100.0, c6["n"]))
+    rosen = problems.rosenbrock()
 
     def solve3(x, max_iter=c["max_iter"]):
         return minimize(obj3, x, method="spg", bounds=(-c["box"], c["box"]),
@@ -842,9 +1225,18 @@ def driver_breakdown(dev, card, tensors, sync_time):
                                                            (B, n)),
                        dtype=torch.float32)[0]
 
-    cells = (("config 3", solve3, c["n"], 2.0, c["B"]),
-             ("config 6", solve6, c6["n"], 5.0, c6["B"]))
-    for what, solve, n, half, B in cells:
+    def solve2(x, max_iter=c2["max_iter"]):
+        return minimize(rosen, x, method="bfgs", tol=c2["tol"],
+                        scale_b0=True, restart_on_degeneracy=True,
+                        policy="reference", max_iter=max_iter,
+                        max_iter_ls=c2["max_iter_ls"])
+
+    sweep3 = (132, 1056, 2112, 4224, 8448, 10240, 20480)
+    cells = (("config 3", solve3, c["n"], 2.0, c["B"], sweep3),
+             ("config 6", solve6, c6["n"], 5.0, c6["B"], sweep3),
+             ("config 2", solve2, c2["n"], 2.0, c2["B"],
+              (132, 264, 528, 1056, 2112, 4224)))
+    for what, solve, n, half, B, sizes in cells:
         x = starts(B, n, half, 5)
         solve(x)
         torch.cuda.synchronize()
@@ -859,7 +1251,7 @@ def driver_breakdown(dev, card, tensors, sync_time):
             f"{total / 1e3:.3f} ms in {len(rows)} kernels; "
             + "; ".join(f"{k[:40]} {t / 1e3:.3f} ms" for k, t in top))
         sweep = []
-        for b in (132, 1056, 2112, 4224, 8448, 10240, 20480):
+        for b in sizes:
             xb = starts(b, n, half, 6)
             solve(xb)
             ts = [sync_time(lambda: solve(xb))[1] for _ in range(3)]

@@ -9,18 +9,20 @@ mirrors its layout and module names:
                 PyTorch version (CPU) and a hand-written CUDA kernel (GPU):
                 K1 ops/csrc/lbfgsb_fused.cu (L-BFGS-B, small n), the tall
                 K2 ops/csrc/lbfgsb_tall.cu (L-BFGS-B, large n, config 4)
-                and the generic driver K3 ops/csrc/driver.cu (first-order
-                template methods, configs 3 and 6)
-  linesearch/ -- the Armijo-family search configs K3 runs, and the
-                MINPACK dcstep update of K2's dcsrch mode
-  solvers/   -- the first-order method configs, batch_minimize (the route
-                to K3), LbfgsbConfig
+                and the generic driver K3 ops/csrc/driver.cu (template
+                methods: first-order, configs 3 and 6; dense quasi-Newton
+                and L-BFGS, config 2)
+  linesearch/ -- the Armijo- and Wolfe-family search configs K3 runs, and
+                the MINPACK dcstep update of K2's and K3's dcsrch
+  solvers/   -- the first-order, dense quasi-Newton and L-BFGS method
+                configs, batch_minimize (the route to K3), LbfgsbConfig
   frontend   -- minimize(f, x0, method=..., ...)
   interop    -- numpy hand-over between the two packages
 
 Ported so far: the batched box-constrained L-BFGS-B main path at small and
-large n, and the first-order template methods (gd, cd, pgd, pnorm, spg,
-ncg).  ROADMAP.md lists what follows.
+large n, and the template methods gd, cd, pgd, pnorm, spg, ncg, bfgs, dfp,
+broyden, bfgsb, dfpb, broydenb, sr1b and lbfgs with every line search.
+ROADMAP.md lists what follows.
 """
 
 from . import linesearch, solvers

@@ -13,10 +13,12 @@ ported:
   The JAX front end picks by the TPU kernels' VMEM footprint instead
   (``frontend.py:391-425`` there): the two chips hold different amounts on
   chip, so the boundary moves.
-* the first-order template methods ``gd``, ``cd``, ``pgd``, ``pnorm``,
-  ``spg`` and ``ncg``, with their default searches or a ``search=`` of
-  :mod:`.linesearch`, through :func:`.solvers.batch_minimize` onto the
-  generic driver kernel K3 (:mod:`.ops.fused_driver`).
+* the template methods -- first-order ``gd``, ``cd``, ``pgd``, ``pnorm``,
+  ``spg`` and ``ncg``, dense quasi-Newton ``bfgs``, ``dfp``, ``broyden``,
+  ``bfgsb``, ``dfpb``, ``broydenb`` and ``sr1b``, and ``lbfgs`` -- with
+  their default searches or a ``search=`` of :mod:`.linesearch`, through
+  :func:`.solvers.batch_minimize` onto the generic driver kernel K3
+  (:mod:`.ops.fused_driver`).
 
 The rule is the same on both devices; x0's device then picks the version:
 a CPU tensor runs the plain PyTorch version of the chosen kernel, a CUDA
@@ -30,6 +32,9 @@ Example::
                         method="lbfgsb", bounds=(-5.0, 5.0), tol=1e-3)
     res = ostt.minimize(ostt.problems.diag_quadratic(d), x0_batch.cuda(),
                         method="gd", tol=1e-6, max_iter=3000)
+    res = ostt.minimize(ostt.problems.rosenbrock(), x0_batch.cuda(),
+                        method="bfgs", tol=2e-4, scale_b0=True,
+                        restart_on_degeneracy=True, max_iter=1500)
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from .core.oracle import Oracle, make_oracle
 from .ops import fused_lbfgsb
 from .ops.fused_lbfgsb import lbfgsb_solve_fused
 from .ops.fused_lbfgsb_tall import lbfgsb_solve_fused_tall
-from .solvers import nonlinear_cg, steepest
+from .solvers import lbfgs, nonlinear_cg, quasi_newton, steepest
 from .solvers.driver import as_batch, batch_minimize
 from .solvers.lbfgsb import LbfgsbConfig
 
@@ -52,36 +57,40 @@ _LOCKSTEP_ONLY = ("ls_c2", "rel_pg_stop", "verbose", "curvature_eps")
 # keywords of the JAX front end whose machinery is not ported yet
 _NOT_PORTED = {"precision": "item 10", "polish_max_iter": "item 10"}
 
-# name: (method config, default search, bounded) -- the template methods of
-# this slice, as in the JAX front end's table
+# name: (method factory, the field tol fills, default search, bounded) --
+# the template methods of the ported slices, as in the JAX front end's table
 _TEMPLATE = {
-    "gd": (steepest.GradientDescent, ls.BackTracking, False),
-    "cd": (steepest.CoordinateDescent, ls.BackTracking, False),
-    "pgd": (steepest.ProjectedGradientDescent, ls.BackTrackingB, True),
-    "pnorm": (steepest.PnormDescent, ls.BackTracking, False),
-    "spg": (steepest.SpectralProjectedGradient, ls.GLLQuadratic, True),
-    "ncg": (nonlinear_cg.NonlinearCG, ls.BackTracking, False),
+    "gd": (steepest.GradientDescent, "grad_tol", ls.BackTracking, False),
+    "cd": (steepest.CoordinateDescent, "grad_tol", ls.BackTracking, False),
+    "pgd": (steepest.ProjectedGradientDescent, "grad_tol", ls.BackTrackingB,
+            True),
+    "pnorm": (steepest.PnormDescent, "grad_tol", ls.BackTracking, False),
+    "spg": (steepest.SpectralProjectedGradient, "grad_tol", ls.GLLQuadratic,
+            True),
+    "bfgs": (quasi_newton.BFGS, "tol", ls.MoreThuente, False),
+    "dfp": (quasi_newton.DFP, "tol", ls.MoreThuente, False),
+    "broyden": (quasi_newton.Broyden, "tol", ls.MoreThuente, False),
+    "bfgsb": (quasi_newton.BFGSB, "tol", ls.MoreThuenteB, True),
+    "dfpb": (quasi_newton.DFPB, "tol", ls.MoreThuenteB, True),
+    "broydenb": (quasi_newton.BroydenB, "tol", ls.MoreThuenteB, True),
+    "sr1b": (quasi_newton.SR1B, "tol", ls.MoreThuenteB, True),
+    "ncg": (nonlinear_cg.NonlinearCG, "grad_tol", ls.BackTracking, False),
+    "lbfgs": (lbfgs.LBFGS, "tol", ls.HagerZhang, False),
 }
 # the rest of the JAX table, with the ROADMAP items that bring them
 _NEXT_SLICE = {
     "newton": "Queue 2 item 3 (the next K3 slice: Newton specs)",
     "pn": "Queue 2 item 3 (the next K3 slice: Newton specs)",
     "spn": "Queue 2 item 3 (the next K3 slice: Newton specs)",
-    "bfgs": "Queue 2 item 3 (the next K3 slice: QN specs with More-Thuente)",
-    "dfp": "Queue 2 item 3 (the next K3 slice: QN specs with More-Thuente)",
-    "broyden": "Queue 2 item 3 (the next K3 slice: QN specs)",
-    "bfgsb": "Queue 2 item 3 (the next K3 slice: QNB specs)",
-    "dfpb": "Queue 2 item 3 (the next K3 slice: QNB specs)",
-    "broydenb": "Queue 2 item 3 (the next K3 slice: QNB specs)",
-    "sr1b": "Queue 2 item 3 (the next K3 slice: QNB specs)",
-    "lbfgs": "Queue 2 item 3 (the next K3 slice: L-BFGS with Hager-Zhang)",
 }
 _ALIASES = {"gradient_descent": "gd", "coordinate_descent": "cd",
             "projected_gradient": "pgd", "projected_newton": "pn",
             "nonlinear_cg": "ncg", "l_bfgs": "lbfgs"}
-# policy="fast" overlays of the JAX front end that fall in this slice: the
-# alternating BB scalar for spg (conv 0.985 -> 1.000 on config 3 in the JAX
-# package's records); a user option always wins
+# policy="fast" overlays of the JAX front end that fall in the ported
+# slices: the alternating BB scalar for spg (conv 0.985 -> 1.000 on config 3
+# in the JAX package's records); a user option always wins.  Besides, in
+# float32 a default More-Thuente search gains the approximate-Wolfe
+# acceptance (JAX frontend.py:479-484)
 _FAST_METHOD_OVERLAY = {"spg": {"bb_variant": "alternate"}}
 
 
@@ -132,12 +141,19 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
     a ``search`` raises ``ValueError``.
 
     Template methods (``gd``, ``cd``, ``pgd``, ``pnorm``, ``spg``,
-    ``ncg``): ``search`` overrides the default search, ``max_iter_ls``
-    defaults to 40, extra options name fields of the method's config
-    (``inverse_p`` for ``pnorm``, ``variant`` for ``ncg``, ...);
-    ``policy="fast"`` runs ``spg`` with ``bb_variant="alternate"``.  The
-    bounded methods (``pgd``, ``spg``) need ``bounds``, the others refuse
-    them.
+    ``ncg``, ``bfgs``, ``dfp``, ``broyden``, ``bfgsb``, ``dfpb``,
+    ``broydenb``, ``sr1b``, ``lbfgs``): ``tol`` fills the first-order
+    methods' ``grad_tol`` and the quasi-Newton methods' ``tol``; ``search``
+    overrides the default search (Armijo backtracking, GLL, More-Thuente
+    for the dense quasi-Newton methods, Hager-Zhang for ``lbfgs``),
+    ``max_iter_ls`` defaults to 40, extra options name fields of the
+    method's config (``inverse_p`` for ``pnorm``, ``variant`` for ``ncg``,
+    ``scale_b0`` for the dense quasi-Newton methods, ``m`` for ``lbfgs``,
+    ...); ``policy="fast"`` runs ``spg`` with ``bb_variant="alternate"``
+    and, in float32, a default More-Thuente search with
+    ``approx_wolfe=True``.  The bounded methods (``pgd``, ``spg`` and the
+    ``...b`` quasi-Newton methods) need ``bounds``, the others refuse
+    them.  Dense quasi-Newton instances may exit STALLED (6).
 
     An unknown option raises ``TypeError``, as in the JAX front end; a
     method, search or option whose machinery is not ported yet raises
@@ -224,10 +240,12 @@ def _template(f, x0, method, bounds, data, tol, max_iter, max_iter_ls,
         raise ValueError(
             f"unknown method {name!r}; choose from "
             f"{sorted([*_TEMPLATE, *_NEXT_SLICE]) + ['lbfgsb', 'newton_cg']}")
-    cls, default_search, needs_bounds = _TEMPLATE[name]
-    fields = set(cls.__dataclass_fields__)
-    m = cls(**{"grad_tol": tol,
-               **{k: options[k] for k in options if k in fields}})
+    factory, tol_field, default_search, needs_bounds = _TEMPLATE[name]
+    m = factory(**{tol_field: tol})
+    fields = set(type(m).__dataclass_fields__)
+    chosen = {k: options[k] for k in options if k in fields}
+    if chosen:
+        m = dataclasses.replace(m, **chosen)
     if policy == "fast":
         overlay = {k: v for k, v in _FAST_METHOD_OVERLAY.get(name, {}).items()
                    if k not in options}
@@ -244,6 +262,11 @@ def _template(f, x0, method, bounds, data, tol, max_iter, max_iter_ls,
     if max_iter_ls is None:
         max_iter_ls = 40
     s = search if search is not None else default_search()
+    if (policy == "fast" and search is None and x0.dtype == torch.float32
+            and getattr(s, "approx_wolfe", None) is False):
+        # the strong-Wolfe Armijo half is cancellation-undecidable near a
+        # minimizer in float32; add the approximate-Wolfe acceptance
+        s = dataclasses.replace(s, approx_wolfe=True)
     if needs_bounds and bounds is None:
         raise ValueError(f"method {method!r} requires bounds=(lower, upper)")
     if bounds is not None:

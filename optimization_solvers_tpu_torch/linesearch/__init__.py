@@ -1,13 +1,22 @@
-"""Line searches: the configs of the Armijo family that the whole-solve
-kernel K3 runs (:class:`BackTracking`, :class:`BackTrackingB`,
-:class:`GLLQuadratic`, :class:`NoSearch`), and the MINPACK-2 ``dcstep``
-trial update that the tall kernel's in-kernel dcsrch uses
-(:mod:`.dcsrch`)."""
+"""Line searches: the configs the whole-solve kernel K3 runs -- the Armijo
+family (:class:`BackTracking`, :class:`BackTrackingB`,
+:class:`GLLQuadratic`, :class:`NoSearch`) and the Wolfe family
+(:class:`MoreThuente`, :class:`MoreThuenteB`, :class:`HagerZhang`,
+:class:`HagerZhangB`, :class:`StrongWolfe`) -- the shared Wolfe-condition
+predicates, and the MINPACK-2 ``dcstep`` update (:mod:`.dcsrch`)."""
 
 from .backtracking import BackTracking, BackTrackingB
-from .base import Bounds, LineSearch
+from .base import (Bounds, LineSearch, curvature_condition,
+                   strong_curvature_condition, strong_wolfe,
+                   sufficient_decrease)
+from .dcsrch import StrongWolfe
 from .gll import GLLQuadratic
+from .hager_zhang import HagerZhang, HagerZhangB
+from .morethuente import MoreThuente, MoreThuenteB
 from .nosearch import NoSearch
 
 __all__ = ["Bounds", "LineSearch", "BackTracking", "BackTrackingB",
-           "GLLQuadratic", "NoSearch"]
+           "MoreThuente", "MoreThuenteB", "StrongWolfe", "GLLQuadratic",
+           "HagerZhang", "HagerZhangB", "NoSearch", "strong_wolfe",
+           "sufficient_decrease", "curvature_condition",
+           "strong_curvature_condition"]

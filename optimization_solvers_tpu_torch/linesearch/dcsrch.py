@@ -1,21 +1,27 @@
-"""MINPACK-2 ``dcstep``: the safeguarded trial-value and interval update of
-the More-Thuente strong-Wolfe search ``dcsrch``.
+"""MINPACK-2 ``dcsrch`` strong-Wolfe search: its config
+(:class:`StrongWolfe`) and the safeguarded trial-value and interval update
+``dcstep``.
 
-PyTorch counterpart of ``_dcstep`` in
-``optimization_solvers_tpu/linesearch/dcsrch.py``, elementwise over tensors
-of any one shape.  ``torch.minimum``/``torch.maximum`` propagate NaN as
+PyTorch counterpart of :mod:`optimization_solvers_tpu.linesearch.dcsrch`.
+``_dcstep`` is elementwise over tensors of any one shape;
+``torch.minimum``/``torch.maximum`` propagate NaN as
 ``jnp.minimum``/``jnp.maximum`` do, and the NaN-trial handling is the JAX
 function's: a NaN trial value counts as higher, and a NaN trial polynomial
-bisects the bracket.  The search around it (``dcsrch`` proper) lives in the
-tall kernel's line search (``ops/fused_lbfgsb_tall.py``); the standalone
-search waits for the lockstep solver (ROADMAP.md Queue 1 item 3).
+bisects the bracket.  The search around it runs in the tall kernel's
+dcsrch mode (``ops/fused_lbfgsb_tall.py``) and in K3's StrongWolfe spec
+(``ops/fused_driver.py``); the lockstep search waits for the lockstep
+solvers (ROADMAP.md Queue 1 items 3 and 7).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
 from ..core.numerics import box_projection
+from .base import LineSearch
 
 
 def _dcstep(stx, fx, dx, sty, fy, dy, stp, fp, dp, brackt, stmin, stmax):
@@ -98,3 +104,20 @@ def _dcstep(stx, fx, dx, sty, fy, dy, stp, fp, dp, brackt, stmin, stmax):
     mid = stx_n + 0.5 * (sty_n - stx_n)
     stpf = where(torch.isnan(stpf), where(new_brackt, mid, stmin), stpf)
     return stx_n, fx_n, dx_n, sty_n, fy_n, dy_n, stpf, new_brackt
+
+
+@dataclasses.dataclass(frozen=True)
+class StrongWolfe(LineSearch):
+    """MINPACK-2 ``dcsrch`` strong-Wolfe search.  Defaults match the Fortran
+    L-BFGS-B driver (``ftol=1e-3, gtol=0.9, xtol=0.1``).  When ``bounded``
+    the max step is capped at the distance to the box boundary along ``d``
+    (the L-BFGS-B ``stpmx`` computation)."""
+
+    c1: float = 1e-3
+    c2: float = 0.9
+    xtol: float = 0.1
+    stp_min: float = 0.0
+    stp_max: float = math.inf
+    bounded: bool = False
+    xtrapl: float = 1.1
+    xtrapu: float = 4.0

@@ -116,18 +116,20 @@ def load() -> ctypes.CDLL:
                 vp,                      # stream
             ]
             lib.driver_smem_per_warp.restype = ctypes.c_longlong
-            lib.driver_smem_per_warp.argtypes = [i, i, i]
+            lib.driver_smem_per_warp.argtypes = [i, i, i, i]
+            lib.driver_workspace_elems.restype = ctypes.c_longlong
+            lib.driver_workspace_elems.argtypes = [ctypes.c_longlong,
+                                                   ctypes.c_longlong, i]
             lib.driver_launch.restype = i
             lib.driver_launch.argtypes = [
                 i, i,                    # dtype, objective
                 vp, vp, vp, i,           # x0, lower, upper, bound stride
                 vp, vp, vp,              # objective data, inverse_p
                 i, i,                    # B, n
-                i, i, d,                 # method, search, grad_tol
-                d, d, i,                 # lambda_min, lambda_max, alternate
-                i, i,                    # NCG variant, restart_every
-                d, d, d, d, i,           # c1, beta, sigma1, sigma2, GLL m
+                ctypes.POINTER(i),       # int parameter slots
+                ctypes.POINTER(d),       # double parameter slots
                 i, i,                    # max_iter, max_iter_ls
+                vp,                      # workspace (QN slabs)
                 vp, vp, vp, vp, vp,      # x, f, iterations, status, nfev
                 vp,                      # stream
             ]

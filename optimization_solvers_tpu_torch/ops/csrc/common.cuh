@@ -1,5 +1,6 @@
 // Helpers shared by the kernels of this directory (each source includes
-// this header; everything here has internal linkage per source).
+// this header; everything here has internal linkage per source): NaN-aware
+// min/max/clip and sign, warp reductions, and MINPACK-2 dcstep.
 //
 // min/max/clip propagate NaN as jnp.minimum/jnp.maximum/jnp.clip do
 // (fminf/fmin would drop it), and machine epsilon is the JAX kernels'
@@ -39,6 +40,11 @@ template <typename T> __device__ __forceinline__ T jclip(T x, T lo, T up) {
   return jmin(jmax(x, lo), up);
 }
 
+// jnp.sign: 0, -0 and NaN pass through
+template <typename T> __device__ __forceinline__ T jsign(T v) {
+  return v > T(0) ? T(1) : (v < T(0) ? T(-1) : v);
+}
+
 template <typename T> __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -53,6 +59,83 @@ template <typename T> __device__ __forceinline__ T warp_max(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = jmax(v, __shfl_xor_sync(kFull, v, o));
   return v;
+}
+
+// MINPACK-2 dcstep on replicated scalars, shared by K2's dcsrch mode and
+// K3's StrongWolfe search (optimization_solvers_tpu/linesearch/dcsrch.py
+// _dcstep, NaN handling included: a NaN trial value counts as higher, a
+// NaN trial polynomial bisects the bracket)
+template <typename T>
+__device__ void dcstep(T& stx, T& fx, T& dx, T& sty, T& fy, T& dy, T& stp,
+                       T fp, T dp, bool& brackt, T stmin, T stmax) {
+  const T sgnd = dp * jsign(dx);
+  const T theta = T(3) * (fx - fp) / (stp - stx) + dx + dp;
+  const T s = jmax(jmax((T)fabs(theta), (T)fabs(dx)), (T)fabs(dp));
+  const T gsq = (theta / s) * (theta / s) - (dx / s) * (dp / s);
+  const T gamma = s * sqrt(jmax(gsq, T(0)));
+
+  const T g1 = stp < stx ? -gamma : gamma;
+  const T p1 = (g1 - dx) + theta;
+  const T q1 = ((g1 - dx) + g1) + dp;
+  const T stpc1 = stx + (p1 / q1) * (stp - stx);
+  const T stpq1 = stx + ((dx / ((fx - fp) / (stp - stx) + dx)) / T(2)) * (stp - stx);
+  const bool case1 = !(fp <= fx);
+  const T stpf1 = fabs(stpc1 - stx) < fabs(stpq1 - stx) ? stpc1
+                                                        : stpc1 + (stpq1 - stpc1) / T(2);
+
+  const T g2 = stp > stx ? -gamma : gamma;
+  const T p2 = (g2 - dp) + theta;
+  const T q2 = ((g2 - dp) + g2) + dx;
+  const T stpc2 = stp + (p2 / q2) * (stx - stp);
+  const T stpq2 = stp + (dp / (dp - dx)) * (stx - stp);
+  const bool case2 = !case1 && sgnd < T(0);
+  const T stpf2 = fabs(stpc2 - stp) > fabs(stpq2 - stp) ? stpc2 : stpq2;
+
+  const T g3 = g2;
+  const T p3 = (g3 - dp) + theta;
+  const T q3 = (g3 + (dx - dp)) + g3;
+  const T r3 = p3 / q3;
+  const T stpc3 = (r3 < T(0) && g3 != T(0)) ? stp + r3 * (stx - stp)
+                                             : (stp > stx ? stmax : stmin);
+  const T stpq3 = stp + (dp / (dp - dx)) * (stx - stp);
+  const bool case3 = !case1 && !case2 && fabs(dp) < fabs(dx);
+  const T near3 = fabs(stpc3 - stp) < fabs(stpq3 - stp) ? stpc3 : stpq3;
+  const T cap3 = stp + T(0.66) * (sty - stp);
+  const T stpf3_b = stp > stx ? jmin(cap3, near3) : jmax(cap3, near3);
+  const T stpf3_f =
+      jclip(fabs(stpc3 - stp) > fabs(stpq3 - stp) ? stpc3 : stpq3, stmin, stmax);
+  const T stpf3 = brackt ? stpf3_b : stpf3_f;
+
+  const T theta4 = T(3) * (fp - fy) / (sty - stp) + dy + dp;
+  const T s4 = jmax(jmax((T)fabs(theta4), (T)fabs(dy)), (T)fabs(dp));
+  const T gamma4 =
+      s4 * sqrt(jmax((theta4 / s4) * (theta4 / s4) - (dy / s4) * (dp / s4), T(0)));
+  const T g4 = stp > sty ? -gamma4 : gamma4;
+  const T p4 = (g4 - dp) + theta4;
+  const T q4 = ((g4 - dp) + g4) + dy;
+  const T stpc4 = stp + (p4 / q4) * (sty - stp);
+  const T stpf4 = brackt ? stpc4 : (stp > stx ? stmax : stmin);
+
+  T stpf = case1 ? stpf1 : (case2 ? stpf2 : (case3 ? stpf3 : stpf4));
+  const bool nbr = brackt || case1 || case2;
+
+  const T sty_n = case1 ? stp : (sgnd < T(0) ? stx : sty);
+  const T fy_n = case1 ? fp : (sgnd < T(0) ? fx : fy);
+  const T dy_n = case1 ? dp : (sgnd < T(0) ? dx : dy);
+  const T stx_n = case1 ? stx : stp;
+  const T fx_n = case1 ? fx : fp;
+  const T dx_n = case1 ? dx : dp;
+
+  stpf = jclip(stpf, stmin, stmax);
+  if (stpf != stpf) stpf = nbr ? stx_n + T(0.5) * (sty_n - stx_n) : stmin;
+  stx = stx_n;
+  fx = fx_n;
+  dx = dx_n;
+  sty = sty_n;
+  fy = fy_n;
+  dy = dy_n;
+  stp = stpf;
+  brackt = nbr;
 }
 
 }  // namespace

@@ -1,0 +1,932 @@
+// Generic whole-solve driver K3 on Hopper (sm_90a), one warp per instance:
+// the kernel template, shared by driver.cu (the first-order form and the C
+// interface) and driver_qn.cu (the quasi-Newton form).  The two forms are
+// compiled in separate sources, so that they build in parallel and the
+// compiler's choices for the first-order form (inlining of the objective,
+// registers) do not depend on the quasi-Newton form's code.
+//
+// Replaces the TPU kernel optimization_solvers_tpu/ops/pallas_driver.py
+// (fused_minimize, kernel body _make_kernel, pl.pallas_call at :1874) for
+// its first-order method specs (GD, CD, Pnorm, PGD, SPG, NCG), its
+// quasi-Newton method specs (dense QN and QNB with the bfgs, dfp, broyden
+// and sr1 updates, L-BFGS), its Armijo-family search specs (NoSearch,
+// BackTracking, BackTrackingB, GLL) and its Wolfe-family search specs
+// (MoreThuente, MoreThuenteB, HagerZhang, HagerZhangB, MINPACK dcsrch).
+// The plain PyTorch version of the same algorithm is fused_minimize_plain
+// in ../fused_driver.py; the two are held against each other on the card.
+//
+// What bounds it on this card.  The first-order form: latency, not bytes
+// or FLOPs.  Per iteration an instance does a few elementwise passes over
+// its n coordinates, each ending in a warp reduction (five shuffles), plus
+// the search's trial evaluations and one value-and-gradient at the
+// accepted point; enough warps per SM hide one another's latency.  The
+// dense quasi-Newton form adds four passes over the instance's (n, n) slab
+// in device memory per iteration (B g, B y, and the update's read and
+// write), ~10 n^2 operations.  At config 2 (n = 100, float32; a slab is 40
+// KB, 1,024 of them 41 MB) those passes set the time: in each pass a lane
+// walks its 4 columns down all 100 rows, so an iteration is a chain of
+// some 1,600 slab accesses per lane (~105 us for one instance alone on an
+// H100), and the batch's ~160 MB of slab traffic per iteration adds a
+// third on top.
+// A slab in shared memory (40 KB per instance), or fewer passes (the next
+// direction formed inside the update), is the way down.
+//
+// Design:
+//  * one warp per instance, coordinate i on lane i % 32.  K3's lanes are
+//    independent (every state write of the TPU kernel is masked by its own
+//    lane's active/done flag, and a lane that stops never restarts), so a
+//    warp that leaves when its instance is done computes what the TPU
+//    kernel computes at any tile;
+//  * dynamic shared memory per warp: X, G, the new or trial gradient GN,
+//    the direction D, the trial point XT, two scratch vectors GP / DP
+//    (NCG's previous gradient and direction; the quasi-Newton pair s, y),
+//    GLL's f history ring, and L-BFGS's S and Y rows with rho, valid and
+//    the two-loop alphas: 7 n + ring + 2 m n + 3 m elements;
+//  * the dense slab B of QN/QNB lives in a device-memory workspace, one
+//    (n, n) row-major block per instance.  BFGS, DFP and SR1 keep B
+//    symmetric bit for bit (B starts as I or gamma I, and the BFGS
+//    cross term is formed from two unfused products whose sum does not
+//    depend on the order), so their matvecs read B by columns: lane l
+//    owns outputs l, l+32, ... and walks the rows, coalesced, with no
+//    per-row reduction.  Broyden's B is not symmetric: B g and B y by
+//    rows, B^T s by columns.  The updates are elementwise passes, row by
+//    row, lanes along the columns;
+//  * L-BFGS keeps its history as a ring with a write position instead of
+//    the TPU kernel's shift; the two loops walk it newest -> oldest and
+//    back, as the shift's slots m-1 .. 0;
+//  * the Wolfe searches evaluate value and gradient at a trial into GN.
+//    More-Thuente evaluates, per trip, t, then tl unless t is accepted,
+//    and tu only for its case-4 step: the TPU kernel evaluates all three
+//    in lockstep and discards the values these skip, so every step is the
+//    same;
+//  * the method and the search are runtime, grid-uniform switches on
+//    integer codes; the template axes are dtype x objective x form: the
+//    first-order form (the first-order methods with the Armijo-family
+//    searches, in driver.cu) and the quasi-Newton form (every method with
+//    the Wolfe searches as well, in driver_qn.cu), 4 instantiations each;
+//  * scalars (f, t, lambda, beta, the search state, ...) are replicated in
+//    registers after __shfl_xor_sync butterflies, so every branch is
+//    warp-uniform;
+//  * P^{-1} of PnormDescent stays in device memory, shared by all warps and
+//    served from L2; the matvec P^{-1} g is computed here, each lane its own
+//    rows.  As in the TPU kernel (preferred_element_type=float32), the
+//    product is rounded to float32 before it becomes the float64 direction;
+//  * GLL's history is a ring with a write position instead of the TPU
+//    kernel's shift: only its max is read, and a max does not depend on
+//    the order;
+//  * min/max/clip propagate NaN as jnp.minimum/jnp.maximum/jnp.clip do,
+//    More-Thuente's rust_min/rust_max/rust_clamp drop it as Rust's f64
+//    min/max do, and sign(NaN) is NaN as jnp.sign's is.
+
+#pragma once
+
+#include "common.cuh"
+#include "objectives.cuh"
+
+namespace ost_driver {
+
+constexpr int kMaxWarpsPerBlock = 8;
+
+enum MethodCode {
+  kGD = 0, kCD = 1, kPnorm = 2, kPGD = 3, kSPG = 4, kNCG = 5, kQN = 6,
+  kQNB = 7, kLBFGS = 8
+};
+enum SearchCode {
+  kNoSearch = 0, kBT = 1, kBTB = 2, kGLL = 3, kMT = 4, kMTB = 5, kHZ = 6,
+  kHZB = 7, kSW = 8
+};
+enum NcgVariant { kFR = 0, kPRPlus = 1, kHS = 2, kDY = 3 };
+enum QnUpdate { kBFGS = 0, kDFP = 1, kBroyden = 2, kSR1 = 3 };
+
+// the int and double parameter slots of driver_launch (mirrored by
+// _launch_cuda in ../fused_driver.py)
+enum IntSlot {
+  iMethod, iSearch, iAlternate, iNcgVariant, iRestartEvery, iRing, iQnUpdate,
+  iScaleB0, iRestart, iLbfgsM, iApproxWolfe, iSearchBounded, kIntSlots
+};
+enum DoubleSlot {
+  dTol, dLamMin, dLamMax, dC1, dBeta, dSigma1, dSigma2, dLbfgsEps, dC2,
+  dTMin, dTMax, dDelta, dAwEps, dHzSigma, dHzEps, dHzTheta, dHzGamma,
+  dHzRho, dXtol, dStpMin, dStpMax, dXtrapl, dXtrapu, kDoubleSlots
+};
+
+// the quasi-Newton form's curvature floor: the TPU kernel's literals
+// (pallas_driver.py:475), not finfo(dtype).eps
+template <typename T> struct QnLit;
+template <> struct QnLit<float> {
+  static constexpr double eps = 1.2e-7;
+  static constexpr double tiny = 1.17549435082228750797e-38;
+  static constexpr double big = 3.40282346638528859812e+38;
+};
+template <> struct QnLit<double> {
+  static constexpr double eps = 2.3e-16;
+  static constexpr double tiny = 2.2250738585072014e-308;
+  static constexpr double big = 1.7976931348623157e308;
+};
+
+__host__ __device__ inline bool qn_form(int method, int search) {
+  return method >= kQN || search >= kMT;
+}
+
+__host__ __device__ inline long long work_elems(int n, int ring, int m) {
+  return 7LL * n + ring + 2LL * m * n + 3LL * m;
+}
+
+__host__ __device__ inline long long workspace_elems(long long B, long long n,
+                                                     int method) {
+  return (method == kQN || method == kQNB) ? B * n * n : 0;
+}
+
+// Rust's f64::min/max: a NaN operand is discarded
+template <typename T> __device__ __forceinline__ T rmin(T a, T b) {
+  return a != a ? b : (b != b ? a : (b < a ? b : a));
+}
+template <typename T> __device__ __forceinline__ T rmax(T a, T b) {
+  return a != a ? b : (b != b ? a : (b > a ? b : a));
+}
+template <typename T> __device__ __forceinline__ T rclamp(T t, T lo, T hi) {
+  return jmin(t != t ? lo : jmax(t, lo), hi);
+}
+
+// More-Thuente's trial-value formulas (linesearch/morethuente.py)
+template <typename T>
+__device__ __forceinline__ T cubic_min(T ta, T tb, T fa, T fb, T ga, T gb) {
+  const T s = T(3) * (fb - fa) / (tb - ta);
+  const T z = s - ga - gb;
+  const T w = sqrt(z * z - ga * gb);
+  return ta + (tb - ta) * ((w - ga - z) / (gb - ga + T(2) * w));
+}
+template <typename T>
+__device__ __forceinline__ T quad_min1(T ta, T tb, T fa, T fb, T ga) {
+  const T lin = (fa - fb) / (ta - tb);
+  return ta - T(0.5) * ((ta - tb) * ga / (ga - lin));
+}
+template <typename T>
+__device__ __forceinline__ T quad_min2(T ta, T tb, T ga, T gb) {
+  return ta - ga * ((ta - tb) / (ga - gb));
+}
+
+// out = B v, lane l computing rows l, l+32, ...
+template <typename T>
+__device__ void mv_rows(const T* Bm, const T* v, T* out, int n, int lane) {
+  for (int i = lane; i < n; i += kWarp) {
+    const T* row = Bm + (long long)i * n;
+    T acc = 0;
+    for (int j = 0; j < n; ++j) acc += row[j] * v[j];
+    out[i] = acc;
+  }
+}
+
+// out = B^T v, lane l computing columns l, l+32, ... (coalesced row walks)
+template <typename T>
+__device__ void mv_cols(const T* Bm, const T* v, T* out, int n, int lane) {
+  for (int j = lane; j < n; j += kWarp) {
+    T acc = 0;
+    for (int i = 0; i < n; ++i) acc += Bm[(long long)i * n + j] * v[i];
+    out[j] = acc;
+  }
+}
+
+template <typename T> struct Params {
+  const T* x0;
+  const T* lo;
+  const T* up;
+  int bstride;          // 0: bounds shared by all instances; n: per instance
+  const T* d0;
+  const T* d1;
+  const T* pinv;        // (n, n), PnormDescent only
+  int B, n;
+  int method, search;
+  T tol, lam_min, lam_max;
+  int alternate, ncg_variant, restart_every;
+  T c1, beta, sigma1, sigma2;
+  int ring;             // GLL history length (0 for the other searches)
+  int qn_update, scale_b0, restart, m;
+  T lbfgs_eps;
+  T c2, t_min, t_max, delta, aw_eps;
+  int approx_wolfe, search_bounded;
+  T hz_sigma, hz_eps, hz_theta, hz_gamma, hz_rho;
+  // 2 c1 - 1 (approx-Wolfe), 2 delta - 1 and 1 - theta (Hager-Zhang),
+  // formed in double and rounded once, as the plain version's Python
+  // floats are
+  T aw_fac, hz_2dm1, hz_1mt;
+  T xtol, stp_min, stp_max, xtrapl, xtrapu;
+  int max_iter, max_iter_ls;
+  T* work;              // QN/QNB: B * n * n slab elements
+  T* x_out;
+  T* f_out;
+  int* it_out;
+  int* st_out;
+  int* nfev_out;
+};
+
+template <typename T, class Obj, bool kQnForm>
+__global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock)
+driver_kernel(const Params<T> prm) {
+  extern __shared__ unsigned char smem_raw[];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int inst = blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (inst >= prm.B) return;          // the whole warp leaves together
+  const int n = prm.n;
+  const int method = prm.method, search = prm.search;
+  const bool bounded = method == kPGD || method == kSPG || method == kQNB;
+  const T INF = (T)INFINITY;
+  const int m = kQnForm && method == kLBFGS ? prm.m : 0;
+
+  T* p = reinterpret_cast<T*>(smem_raw) + (long long)warp * work_elems(n, prm.ring, m);
+  T* X = p; p += n;
+  T* G = p; p += n;
+  T* GN = p; p += n;
+  T* D = p; p += n;
+  T* XT = p; p += n;
+  T* GP = p; p += n;
+  T* DP = p; p += n;
+  T* H = p; p += prm.ring;
+  T* S = p; p += (long long)m * n;
+  T* Y = p; p += (long long)m * n;
+  T* RHO = p; p += m;
+  T* VAL = p; p += m;
+  T* AL = p;
+
+  const T* lo = bounded ? prm.lo + (long long)inst * prm.bstride : nullptr;
+  const T* up = bounded ? prm.up + (long long)inst * prm.bstride : nullptr;
+  const T* x0 = prm.x0 + (long long)inst * n;
+  T* Bm = (kQnForm && (method == kQN || method == kQNB))
+              ? prm.work + (long long)inst * n * n : nullptr;
+  const bool sym = prm.qn_update != kBroyden;
+  const Obj obj{prm.d0, prm.d1};
+
+  for (int i = lane; i < n; i += kWarp)
+    X[i] = bounded ? jclip(x0[i], lo[i], up[i]) : x0[i];
+  __syncwarp();
+  T Fv = obj.value_grad(X, G, n, lane);
+  __syncwarp();
+  int iters = 0, nfev = 0;
+
+  // ---- method and search state
+  T lam = 0, par = 0;
+  int ks = 0;
+  if (method == kSPG) {
+    T mx = 0;
+    for (int i = lane; i < n; i += kWarp)
+      mx = jmax(mx, (T)fabs(jclip(X[i] - G[i], lo[i], up[i]) - X[i]));
+    lam = jclip(T(1) / warp_max(mx), prm.lam_min, prm.lam_max);
+  }
+  if (method == kNCG)
+    for (int i = lane; i < n; i += kWarp) {
+      GP[i] = G[i];
+      DP[i] = -G[i];
+    }
+  int pos = 0;
+  if (search == kGLL)
+    for (int e = lane; e < prm.ring; e += kWarp) H[e] = -INF;
+  // quasi-Newton form: s/y norms, stall count, pending reset; L-BFGS's
+  // ring position and H0 scaling; More-Thuente-B's running t_max
+  T sn = INF, yn = INF, gam = 1, run_tmax = prm.t_max;
+  int stc = 0, head = 0;
+  bool pend = false;
+  if constexpr (kQnForm) {
+    if (Bm != nullptr)
+      for (int i = 0; i < n; ++i)
+        for (int j = lane; j < n; j += kWarp)
+          Bm[(long long)i * n + j] = i == j ? T(1) : T(0);
+    for (long long e = lane; e < 2LL * m * n; e += kWarp) S[e] = 0;
+    for (int e = lane; e < m; e += kWarp) RHO[e] = VAL[e] = 0;
+  }
+  __syncwarp();
+
+  auto converged = [&]() -> bool {
+    if constexpr (kQnForm) {
+      if (method == kQN || method == kQNB) {
+        // the gradient 2-norm, or the s/y stall (pallas_driver.py:431)
+        T gg = 0;
+        for (int i = lane; i < n; i += kWarp) gg += G[i] * G[i];
+        const bool g_small = sqrt(warp_sum(gg)) < prm.tol;
+        if (prm.restart) return g_small || stc >= 2;
+        return g_small || sn < prm.tol || yn < prm.tol;
+      }
+    }
+    // ||g||_inf, or for the bounded first-order methods the infinity norm
+    // of g with the components that push against an active bound masked
+    T mx = 0;
+    for (int i = lane; i < n; i += kWarp) {
+      T gi = G[i];
+      if (bounded && ((X[i] == lo[i] && gi > T(0)) || (X[i] == up[i] && gi < T(0))))
+        gi = 0;
+      mx = jmax(mx, (T)fabs(gi));
+    }
+    return warp_max(mx) < prm.tol;
+  };
+
+  bool active = isfinite(Fv) && !converged();
+  for (int it = 0; it < prm.max_iter && active; ++it) {
+    // ---- direction D
+    switch (method) {
+      case kCD: {
+        // Gauss-Southwell: -sign(g_i) e_i at the first largest |g_i|; a NaN
+        // max matches no coordinate
+        T amax = 0;
+        for (int i = lane; i < n; i += kWarp) amax = jmax(amax, (T)fabs(G[i]));
+        amax = warp_max(amax);
+        int idx = n;
+        for (int i = lane; i < n; i += kWarp)
+          if ((T)fabs(G[i]) == amax) { idx = i; break; }
+        idx = warp_min(idx);
+        for (int i = lane; i < n; i += kWarp)
+          D[i] = -jsign(G[i]) * (i == idx ? T(1) : T(0));
+        break;
+      }
+      case kPnorm:
+        for (int i = lane; i < n; i += kWarp) {
+          const T* row = prm.pinv + (long long)i * n;
+          T acc = 0;
+          for (int j = 0; j < n; ++j) acc += row[j] * G[j];
+          D[i] = -(T)(float)acc;
+        }
+        break;
+      case kPGD:
+        for (int i = lane; i < n; i += kWarp)
+          D[i] = jclip(X[i] - G[i], lo[i], up[i]) - X[i];
+        break;
+      case kSPG:
+        for (int i = lane; i < n; i += kWarp)
+          D[i] = jclip(X[i] - lam * G[i], lo[i], up[i]) - X[i];
+        break;
+      case kNCG: {
+        T gg = 0, gy = 0, gpgp = 0, dpy = 0;
+        for (int i = lane; i < n; i += kWarp) {
+          const T g = G[i], gp = GP[i], y = g - gp;
+          gg += g * g;
+          gy += g * y;
+          gpgp += gp * gp;
+          dpy += DP[i] * y;
+        }
+        gg = warp_sum(gg);
+        gy = warp_sum(gy);
+        gpgp = warp_sum(gpgp);
+        dpy = warp_sum(dpy);
+        T beta;
+        switch (prm.ncg_variant) {
+          case kFR: beta = gg / gpgp; break;
+          case kPRPlus: beta = jmax(gy / gpgp, T(0)); break;
+          case kHS: beta = gy / dpy; break;
+          default: beta = gg / dpy; break;
+        }
+        if (!isfinite(beta)) beta = 0;
+        const int period = prm.restart_every > 0 ? prm.restart_every : n;
+        const bool periodic = ks >= period;
+        const T bc = periodic ? T(0) : beta;
+        T gd = 0;
+        for (int i = lane; i < n; i += kWarp) {
+          const T d = -G[i] + bc * DP[i];
+          D[i] = d;
+          gd += G[i] * d;
+        }
+        const bool descent = warp_sum(gd) < T(0);
+        if (!descent)
+          for (int i = lane; i < n; i += kWarp) D[i] = -G[i];
+        if (periodic || !descent) ks = 0;
+        break;
+      }
+      default:
+        if constexpr (kQnForm) {
+          if (method == kQN || method == kQNB) {
+            // D = B g, then the direction; the poison check reads the raw
+            // B g (for QNB before the clip, which would hide it)
+            if (sym) mv_cols(Bm, G, D, n, lane);
+            else mv_rows(Bm, G, D, n, lane);
+            __syncwarp();
+            bool fin = true;
+            T gd = 0;
+            for (int i = lane; i < n; i += kWarp) {
+              const T bg = D[i];
+              fin = fin && isfinite(bg);
+              const T d = method == kQN ? -bg : jclip(X[i] - bg, lo[i], up[i]) - X[i];
+              D[i] = d;
+              gd += G[i] * d;
+            }
+            fin = __all_sync(kFull, fin);
+            gd = warp_sum(gd);
+            if (prm.restart) {
+              if (!(fin && gd < T(0)))
+                for (int i = lane; i < n; i += kWarp)
+                  D[i] = method == kQN ? -G[i] : jclip(X[i] - G[i], lo[i], up[i]) - X[i];
+              if (!fin) pend = true;
+            }
+            break;
+          }
+          if (method == kLBFGS) {
+            // two-loop recursion over the ring, newest -> oldest and back
+            for (int i = lane; i < n; i += kWarp) D[i] = G[i];
+            __syncwarp();
+            for (int q = m - 1; q >= 0; --q) {
+              const int slot = (head + q) % m;
+              const T* s_ = S + (long long)slot * n;
+              const T* y_ = Y + (long long)slot * n;
+              T dot = 0;
+              for (int i = lane; i < n; i += kWarp) dot += s_[i] * D[i];
+              const T a = RHO[slot] * warp_sum(dot) * VAL[slot];
+              for (int i = lane; i < n; i += kWarp) D[i] = D[i] - a * y_[i];
+              if (lane == 0) AL[q] = a;
+              __syncwarp();
+            }
+            for (int i = lane; i < n; i += kWarp) D[i] = gam * D[i];
+            for (int q = 0; q < m; ++q) {
+              const int slot = (head + q) % m;
+              const T* s_ = S + (long long)slot * n;
+              const T* y_ = Y + (long long)slot * n;
+              T dot = 0;
+              for (int i = lane; i < n; i += kWarp) dot += y_[i] * D[i];
+              const T b = RHO[slot] * warp_sum(dot) * VAL[slot];
+              const T coef = AL[q] - b;
+              for (int i = lane; i < n; i += kWarp) D[i] = D[i] + coef * s_[i];
+            }
+            bool fin = true;
+            T gd = 0;
+            for (int i = lane; i < n; i += kWarp) {
+              const T d = -D[i];
+              D[i] = d;
+              fin = fin && isfinite(d);
+              gd += G[i] * d;
+            }
+            fin = __all_sync(kFull, fin);
+            if (!(fin && warp_sum(gd) < T(0))) {
+              // a corrupt model: discard it, retry from steepest descent
+              for (int i = lane; i < n; i += kWarp) D[i] = -G[i];
+              for (int e = lane; e < m; e += kWarp) RHO[e] = VAL[e] = 0;
+              gam = 1;
+            }
+            break;
+          }
+        }
+        for (int i = lane; i < n; i += kWarp) D[i] = -G[i];   // kGD
+        break;
+    }
+    __syncwarp();
+
+    // ---- step length
+    T t = 1;
+    if (search == kNoSearch) {
+    } else if (search <= kGLL) {
+      // the Armijo family: value-only trials until one is accepted or the
+      // budget is spent; on exhaustion t is the last update, untested
+      T g0d = 0;
+      for (int i = lane; i < n; i += kWarp) g0d += G[i] * D[i];
+      g0d = warp_sum(g0d);
+      T f_ref = Fv;
+      if (search == kGLL) {
+        if (lane == 0) H[pos] = Fv;
+        pos = (pos + 1) % prm.ring;
+        __syncwarp();
+        T fm = -INF;
+        for (int e = lane; e < prm.ring; e += kWarp) fm = jmax(fm, H[e]);
+        f_ref = warp_max(fm);
+      }
+      for (int k = 0; k < prm.max_iter_ls; ++k) {
+        for (int i = lane; i < n; i += kWarp) {
+          const T xt = X[i] + t * D[i];
+          XT[i] = search == kBTB ? jclip(xt, lo[i], up[i]) : xt;
+        }
+        __syncwarp();
+        const T ft = obj.value(XT, n, lane);
+        ++nfev;
+        bool ok;
+        if (search == kBTB) {
+          T dd = 0;
+          for (int i = lane; i < n; i += kWarp) {
+            const T df = XT[i] - X[i];
+            dd += df * df;
+          }
+          ok = ft - Fv <= (-prm.c1 / t) * warp_sum(dd);
+        } else {
+          ok = ft - f_ref <= prm.c1 * t * g0d;
+        }
+        __syncwarp();
+        if (ok && isfinite(ft)) break;
+        if (search == kGLL) {
+          // safeguarded quadratic interpolation in the absolute window
+          // (sigma1, sigma2 t), halving otherwise and at t <= 0.1
+          const T t_half = t * T(0.5);
+          const T t_tmp = T(-0.5) * t * t * g0d / (ft - Fv - t * g0d);
+          const T t_quad = (t_tmp > prm.sigma1 && t_tmp < prm.sigma2 * t) ? t_tmp
+                                                                         : t_tmp * T(0.5);
+          const T t_next = t <= T(0.1) ? t_half : t_quad;
+          t = (isfinite(t_next) && t_next > T(0)) ? t_next : t_half;
+        } else {
+          t = t * prm.beta;
+        }
+      }
+    } else if constexpr (kQnForm) {
+      // the Wolfe family: value-and-gradient trials.  phi: value and
+      // directional derivative at X + t D (trial point in XT, its gradient
+      // in GN)
+      auto phi = [&](T t, T& ft, T& gt) {
+        for (int i = lane; i < n; i += kWarp) XT[i] = X[i] + t * D[i];
+        __syncwarp();
+        ft = obj.value_grad(XT, GN, n, lane);
+        __syncwarp();
+        T s = 0;
+        for (int i = lane; i < n; i += kWarp) s += GN[i] * D[i];
+        gt = warp_sum(s);
+        ++nfev;
+      };
+      // per instance min_i (bound_i - x_i) / d_i, NaN terms as +inf
+      auto max_feasible_step = [&]() -> T {
+        T mn = INF;
+        for (int i = lane; i < n; i += kWarp) {
+          const T d = D[i];
+          T term = d > T(0) ? (up[i] - X[i]) / d : (d < T(0) ? (lo[i] - X[i]) / d : INF);
+          if (term != term) term = INF;
+          mn = jmin(mn, term);
+        }
+        return warp_min(mn);
+      };
+      T g0d = 0;
+      for (int i = lane; i < n; i += kWarp) g0d += G[i] * D[i];
+      g0d = warp_sum(g0d);
+      const T f0 = Fv;
+      if (search == kMT || search == kMTB) {
+        // More-Thuente, corrected interval update (pallas_driver.py:1141)
+        const T c1 = prm.c1, c2 = prm.c2, t_min = prm.t_min;
+        T t_max = prm.t_max;
+        if (search == kMTB) {
+          run_tmax = jmin(run_tmax, max_feasible_step());
+          t_max = run_tmax;
+        }
+        t = rmin(rmax(T(1), t_min), t_max);
+        T tl = t_min, tu = t_max;
+        bool modified = false, int_conv = false;
+        for (int k = 0; k < prm.max_iter_ls; ++k) {
+          T ft, gt;
+          phi(t, ft, gt);
+          bool swc = (ft - f0 <= c1 * t * g0d) && (fabs(gt) <= c2 * fabs(g0d));
+          if (prm.approx_wolfe)
+            swc = swc || (prm.aw_fac * g0d >= gt && gt >= c2 * g0d &&
+                          ft <= f0 + prm.aw_eps * (T)fabs(f0) && t > T(0));
+          if (swc || int_conv || t == tl || t == tu) break;
+          const T psi_t_f = ft - f0 - c1 * t * g0d, psi_t_g = gt - c1 * g0d;
+          modified = modified || (psi_t_f <= T(0) && gt > T(0));
+          T fl, gl;
+          phi(tl, fl, gl);
+          const T f_l = modified ? fl : fl - f0 - c1 * tl * g0d;
+          const T g_l = modified ? gl : gl - c1 * g0d;
+          const T f_c = modified ? ft : psi_t_f;
+          const T g_c = modified ? gt : psi_t_g;
+          const bool case1 = f_c > f_l;
+          const bool case2 = !case1 && g_c * g_l < T(0);
+          const bool case3 = !case1 && !case2 && fabs(g_c) <= fabs(g_l);
+          const T tc = cubic_min(tl, t, f_l, f_c, g_l, g_c);
+          const T tq = quad_min1(tl, t, f_l, f_c, g_l);
+          const T ts = quad_min2(tl, t, g_l, g_c);
+          T t_new;
+          if (case1) {
+            t_new = fabs(tc - tl) < fabs(tq - tl) ? tc : T(0.5) * (tq + tc);
+          } else if (case2) {
+            t_new = fabs(tc - t) >= fabs(ts - t) ? tc : ts;
+          } else if (case3) {
+            const T t_plus = fabs(tc - t) < fabs(ts - t) ? tc : ts;
+            const T t_far = t + prm.delta * (tu - t);
+            t_new = t > tl ? rmin(t_plus, t_far) : rmax(t_plus, t_far);
+          } else {
+            // case 4 needs phi at tu
+            T fu, gu;
+            phi(tu, fu, gu);
+            const T f_u = modified ? fu : fu - f0 - c1 * tu * g0d;
+            const T g_u = modified ? gu : gu - c1 * g0d;
+            t_new = cubic_min(tu, t, f_c, f_u, g_c, g_u);
+          }
+          t_new = rclamp(t_new, t_min, t_max);
+          // force progress: extrapolate while unbracketed, bisect once
+          // bracketed
+          if (t_new == tl || t_new == tu || !isfinite(t_new))
+            t_new = rclamp(isfinite(tu) ? T(0.5) * (tl + tu) : T(2) * t, t_min, t_max);
+          // the interval revised at the evaluated t (cases U1-U3)
+          const bool u1 = f_c > f_l;
+          const T gdi = g_c * (tl - t);
+          const bool u2 = !u1 && gdi > T(0);
+          const bool u3 = !u1 && !u2 && gdi < T(0);
+          int_conv = !(u1 || u2 || u3);
+          const T tl_new = (u2 || u3) ? t : tl;
+          tu = u1 ? t : (u3 ? tl : tu);
+          tl = tl_new;
+          t = t_new;
+        }
+      } else if (search == kHZ || search == kHZB) {
+        // Hager-Zhang (pallas_driver.py:1483): one evaluation per trip,
+        // the best trial returned on exhaustion
+        const T t_cap = search == kHZB ? max_feasible_step() : INF;
+        const T tiny = (T)QnLit<T>::tiny, big = (T)QnLit<T>::big;
+        const T delta = prm.delta, sigma = prm.hz_sigma, theta = prm.hz_theta;
+        const T f_eps = f0 + prm.hz_eps * (T)fabs(f0);
+        T a = 0, da = g0d, b = big, c = jmin(T(1), t_cap);
+        int mode = 0;   // 0 bracket, 1 bisect, 2 secant
+        T t_best = c, f_best = big, shrink = big;
+        for (int k = 0; k < prm.max_iter_ls; ++k) {
+          T fc, dc;
+          phi(c, fc, dc);
+          const bool ok = (fc - f0 <= delta * c * g0d && dc >= sigma * g0d) ||
+                          (dc <= prm.hz_2dm1 * g0d && dc >= sigma * g0d && fc <= f_eps) ||
+                          (c >= t_cap && dc < T(0) && fc <= f_eps);
+          const bool better = fc < f_best && c > T(0);
+          if (ok || better) t_best = c;
+          if (better) f_best = fc;
+          if (ok) break;
+          const bool to_secant = dc >= T(0);
+          const bool advance = !to_secant && fc <= f_eps;
+          const bool to_bisect = !to_secant && fc > f_eps;
+          const T a_new = advance ? c : a;
+          const T da_new = advance ? dc : da;
+          const T b_new = (to_secant || to_bisect) ? c : b;
+          const T grow = jmin(prm.hz_rho * c, t_cap);
+          const T bis = prm.hz_1mt * a_new + theta * b_new;
+          const T denom = dc - da_new;
+          T sec = fabs(denom) > tiny ? (a_new * dc - c * da_new) / denom : bis;
+          const T width = b_new - a_new;
+          const bool stalled = width > prm.hz_gamma * shrink;
+          if (sec <= a_new || sec >= b_new || stalled) sec = T(0.5) * (a_new + b_new);
+          const int next_mode = to_secant ? 2 : (to_bisect ? 1 : mode);
+          const bool in_bracket = mode == 0 && advance;
+          c = in_bracket ? grow : (next_mode == 2 ? sec : bis);
+          a = a_new;
+          da = da_new;
+          b = b_new;
+          mode = next_mode;
+          shrink = width;
+        }
+        t = t_best;
+      } else {
+        // MINPACK dcsrch (pallas_driver.py:1318): the step on a finish
+        // exit, the best step stx on exhaustion, 0 for a non-descent d
+        const T ginit = g0d, gtest = prm.c1 * ginit, stpmin = prm.stp_min;
+        T stpmax = prm.stp_max;
+        if (prm.search_bounded) stpmax = jmin(stpmax, max_feasible_step());
+        const bool descent = ginit < T(0);
+        T stp = descent ? jclip(T(1), stpmin, stpmax) : T(0);
+        T stx = 0, fx = f0, dx = ginit, sty = 0, fy = f0, dy = ginit;
+        bool brackt = false, stage1 = true;
+        T width = stpmax - stpmin, width1 = width / T(0.5);
+        T stmin = 0, stmax = stp + prm.xtrapu * stp;
+        bool wdone = !descent;
+        for (int k = 0; k < prm.max_iter_ls && !wdone; ++k) {
+          T ft, gd;
+          phi(stp, ft, gd);
+          const T ftest = f0 + stp * gtest;
+          const bool stage1_n = stage1 && !(ft <= ftest && gd >= T(0));
+          const bool finish = (ft <= ftest && fabs(gd) <= prm.c2 * (-ginit)) ||
+                              (brackt && stmax - stmin <= prm.xtol * stmax) ||
+                              (stp == stpmax && ft <= ftest && gd <= gtest) ||
+                              (stp == stpmin && (ft > ftest || gd >= gtest)) ||
+                              (brackt && (stp <= stmin || stp >= stmax));
+          if (finish) {
+            wdone = true;
+            break;
+          }
+          const bool mod = stage1_n && ft <= fx && ft > ftest;
+          T sx = stx, fxm = mod ? fx - stx * gtest : fx, dxm = mod ? dx - gtest : dx;
+          T sy = sty, fym = mod ? fy - sty * gtest : fy, dym = mod ? dy - gtest : dy;
+          T sn_ = stp;
+          bool br = brackt;
+          dcstep(sx, fxm, dxm, sy, fym, dym, sn_, mod ? ft - stp * gtest : ft,
+                 mod ? gd - gtest : gd, br, stmin, stmax);
+          if (mod) {
+            fxm = fxm + sx * gtest;
+            fym = fym + sy * gtest;
+            dxm = dxm + gtest;
+            dym = dym + gtest;
+          }
+          if (br && fabs(sy - sx) >= T(0.66) * width1) sn_ = sx + T(0.5) * (sy - sx);
+          const T width1_n = br ? width : width1;
+          const T width_n = br ? (T)fabs(sy - sx) : width;
+          const T stmin_n = br ? fmin(sx, sy) : sn_ + prm.xtrapl * (sn_ - sx);
+          const T stmax_n = br ? fmax(sx, sy) : sn_ + prm.xtrapu * (sn_ - sx);
+          sn_ = jclip(sn_, stpmin, stpmax);
+          if (br && (sn_ <= stmin_n || sn_ >= stmax_n || stmax_n - stmin_n <= prm.xtol * stmax_n))
+            sn_ = sx;
+          stp = sn_;
+          stx = sx; fx = fxm; dx = dxm;
+          sty = sy; fy = fym; dy = dym;
+          brackt = brackt || br;
+          stage1 = stage1_n;
+          width = width_n;
+          width1 = width1_n;
+          stmin = stmin_n;
+          stmax = stmax_n;
+        }
+        t = wdone ? stp : stx;
+      }
+    }
+    __syncwarp();
+
+    // ---- step (re-clipped for the bounded methods) and state update
+    for (int i = lane; i < n; i += kWarp) {
+      const T xn = X[i] + t * D[i];
+      XT[i] = bounded ? jclip(xn, lo[i], up[i]) : xn;
+    }
+    __syncwarp();
+    const T fnew = obj.value_grad(XT, GN, n, lane);
+    __syncwarp();
+    if (method == kSPG) {
+      T sy = 0, ss = 0, yy = 0;
+      for (int i = lane; i < n; i += kWarp) {
+        const T s = XT[i] - X[i], y = GN[i] - G[i];
+        sy += s * y;
+        ss += s * s;
+        yy += y * y;
+      }
+      sy = warp_sum(sy);
+      ss = warp_sum(ss);
+      yy = warp_sum(yy);
+      T raw = ss / sy;
+      if (prm.alternate) {
+        if (par > T(0.5)) raw = sy / yy;
+        par = T(1) - par;
+      }
+      lam = sy <= T(0) ? prm.lam_max : jclip(raw, prm.lam_min, prm.lam_max);
+    }
+    // the quasi-Newton pair s, y into GP, DP, with its sums
+    T sy = 0, ss = 0, yy = 0;
+    bool moved = false;
+    if constexpr (kQnForm) {
+      if (method >= kQN) {
+        for (int i = lane; i < n; i += kWarp) {
+          const T s = XT[i] - X[i], y = GN[i] - G[i];
+          GP[i] = s;
+          DP[i] = y;
+          sy += s * y;
+          ss += s * s;
+          yy += y * y;
+          moved = moved || s != T(0);
+        }
+        sy = warp_sum(sy);
+        ss = warp_sum(ss);
+        yy = warp_sum(yy);
+        moved = __any_sync(kFull, moved);
+      }
+    }
+    for (int i = lane; i < n; i += kWarp) {
+      if (method == kNCG) {
+        GP[i] = G[i];
+        DP[i] = D[i];
+      }
+      X[i] = XT[i];
+      G[i] = GN[i];
+    }
+    ks += 1;
+    Fv = fnew;
+    ++iters;
+    __syncwarp();
+
+    if constexpr (kQnForm) {
+      if (method == kQN || method == kQNB) {
+        // the dense update (pallas_driver.py:467-588); s in GP, y in DP,
+        // B y into D, Broyden's B^T s into XT
+        const T eps = (T)QnLit<T>::eps;
+        const bool pending = prm.restart && pend;
+        const T s_norm = sqrt(ss), y_norm = sqrt(yy);
+        const bool curv_ok = sy > eps * s_norm * y_norm;
+        bool scale_cond = false;
+        T gamma = 1;
+        if (prm.scale_b0) {
+          gamma = curv_ok ? sy / yy : T(1);
+          scale_cond = !isfinite(sn) && curv_ok;
+        }
+        const int upd = prm.qn_update;
+        if (pending || scale_cond) {
+          for (int i = lane; i < n; i += kWarp) {
+            D[i] = pending ? DP[i] : gamma * DP[i];
+            if (upd == kBroyden) XT[i] = pending ? GP[i] : gamma * GP[i];
+          }
+        } else {
+          if (sym) mv_cols(Bm, DP, D, n, lane);
+          else mv_rows(Bm, DP, D, n, lane);
+          if (upd == kBroyden) mv_cols(Bm, GP, XT, n, lane);
+        }
+        __syncwarp();
+        T yBy = 0, shy_y = 0, shy_sq = 0;
+        for (int i = lane; i < n; i += kWarp) {
+          yBy += DP[i] * D[i];
+          const T shy = GP[i] - D[i];
+          shy_y += shy * DP[i];
+          shy_sq += shy * shy;
+        }
+        yBy = warp_sum(yBy);
+        shy_y = warp_sum(shy_y);
+        shy_sq = warp_sum(shy_sq);
+        bool ok;
+        T rho = 0, coeff = 0;
+        switch (upd) {
+          case kBFGS:
+            rho = T(1) / sy;
+            coeff = rho * rho * yBy + rho;
+            ok = curv_ok;
+            break;
+          case kDFP: ok = curv_ok && yBy > eps * y_norm * y_norm; break;
+          case kBroyden: ok = fabs(sy) > eps * s_norm * y_norm; break;
+          default: ok = fabs(shy_y) > eps * sqrt(shy_sq) * y_norm; break;
+        }
+        if (prm.restart) ok = curv_ok;
+        ok = ok && s_norm >= prm.tol && y_norm >= prm.tol && isfinite(sy);
+        const bool reset = prm.restart && !ok;
+        if (ok || reset || pending || scale_cond) {
+          for (int i = 0; i < n; ++i) {
+            const T si = GP[i], byi = D[i], shyi = si - byi;
+            T* row = Bm + (long long)i * n;
+            for (int j = lane; j < n; j += kWarp) {
+              const T eye = i == j ? T(1) : T(0);
+              T b = row[j];
+              if (pending) b = eye;
+              if (scale_cond) b = gamma * eye;
+              T out = b;
+              if (ok) {
+                const T sj = GP[j], byj = D[j];
+                switch (upd) {
+                  case kBFGS: {
+                    // two unfused products: the cross term is the same
+                    // float at (i, j) and (j, i)
+                    T cross;
+                    if constexpr (sizeof(T) == 4)
+                      cross = __fmul_rn(si, byj) + __fmul_rn(byi, sj);
+                    else
+                      cross = __dmul_rn(si, byj) + __dmul_rn(byi, sj);
+                    out = b - rho * cross + coeff * (si * sj);
+                    break;
+                  }
+                  case kDFP: out = b + (si * sj) / sy - (byi * byj) / yBy; break;
+                  case kBroyden: out = b + (shyi * XT[j]) / sy; break;
+                  default: out = b + (shyi * (sj - byj)) / shy_y; break;
+                }
+              }
+              if (reset) out = eye;
+              row[j] = out;
+            }
+          }
+        }
+        pend = false;
+        sn = s_norm;
+        yn = y_norm;
+        stc = (ok && !pending) ? 0 : stc + 1;
+        __syncwarp();
+      } else if (method == kLBFGS) {
+        // ring update and the zero-progress repair
+        // (pallas_driver.py:691-731)
+        if (sy > prm.lbfgs_eps * yy) {
+          T* s_ = S + (long long)head * n;
+          T* y_ = Y + (long long)head * n;
+          for (int i = lane; i < n; i += kWarp) {
+            s_[i] = GP[i];
+            y_[i] = DP[i];
+          }
+          if (lane == 0) {
+            RHO[head] = T(1) / sy;
+            VAL[head] = 1;
+          }
+          head = (head + 1) % m;
+          gam = sy / yy;
+        }
+        if (!moved) {
+          for (int e = lane; e < m; e += kWarp) RHO[e] = VAL[e] = 0;
+          gam = 1;
+        }
+        __syncwarp();
+      }
+    }
+    active = isfinite(Fv) && !converged();
+  }
+
+  // status precedence of the TPU kernel: converged and finite, then the
+  // budget, then out of domain
+  const bool finite = isfinite(Fv);
+  const int status = (converged() && finite) ? 1 : (iters >= prm.max_iter ? 2 : (!finite ? 3 : 2));
+  for (int i = lane; i < n; i += kWarp) prm.x_out[(long long)inst * n + i] = X[i];
+  if (lane == 0) {
+    prm.f_out[inst] = Fv;
+    prm.it_out[inst] = iters;
+    prm.st_out[inst] = status;
+    prm.nfev_out[inst] = nfev;
+  }
+}
+
+template <typename T, class Obj, bool kQnForm>
+int launch(const Params<T>& prm, cudaStream_t stream) {
+  const int m = prm.method == kLBFGS ? prm.m : 0;
+  const long long per_warp = work_elems(prm.n, prm.ring, m) * (long long)sizeof(T);
+  long long wpb = kSmemPerBlock / per_warp;
+  if (wpb > kMaxWarpsPerBlock) wpb = kMaxWarpsPerBlock;
+  if (wpb > prm.B) wpb = prm.B;
+  if (wpb < 1) return kErrSmem;
+  const int smem = (int)(per_warp * wpb);
+  auto kernel = driver_kernel<T, Obj, kQnForm>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (int)((prm.B + wpb - 1) / wpb);
+  kernel<<<grid, (int)wpb * kWarp, smem, stream>>>(prm);
+  return (int)cudaGetLastError();
+}
+
+// the quasi-Newton form of every objective (driver_qn.cu)
+template <typename T>
+int launch_qn(const Params<T>& prm, int objective, cudaStream_t stream);
+
+}  // namespace ost_driver

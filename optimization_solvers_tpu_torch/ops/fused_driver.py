@@ -1,52 +1,74 @@
-"""The generic whole-solve driver K3, first-order form: one CUDA kernel on
-the GPU, and its plain PyTorch version.
+"""The generic whole-solve driver K3: one CUDA kernel on the GPU, and its
+plain PyTorch version.
 
 Replaces the TPU kernel ``optimization_solvers_tpu/ops/pallas_driver.py``
 (``fused_minimize``, kernel body ``_make_kernel``) for the method specs GD,
-CD, Pnorm, PGD, SPG and NCG and the search specs NoSearch, BackTracking,
-BackTrackingB and GLLQuadratic.  The quasi-Newton, L-BFGS and Newton
-method specs and the Wolfe-family searches are the next slice (ROADMAP.md
-Queue 2 item 3).  Both versions here run the TPU kernel's algorithm:
+CD, Pnorm, PGD, SPG, NCG (the first-order form), dense quasi-Newton QN and
+QNB (updates bfgs, dfp, broyden, sr1) and L-BFGS (the quasi-Newton form),
+with the search specs NoSearch, BackTracking, BackTrackingB, GLLQuadratic
+(the Armijo family) and MoreThuente, MoreThuenteB, HagerZhang, HagerZhangB
+and StrongWolfe (MINPACK dcsrch; the Wolfe family).  The Newton method
+specs are the next slice (ROADMAP.md Queue 2 item 3).  Both versions here
+run the TPU kernel's algorithm:
 
-* x0 is clipped into the box for the bounded methods (PGD, SPG), and so is
-  every accepted point;
-* each iteration takes a direction, runs the search's trial loop with
-  value-only evaluations until a trial is accepted or ``max_iter_ls``
-  trials are spent (then the last, untested update of ``t`` is taken), and
-  re-evaluates value and gradient at the new point;
+* x0 is clipped into the box for the bounded methods (PGD, SPG, QNB), and
+  so is every accepted point;
+* each iteration takes a direction, runs the search's trial loop until a
+  trial is accepted or ``max_iter_ls`` trips are spent, and re-evaluates
+  value and gradient at the new point.  The Armijo family evaluates the
+  value alone at a trial and, on exhaustion, takes the last, untested
+  update of ``t``; the Wolfe family evaluates value and gradient at a
+  trial.  On exhaustion More-Thuente takes its last trial step, dcsrch its
+  best step ``stx`` and Hager-Zhang its best trial;
 * status: CONVERGED where converged and finite, else MAX_ITER_REACHED at
   the budget, else OUT_OF_DOMAIN where f is not finite.
 
 Like the TPU kernel, and unlike the JAX lockstep driver, a lane that
 converges exactly at the budget reports CONVERGED, and an out-of-domain
 trial shrinks ``t`` within the one trial budget
-(``pallas_driver.py:38-43``).
+(``pallas_driver.py:38-43``).  More-Thuente evaluates, per trip, the trial
+``t``, then (unless ``t`` is accepted) the interval end ``tl``, and the
+other end ``tu`` only where the case-4 step needs it: the evaluations
+whose values the TPU kernel computes and then discards in a finishing trip
+or outside case 4 are not made, so ``nfev`` counts fewer, and every step
+is the same.
 
 :func:`fused_minimize` takes the plain version for a CPU ``x0`` and
-launches ``csrc/driver.cu`` for a CUDA ``x0``; it never falls back from one
-to the other.
+launches ``csrc/driver.cu`` (the kernel template in ``csrc/driver.cuh``,
+the quasi-Newton form built in ``csrc/driver_qn.cu``) for a CUDA ``x0``;
+it never falls back from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
 from .. import linesearch as ls
-from ..core.numerics import batched_pg_inf_norm
+from ..core.numerics import batched_pg_inf_norm, rust_clamp, rust_max, rust_min
 from ..core.types import SolveResult, Status
+from ..linesearch.dcsrch import _dcstep
+from ..linesearch.morethuente import (_cubic_minimizer, _quadratic_minimizer_1,
+                                      _quadratic_minimizer_2, _update_interval)
 # the method configs only; solvers.driver imports this module
-from ..solvers import nonlinear_cg, steepest
+from ..solvers import lbfgs, nonlinear_cg, quasi_newton, steepest
 from .batched_oracle import (KERNEL_OBJECTIVES, batched_value,
                              batched_value_and_grad, kernel_operands)
 
-# method and search codes of csrc/driver.cu
-GD, CD, PNORM, PGD, SPG, NCG = range(6)
-NOSEARCH, BT, BTB, GLL = range(4)
+# method and search codes of csrc/driver.cuh
+GD, CD, PNORM, PGD, SPG, NCG, QN, QNB, LBFGS = range(9)
+NOSEARCH, BT, BTB, GLL, MT, MTB, HZ, HZB, SW = range(9)
 NCG_VARIANTS = {"fr": 0, "pr+": 1, "hs": 2, "dy": 3}
+# the dense update rules; any other name is SR1, as in the TPU kernel's
+# _QNSpec (pallas_driver.py:532)
+QN_UPDATES = {"bfgs": 0, "dfp": 1, "broyden": 2, "sr1": 3}
+# the quasi-Newton form's curvature floor: the TPU kernel's literals
+# (pallas_driver.py:475, :700-702), not finfo(dtype).eps
+QN_EPS = {torch.float32: 1.2e-7, torch.float64: 2.3e-16}
 # kSmemPerBlock of csrc/common.cuh, and the functors csrc/driver.cu compiles
 SMEM_PER_BLOCK = 232448
 K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
@@ -68,18 +90,49 @@ class K3Spec:
     ncg_variant: int = 0
     restart_every: int = 0
     pinv: Optional[torch.Tensor] = None
+    qn_update: int = 0
+    scale_b0: bool = False
+    restart: bool = False
+    lbfgs_m: int = 0
+    curv_eps: float = 0.0
     c1: float = 0.0
     beta: float = 0.5
     ring: int = 0
     sigma1: float = 0.0
     sigma2: float = 0.0
+    search_bounded: bool = False
+    # More-Thuente
+    c2: float = 0.0
+    t_min: float = 0.0
+    t_max: float = math.inf
+    delta: float = 0.0
+    approx_wolfe: bool = False
+    aw_eps: float = 0.0
+    # Hager-Zhang (delta above)
+    sigma: float = 0.0
+    eps: float = 0.0
+    theta: float = 0.0
+    gamma: float = 0.0
+    rho: float = 0.0
+    # dcsrch (c1, c2 above)
+    xtol: float = 0.0
+    stp_min: float = 0.0
+    stp_max: float = math.inf
+    xtrapl: float = 0.0
+    xtrapu: float = 0.0
 
 
-def build_spec(method, line_search) -> Optional[K3Spec]:
-    """K3's spec for ``(method, line_search)``, or ``None`` where this slice
-    has no fused form: another method or search, PnormDescent without
-    ``inverse_p``, or BackTrackingB with an unbounded method (the rule of
-    ``pallas_driver.py:1683-1684``)."""
+def _method_fields(method) -> Optional[dict]:
+    if isinstance(method, lbfgs.LBFGS):
+        return dict(method=LBFGS, tol=float(method.tol),
+                    lbfgs_m=int(method.m),
+                    curv_eps=float(method.curvature_eps))
+    if isinstance(method, quasi_newton._QuasiNewtonCommon):
+        return dict(method=QNB if isinstance(method, quasi_newton.QuasiNewtonB)
+                    else QN, tol=float(method.tol),
+                    qn_update=QN_UPDATES.get(method.update, 3),
+                    scale_b0=bool(method.scale_b0),
+                    restart=bool(method.restart_on_degeneracy))
     if isinstance(method, steepest.SpectralProjectedGradient):
         m = dict(method=SPG, lam_min=float(method.lambda_min),
                  lam_max=float(method.lambda_max),
@@ -99,51 +152,108 @@ def build_spec(method, line_search) -> Optional[K3Spec]:
                  restart_every=int(method.restart_every))
     else:
         return None
-    bounded = m["method"] in (PGD, SPG)
+    return dict(m, tol=float(method.grad_tol))
 
-    if isinstance(line_search, ls.BackTrackingB):
-        if not bounded:
+
+def _search_fields(line_search) -> Optional[dict]:
+    s = line_search
+    if isinstance(s, ls.BackTrackingB):
+        return dict(search=BTB, c1=float(s.c1), beta=float(s.beta),
+                    search_bounded=True)
+    if isinstance(s, ls.BackTracking):
+        return dict(search=BT, c1=float(s.c1), beta=float(s.beta))
+    if isinstance(s, ls.GLLQuadratic):
+        return dict(search=GLL, c1=float(s.c1), ring=int(s.m),
+                    sigma1=float(s.sigma1), sigma2=float(s.sigma2))
+    if isinstance(s, ls.NoSearch):
+        return dict(search=NOSEARCH)
+    if isinstance(s, ls.MoreThuente):
+        if s.reference_quirks:
             return None
-        s = dict(search=BTB, c1=float(line_search.c1),
-                 beta=float(line_search.beta))
-    elif isinstance(line_search, ls.BackTracking):
-        s = dict(search=BT, c1=float(line_search.c1),
-                 beta=float(line_search.beta))
-    elif isinstance(line_search, ls.GLLQuadratic):
-        s = dict(search=GLL, c1=float(line_search.c1),
-                 ring=int(line_search.m), sigma1=float(line_search.sigma1),
-                 sigma2=float(line_search.sigma2))
-    elif isinstance(line_search, ls.NoSearch):
-        s = dict(search=NOSEARCH)
-    else:
+        bounded = isinstance(s, ls.MoreThuenteB)
+        return dict(search=MTB if bounded else MT, c1=float(s.c1),
+                    c2=float(s.c2), t_min=float(s.t_min),
+                    t_max=float(s.t_max), delta=float(s.delta),
+                    approx_wolfe=bool(s.approx_wolfe),
+                    aw_eps=float(s.aw_eps), search_bounded=bounded)
+    if isinstance(s, ls.HagerZhang):
+        bounded = isinstance(s, ls.HagerZhangB)
+        return dict(search=HZB if bounded else HZ, delta=float(s.delta),
+                    sigma=float(s.sigma), eps=float(s.eps),
+                    theta=float(s.theta), gamma=float(s.gamma),
+                    rho=float(s.rho), search_bounded=bounded)
+    if isinstance(s, ls.StrongWolfe):
+        return dict(search=SW, c1=float(s.c1), c2=float(s.c2),
+                    xtol=float(s.xtol), stp_min=float(s.stp_min),
+                    stp_max=float(s.stp_max), xtrapl=float(s.xtrapl),
+                    xtrapu=float(s.xtrapu), search_bounded=bool(s.bounded))
+    return None
+
+
+def build_spec(method, line_search) -> Optional[K3Spec]:
+    """K3's spec for ``(method, line_search)``, or ``None`` where the
+    ported slices have no fused form: another method or search (the
+    Newton specs), PnormDescent without ``inverse_p``,
+    ``MoreThuente(reference_quirks=True)``, or a bounded search
+    (BackTrackingB, MoreThuenteB, HagerZhangB, ``StrongWolfe(bounded=
+    True)``) with an unbounded method -- the rules of
+    ``pallas_driver.py:1620-1685``."""
+    m = _method_fields(method)
+    s = _search_fields(line_search)
+    if m is None or s is None:
         return None
-    return K3Spec(bounded=bounded, tol=float(method.grad_tol), **m, **s)
+    bounded = m["method"] in (PGD, SPG, QNB)
+    if s.get("search_bounded") and not bounded:
+        return None
+    return K3Spec(bounded=bounded, **m, **s)
 
 
 def fused_supported(method, line_search) -> bool:
-    """True if (method, line_search) has a form in this slice of K3."""
+    """True if (method, line_search) has a form in the ported slices of
+    K3."""
     return build_spec(method, line_search) is not None
 
 
-def smem_per_instance(n: int, ring: int, itemsize: int) -> int:
+def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0) -> int:
     """Shared memory one instance takes in the CUDA kernel: ``work_elems``
-    of ``csrc/driver.cu`` (7 n + the GLL history) times the element size,
+    of ``csrc/driver.cuh`` (7 n, the GLL history, and L-BFGS's S and Y
+    rows, rho, valid and alpha: 2 m n + 3 m) times the element size,
     mirrored here so that the route can decide without the library."""
-    return (7 * n + ring) * itemsize
+    return (7 * n + ring + 2 * m * n + 3 * m) * itemsize
 
 
-def fits(n: int, ring: int, itemsize: int) -> bool:
+def fits(n: int, ring: int, itemsize: int, m: int = 0) -> bool:
     """Whether an instance of width ``n`` fits a block's shared memory."""
-    return smem_per_instance(n, ring, itemsize) <= SMEM_PER_BLOCK
+    return smem_per_instance(n, ring, itemsize, m) <= SMEM_PER_BLOCK
 
 
-def _check_fits(n, ring, itemsize):
-    if not fits(n, ring, itemsize):
+def _check_fits(n, ring, itemsize, m=0):
+    if not fits(n, ring, itemsize, m):
         raise NotImplementedError(
-            f"n={n} needs {smem_per_instance(n, ring, itemsize)} bytes of "
+            f"n={n} needs {smem_per_instance(n, ring, itemsize, m)} bytes of "
             f"shared memory per instance in {KERNEL}, more than a block's "
             f"{SMEM_PER_BLOCK}; such a batch waits for the lockstep driver "
             f"({LOCKSTEP})")
+
+
+def workspace_elems(B: int, n: int, method: int) -> int:
+    """Device-memory workspace of the CUDA kernel, in elements: the dense
+    quasi-Newton methods keep each instance's (n, n) inverse-Hessian
+    approximation there (``csrc/driver.cuh`` ``workspace_elems``)."""
+    return B * n * n if method in (QN, QNB) else 0
+
+
+def _check_workspace(B, n, method, itemsize, device):
+    need = workspace_elems(B, n, method) * itemsize
+    if need == 0:
+        return
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise NotImplementedError(
+            f"{B} instances of width n={n} need {need} bytes of device "
+            f"memory for the dense quasi-Newton slabs of {KERNEL}, more "
+            f"than the {free} free; such a batch waits for the lockstep "
+            f"driver ({LOCKSTEP}) or a smaller batch")
 
 
 def _spec_for(method, line_search) -> K3Spec:
@@ -163,6 +273,248 @@ def _check_bounds(spec, method, lower, upper):
 def _sign(v):
     """``jnp.sign``: NaN stays NaN (``torch.sign`` gives 0)."""
     return torch.where(torch.isnan(v), v, torch.sign(v))
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def _max_feasible_step(X, d, lo, up):
+    """Per instance ``min_i (bound_i - x_i) / d_i`` with NaN terms as +inf
+    (``pallas_driver.py:128-137``)."""
+    inf = torch.full_like(d, float("inf"))
+    terms = torch.where(d > 0.0, (up - X) / d,
+                        torch.where(d < 0.0, (lo - X) / d, inf))
+    terms = torch.where(torch.isnan(terms), inf, terms)
+    return torch.amin(terms, dim=-1)
+
+
+def _phi(bvg, X, d, t):
+    """Value and directional derivative at ``X + t d``, per instance."""
+    f, g = bvg(X + t[:, None] * d)
+    return f, _dot(g, d)
+
+
+def _mt_plain(spec, bvg, X, d, f0, g0d, active, t_min, t_max, max_iter_ls,
+              nfev):
+    """More-Thuente, corrected interval update (``pallas_driver.py:
+    1141-1315``), batched with per-instance masks."""
+    c1, c2, delta = spec.c1, spec.c2, spec.delta
+    one = torch.ones_like(f0)
+    t = rust_min(rust_max(one, t_min), t_max)
+    tl, tu = t_min.clone(), t_max.clone()
+    modified = torch.zeros_like(active)
+    int_conv = torch.zeros_like(active)
+    done = ~active
+
+    def psi_of(phi_f, phi_g, tt):
+        return phi_f - f0 - c1 * tt * g0d, phi_g - c1 * g0d
+
+    for _ in range(max_iter_ls):
+        if bool(done.all()):
+            break
+        ft, gt = _phi(bvg, X, d, t)
+        nfev.add_((~done).to(torch.int32))
+        swc = ls.strong_wolfe(c1, c2, f0, ft, g0d, gt, t)
+        if spec.approx_wolfe:
+            swc = swc | (((2.0 * c1 - 1.0) * g0d >= gt) & (gt >= c2 * g0d)
+                         & (ft <= f0 + spec.aw_eps * torch.abs(f0))
+                         & (t > 0.0))
+        finish = swc | int_conv | (t == tl) | (t == tu)
+        go = ~done & ~finish
+        if not bool(go.any()):
+            break
+        psi_t_f, psi_t_g = psi_of(ft, gt, t)
+        modified = modified | ((psi_t_f <= 0.0) & (gt > 0.0))
+        fl, gl = _phi(bvg, X, d, tl)
+        nfev.add_(go.to(torch.int32))
+        psi_l_f, psi_l_g = psi_of(fl, gl, tl)
+        f_l = torch.where(modified, fl, psi_l_f)
+        g_l = torch.where(modified, gl, psi_l_g)
+        f_c = torch.where(modified, ft, psi_t_f)
+        g_c = torch.where(modified, gt, psi_t_g)
+        case1 = f_c > f_l
+        case2 = ~case1 & (g_c * g_l < 0.0)
+        case3 = ~case1 & ~case2 & (torch.abs(g_c) <= torch.abs(g_l))
+        case4 = ~(case1 | case2 | case3)
+        tc = _cubic_minimizer(tl, t, f_l, f_c, g_l, g_c)
+        tq = _quadratic_minimizer_1(tl, t, f_l, f_c, g_l)
+        ts = _quadratic_minimizer_2(tl, t, g_l, g_c)
+        t1 = torch.where(torch.abs(tc - tl) < torch.abs(tq - tl), tc,
+                         0.5 * (tq + tc))
+        t2 = torch.where(torch.abs(tc - t) >= torch.abs(ts - t), tc, ts)
+        t_plus = torch.where(torch.abs(tc - t) < torch.abs(ts - t), tc, ts)
+        t_far = t + delta * (tu - t)
+        t3 = torch.where(t > tl, rust_min(t_plus, t_far),
+                         rust_max(t_plus, t_far))
+        t4 = t
+        need_u = go & case4
+        if bool(need_u.any()):
+            # the case-4 step needs phi at tu
+            fu, gu = _phi(bvg, X, d, tu)
+            nfev.add_(need_u.to(torch.int32))
+            psi_u_f, psi_u_g = psi_of(fu, gu, tu)
+            f_u = torch.where(modified, fu, psi_u_f)
+            g_u = torch.where(modified, gu, psi_u_g)
+            t4 = torch.where(need_u, _cubic_minimizer(tu, t, f_c, f_u, g_c,
+                                                      g_u), t)
+        t_new = torch.where(case1, t1, torch.where(
+            case2, t2, torch.where(case3, t3, t4)))
+        t_new = rust_clamp(t_new, t_min, t_max)
+        # force progress: extrapolate while unbracketed, bisect once
+        # bracketed
+        no_prog = (t_new == tl) | (t_new == tu) | ~torch.isfinite(t_new)
+        fallback = torch.where(torch.isfinite(tu), 0.5 * (tl + tu), 2.0 * t)
+        t_new = torch.where(no_prog, rust_clamp(fallback, t_min, t_max),
+                            t_new)
+        tl_new, tu_new, conv_new = _update_interval(f_l, f_c, g_c, tl, t, tu)
+        t = torch.where(go, t_new, t)
+        tl = torch.where(go, tl_new, tl)
+        tu = torch.where(go, tu_new, tu)
+        int_conv = torch.where(go, conv_new, int_conv)
+        done = done | finish
+    return t
+
+
+def _hz_plain(spec, bvg, X, d, f0, d0, active, t_max, max_iter_ls, nfev):
+    """Hager-Zhang, the flattened bracket / bisect / secant machine
+    (``pallas_driver.py:1483-1612``); returns the best trial step."""
+    finfo = torch.finfo(f0.dtype)
+    tiny, big = finfo.tiny, finfo.max
+    bracket, bisect_, secant = 0, 1, 2
+    delta, sigma, theta = spec.delta, spec.sigma, spec.theta
+    f_eps = f0 + spec.eps * torch.abs(f0)
+    a = torch.zeros_like(f0)
+    da = d0.clone()
+    b = torch.full_like(f0, big)
+    c = torch.minimum(torch.ones_like(f0), t_max)
+    mode = torch.zeros_like(f0, dtype=torch.int32)
+    t_best = c.clone()
+    f_best = torch.full_like(f0, big)
+    shrink = torch.full_like(f0, big)
+    done = ~active
+    for _ in range(max_iter_ls):
+        if bool(done.all()):
+            break
+        fc, dc = _phi(bvg, X, d, c)
+        nfev.add_((~done).to(torch.int32))
+        wolfe = (fc - f0 <= delta * c * d0) & (dc >= sigma * d0)
+        approx = ((dc <= (2.0 * delta - 1.0) * d0) & (dc >= sigma * d0)
+                  & (fc <= f_eps))
+        ok = wolfe | approx | ((c >= t_max) & (dc < 0.0) & (fc <= f_eps))
+        better = (fc < f_best) & (c > 0.0)
+        live = ~done
+        t_best = torch.where(live & (ok | better), c, t_best)
+        f_best = torch.where(live & better, fc, f_best)
+        to_secant = dc >= 0.0
+        advance = ~to_secant & (fc <= f_eps)
+        to_bisect = ~to_secant & (fc > f_eps)
+        a_new = torch.where(advance, c, a)
+        da_new = torch.where(advance, dc, da)
+        b_new = torch.where(to_secant | to_bisect, c, b)
+        grow = torch.minimum(spec.rho * c, t_max)
+        bis = (1.0 - theta) * a_new + theta * b_new
+        denom = dc - da_new
+        sec = torch.where(torch.abs(denom) > tiny,
+                          (a_new * dc - c * da_new) / denom, bis)
+        width = b_new - a_new
+        stalled = width > spec.gamma * shrink
+        sec = torch.where((sec <= a_new) | (sec >= b_new) | stalled,
+                          0.5 * (a_new + b_new), sec)
+        next_mode = torch.where(to_secant, secant,
+                                torch.where(to_bisect, bisect_, mode))
+        in_bracket = (mode == bracket) & advance
+        c_new = torch.where(in_bracket, grow,
+                            torch.where(next_mode == secant, sec, bis))
+        go = live & ~ok
+        a = torch.where(go, a_new, a)
+        da = torch.where(go, da_new, da)
+        b = torch.where(go, b_new, b)
+        c = torch.where(go, c_new, c)
+        mode = torch.where(go, next_mode, mode)
+        shrink = torch.where(go, width, shrink)
+        done = done | ok
+    return t_best
+
+
+def _sw_plain(spec, bvg, X, d, f0, ginit, active, stpmax, max_iter_ls,
+              nfev):
+    """MINPACK dcsrch (``pallas_driver.py:1318-1480``): returns the step on
+    a finish exit, the best step ``stx`` on exhaustion, 0 for a
+    non-descent direction."""
+    c2, xtol = spec.c2, spec.xtol
+    xtrapl, xtrapu = spec.xtrapl, spec.xtrapu
+    gtest = spec.c1 * ginit
+    zero = torch.zeros_like(f0)
+    stpmin = torch.full_like(f0, spec.stp_min)
+    descent = ginit < 0.0
+    stp = torch.where(descent, torch.clamp(torch.ones_like(f0), stpmin,
+                                           stpmax), zero)
+    width = stpmax - stpmin
+    width1 = width / 0.5
+    stx, fx, dx = zero.clone(), f0.clone(), ginit.clone()
+    sty, fy, dy = zero.clone(), f0.clone(), ginit.clone()
+    brackt = torch.zeros_like(active)
+    stage1 = torch.ones_like(active)
+    stmin, stmax = zero.clone(), stp + xtrapu * stp
+    done = ~active | ~descent
+    for _ in range(max_iter_ls):
+        if bool(done.all()):
+            break
+        fp, gp = _phi(bvg, X, d, stp)
+        nfev.add_((~done).to(torch.int32))
+        ftest = f0 + stp * gtest
+        stage1_n = stage1 & ~((fp <= ftest) & (gp >= 0.0))
+        finish = (((fp <= ftest) & (torch.abs(gp) <= c2 * (-ginit)))
+                  | (brackt & (stmax - stmin <= xtol * stmax))
+                  | ((stp == stpmax) & (fp <= ftest) & (gp <= gtest))
+                  | ((stp == stpmin) & ((fp > ftest) | (gp >= gtest)))
+                  | (brackt & ((stp <= stmin) | (stp >= stmax))))
+        mod = stage1_n & (fp <= fx) & (fp > ftest)
+        sx, fxm, dxm, sy, fym, dym, sn, br = _dcstep(
+            stx, torch.where(mod, fx - stx * gtest, fx),
+            torch.where(mod, dx - gtest, dx), sty,
+            torch.where(mod, fy - sty * gtest, fy),
+            torch.where(mod, dy - gtest, dy), stp,
+            torch.where(mod, fp - stp * gtest, fp),
+            torch.where(mod, gp - gtest, gp), brackt, stmin, stmax)
+        fxm = torch.where(mod, fxm + sx * gtest, fxm)
+        fym = torch.where(mod, fym + sy * gtest, fym)
+        dxm = torch.where(mod, dxm + gtest, dxm)
+        dym = torch.where(mod, dym + gtest, dym)
+        sn = torch.where(br & (torch.abs(sy - sx) >= 0.66 * width1),
+                         sx + 0.5 * (sy - sx), sn)
+        width1_n = torch.where(br, width, width1)
+        width_n = torch.where(br, torch.abs(sy - sx), width)
+        stmin_n = torch.where(br, torch.fmin(sx, sy), sn + xtrapl * (sn - sx))
+        stmax_n = torch.where(br, torch.fmax(sx, sy), sn + xtrapu * (sn - sx))
+        sn = torch.minimum(torch.maximum(sn, stpmin), stpmax)
+        give_up = br & ((sn <= stmin_n) | (sn >= stmax_n)
+                        | (stmax_n - stmin_n <= xtol * stmax_n))
+        sn = torch.where(give_up, sx, sn)
+        go = ~done & ~finish
+        stp = torch.where(go, sn, stp)
+        stx = torch.where(go, sx, stx)
+        fx = torch.where(go, fxm, fx)
+        dx = torch.where(go, dxm, dx)
+        sty = torch.where(go, sy, sty)
+        fy = torch.where(go, fym, fy)
+        dy = torch.where(go, dym, dy)
+        brackt = torch.where(go, brackt | br, brackt)
+        stage1 = torch.where(go, stage1_n, stage1)
+        width = torch.where(go, width_n, width)
+        width1 = torch.where(go, width1_n, width1)
+        stmin = torch.where(go, stmin_n, stmin)
+        stmax = torch.where(go, stmax_n, stmax)
+        done = done | finish
+    return torch.where(done, stp, stx)
+
+
+def _matvec(Bm, v, transpose=False):
+    """``B v`` (or ``B^T v``) per instance."""
+    if transpose:
+        Bm = Bm.transpose(1, 2)
+    return torch.matmul(Bm, v[:, :, None])[:, :, 0]
 
 
 def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
@@ -196,8 +548,32 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
     if search == GLL:
         fhist = torch.full((B, spec.ring), float("-inf"), dtype=dt,
                            device=dev)
+    if search == MTB:
+        run_tmax = torch.full((B,), spec.t_max, dtype=dt, device=dev)
+    if method in (QN, QNB):
+        eye = torch.eye(n, dtype=dt, device=dev)
+        Bm = eye.expand(B, n, n).clone()
+        sn = torch.full((B,), float("inf"), dtype=dt, device=dev)
+        yn = sn.clone()
+        stc = torch.zeros((B,), dtype=torch.int32, device=dev)
+        pend = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if method == LBFGS:
+        m = spec.lbfgs_m
+        S = torch.zeros((B, m, n), dtype=dt, device=dev)
+        Y = torch.zeros_like(S)
+        rho = torch.zeros((B, m), dtype=dt, device=dev)
+        valid = torch.zeros_like(rho)
+        gam = torch.ones((B,), dtype=dt, device=dev)
 
     def converged():
+        if method in (QN, QNB):
+            # the gradient 2-norm, or the s/y stall (pallas_driver.py:431)
+            g_small = torch.sqrt(_dot(G, G)) < spec.tol
+            if spec.restart:
+                return g_small | (stc >= 2)
+            return g_small | (sn < spec.tol) | (yn < spec.tol)
+        if method == LBFGS:
+            return torch.amax(torch.abs(G), dim=-1) < spec.tol
         pg = G
         if spec.bounded:
             pushing = ((X == lo) & (G > 0.0)) | ((X == up) & (G < 0.0))
@@ -205,7 +581,41 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         return torch.amax(torch.abs(pg), dim=-1) < spec.tol
 
     def direction(active):
-        nonlocal ks
+        nonlocal ks, pend, rho, valid, gam
+        if method in (QN, QNB):
+            Bg = _matvec(Bm, G, transpose=spec.qn_update != 2)
+            if method == QN:
+                d = -Bg
+                fallback = -G
+                fin = torch.isfinite(d).all(dim=-1)
+            else:
+                d = clip(X - Bg) - X
+                fallback = clip(X - G) - X
+                # the poison check reads the raw B g: the clip would hide it
+                fin = torch.isfinite(Bg).all(dim=-1)
+            if spec.restart:
+                keep = fin & (_dot(G, d) < 0.0)
+                d = torch.where(keep[:, None], d, fallback)
+                pend = pend | (active & ~fin)
+            return d
+        if method == LBFGS:
+            q = G
+            alphas = [None] * spec.lbfgs_m
+            for j in range(spec.lbfgs_m - 1, -1, -1):      # newest -> oldest
+                a = rho[:, j] * _dot(S[:, j], q) * valid[:, j]
+                q = q - a[:, None] * Y[:, j]
+                alphas[j] = a
+            r = gam[:, None] * q
+            for j in range(spec.lbfgs_m):                  # oldest -> newest
+                b = rho[:, j] * _dot(Y[:, j], r) * valid[:, j]
+                r = r + (alphas[j] - b)[:, None] * S[:, j]
+            d = -r
+            ok = torch.isfinite(d).all(dim=-1) & (_dot(G, d) < 0.0)
+            bad = (active & ~ok)[:, None]
+            rho = torch.where(bad, 0.0, rho)
+            valid = torch.where(bad, 0.0, valid)
+            gam = torch.where(bad[:, 0], 1.0, gam)
+            return torch.where(ok[:, None], d, -G)
         if method == CD:
             a = torch.abs(G)
             amax = torch.amax(a, dim=-1, keepdim=True)
@@ -245,11 +655,33 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         return -G
 
     def step_length(d, active):
-        nonlocal fhist
+        nonlocal fhist, run_tmax
         t = torch.ones((B,), dtype=dt, device=dev)
         if search == NOSEARCH:
             return t
         g0d = torch.sum(G * d, dim=-1)
+        if search in (MT, MTB):
+            t_min = torch.full((B,), spec.t_min, dtype=dt, device=dev)
+            if search == MTB:
+                run_tmax = torch.minimum(
+                    run_tmax, _max_feasible_step(X, d, lo, up))
+                t_max = run_tmax
+            else:
+                t_max = torch.full((B,), spec.t_max, dtype=dt, device=dev)
+            return _mt_plain(spec, bvg, X, d, Fv, g0d, active, t_min, t_max,
+                             max_iter_ls, nfev)
+        if search in (HZ, HZB):
+            t_max = (_max_feasible_step(X, d, lo, up) if search == HZB else
+                     torch.full((B,), float("inf"), dtype=dt, device=dev))
+            return _hz_plain(spec, bvg, X, d, Fv, g0d, active, t_max,
+                             max_iter_ls, nfev)
+        if search == SW:
+            stpmax = torch.full((B,), spec.stp_max, dtype=dt, device=dev)
+            if spec.search_bounded:
+                stpmax = torch.minimum(stpmax,
+                                       _max_feasible_step(X, d, lo, up))
+            return _sw_plain(spec, bvg, X, d, Fv, g0d, active, stpmax,
+                             max_iter_ls, nfev)
         f_ref = Fv
         if search == GLL:
             fhist = torch.cat([fhist[:, 1:], Fv[:, None]], dim=1)
@@ -284,6 +716,103 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             done = keep
         return t
 
+    def qn_post_step(active, s, y):
+        """The dense update of ``pallas_driver.py:467-588``."""
+        nonlocal Bm, sn, yn, stc, pend
+        eps = QN_EPS[dt]
+        pending = pend
+        sy = _dot(s, y)
+        s_norm = torch.sqrt(_dot(s, s))
+        y_norm = torch.sqrt(_dot(y, y))
+        curv_ok = sy > eps * s_norm * y_norm
+        scale_cond = torch.zeros_like(curv_ok)
+        gamma = torch.ones_like(sy)
+        if spec.scale_b0:
+            gamma = torch.where(curv_ok, sy / _dot(y, y), 1.0)
+            scale_cond = ~torch.isfinite(sn) & curv_ok
+        upd = spec.qn_update
+        By = _matvec(Bm, y, transpose=upd != 2)
+        By = torch.where(scale_cond[:, None], gamma[:, None] * y, By)
+        if spec.restart:
+            By = torch.where(pending[:, None], y, By)
+        col = (slice(None), None, slice(None))       # v_j along a row
+        row = (slice(None), slice(None), None)       # v_i down a column
+        if upd == 0:                                 # bfgs
+            rho_ = 1.0 / sy
+            coeff = rho_ * rho_ * _dot(y, By) + rho_
+            ok = curv_ok
+
+            def new_slab(Bc):
+                return (Bc - rho_[:, None, None] * (s[row] * By[col]
+                                                    + By[row] * s[col])
+                        + coeff[:, None, None] * (s[row] * s[col]))
+        elif upd == 1:                               # dfp
+            yBy = _dot(y, By)
+            ok = curv_ok & (yBy > eps * y_norm * y_norm)
+
+            def new_slab(Bc):
+                return (Bc + (s[row] * s[col]) / sy[:, None, None]
+                        - (By[row] * By[col]) / yBy[:, None, None])
+        elif upd == 2:                               # broyden
+            Bts = _matvec(Bm, s, transpose=True)
+            Bts = torch.where(scale_cond[:, None], gamma[:, None] * s, Bts)
+            if spec.restart:
+                Bts = torch.where(pending[:, None], s, Bts)
+            ok = torch.abs(sy) > eps * s_norm * y_norm
+
+            def new_slab(Bc):
+                return Bc + ((s - By)[row] * Bts[col]) / sy[:, None, None]
+        else:                                        # sr1
+            shy = s - By
+            denom = _dot(shy, y)
+            ok = (torch.abs(denom)
+                  > eps * torch.sqrt(_dot(shy, shy)) * y_norm)
+
+            def new_slab(Bc):
+                return Bc + (shy[row] * shy[col]) / denom[:, None, None]
+
+        not_tiny = (s_norm >= spec.tol) & (y_norm >= spec.tol)
+        if spec.restart:
+            ok = curv_ok
+        ok = ok & not_tiny & torch.isfinite(sy)
+        Bc = Bm
+        if spec.restart:
+            Bc = torch.where(pending[:, None, None], eye, Bc)
+        if spec.scale_b0:
+            Bc = torch.where(scale_cond[:, None, None],
+                             gamma[:, None, None] * eye, Bc)
+        out = torch.where((active & ok)[:, None, None], new_slab(Bc), Bc)
+        stall_clear = ok
+        if spec.restart:
+            out = torch.where((active & ~ok)[:, None, None], eye, out)
+            stall_clear = ok & ~pending
+            pend = torch.where(active, False, pend)
+        Bm = out
+        sn = torch.where(active, s_norm, sn)
+        yn = torch.where(active, y_norm, yn)
+        stc = torch.where(active, torch.where(stall_clear, 0, stc + 1), stc)
+
+    def lbfgs_post_step(active, s, y):
+        """Shift-not-ring history update and the zero-progress repair of
+        ``pallas_driver.py:691-731``."""
+        nonlocal S, Y, rho, valid, gam
+        sy, yy = _dot(s, y), _dot(y, y)
+        eps = max(spec.curv_eps, QN_EPS[dt])
+        acc = active & (sy > eps * yy)
+        a3 = acc[:, None, None]
+        S = torch.where(a3, torch.cat([S[:, 1:], s[:, None]], dim=1), S)
+        Y = torch.where(a3, torch.cat([Y[:, 1:], y[:, None]], dim=1), Y)
+        a2 = acc[:, None]
+        rho = torch.where(a2, torch.cat([rho[:, 1:], (1.0 / sy)[:, None]], 1),
+                          rho)
+        valid = torch.where(a2, torch.cat(
+            [valid[:, 1:], torch.ones_like(sy)[:, None]], 1), valid)
+        gam = torch.where(acc, sy / yy, gam)
+        no_move = active & ~(s != 0.0).any(dim=-1)
+        rho = torch.where(no_move[:, None], 0.0, rho)
+        valid = torch.where(no_move[:, None], 0.0, valid)
+        gam = torch.where(no_move, 1.0, gam)
+
     active = torch.isfinite(Fv) & ~converged()
     for _ in range(max_iter):
         if not bool(active.any()):
@@ -316,6 +845,10 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             Gp = torch.where(am, G_old, Gp)
             Dp = torch.where(am, d, Dp)
             ks = ks + active.to(torch.int32)
+        if method in (QN, QNB):
+            qn_post_step(active, X - X_old, G - G_old)
+        if method == LBFGS:
+            lbfgs_post_step(active, X - X_old, G - G_old)
         iters = iters + active.to(torch.int32)
         active = torch.isfinite(Fv) & ~converged()
 
@@ -334,11 +867,29 @@ def fused_minimize_plain(method, line_search, f, x0, lower=None, upper=None,
 
     Arguments as :func:`fused_minimize`.  Returns ``(x, f, iterations,
     status, nfev)`` without the epilogue; ``nfev`` counts each instance's
-    value-only trial evaluations."""
+    trial evaluations (value only in the Armijo family, value and gradient
+    in the Wolfe family)."""
     spec = _spec_for(method, line_search)
     _check_bounds(spec, method, lower, upper)
     return _solve_plain(spec, f, x0, lower, upper, tuple(consts), max_iter,
                         max_iter_ls)
+
+
+def _slots(spec: K3Spec, dtype):
+    """The int and double parameter arrays of ``driver_launch`` (slots
+    ``IntSlot`` and ``DoubleSlot`` of ``csrc/driver.cuh``)."""
+    ints = [spec.method, spec.search, int(spec.alternate), spec.ncg_variant,
+            spec.restart_every, spec.ring, spec.qn_update, int(spec.scale_b0),
+            int(spec.restart), spec.lbfgs_m, int(spec.approx_wolfe),
+            int(spec.search_bounded)]
+    doubles = [spec.tol, spec.lam_min, spec.lam_max, spec.c1, spec.beta,
+               spec.sigma1, spec.sigma2, max(spec.curv_eps, QN_EPS[dtype]),
+               spec.c2, spec.t_min, spec.t_max, spec.delta, spec.aw_eps,
+               spec.sigma, spec.eps, spec.theta, spec.gamma, spec.rho,
+               spec.xtol, spec.stp_min, spec.stp_max, spec.xtrapl,
+               spec.xtrapu]
+    return ((ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_double * len(doubles))(*doubles))
 
 
 def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
@@ -380,13 +931,18 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         if tuple(pinv.shape) != (n, n):
             raise ValueError(f"inverse_p must be ({n}, {n}), got "
                              f"{tuple(pinv.shape)}")
-    _check_fits(n, spec.ring, x0.element_size())
+    _check_fits(n, spec.ring, x0.element_size(), spec.lbfgs_m)
+    _check_workspace(B, n, spec.method, x0.element_size(), x0.device)
     x0 = x0.contiguous()
     lib = _build.load()
     x = torch.empty_like(x0)
     fv = torch.empty((B,), dtype=x0.dtype, device=x0.device)
     it, st, nfev = (torch.empty((B,), dtype=torch.int32, device=x0.device)
                     for _ in range(3))
+    elems = workspace_elems(B, n, spec.method)
+    work = (torch.empty((elems,), dtype=x0.dtype, device=x0.device)
+            if elems else None)
+    ints, doubles = _slots(spec, x0.dtype)
 
     def ptr(v):
         return None if v is None else v.data_ptr()
@@ -398,12 +954,9 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             ptr(lo), ptr(up), bstride,
             ptr(arrays[0] if arrays else None),
             ptr(arrays[1] if len(arrays) > 1 else None), ptr(pinv), B, n,
-            spec.method, spec.search, spec.tol, spec.lam_min, spec.lam_max,
-            int(spec.alternate), spec.ncg_variant, spec.restart_every,
-            spec.c1, spec.beta, spec.sigma1, spec.sigma2, spec.ring,
-            int(max_iter), int(max_iter_ls), x.data_ptr(), fv.data_ptr(),
-            it.data_ptr(), st.data_ptr(), nfev.data_ptr(),
-            ctypes.c_void_p(stream))
+            ints, doubles, int(max_iter), int(max_iter_ls), ptr(work),
+            x.data_ptr(), fv.data_ptr(), it.data_ptr(), st.data_ptr(),
+            nfev.data_ptr(), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"driver_launch failed: "
                            f"{_build.error_string(rc)} (code {rc})")
@@ -414,8 +967,8 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
 def apply_stall_status(status, method, x, f, g, pg_norm, bounds):
     """Re-label CONVERGED lanes as :data:`Status.STALLED` where the method's
     ``stall_status`` hook says the exit was a stall at a non-KKT point (the
-    quasi-Newton family, next slice).  Methods without the hook are
-    untouched; only CONVERGED is ever re-labelled."""
+    dense quasi-Newton family).  Methods without the hook are untouched;
+    only CONVERGED is ever re-labelled."""
     hook = getattr(method, "stall_status", None)
     if hook is None:
         return status
@@ -447,7 +1000,15 @@ def solve_spec(spec: K3Spec, method, f, x0, lower, upper, consts, *,
                                         max_iter, max_iter_ls)
     else:
         raise ValueError(f"no K3 route for device {x0.device}")
-    _, g = batched_value_and_grad(f, consts)(x)
+    return epilogue(method, f, consts, x, fv, it, st, lower, upper)
+
+
+def epilogue(method, f, consts, x, fv, it, st, lower=None,
+             upper=None) -> SolveResult:
+    """The JAX kernel wrapper's epilogue on ``(x, f, iterations, status)``:
+    the final gradient and ``pg_norm`` from one batched value-and-gradient,
+    and the STALLED relabel."""
+    _, g = batched_value_and_grad(f, tuple(consts))(x)
     bounds = None if lower is None else (lower.to(x.dtype), upper.to(x.dtype))
     pg = exit_pg_norm(x, g, bounds)
     st = apply_stall_status(st, method, x, fv, g, pg, bounds)

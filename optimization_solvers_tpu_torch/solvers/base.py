@@ -4,7 +4,8 @@ Counterpart of :mod:`optimization_solvers_tpu.solvers.base`.  A method is a
 frozen config; the whole-solve kernel K3 reads its fields
 (:mod:`..ops.fused_driver`).  The per-iteration hooks of the JAX lockstep
 driver (``init``, ``converged``, ``direction``, ``post_step``) come with the
-lockstep driver (ROADMAP.md Queue 1 item 7).
+lockstep driver (ROADMAP.md Queue 1 item 7); until then they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,10 +16,27 @@ from ..core.numerics import box_projection, infinity_norm, projected_gradient
 from ..linesearch.base import Bounds
 
 
+_LOCKSTEP = ("the lockstep method bodies are not ported yet; the methods "
+             "run inside the whole-solve kernel K3 (ROADMAP.md Queue 1 item "
+             "7)")
+
+
 class Method:
     """Base solver config."""
 
     needs_hessian: bool = False
+
+    def init(self, x, ev, bounds: Bounds):
+        raise NotImplementedError(_LOCKSTEP)
+
+    def converged(self, mstate, x, ev, bounds: Bounds):
+        raise NotImplementedError(_LOCKSTEP)
+
+    def direction(self, mstate, x, ev, bounds: Bounds):
+        raise NotImplementedError(_LOCKSTEP)
+
+    def post_step(self, mstate, x, ev, d, t, x_new, ev_new, bounds: Bounds):
+        raise NotImplementedError(_LOCKSTEP)
 
     def prepare_x0(self, x0: torch.Tensor, bounds: Bounds) -> torch.Tensor:
         return x0

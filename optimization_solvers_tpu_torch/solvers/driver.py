@@ -62,7 +62,9 @@ def batch_minimize(method, line_search, oracle, x0, *, bounds: Bounds = None,
     vmapped paths are not ported: ``fused=False``, ``batched_bounds=True``,
     a ``callback``, an ``unroll`` other than 1, a combination outside this
     slice of K3, an oracle without a raw objective, or an instance too wide
-    for a block's shared memory raise ``NotImplementedError``."""
+    for a block's shared memory raise ``NotImplementedError``; so does, on
+    a CUDA ``x0``, a batch of dense quasi-Newton slabs (``B n^2``
+    elements) larger than the device's free memory."""
     unknown = set(kwargs) - _KWARGS
     if unknown:
         raise TypeError(
@@ -84,17 +86,23 @@ def batch_minimize(method, line_search, oracle, x0, *, bounds: Bounds = None,
             f"hand-written oracle needs the lockstep driver ({_LOCKSTEP})")
     spec = fused_driver.build_spec(method, line_search)
     if spec is None:
+        if getattr(line_search, "reference_quirks", False):
+            raise NotImplementedError(
+                "MoreThuente(reference_quirks=True) has no fused form (as in "
+                "JAX K3, pallas_driver.py:1666); its bug-for-bug interval "
+                f"update waits for the lockstep search ({_LOCKSTEP})")
         raise NotImplementedError(
             f"({type(method).__name__}, {type(line_search).__name__}) has no "
-            "form in the ported slice of K3 (first-order methods with "
-            "BackTracking, BackTrackingB, GLLQuadratic or NoSearch); the "
-            "quasi-Newton, L-BFGS and Newton specs and the Wolfe searches "
-            "are ROADMAP.md Queue 2 item 3, the lockstep driver "
-            f"{_LOCKSTEP}")
+            "form in the ported slices of K3 (the first-order, dense "
+            "quasi-Newton and L-BFGS methods with the Armijo and Wolfe "
+            "searches; a bounded search needs a bounded method); the Newton "
+            "specs are ROADMAP.md Queue 2 item 3 (the next slice), the "
+            f"lockstep driver {_LOCKSTEP}")
     x0 = as_batch(x0)
     if x0.dim() != 2:
         raise ValueError(f"x0 must be (B, n), got {tuple(x0.shape)}")
-    fused_driver._check_fits(x0.shape[-1], spec.ring, x0.element_size())
+    fused_driver._check_fits(x0.shape[-1], spec.ring, x0.element_size(),
+                             spec.lbfgs_m)
     lower, upper = bounds if bounds is not None else (None, None)
     if lower is not None:
         lower, upper = (torch.as_tensor(b, dtype=x0.dtype, device=x0.device)

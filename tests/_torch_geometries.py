@@ -172,10 +172,11 @@ def k3_geometries():
 
     def entry(method, search, x, lower=None, upper=None, data=interior,
               objective=quad, max_iter=500, max_iter_ls=40, chaotic=False,
-              x_atol=1e-9):
+              x_atol=1e-9, f_rtol=1e-12):
         return dict(method=method, search=search, objective=objective, x0=x,
                     lower=lower, upper=upper, data=data, max_iter=max_iter,
-                    max_iter_ls=max_iter_ls, chaotic=chaotic, x_atol=x_atol)
+                    max_iter_ls=max_iter_ls, chaotic=chaotic, x_atol=x_atol,
+                    f_rtol=f_rtol)
 
     geoms = {
         "gd_bt": entry(gd, bt, x0),
@@ -228,6 +229,111 @@ def k3_geometries():
         geoms[f"ncg_{variant}_bt"] = entry(
             solvers.NonlinearCG(grad_tol=1e-6, variant=variant), bt, x0)
     return geoms
+
+
+def k3_qn_geometries():
+    """name -> geometry of K3's quasi-Newton slice, in the form of
+    :func:`k3_geometries`: every quasi-Newton, L-BFGS and Wolfe-search
+    combination of ``tests/test_fused_driver.py`` (its COMBOS, the
+    StrongWolfe pair, the robustness knobs, ``approx_wolfe``), with the
+    port's objectives, plus per-instance boxes and an out-of-domain
+    start.  Rosenbrock entries are chaotic (held to the measured
+    spread); ``f_rtol`` is the entry's relative tolerance on f."""
+    from optimization_solvers_tpu_torch import linesearch as ls, solvers
+
+    n, B = 8, 16
+    quad = problems.weighted_squares()
+    rosen = problems.rosenbrock()
+    d = np.linspace(1.0, 50.0, n)
+    x0 = np.random.RandomState(0).uniform(-2, 2, (B, n))
+    lo, up = np.full(n, -1.5), np.full(n, 2.5)
+    interior = (d, np.full(n, 0.3))
+    pinned = (d, np.linspace(-2.5, 3.5, n))
+    rng = np.random.RandomState(3)
+    lo_pl = rng.uniform(-2.0, -1.0, (B, n))
+    hi_pl = rng.uniform(0.1, 1.0, (B, n))
+    x_pl = rng.uniform(-0.9, 0.0, (B, n))
+    gd = solvers.GradientDescent(grad_tol=1e-6)
+    bfgs, bfgsb = solvers.BFGS(tol=1e-8), solvers.BFGSB(tol=1e-8)
+    # the StrongWolfe geometries of tests/test_fused_driver.py:498
+    d16 = np.linspace(1.0, 40.0, 16)
+    x16 = np.random.RandomState(0).uniform(-1.4, 2.4, (B, 16))
+    # Rosenbrock-8 starts; instance 0 starts at the minimizer, instance 1
+    # where f overflows (out of the domain at once)
+    xr = np.random.RandomState(1).uniform(-2, 2, (B, n))
+    x_ood = xr.copy()
+    x_ood[0] = 1.0
+    x_ood[1] = 1e80
+
+    def entry(method, search, x, lower=None, upper=None, data=interior,
+              objective=quad, max_iter=500, max_iter_ls=40, chaotic=False,
+              x_atol=1e-9, f_rtol=1e-12):
+        return dict(method=method, search=search, objective=objective, x0=x,
+                    lower=lower, upper=upper, data=data, max_iter=max_iter,
+                    max_iter_ls=max_iter_ls, chaotic=chaotic, x_atol=x_atol,
+                    f_rtol=f_rtol)
+
+    return {
+        "bfgs_bt": entry(bfgs, ls.BackTracking(), x0),
+        "bfgs_mt": entry(bfgs, ls.MoreThuente(), x0),
+        "lbfgs_hz": entry(solvers.LBFGS(tol=1e-8, m=4), ls.HagerZhang(), x0),
+        "gd_hz": entry(gd, ls.HagerZhang(), x0),
+        "bfgsb_hzb": entry(bfgsb, ls.HagerZhangB(), x0, lo, up),
+        "gd_mt": entry(gd, ls.MoreThuente(), x0),
+        "bfgsb_mtb": entry(bfgsb, ls.MoreThuenteB(), x0, lo, up),
+        "dfp_bt": entry(solvers.DFP(tol=1e-8), ls.BackTracking(), x0),
+        "broyden_bt": entry(solvers.Broyden(tol=1e-8), ls.BackTracking(), x0),
+        "bfgsb_btb": entry(bfgsb, ls.BackTrackingB(), x0, lo, up),
+        "sr1b_btb": entry(solvers.SR1B(tol=1e-8), ls.BackTrackingB(), x0, lo,
+                          up),
+        "dfpb_mtb": entry(solvers.DFPB(tol=1e-8), ls.MoreThuenteB(), x0, lo,
+                          up),
+        "broydenb_hzb": entry(solvers.BroydenB(tol=1e-8), ls.HagerZhangB(),
+                              x0, lo, up),
+        # a target outside the box: the raw 2-norm test cannot pass at the
+        # active bounds, so the instances exit through the s/y stall (and
+        # are relabelled STALLED where the projected gradient is large).
+        # At tol 1e-6 the stall fires while the steps still shrink
+        # steadily, and the exit iteration does not move under a 1e-15
+        # relative change of x0 (at 1e-8 it waits for steps at rounding
+        # level, and moves by up to 7).  The stall point is no minimizer,
+        # though: such a change moves it by up to 1.4e-8 and f by 1e-9
+        # relative
+        "bfgsb_mtb_pinned": entry(solvers.BFGSB(tol=1e-6), ls.MoreThuenteB(),
+                                  x0, lo, up, pinned, x_atol=1e-7,
+                                  f_rtol=1e-8),
+        "lbfgs_sw": entry(solvers.LBFGS(tol=1e-6, m=5), ls.StrongWolfe(),
+                          x16, data=(d16, np.zeros(16)), max_iter=200,
+                          max_iter_ls=30),
+        "bfgsb_sw_bounded": entry(
+            solvers.BFGSB(tol=1e-6), ls.StrongWolfe(bounded=True), x16,
+            np.full(16, -1.5), np.full(16, 2.5),
+            data=(d16, np.linspace(-2.0, 3.0, 16)), max_iter=300,
+            max_iter_ls=30),
+        "gd_sw": entry(gd, ls.StrongWolfe(), x0),
+        "bfgsb_mtb_per_instance_boxes": entry(
+            bfgsb, ls.MoreThuenteB(), x_pl, lo_pl, hi_pl,
+            data=(np.linspace(1.0, 12.0, n), np.full(n, 1.2))),
+        # tests/test_fused_driver.py:231: scale_b0 + restart_on_degeneracy
+        "qn_robust_rosenbrock": entry(
+            solvers.QuasiNewton(tol=1e-6, update="bfgs", scale_b0=True,
+                                restart_on_degeneracy=True),
+            ls.BackTracking(), xr, data=(), objective=rosen, max_iter=2000,
+            chaotic=True, x_atol=1e-6),
+        "qn_robust_mt_rosenbrock": entry(
+            solvers.QuasiNewton(tol=1e-6, update="bfgs", scale_b0=True,
+                                restart_on_degeneracy=True),
+            ls.MoreThuente(), xr, data=(), objective=rosen, max_iter=2000,
+            chaotic=True, x_atol=1e-6),
+        # tests/test_fused_driver.py:472: the approx-Wolfe acceptance
+        "lbfgs_mt_approx_wolfe": entry(
+            solvers.LBFGS(tol=1e-6, m=5), ls.MoreThuente(approx_wolfe=True),
+            xr, data=(), objective=rosen, max_iter=600, max_iter_ls=30,
+            chaotic=True, x_atol=1e-6),
+        "lbfgs_hz_out_of_domain": entry(
+            solvers.LBFGS(tol=1e-6, m=5), ls.HagerZhang(), x_ood, data=(),
+            objective=rosen, max_iter=600, chaotic=True, x_atol=1e-6),
+    }
 
 
 def tiled(x0, lo, up, rows):

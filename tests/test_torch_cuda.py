@@ -24,9 +24,11 @@ import pytest
 import torch
 
 from _torch_geometries import (k1_geometries, k2_geometries, k3_geometries,
-                               lse_arrays, perturbation_spread, tiled)
+                               k3_qn_geometries, lse_arrays,
+                               perturbation_spread, tiled)
 from optimization_solvers_tpu_torch import (interop, linesearch as ls,
-                                            minimize, problems)
+                                            minimize, problems, solvers)
+from optimization_solvers_tpu_torch.core.oracle import make_oracle
 from optimization_solvers_tpu_torch.ops import (_build, fused_driver,
                                                 fused_lbfgsb,
                                                 fused_lbfgsb_tall)
@@ -298,17 +300,23 @@ def test_driver_refuses_rather_than_falls_back(cuda, monkeypatch):
         minimize(problems.rosenbrock(), x0, method="gd",
                  search=ls.LineSearch())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        minimize(problems.rosenbrock(), x0, method="bfgs")
+        minimize(problems.rosenbrock(), x0, method="newton")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        minimize(problems.rosenbrock(), x0, method="bfgs",
+                 search=ls.MoreThuente(reference_quirks=True))
     assert fused_driver.fused_minimize.launches == before
 
 
 def test_driver_shared_memory_mirror_matches_the_library(cuda):
     lib = _build.load()
-    for n in (1, 31, 64, 100, 4150, 4151):
+    for n in (1, 31, 64, 100, 1000, 4150, 4151):
         for ring in (0, 1, 10):
-            for itemsize in (4, 8):
-                mirror = fused_driver.smem_per_instance(n, ring, itemsize)
-                assert mirror == lib.driver_smem_per_warp(n, ring, itemsize)
+            for m in (0, 4, 10):
+                for itemsize in (4, 8):
+                    mirror = fused_driver.smem_per_instance(n, ring, itemsize,
+                                                            m)
+                    assert mirror == lib.driver_smem_per_warp(n, ring, m,
+                                                              itemsize)
 
 
 def test_config6_shape_float32_quality(cuda):
@@ -319,4 +327,130 @@ def test_config6_shape_float32_quality(cuda):
                       dtype=torch.float32, device=cuda)
     r = minimize(f, x0, method="gd", tol=1e-6, max_iter=3000)
     assert (r.status == 1).float().mean().item() >= 0.99
+    assert bool(torch.isfinite(r.x).all())
+
+
+# ---- the generic driver K3, quasi-Newton slice ----------------------------
+
+@pytest.mark.parametrize("name", sorted(k3_qn_geometries()))
+def test_driver_qn_kernel_matches_plain(name, cuda):
+    """Dense QN/QNB, L-BFGS and the Wolfe searches, float64: status equal,
+    iteration counts within the plain version's spread (max(2, spread) on
+    the chaotic entries), the same trial counts where the counts agree,
+    and x within the entry's tolerance."""
+    g = k3_qn_geometries()[name]
+    x0, lo, up, data = _k3_operands(g, cuda)
+    kw = dict(max_iter=g["max_iter"], max_iter_ls=g["max_iter_ls"])
+    spec = fused_driver.build_spec(g["method"], g["search"])
+    before = fused_driver.fused_minimize.launches
+    x, f, it, st, nfev = fused_driver._launch_cuda(spec, g["objective"], x0,
+                                                   lo, up, data, **kw)
+    torch.cuda.synchronize()
+    assert fused_driver.fused_minimize.launches == before + 1
+
+    def plain(v):
+        (xt,) = interop.tensors_from_numpy(v, device=cuda)
+        return fused_driver.fused_minimize_plain(
+            g["method"], g["search"], g["objective"], xt, lo, up, data, **kw)
+
+    xp, fp, itp, stp, nfevp = plain(g["x0"])
+    spread = perturbation_spread(lambda v: plain(v)[2].cpu().numpy(),
+                                 g["x0"], runs=6)
+    assert torch.equal(st, stp)
+    dit = (it.long() - itp.long()).abs().max().item()
+    assert dit <= (max(2, spread) if g["chaotic"] else spread), (dit, spread)
+    if not g["chaotic"] and spread == 0:
+        assert torch.equal(nfev, nfevp)
+    finite = torch.isfinite(f)
+    torch.testing.assert_close(x[finite], xp[finite], rtol=1e-12,
+                               atol=g["x_atol"])
+
+
+def test_driver_qn_route_launches_the_kernel(cuda):
+    """minimize with every quasi-Newton row, its default search and every
+    search that may replace it, launches K3 once per call; so does
+    batch_minimize with config 2's configs."""
+    f = problems.weighted_squares()
+    d, t = np.linspace(1.0, 20.0, 12), np.linspace(-2.0, 2.0, 12)
+    x0 = torch.tensor(np.random.RandomState(1).uniform(-1, 1, (64, 12)),
+                      device=cuda)
+    free = [None, ls.BackTracking(), ls.GLLQuadratic(), ls.NoSearch(),
+            ls.MoreThuente(), ls.MoreThuente(approx_wolfe=True),
+            ls.HagerZhang(), ls.StrongWolfe()]
+    boxed = [ls.BackTrackingB(), ls.MoreThuenteB(), ls.HagerZhangB(),
+             ls.StrongWolfe(bounded=True)]
+    for method in ("bfgs", "dfp", "broyden", "lbfgs", "gd", "bfgsb", "dfpb",
+                   "broydenb", "sr1b", "spg"):
+        bounded = method.endswith("b") or method == "spg"
+        extra = {"bounds": (-1.0, 1.0)} if bounded else {}
+        for search in free + (boxed if bounded else []):
+            before = fused_driver.fused_minimize.launches
+            r = minimize(f, x0, method=method, data=(d, t), search=search,
+                         tol=1e-6, max_iter=200, **extra)
+            torch.cuda.synchronize()
+            assert fused_driver.fused_minimize.launches == before + 1, (
+                method, search)
+            assert r.x.device.type == "cuda" and r.status.shape == (64,)
+    rosen = problems.rosenbrock()
+    xr = torch.tensor(np.random.RandomState(42).uniform(-2, 2, (32, 100)),
+                      dtype=torch.float32, device=cuda)
+    before = fused_driver.fused_minimize.launches
+    r = solvers.batch_minimize(
+        solvers.QuasiNewton(tol=2e-4, update="bfgs", scale_b0=True,
+                            restart_on_degeneracy=True),
+        ls.MoreThuente(), make_oracle(rosen), xr, max_iter=1500,
+        max_iter_ls=40)
+    torch.cuda.synchronize()
+    assert fused_driver.fused_minimize.launches == before + 1
+    assert float(torch.isin(r.status, torch.tensor(
+        [1, 6], device=cuda)).float().mean()) >= 0.9
+
+
+def test_driver_qn_refuses_rather_than_falls_back(cuda, monkeypatch):
+    """reference_quirks and a slab batch beyond the device's free memory
+    raise NotImplementedError naming their ROADMAP item; the plain version
+    never runs on a CUDA tensor."""
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fused_driver, "_solve_plain", plain)
+    before = fused_driver.fused_minimize.launches
+    x0 = torch.zeros((4, 6), dtype=torch.float64, device=cuda)
+    oracle = make_oracle(problems.rosenbrock())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        solvers.batch_minimize(solvers.BFGS(),
+                               ls.MoreThuente(reference_quirks=True), oracle,
+                               x0)
+    free, _ = torch.cuda.mem_get_info()
+    n = 4000
+    B = int(free // (n * n * 8)) + 1        # one slab more than fits
+    wide = torch.zeros((1, n), dtype=torch.float64, device=cuda).expand(B, n)
+    with pytest.raises(NotImplementedError, match="device memory"):
+        solvers.batch_minimize(solvers.BFGS(), ls.MoreThuente(), oracle, wide)
+    assert fused_driver.fused_minimize.launches == before
+
+
+def test_driver_workspace_mirror_matches_the_library(cuda):
+    """The slab workspace is sized in Python (``workspace_elems``); it must
+    equal the kernel's own formula."""
+    lib = _build.load()
+    for B in (1, 64, 1024):
+        for n in (1, 33, 100, 4150):
+            for method in range(9):
+                assert fused_driver.workspace_elems(B, n, method) == (
+                    lib.driver_workspace_elems(B, n, method)), (B, n, method)
+
+
+def test_config2_shape_float32_quality(cuda):
+    """Config 2's call at B = 256: dense BFGS + More-Thuente on
+    Rosenbrock-100 in float32; success class (CONVERGED or STALLED) for
+    nearly every instance, as in the JAX bench."""
+    f = problems.rosenbrock()
+    x0 = torch.tensor(np.random.RandomState(42).uniform(-2, 2, (256, 100)),
+                      dtype=torch.float32, device=cuda)
+    r = minimize(f, x0, method="bfgs", tol=2e-4, max_iter=1500,
+                 scale_b0=True, restart_on_degeneracy=True,
+                 policy="reference")
+    ok = torch.isin(r.status, torch.tensor([1, 6], device=cuda))
+    assert ok.float().mean().item() >= 0.99
     assert bool(torch.isfinite(r.x).all())

@@ -199,6 +199,13 @@ VALIDATION = [
     dict(method="pnorm"),
     dict(method="gd", no_such_option=1),
     dict(method="spg", bounds=(-1.0, 1.0), variant="fr"),
+    dict(method="bfgsb"),
+    dict(method="sr1b"),
+    dict(method="bfgs", bounds=(-1.0, 1.0)),
+    dict(method="lbfgs", bounds=(-1.0, 1.0)),
+    dict(method="bfgs", not_an_option=1),
+    dict(method="lbfgs", update="dfp"),
+    dict(method="bfgs", fused=True, scale_b0=True),
 ]
 
 
@@ -221,10 +228,21 @@ def test_validation_errors_match_jax(kw):
      "broydenb", "sr1b", "lbfgs", "l-bfgs", "projected_newton",
      "newton_cg"]))
 def test_methods_outside_the_slice_name_the_roadmap(method):
+    """Every row of the JAX front end's table: the Newton rows (and
+    newton_cg) raise naming their ROADMAP item; the dense quasi-Newton and
+    L-BFGS rows run K3 (its plain version for a CPU x0)."""
     (tx0,) = interop.tensors_from_numpy(X0[:2])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
-        ostt.minimize(ostt.problems.weighted_squares(), tx0, method=method,
-                      data=(D, T))
+    f = ostt.problems.weighted_squares()
+    name = method.replace("-", "_")
+    if name in ("newton", "pn", "spn", "projected_newton", "newton_cg"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
+            ostt.minimize(f, tx0, method=method, data=(D, T))
+        return
+    bounds = (-1.5, 2.5) if name.endswith("b") else None
+    r = ostt.minimize(f, tx0, method=method, data=(D, T), bounds=bounds,
+                      tol=1e-8)
+    assert r.x.shape == tx0.shape
+    assert np.isin(r.status.numpy(), (1, 6)).all()
 
 
 def test_unported_paths_raise():
@@ -233,6 +251,9 @@ def test_unported_paths_raise():
     for search in (ls.LineSearch(), jls.MoreThuente(), jls.HagerZhang()):
         with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
             ostt.minimize(f, tx0, method="gd", data=(D, T), search=search)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        ostt.minimize(f, tx0, method="bfgs", data=(D, T),
+                      search=ls.MoreThuente(reference_quirks=True))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         ostt.minimize(f, tx0[0], method="gd", data=(D, T))
     oracle = make_oracle(f, data=interop.tensors_from_numpy(D, T))

@@ -164,9 +164,9 @@ def test_unknown_and_unported_options_raise(spy):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ostt.minimize(f, x0, method="lbfgsb", **opt)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ostt.minimize(f, x0, method="bfgs")
+        ostt.minimize(f, x0, method="newton")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ostt.minimize(f, x0)                   # default method: lbfgs
+        ostt.minimize(f, x0, method="spn", bounds=(-1.0, 1.0))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ostt.minimize(f, x0[0], method="lbfgsb")
     for opt in (dict(precision="f32x2"), dict(polish_max_iter=10)):
