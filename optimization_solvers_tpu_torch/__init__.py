@@ -5,24 +5,27 @@ mirrors its layout and module names:
 
   core/      -- Status, SolveResult, numerics, the oracle, the problem
                 library
-  ops/       -- batched oracle and three whole-solve kernels, each a plain
+  ops/       -- batched oracle and four whole-solve kernels, each a plain
                 PyTorch version (CPU) and a hand-written CUDA kernel (GPU):
                 K1 ops/csrc/lbfgsb_fused.cu (L-BFGS-B, small n), the tall
-                K2 ops/csrc/lbfgsb_tall.cu (L-BFGS-B, large n, config 4)
-                and the generic driver K3 ops/csrc/driver.cu (template
+                K2 ops/csrc/lbfgsb_tall.cu (L-BFGS-B, large n, config 4),
+                the generic driver K3 ops/csrc/driver.cu (template
                 methods: first-order, configs 3 and 6; dense quasi-Newton
-                and L-BFGS, config 2)
+                and L-BFGS, config 2; Newton, PN and SPN, config 5) and
+                the Newton-CG kernel K4 ops/csrc/newton_cg.cu
   linesearch/ -- the Armijo- and Wolfe-family search configs K3 runs, and
                 the MINPACK dcstep update of K2's and K3's dcsrch
-  solvers/   -- the first-order, dense quasi-Newton and L-BFGS method
-                configs, batch_minimize (the route to K3), LbfgsbConfig
+  solvers/   -- the first-order, dense quasi-Newton, L-BFGS and Newton
+                method configs, batch_minimize (the route to K3),
+                LbfgsbConfig, NewtonCGConfig and newton_cg_batch_minimize
+                (the route to K4)
   frontend   -- minimize(f, x0, method=..., ...)
   interop    -- numpy hand-over between the two packages
 
 Ported so far: the batched box-constrained L-BFGS-B main path at small and
-large n, and the template methods gd, cd, pgd, pnorm, spg, ncg, bfgs, dfp,
-broyden, bfgsb, dfpb, broydenb, sr1b and lbfgs with every line search.
-ROADMAP.md lists what follows.
+large n, the template methods gd, cd, pgd, pnorm, spg, ncg, bfgs, dfp,
+broyden, bfgsb, dfpb, broydenb, sr1b, lbfgs, newton, pn and spn with every
+line search, and newton_cg.  ROADMAP.md lists what follows.
 """
 
 from . import linesearch, solvers

@@ -15,7 +15,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..ops.batched_oracle import batched_value, batched_value_and_grad
+from ..ops.batched_oracle import (batched_hessian, batched_hvp, batched_value,
+                                  batched_value_and_grad)
 from .types import FuncEval
 
 
@@ -61,19 +62,30 @@ def make_oracle(f: Callable, *, with_hessian: bool = False,
     """An oracle from a scalar objective ``f(x, *data)``.
 
     ``data`` carries the problem-data arrays explicitly, as in the JAX
-    package, so that a whole-solve kernel can take them as operands.
-    ``with_hessian`` (the Newton family's AD Hessians) waits for the Newton
-    slice (ROADMAP.md Queue 1 item 7 / Queue 2 item 3) and raises
-    ``NotImplementedError``."""
-    if with_hessian:
-        raise NotImplementedError(
-            "make_oracle(with_hessian=True) is not ported yet: the Newton "
-            "family comes with the next K3 slice (ROADMAP.md Queue 1 item 7, "
-            "Queue 2 item 3)")
+    package, so that a whole-solve kernel can take them as operands.  With
+    ``with_hessian`` each evaluation carries the Hessian too.  The oracle
+    always has ``hvp(x, v)``, the Hessian-vector product.  An objective of
+    :mod:`.problems` brings its analytic Hessian and HVP; any other torch
+    callable gets them from ``torch.func`` (``hessian``; ``jvp`` over
+    ``grad``, forward-over-reverse as in JAX).  These batched forms run on
+    the CPU; the CUDA kernels compile the analytic functors instead."""
     data = tuple(torch.as_tensor(c) for c in data)
     vg = _one_or_batch(batched_value_and_grad(f, data))
-    oracle = Oracle(lambda x: FuncEval(*vg(x)),
-                    value_fn=_one_or_batch(batched_value(f, data)))
+    hess = _one_or_batch(batched_hessian(f, data)) if with_hessian else None
+
+    def full(x):
+        fv, g = vg(x)
+        return FuncEval(fv, g, None if hess is None else hess(x))
+
+    oracle = Oracle(full, value_fn=_one_or_batch(batched_value(f, data)))
     oracle.raw_f = f
     oracle.data = data
+    bhvp = batched_hvp(f, data)
+
+    def hvp(x, v):
+        if x.dim() == 1:
+            return bhvp(x[None], v[None])[0]
+        return bhvp(x, v)
+
+    oracle.hvp = hvp
     return oracle

@@ -1,4 +1,4 @@
-"""Problem library: the objectives the ported L-BFGS-B slice uses.
+"""Problem library: the objectives the ported slices use.
 
 PyTorch counterpart of :mod:`optimization_solvers_tpu.core.problems`
 (rosenbrock, quadratic, diag_quadratic, log_sum_exp, shifted_quadratic_2d,
@@ -6,9 +6,10 @@ example_gd), plus the generic :func:`weighted_squares` that carries its
 coefficients as problem data (``data=(d, t)``).
 
 Each entry is an :class:`Objective`: a per-instance ``f(x, *data)`` in torch,
-its batched analytic ``value`` / ``value_and_grad`` over ``(B, n)``, and a
-``kernel_form`` naming the CUDA objective functor and the data arrays that
-functor reads.  Four functors cover the library:
+its batched analytic ``value`` / ``value_and_grad`` over ``(B, n)``, its
+batched analytic second derivatives ``hessian`` (``(B, n, n)``) and ``hvp``
+(``(B, n)``), and a ``kernel_form`` naming the CUDA objective functor and the
+data arrays that functor reads.  Four functors cover the library:
 
 * ``ROSENBROCK``: ``sum_i 100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2``, no data;
 * ``WEIGHTED_SQUARES``: ``0.5 sum_i d_i (x_i - t_i)^2`` with data ``(d, t)``,
@@ -17,8 +18,14 @@ functor reads.  Four functors cover the library:
 * ``LOG_SUM_EXP``: ``log sum_r exp(a_r^T x + b_r)`` with data
   ``A (rows, n)``, ``b (rows,)``.
 
-The K1 kernel (``ops/csrc/lbfgsb_fused.cu``) compiles the first two, the
-K2 kernel (``ops/csrc/lbfgsb_tall.cu``) all four.
+The K1 kernel (``ops/csrc/lbfgsb_fused.cu``) and the first-order and
+quasi-Newton forms of K3 (``ops/csrc/driver.cu``, ``driver_qn.cu``) compile
+the first two; K3's Newton form (``driver_newton.cu``) and the Newton-CG
+kernel K4 (``newton_cg.cu``) the first three, with their Hessian and HVP
+functors; the K2 kernel (``ops/csrc/lbfgsb_tall.cu``) all four.  The
+second derivatives are written in the expressions and order of the CUDA
+functors (``ops/csrc/objectives.cuh``); ``log_sum_exp`` has them only here,
+in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -39,15 +46,20 @@ class Objective:
     ``fn(x, *data)`` is the per-instance objective on an ``(n,)`` tensor;
     ``value(X, *data)`` and ``value_and_grad(X, *data)`` evaluate a
     ``(B, n)`` batch, sharing every data array across instances.
+    ``hessian(X, *data)`` gives the ``(B, n, n)`` Hessians and
+    ``hvp(X, V, *data)`` the ``(B, n)`` Hessian-vector products.
     ``functor`` names the CUDA functor; ``kernel_form(*data)`` returns
     ``(functor, arrays)``, the arrays being ``arrays(*data)`` (by default
     the call-time data itself)."""
 
     def __init__(self, fn: Callable, value: Callable, value_and_grad: Callable,
-                 functor: str, arrays: Callable = lambda *data: data):
+                 functor: str, arrays: Callable = lambda *data: data, *,
+                 hessian: Callable, hvp: Callable):
         self._fn = fn
         self._value = value
         self._value_and_grad = value_and_grad
+        self._hessian = hessian
+        self._hvp = hvp
         self.functor = functor
         self._arrays = arrays
 
@@ -59,6 +71,12 @@ class Objective:
 
     def value_and_grad(self, X, *data):
         return self._value_and_grad(X, *data)
+
+    def hessian(self, X, *data):
+        return self._hessian(X, *data)
+
+    def hvp(self, X, V, *data):
+        return self._hvp(X, V, *data)
 
     def kernel_form(self, *data):
         return self.functor, tuple(self._arrays(*data))
@@ -79,8 +97,48 @@ def _rosen_value_and_grad(X):
     return v, g
 
 
+def _rosen_hess_diag(X):
+    """``H_ii``: ``1200 x_i^2 - 400 x_{i+1} + 2`` from term i (i < n-1),
+    written ``800 x_i x_i - 400 a_i + 2`` with ``a_i = x_{i+1} - x_i^2`` as
+    the functor does, plus 200 from term i-1 (i > 0)."""
+    xl = X[..., :-1]
+    a = X[..., 1:] - xl * xl
+    h = torch.zeros_like(X)
+    h[..., :-1] = 800.0 * xl * xl - 400.0 * a + 2.0
+    h[..., 1:] += 200.0
+    return h
+
+
+def _rosen_hessian(X):
+    """Tridiagonal: ``H_ii`` and ``H_{i,i+1} = H_{i+1,i} = -400 x_i``."""
+    B, n = X.shape
+    H = torch.zeros((B, n, n), dtype=X.dtype, device=X.device)
+    i = torch.arange(n, device=X.device)
+    H[:, i, i] = _rosen_hess_diag(X)
+    off = -400.0 * X[:, :-1]
+    H[:, i[:-1], i[1:]] = off
+    H[:, i[1:], i[:-1]] = off
+    return H
+
+
+def _rosen_hvp(X, V):
+    out = _rosen_hess_diag(X) * V
+    off = -400.0 * X[..., :-1]
+    out[..., :-1] += off * V[..., 1:]
+    out[..., 1:] += off * V[..., :-1]
+    return out
+
+
 def _like(v, X):
     return torch.as_tensor(v, dtype=X.dtype, device=X.device)
+
+
+def _ws_hessian(X, d, t):
+    return torch.diag_embed(_like(d, X).expand(X.shape).clone())
+
+
+def _ws_hvp(X, V, d, t):
+    return _like(d, X) * V
 
 
 def _ws_value(X, d, t):
@@ -103,7 +161,7 @@ def rosenbrock() -> Objective:
                          + (1.0 - x[:-1]) ** 2)
 
     return Objective(f, _rosen_value, _rosen_value_and_grad, ROSENBROCK,
-                     lambda: ())
+                     lambda: (), hessian=_rosen_hessian, hvp=_rosen_hvp)
 
 
 def weighted_squares() -> Objective:
@@ -113,7 +171,8 @@ def weighted_squares() -> Objective:
     def f(x, d, t):
         return 0.5 * torch.sum(d * (x - t) ** 2)
 
-    return Objective(f, _ws_value, _ws_value_and_grad, WEIGHTED_SQUARES)
+    return Objective(f, _ws_value, _ws_value_and_grad, WEIGHTED_SQUARES,
+                     hessian=_ws_hessian, hvp=_ws_hvp)
 
 
 def _bound_weighted_squares(fn, d, t) -> Objective:
@@ -121,14 +180,17 @@ def _bound_weighted_squares(fn, d, t) -> Objective:
     construction (no problem data at call time)."""
     return Objective(fn, lambda X: _ws_value(X, d, t),
                      lambda X: _ws_value_and_grad(X, d, t), WEIGHTED_SQUARES,
-                     lambda: (d, t))
+                     lambda: (d, t), hessian=lambda X: _ws_hessian(X, d, t),
+                     hvp=lambda X, V: _ws_hvp(X, V, d, t))
 
 
 def quadratic(Q, b=None) -> Objective:
     """General quadratic ``f = 0.5 x^T Q x + b^T x``.
 
-    The gradient is ``0.5 (Q x + Q^T x) + b``, what autodiff of the JAX
-    form gives, so a ``Q`` that is not exactly symmetric agrees too."""
+    The gradient is ``0.5 (Q x + Q^T x) + b`` and the Hessian ``0.5 (Q +
+    Q^T)`` (``b`` does not enter), what autodiff of the JAX form gives, so
+    a ``Q`` that is not exactly symmetric agrees too; the Hessian is then
+    exactly symmetric, which K3's factorization relies on."""
     Q = torch.as_tensor(Q)
     b = torch.zeros(Q.shape[0], dtype=Q.dtype) if b is None else (
         torch.as_tensor(b))
@@ -149,7 +211,16 @@ def quadratic(Q, b=None) -> Objective:
                                                         dim=-1)
         return v, 0.5 * (Qx + X @ Qm) + _like(b, X)
 
-    return Objective(f, value, value_and_grad, QUADRATIC, lambda: (Q, b))
+    def hessian(X):
+        Qm = _like(Q, X)
+        return (0.5 * (Qm + Qm.T)).expand(X.shape[0], -1, -1).clone()
+
+    def hvp(X, V):
+        Qm = _like(Q, X)
+        return 0.5 * (V @ Qm.T + V @ Qm)
+
+    return Objective(f, value, value_and_grad, QUADRATIC, lambda: (Q, b),
+                     hessian=hessian, hvp=hvp)
 
 
 def log_sum_exp(A, b) -> Objective:
@@ -178,7 +249,26 @@ def log_sum_exp(A, b) -> Objective:
         s = torch.sum(e, dim=-1, keepdim=True)
         return (mx + torch.log(s))[:, 0], (e / s) @ _like(A, X)
 
-    return Objective(f, value, value_and_grad, LOG_SUM_EXP, lambda: (A, b))
+    def hessian(X):
+        # A^T (diag(p) - p p^T) A with p = softmax(z)
+        z, mx = _z(X)
+        e = torch.exp(z - mx)
+        p = e / torch.sum(e, dim=-1, keepdim=True)
+        Am = _like(A, X)
+        pA = p @ Am
+        return (torch.einsum("br,ri,rj->bij", p, Am, Am)
+                - pA[:, :, None] * pA[:, None, :])
+
+    def hvp(X, V):
+        z, mx = _z(X)
+        e = torch.exp(z - mx)
+        p = e / torch.sum(e, dim=-1, keepdim=True)
+        Am = _like(A, X)
+        Av = V @ Am.T
+        return (p * (Av - torch.sum(p * Av, dim=-1, keepdim=True))) @ Am
+
+    return Objective(f, value, value_and_grad, LOG_SUM_EXP, lambda: (A, b),
+                     hessian=hessian, hvp=hvp)
 
 
 def diag_quadratic(d) -> Objective:

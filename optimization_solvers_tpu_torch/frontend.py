@@ -1,6 +1,6 @@
 """One-call front end: ``optimization_solvers_tpu_torch.minimize(f, x0, ...)``.
 
-Counterpart of ``optimization_solvers_tpu/frontend.py``.  Two routes are
+Counterpart of ``optimization_solvers_tpu/frontend.py``.  Three routes are
 ported:
 
 * ``method="lbfgsb"`` onto two kernels: K1 (:mod:`.ops.fused_lbfgsb`, one
@@ -15,10 +15,16 @@ ported:
   chip, so the boundary moves.
 * the template methods -- first-order ``gd``, ``cd``, ``pgd``, ``pnorm``,
   ``spg`` and ``ncg``, dense quasi-Newton ``bfgs``, ``dfp``, ``broyden``,
-  ``bfgsb``, ``dfpb``, ``broydenb`` and ``sr1b``, and ``lbfgs`` -- with
+  ``bfgsb``, ``dfpb``, ``broydenb`` and ``sr1b``, ``lbfgs``, and the Newton
+  family ``newton``, ``pn`` (alias ``projected_newton``) and ``spn`` -- with
   their default searches or a ``search=`` of :mod:`.linesearch`, through
   :func:`.solvers.batch_minimize` onto the generic driver kernel K3
-  (:mod:`.ops.fused_driver`).
+  (:mod:`.ops.fused_driver`; the Newton family runs its Newton form);
+* ``method="newton_cg"`` through :func:`.solvers.newton_cg_batch_minimize`
+  onto the Newton-CG kernel K4 (:mod:`.ops.fused_newton_cg`).  The JAX
+  front end runs the XLA twin of the same algorithm there
+  (``solvers/newton_cg.py:newton_cg_batch_minimize``); its own tests hold
+  the twin and its TPU kernel together.
 
 The rule is the same on both devices; x0's device then picks the version:
 a CPU tensor runs the plain PyTorch version of the chosen kernel, a CUDA
@@ -35,6 +41,11 @@ Example::
     res = ostt.minimize(ostt.problems.rosenbrock(), x0_batch.cuda(),
                         method="bfgs", tol=2e-4, scale_b0=True,
                         restart_on_degeneracy=True, max_iter=1500)
+    res = ostt.minimize(ostt.problems.quadratic(Q), x0_batch.cuda(),
+                        method="pn", bounds=(-2.0, 2.0), max_iter=50)
+    res = ostt.minimize(ostt.problems.rosenbrock(), x0_batch.cuda(),
+                        method="newton_cg", bounds=(-5.0, 5.0), tol=1e-3,
+                        max_iter=600, cg_max=12)
 """
 
 from __future__ import annotations
@@ -48,9 +59,11 @@ from .core.oracle import Oracle, make_oracle
 from .ops import fused_lbfgsb
 from .ops.fused_lbfgsb import lbfgsb_solve_fused
 from .ops.fused_lbfgsb_tall import lbfgsb_solve_fused_tall
-from .solvers import lbfgs, nonlinear_cg, quasi_newton, steepest
+from .solvers import lbfgs, newton, nonlinear_cg, quasi_newton, steepest
 from .solvers.driver import as_batch, batch_minimize
 from .solvers.lbfgsb import LbfgsbConfig
+from .solvers.newton_cg import (NewtonCGConfig, newton_cg_batch_minimize,
+                                newton_cg_minimize)
 
 # LbfgsbConfig fields only the lockstep dcsrch solver honours
 _LOCKSTEP_ONLY = ("ls_c2", "rel_pg_stop", "verbose", "curvature_eps")
@@ -58,7 +71,7 @@ _LOCKSTEP_ONLY = ("ls_c2", "rel_pg_stop", "verbose", "curvature_eps")
 _NOT_PORTED = {"precision": "item 10", "polish_max_iter": "item 10"}
 
 # name: (method factory, the field tol fills, default search, bounded) --
-# the template methods of the ported slices, as in the JAX front end's table
+# the template methods, as in the JAX front end's table
 _TEMPLATE = {
     "gd": (steepest.GradientDescent, "grad_tol", ls.BackTracking, False),
     "cd": (steepest.CoordinateDescent, "grad_tol", ls.BackTracking, False),
@@ -76,22 +89,22 @@ _TEMPLATE = {
     "sr1b": (quasi_newton.SR1B, "tol", ls.MoreThuenteB, True),
     "ncg": (nonlinear_cg.NonlinearCG, "grad_tol", ls.BackTracking, False),
     "lbfgs": (lbfgs.LBFGS, "tol", ls.HagerZhang, False),
-}
-# the rest of the JAX table, with the ROADMAP items that bring them
-_NEXT_SLICE = {
-    "newton": "Queue 2 item 3 (the next K3 slice: Newton specs)",
-    "pn": "Queue 2 item 3 (the next K3 slice: Newton specs)",
-    "spn": "Queue 2 item 3 (the next K3 slice: Newton specs)",
+    "newton": (newton.Newton, "tol", ls.MoreThuente, False),
+    "pn": (newton.ProjectedNewton, "grad_tol", ls.BackTrackingB, True),
+    "spn": (newton.SpectralProjectedNewton, "grad_tol", ls.BackTrackingB,
+            True),
 }
 _ALIASES = {"gradient_descent": "gd", "coordinate_descent": "cd",
             "projected_gradient": "pgd", "projected_newton": "pn",
             "nonlinear_cg": "ncg", "l_bfgs": "lbfgs"}
-# policy="fast" overlays of the JAX front end that fall in the ported
-# slices: the alternating BB scalar for spg (conv 0.985 -> 1.000 on config 3
-# in the JAX package's records); a user option always wins.  Besides, in
-# float32 a default More-Thuente search gains the approximate-Wolfe
-# acceptance (JAX frontend.py:479-484)
-_FAST_METHOD_OVERLAY = {"spg": {"bb_variant": "alternate"}}
+# policy="fast" overlays of the JAX front end: the alternating BB scalar
+# for spg (conv 0.985 -> 1.000 on config 3 in the JAX package's records) and
+# the Newton-metric BB pair for spn (2 iterations instead of the reference
+# update's BB freeze); a user option always wins.  Besides, in float32 a
+# default More-Thuente search gains the approximate-Wolfe acceptance (JAX
+# frontend.py:479-484)
+_FAST_METHOD_OVERLAY = {"spg": {"bb_variant": "alternate"},
+                        "spn": {"precond_bb": True}}
 
 
 def takes_k1(f, x0, m) -> bool:
@@ -142,18 +155,31 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
 
     Template methods (``gd``, ``cd``, ``pgd``, ``pnorm``, ``spg``,
     ``ncg``, ``bfgs``, ``dfp``, ``broyden``, ``bfgsb``, ``dfpb``,
-    ``broydenb``, ``sr1b``, ``lbfgs``): ``tol`` fills the first-order
-    methods' ``grad_tol`` and the quasi-Newton methods' ``tol``; ``search``
-    overrides the default search (Armijo backtracking, GLL, More-Thuente
-    for the dense quasi-Newton methods, Hager-Zhang for ``lbfgs``),
-    ``max_iter_ls`` defaults to 40, extra options name fields of the
-    method's config (``inverse_p`` for ``pnorm``, ``variant`` for ``ncg``,
-    ``scale_b0`` for the dense quasi-Newton methods, ``m`` for ``lbfgs``,
-    ...); ``policy="fast"`` runs ``spg`` with ``bb_variant="alternate"``
-    and, in float32, a default More-Thuente search with
-    ``approx_wolfe=True``.  The bounded methods (``pgd``, ``spg`` and the
-    ``...b`` quasi-Newton methods) need ``bounds``, the others refuse
-    them.  Dense quasi-Newton instances may exit STALLED (6).
+    ``broydenb``, ``sr1b``, ``lbfgs``, ``newton``, ``pn``, ``spn``):
+    ``tol`` fills the first-order methods' and PN's and SPN's
+    ``grad_tol`` and the quasi-Newton methods' and Newton's ``tol``;
+    ``search`` overrides the default search (Armijo backtracking, GLL,
+    More-Thuente for the dense quasi-Newton methods and ``newton``,
+    Hager-Zhang for ``lbfgs``, bounded backtracking for ``pn`` and
+    ``spn``), ``max_iter_ls`` defaults to 40, extra options name fields of
+    the method's config (``inverse_p`` for ``pnorm``, ``variant`` for
+    ``ncg``, ``scale_b0`` for the dense quasi-Newton methods, ``m`` for
+    ``lbfgs``, ``precond_bb`` for ``spn``, ...); ``policy="fast"`` runs
+    ``spg`` with ``bb_variant="alternate"``, ``spn`` with
+    ``precond_bb=True`` and, in float32, a default More-Thuente search
+    with ``approx_wolfe=True``.  The bounded methods (``pgd``, ``spg``,
+    ``pn``, ``spn`` and the ``...b`` quasi-Newton methods) need
+    ``bounds``, the others refuse them.  Dense quasi-Newton instances may
+    exit STALLED (6).  On CUDA the Newton family needs an objective with a
+    Hessian functor (``rosenbrock``, ``weighted_squares``, ``quadratic``
+    and those built on them); ``log_sum_exp`` raises.
+
+    ``method="newton_cg"``: bounds are scalars or ``(n,)`` (``None``:
+    unbounded; per-instance boxes raise ``ValueError``, as JAX's branch
+    cannot take them either); ``factr`` defaults to 1e7 (float64) and 100
+    (float32), ``pgtol`` to ``tol``; ``max_iter_ls`` passes through; extra
+    options name :class:`NewtonCGConfig` fields (``cg_max``, ``c1``, ...).
+    It runs its own line search, so a ``search`` raises ``ValueError``.
 
     An unknown option raises ``TypeError``, as in the JAX front end; a
     method, search or option whose machinery is not ported yet raises
@@ -184,9 +210,12 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
         return _lbfgsb(f, x0, bounds, data, tol, max_iter, max_iter_ls,
                        policy, options)
     if name == "newton_cg":
-        raise NotImplementedError(
-            "method 'newton_cg' runs the Newton-CG kernel K4, not ported yet "
-            "(ROADMAP.md Queue 2 item 4)")
+        if search is not None:
+            raise ValueError(
+                "method 'newton_cg' runs its own line search (c1, "
+                "max_iter_ls); search= applies to the template methods")
+        return _newton_cg(f, x0, bounds, data, tol, max_iter, max_iter_ls,
+                          options)
     return _template(f, x0, method, bounds, data, tol, max_iter, max_iter_ls,
                      search, policy, options)
 
@@ -228,18 +257,42 @@ def _lbfgsb(f, x0, bounds, data, tol, max_iter, max_iter_ls, policy, options):
                                    line_search=cfg.tall_line_search, **kw)
 
 
+def _newton_cg(f, x0, bounds, data, tol, max_iter, max_iter_ls, options):
+    """JAX ``frontend.py:435-458``; the batch runs K4."""
+    n = x0.shape[-1]
+    if bounds is None:
+        inf = torch.full((n,), float("inf"), dtype=x0.dtype, device=x0.device)
+        lower, upper = -inf, inf
+    else:
+        lo, up = (torch.as_tensor(b, dtype=x0.dtype, device=x0.device)
+                  for b in bounds)
+        if lo.dim() > 1 or up.dim() > 1:
+            raise ValueError(
+                "method 'newton_cg' takes bounds shared by the batch (scalars "
+                f"or ({n},)), not per-instance boxes")
+        lower, upper = lo.expand(n).contiguous(), up.expand(n).contiguous()
+    factr = options.pop("factr", 1e7 if x0.dtype == torch.float64 else 100.0)
+    if max_iter_ls is not None:
+        options.setdefault("max_iter_ls", max_iter_ls)
+    fields = set(NewtonCGConfig.__dataclass_fields__)
+    cfg = NewtonCGConfig(
+        pgtol=options.pop("pgtol", tol), factr=factr, max_iter=max_iter,
+        **{k: options.pop(k) for k in list(options) if k in fields})
+    if options:
+        raise TypeError(f"unknown newton_cg option(s) {sorted(options)}")
+    oracle = f if isinstance(f, Oracle) else make_oracle(f, data=data)
+    fn = newton_cg_batch_minimize if x0.dim() == 2 else newton_cg_minimize
+    return fn(oracle, x0, lower, upper, cfg)
+
+
 def _template(f, x0, method, bounds, data, tol, max_iter, max_iter_ls,
               search, policy, options):
     name = method.lower().replace("-", "_").replace(" ", "_")
     name = _ALIASES.get(name, name)
-    if name in _NEXT_SLICE:
-        raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP.md "
-            f"{_NEXT_SLICE[name]})")
     if name not in _TEMPLATE:
         raise ValueError(
             f"unknown method {name!r}; choose from "
-            f"{sorted([*_TEMPLATE, *_NEXT_SLICE]) + ['lbfgsb', 'newton_cg']}")
+            f"{sorted(_TEMPLATE) + ['lbfgsb', 'newton_cg']}")
     factory, tol_field, default_search, needs_bounds = _TEMPLATE[name]
     m = factory(**{tol_field: tol})
     fields = set(type(m).__dataclass_fields__)
@@ -282,6 +335,7 @@ def _template(f, x0, method, bounds, data, tol, max_iter, max_iter_ls,
         raise NotImplementedError(
             "a single instance (1-D x0) runs the single-solve driver, not "
             "ported yet (ROADMAP.md Queue 1 item 7); pass x0 as (1, n)")
-    oracle = f if isinstance(f, Oracle) else make_oracle(f, data=data)
+    oracle = f if isinstance(f, Oracle) else make_oracle(
+        f, data=data, with_hessian=m.needs_hessian)
     return batch_minimize(m, s, oracle, x0, bounds=bounds, max_iter=max_iter,
                           max_iter_ls=max_iter_ls)

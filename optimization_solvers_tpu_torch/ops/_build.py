@@ -129,8 +129,22 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(i),       # int parameter slots
                 ctypes.POINTER(d),       # double parameter slots
                 i, i,                    # max_iter, max_iter_ls
-                vp,                      # workspace (QN slabs)
+                vp,                      # workspace (QN and Newton slabs)
                 vp, vp, vp, vp, vp,      # x, f, iterations, status, nfev
+                vp,                      # stream
+            ]
+            lib.newton_cg_smem_per_warp.restype = ctypes.c_longlong
+            lib.newton_cg_smem_per_warp.argtypes = [i, i]
+            lib.newton_cg_launch.restype = i
+            lib.newton_cg_launch.argtypes = [
+                i, i,                    # dtype, objective
+                vp, vp, vp,              # x0, lower, upper
+                vp, vp,                  # objective data
+                i, i,                    # B, n
+                d, d, d,                 # pgtol, factr * eps, eps
+                i, i, i, d,              # max_iter, cg_max, ls, c1
+                vp, vp, vp, vp,          # x, f, iterations, status
+                vp, vp,                  # HVP and trial counts
                 vp,                      # stream
             ]
             lib.ost_error_string.restype = ctypes.c_char_p

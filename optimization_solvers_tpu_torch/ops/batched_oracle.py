@@ -3,10 +3,13 @@ an objective's problem data for the CUDA kernels.
 
 Counterpart of the helpers in ``optimization_solvers_tpu/ops/pallas_lbfgs.py``
 (``_batched_value_and_grad``, ``_batched_value``, ``_pack_consts``,
-``_load_consts``).  An objective from :mod:`..core.problems` brings its own
-analytic batched forms; any other torch callable ``f(x, *data)`` is batched
-with ``torch.func.vmap(torch.func.grad_and_value(f))``.  Problem data is
-shared across instances, as the JAX kernels share 1-D consts.
+``_load_consts``), ``pallas_driver.py`` (``_batched_hessian``) and
+``pallas_newton_cg.py`` (``_batched_hvp``).  An objective from
+:mod:`..core.problems` brings its own analytic batched forms; any other
+torch callable ``f(x, *data)`` is batched with ``torch.func``:
+``vmap(grad_and_value(f))``, ``vmap(hessian(f))`` and ``vmap`` of ``jvp``
+over ``grad`` (forward-over-reverse, as JAX's).  Problem data is shared
+across instances, as the JAX kernels share 1-D consts.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from typing import Callable
 import torch
 
 # objective functors of the CUDA kernels (enum ObjectiveCode in ops/csrc);
-# K1 (lbfgsb_fused.cu) and K3 (driver.cu) compile the first two, K2
+# K1 (lbfgsb_fused.cu) and K3's first-order and quasi-Newton forms
+# (driver.cu, driver_qn.cu) compile the first two, K3's Newton form
+# (driver_newton.cu) and K4 (newton_cg.cu) the first three, K2
 # (lbfgsb_tall.cu) all four
 KERNEL_OBJECTIVES = {"ROSENBROCK": 0, "WEIGHTED_SQUARES": 1, "QUADRATIC": 2,
                      "LOG_SUM_EXP": 3}
@@ -53,6 +58,28 @@ def batched_value(f: Callable, data=()):
         return lambda X: f.value(X, *data)
     bf = torch.func.vmap(f, in_dims=(0,) + (None,) * len(data))
     return lambda X: bf(X, *data)
+
+
+def batched_hessian(f: Callable, data=()):
+    """``(B, n) -> (B, n, n)`` Hessians."""
+    if hasattr(f, "hessian"):
+        return lambda X: f.hessian(X, *data)
+    bh = torch.func.vmap(torch.func.hessian(f),
+                         in_dims=(0,) + (None,) * len(data))
+    return lambda X: bh(X, *data)
+
+
+def batched_hvp(f: Callable, data=()):
+    """``((B, n), (B, n)) -> (B, n)`` Hessian-vector products."""
+    if hasattr(f, "hvp"):
+        return lambda X, V: f.hvp(X, V, *data)
+
+    def hvp(x, v, *cs):
+        return torch.func.jvp(lambda xx: torch.func.grad(f)(xx, *cs), (x,),
+                              (v,))[1]
+
+    bh = torch.func.vmap(hvp, in_dims=(0, 0) + (None,) * len(data))
+    return lambda X, V: bh(X, V, *data)
 
 
 def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",

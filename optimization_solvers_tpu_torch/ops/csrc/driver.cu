@@ -1,6 +1,7 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a): its C interface and its
 // first-order form.  The kernel, its design and what bounds it are
-// described in driver.cuh; the quasi-Newton form is built in driver_qn.cu.
+// described in driver.cuh; the quasi-Newton form is built in driver_qn.cu,
+// the Newton form in driver_newton.cu.
 
 #include "driver.cuh"
 
@@ -36,6 +37,7 @@ int run(int objective, const void* x0, const void* lo, const void* up,
   prm.m = ip[iLbfgsM];
   prm.approx_wolfe = ip[iApproxWolfe];
   prm.search_bounded = ip[iSearchBounded];
+  prm.precond_bb = ip[iPrecondBB];
   prm.tol = (T)dp[dTol];
   prm.lam_min = (T)dp[dLamMin];
   prm.lam_max = (T)dp[dLamMax];
@@ -71,12 +73,15 @@ int run(int objective, const void* x0, const void* lo, const void* up,
   prm.st_out = static_cast<int*>(st);
   prm.nfev_out = static_cast<int*>(nfev);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (objective != kRosenbrock && objective != kWeightedSquares) return kErrArgs;
-  if (objective == kWeightedSquares && (d0 == nullptr || d1 == nullptr))
+  const bool newton = newton_method(prm.method);
+  if (objective != kRosenbrock && objective != kWeightedSquares &&
+      !(newton && objective == kQuadratic))
     return kErrArgs;
+  if (objective != kRosenbrock && (d0 == nullptr || d1 == nullptr)) return kErrArgs;
+  if (newton) return launch_newton<T>(prm, objective, s);
   if (qn_form(prm.method, prm.search)) return launch_qn<T>(prm, objective, s);
-  if (objective == kRosenbrock) return launch<T, Rosenbrock<T>, false>(prm, s);
-  return launch<T, WeightedSquares<T>, false>(prm, s);
+  if (objective == kRosenbrock) return launch<T, Rosenbrock<T>, kFirstOrderForm>(prm, s);
+  return launch<T, WeightedSquares<T>, kFirstOrderForm>(prm, s);
 }
 
 }  // namespace
@@ -102,10 +107,10 @@ extern "C" int driver_launch(
     void* stream) {
   if (ip == nullptr || dp == nullptr) return kErrArgs;
   const int method = ip[iMethod], search = ip[iSearch];
-  const bool bounded = method == kPGD || method == kSPG || method == kQNB;
+  const bool bounded = bounded_method(method);
   const bool bounded_search = search == kBTB || search == kMTB ||
                               search == kHZB || (search == kSW && ip[iSearchBounded]);
-  if (B < 1 || n < 1 || method < kGD || method > kLBFGS || search < kNoSearch ||
+  if (B < 1 || n < 1 || method < kGD || method > kSPN || search < kNoSearch ||
       search > kSW || (bstride != 0 && bstride != n) ||
       (bounded && (lo == nullptr || up == nullptr)) ||
       (bounded_search && !bounded) || (search == kGLL) != (ip[iRing] > 0) ||

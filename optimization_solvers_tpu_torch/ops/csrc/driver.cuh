@@ -1,15 +1,19 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a), one warp per instance:
 // the kernel template, shared by driver.cu (the first-order form and the C
-// interface) and driver_qn.cu (the quasi-Newton form).  The two forms are
-// compiled in separate sources, so that they build in parallel and the
-// compiler's choices for the first-order form (inlining of the objective,
-// registers) do not depend on the quasi-Newton form's code.
+// interface), driver_qn.cu (the quasi-Newton form) and driver_newton.cu
+// (the Newton form).  The forms are compiled in separate sources, so that
+// they build in parallel and the compiler's choices for one form (inlining
+// of the objective, registers) do not depend on another form's code.  The
+// first-order and quasi-Newton forms compile the Rosenbrock and
+// WeightedSquares functors, the Newton form these and Quadratic, with
+// their Hessians (objectives.cuh).
 //
 // Replaces the TPU kernel optimization_solvers_tpu/ops/pallas_driver.py
 // (fused_minimize, kernel body _make_kernel, pl.pallas_call at :1874) for
-// its first-order method specs (GD, CD, Pnorm, PGD, SPG, NCG), its
-// quasi-Newton method specs (dense QN and QNB with the bfgs, dfp, broyden
-// and sr1 updates, L-BFGS), its Armijo-family search specs (NoSearch,
+// all its method specs: the first-order ones (GD, CD, Pnorm, PGD, SPG,
+// NCG), the quasi-Newton ones (dense QN and QNB with the bfgs, dfp,
+// broyden and sr1 updates, L-BFGS) and the Newton ones (Newton, PN, SPN
+// with precond_bb), with its Armijo-family search specs (NoSearch,
 // BackTracking, BackTrackingB, GLL) and its Wolfe-family search specs
 // (MoreThuente, MoreThuenteB, HagerZhang, HagerZhangB, MINPACK dcsrch).
 // The plain PyTorch version of the same algorithm is fused_minimize_plain
@@ -29,7 +33,14 @@
 // H100), and the batch's ~160 MB of slab traffic per iteration adds a
 // third on top.
 // A slab in shared memory (40 KB per instance), or fewer passes (the next
-// direction formed inside the update), is the way down.
+// direction formed inside the update), is the way down.  The Newton form
+// writes the dense Hessian into a device-memory slab and factors it there
+// every iteration: n^3 / 6 multiply-adds per instance (1.8e8 at config 5,
+// n = 1,024), each a read and a write of the slab, so ~1.4 GB of slab
+// traffic per instance and iteration in float32.  One warp walking the
+// trailing triangle row by row is latency-bound far above both the byte
+// and the operation bound; a blocked factorization with its panels in
+// shared memory is the way down.
 //
 // Design:
 //  * one warp per instance, coordinate i on lane i % 32.  K3's lanes are
@@ -59,11 +70,28 @@
 //    and tu only for its case-4 step: the TPU kernel evaluates all three
 //    in lockstep and discards the values these skip, so every step is the
 //    same;
+//  * the Newton form keeps one (n, n) slab per instance in the device-memory
+//    workspace.  The Hessian functor writes the dense Hessian into it at
+//    every direction; the Cholesky factor then overwrites its upper
+//    triangle in place, column j of the factor as row j of the slab (the
+//    TPU kernel's L slab layout, so the solves read it coalesced).  The
+//    TPU kernel downdates the whole symmetric slab and reads row j; the
+//    functors' Hessians are exactly symmetric and a downdate subtracts
+//    c_i c_k at (i, k) and c_k c_i at (k, i), equal products, so the slab
+//    stays symmetric and its upper triangle alone holds the same values:
+//    the kernel downdates only that triangle, rows k > j from column k on,
+//    lanes along the columns.  The pivot test, the pivot floor sqrt(max(
+//    piv, eps)) and eps (QnLit: 1.2e-7 / 2.3e-16, pallas_driver.py:791)
+//    are the TPU kernel's.  The solves run in place on one shared-memory
+//    vector; the factor stays in the slab until the next direction, where
+//    SPN's precond_bb solves against it after the step;
 //  * the method and the search are runtime, grid-uniform switches on
 //    integer codes; the template axes are dtype x objective x form: the
 //    first-order form (the first-order methods with the Armijo-family
-//    searches, in driver.cu) and the quasi-Newton form (every method with
-//    the Wolfe searches as well, in driver_qn.cu), 4 instantiations each;
+//    searches, in driver.cu), the quasi-Newton form (the first-order and
+//    quasi-Newton methods with every search, in driver_qn.cu) and the
+//    Newton form (the Newton methods with every search, in
+//    driver_newton.cu);
 //  * scalars (f, t, lambda, beta, the search state, ...) are replicated in
 //    registers after __shfl_xor_sync butterflies, so every branch is
 //    warp-uniform;
@@ -89,8 +117,10 @@ constexpr int kMaxWarpsPerBlock = 8;
 
 enum MethodCode {
   kGD = 0, kCD = 1, kPnorm = 2, kPGD = 3, kSPG = 4, kNCG = 5, kQN = 6,
-  kQNB = 7, kLBFGS = 8
+  kQNB = 7, kLBFGS = 8, kNewton = 9, kPN = 10, kSPN = 11
 };
+// the template's forms
+enum Form { kFirstOrderForm = 0, kQnForm = 1, kNewtonForm = 2 };
 enum SearchCode {
   kNoSearch = 0, kBT = 1, kBTB = 2, kGLL = 3, kMT = 4, kMTB = 5, kHZ = 6,
   kHZB = 7, kSW = 8
@@ -102,7 +132,8 @@ enum QnUpdate { kBFGS = 0, kDFP = 1, kBroyden = 2, kSR1 = 3 };
 // _launch_cuda in ../fused_driver.py)
 enum IntSlot {
   iMethod, iSearch, iAlternate, iNcgVariant, iRestartEvery, iRing, iQnUpdate,
-  iScaleB0, iRestart, iLbfgsM, iApproxWolfe, iSearchBounded, kIntSlots
+  iScaleB0, iRestart, iLbfgsM, iApproxWolfe, iSearchBounded, iPrecondBB,
+  kIntSlots
 };
 enum DoubleSlot {
   dTol, dLamMin, dLamMax, dC1, dBeta, dSigma1, dSigma2, dLbfgsEps, dC2,
@@ -110,8 +141,9 @@ enum DoubleSlot {
   dHzRho, dXtol, dStpMin, dStpMax, dXtrapl, dXtrapu, kDoubleSlots
 };
 
-// the quasi-Newton form's curvature floor: the TPU kernel's literals
-// (pallas_driver.py:475), not finfo(dtype).eps
+// the quasi-Newton form's curvature floor and the Newton form's pivot
+// floor: the TPU kernel's literals (pallas_driver.py:475, :791), not
+// finfo(dtype).eps
 template <typename T> struct QnLit;
 template <> struct QnLit<float> {
   static constexpr double eps = 1.2e-7;
@@ -124,8 +156,17 @@ template <> struct QnLit<double> {
   static constexpr double big = 1.7976931348623157e308;
 };
 
+__host__ __device__ inline bool newton_method(int method) {
+  return method >= kNewton;
+}
+
 __host__ __device__ inline bool qn_form(int method, int search) {
   return method >= kQN || search >= kMT;
+}
+
+__host__ __device__ inline bool bounded_method(int method) {
+  return method == kPGD || method == kSPG || method == kQNB || method == kPN ||
+         method == kSPN;
 }
 
 __host__ __device__ inline long long work_elems(int n, int ring, int m) {
@@ -134,7 +175,7 @@ __host__ __device__ inline long long work_elems(int n, int ring, int m) {
 
 __host__ __device__ inline long long workspace_elems(long long B, long long n,
                                                      int method) {
-  return (method == kQN || method == kQNB) ? B * n * n : 0;
+  return (method == kQN || method == kQNB || newton_method(method)) ? B * n * n : 0;
 }
 
 // Rust's f64::min/max: a NaN operand is discarded
@@ -187,6 +228,78 @@ __device__ void mv_cols(const T* Bm, const T* v, T* out, int n, int lane) {
   }
 }
 
+// Right-looking Cholesky of the (n, n) slab H in place
+// (pallas_driver.py:785-818): step j reads row j of the downdated upper
+// triangle, tests the pivot against eps max(max|diag H|, 1), writes the
+// factor's column j (pivot sqrt(max(piv, eps)), then H_ji / pivot) into
+// row j, and downdates rows k > j from column k on.  col (shared memory, n)
+// holds column j for the downdate.  Returns true where a pivot failed the
+// test (H not numerically positive definite).
+template <typename T>
+__device__ bool chol_factor(T* H, T* col, int n, int lane) {
+  const T eps = (T)QnLit<T>::eps;
+  T dm = 0;
+  for (int i = lane; i < n; i += kWarp) dm = jmax(dm, (T)fabs(H[(long long)i * n + i]));
+  const T thr = eps * jmax(warp_max(dm), T(1));
+  bool bad = false;
+  for (int j = 0; j < n; ++j) {
+    T* rj = H + (long long)j * n;
+    const T piv = rj[j];
+    bad = bad || piv <= thr;
+    const T ps = sqrt(jmax(piv, eps));
+    __syncwarp();                       // every lane has read the pivot
+    for (int i = j + 1 + lane; i < n; i += kWarp) {
+      const T c = rj[i] / ps;
+      rj[i] = c;
+      col[i] = c;
+    }
+    if (lane == 0) rj[j] = ps;
+    __syncwarp();
+    for (int k = j + 1; k < n; ++k) {
+      const T ck = col[k];
+      T* rk = H + (long long)k * n;
+      int i = k + lane;
+      // four independent rows' worth of loads in flight per lane
+      for (; i + 3 * kWarp < n; i += 4 * kWarp) {
+        const T a0 = rk[i], a1 = rk[i + kWarp], a2 = rk[i + 2 * kWarp],
+                a3 = rk[i + 3 * kWarp];
+        rk[i] = a0 - ck * col[i];
+        rk[i + kWarp] = a1 - ck * col[i + kWarp];
+        rk[i + 2 * kWarp] = a2 - ck * col[i + 2 * kWarp];
+        rk[i + 3 * kWarp] = a3 - ck * col[i + 3 * kWarp];
+      }
+      for (; i < n; i += kWarp) rk[i] = rk[i] - ck * col[i];
+    }
+    __syncwarp();
+  }
+  return bad;
+}
+
+// Solve H w = rhs against the factor of chol_factor, in place on w (shared
+// memory): forward then back substitution (pallas_driver.py:820-854).  The
+// TPU kernel accumulates each solution entry into a zeroed vector; the
+// 0 + y additions keep the signs of its zeros.
+template <typename T>
+__device__ void chol_solve(const T* H, T* w, int n, int lane) {
+  for (int j = 0; j < n; ++j) {
+    const T* rj = H + (long long)j * n;
+    const T yj = w[j] / rj[j];
+    __syncwarp();
+    for (int i = j + 1 + lane; i < n; i += kWarp) w[i] = w[i] - yj * rj[i];
+    if (lane == 0) w[j] = T(0) + yj;
+    __syncwarp();
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const T* rj = H + (long long)j * n;
+    T s = 0;
+    for (int i = j + 1 + lane; i < n; i += kWarp) s += rj[i] * w[i];
+    const T xj = (w[j] - warp_sum(s)) / rj[j];
+    __syncwarp();
+    if (lane == 0) w[j] = T(0) + xj;
+    __syncwarp();
+  }
+}
+
 template <typename T> struct Params {
   const T* x0;
   const T* lo;
@@ -202,6 +315,7 @@ template <typename T> struct Params {
   T c1, beta, sigma1, sigma2;
   int ring;             // GLL history length (0 for the other searches)
   int qn_update, scale_b0, restart, m;
+  int precond_bb;       // SPN: the Barzilai-Borwein pair in the Newton metric
   T lbfgs_eps;
   T c2, t_min, t_max, delta, aw_eps;
   int approx_wolfe, search_bounded;
@@ -212,7 +326,7 @@ template <typename T> struct Params {
   T aw_fac, hz_2dm1, hz_1mt;
   T xtol, stp_min, stp_max, xtrapl, xtrapu;
   int max_iter, max_iter_ls;
-  T* work;              // QN/QNB: B * n * n slab elements
+  T* work;              // QN/QNB, Newton/PN/SPN: B * n * n slab elements
   T* x_out;
   T* f_out;
   int* it_out;
@@ -220,9 +334,11 @@ template <typename T> struct Params {
   int* nfev_out;
 };
 
-template <typename T, class Obj, bool kQnForm>
+template <typename T, class Obj, int kForm>
 __global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock)
 driver_kernel(const Params<T> prm) {
+  constexpr bool kQn = kForm == kQnForm;
+  constexpr bool kNewt = kForm == kNewtonForm;
   extern __shared__ unsigned char smem_raw[];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
@@ -230,9 +346,9 @@ driver_kernel(const Params<T> prm) {
   if (inst >= prm.B) return;          // the whole warp leaves together
   const int n = prm.n;
   const int method = prm.method, search = prm.search;
-  const bool bounded = method == kPGD || method == kSPG || method == kQNB;
+  const bool bounded = bounded_method(method);
   const T INF = (T)INFINITY;
-  const int m = kQnForm && method == kLBFGS ? prm.m : 0;
+  const int m = kQn && method == kLBFGS ? prm.m : 0;
 
   T* p = reinterpret_cast<T*>(smem_raw) + (long long)warp * work_elems(n, prm.ring, m);
   T* X = p; p += n;
@@ -252,7 +368,7 @@ driver_kernel(const Params<T> prm) {
   const T* lo = bounded ? prm.lo + (long long)inst * prm.bstride : nullptr;
   const T* up = bounded ? prm.up + (long long)inst * prm.bstride : nullptr;
   const T* x0 = prm.x0 + (long long)inst * n;
-  T* Bm = (kQnForm && (method == kQN || method == kQNB))
+  T* Bm = ((kQn && (method == kQN || method == kQNB)) || kNewt)
               ? prm.work + (long long)inst * n * n : nullptr;
   const bool sym = prm.qn_update != kBroyden;
   const Obj obj{prm.d0, prm.d1};
@@ -267,7 +383,7 @@ driver_kernel(const Params<T> prm) {
   // ---- method and search state
   T lam = 0, par = 0;
   int ks = 0;
-  if (method == kSPG) {
+  if (method == kSPG || method == kSPN) {
     T mx = 0;
     for (int i = lane; i < n; i += kWarp)
       mx = jmax(mx, (T)fabs(jclip(X[i] - G[i], lo[i], up[i]) - X[i]));
@@ -286,7 +402,11 @@ driver_kernel(const Params<T> prm) {
   T sn = INF, yn = INF, gam = 1, run_tmax = prm.t_max;
   int stc = 0, head = 0;
   bool pend = false;
-  if constexpr (kQnForm) {
+  // Newton form: the squared decrement (Newton) and whether the last
+  // direction's factor failed its pivot test
+  T dec2 = INF;
+  bool fact_bad = false;
+  if constexpr (kQn) {
     if (Bm != nullptr)
       for (int i = 0; i < n; ++i)
         for (int j = lane; j < n; j += kWarp)
@@ -297,7 +417,10 @@ driver_kernel(const Params<T> prm) {
   __syncwarp();
 
   auto converged = [&]() -> bool {
-    if constexpr (kQnForm) {
+    if constexpr (kNewt) {
+      if (method == kNewton) return dec2 * T(0.5) < prm.tol;
+    }
+    if constexpr (kQn) {
       if (method == kQN || method == kQNB) {
         // the gradient 2-norm, or the s/y stall (pallas_driver.py:431)
         T gg = 0;
@@ -316,7 +439,12 @@ driver_kernel(const Params<T> prm) {
         gi = 0;
       mx = jmax(mx, (T)fabs(gi));
     }
-    return warp_max(mx) < prm.tol;
+    const bool small = warp_max(mx) < prm.tol;
+    // PN: or the iterate or the gradient stopped moving
+    if constexpr (kNewt) {
+      if (method == kPN) return small || sn < prm.tol || yn < prm.tol;
+    }
+    return small;
   };
 
   bool active = isfinite(Fv) && !converged();
@@ -390,7 +518,41 @@ driver_kernel(const Params<T> prm) {
         break;
       }
       default:
-        if constexpr (kQnForm) {
+        if constexpr (kNewt) {
+          // the Hessian into the slab, its factor in place, the step
+          // H^-1 g in D (pallas_driver.py:893-904, :933-938, :973-978);
+          // GN holds the factor's column
+          obj.hessian(X, Bm, n, lane);
+          __syncwarp();
+          fact_bad = chol_factor(Bm, GN, n, lane);
+          for (int i = lane; i < n; i += kWarp) D[i] = G[i];
+          __syncwarp();
+          chol_solve(Bm, D, n, lane);
+          bool fin = true;
+          for (int i = lane; i < n; i += kWarp) fin = fin && isfinite(D[i]);
+          const bool ok = !fact_bad && __all_sync(kFull, fin);
+          if (method == kNewton) {
+            for (int i = lane; i < n; i += kWarp) D[i] = ok ? -D[i] : -G[i];
+            __syncwarp();
+            if (ok) {
+              // the decrement (H^-1 d) . d: a second solve against the
+              // factor, in XT
+              for (int i = lane; i < n; i += kWarp) XT[i] = D[i];
+              __syncwarp();
+              chol_solve(Bm, XT, n, lane);
+              T zd = 0;
+              for (int i = lane; i < n; i += kWarp) zd += XT[i] * D[i];
+              dec2 = warp_sum(zd);
+            }
+          } else {
+            for (int i = lane; i < n; i += kWarp) {
+              const T st = ok ? D[i] : G[i];
+              D[i] = jclip(X[i] - (method == kSPN ? lam * st : st), lo[i], up[i]) - X[i];
+            }
+          }
+          break;
+        }
+        if constexpr (kQn) {
           if (method == kQN || method == kQNB) {
             // D = B g, then the direction; the poison check reads the raw
             // B g (for QNB before the clip, which would hide it)
@@ -517,7 +679,7 @@ driver_kernel(const Params<T> prm) {
           t = t * prm.beta;
         }
       }
-    } else if constexpr (kQnForm) {
+    } else if constexpr (kForm != kFirstOrderForm) {
       // the Wolfe family: value-and-gradient trials.  phi: value and
       // directional derivative at X + t D (trial point in XT, its gradient
       // in GN)
@@ -744,10 +906,10 @@ driver_kernel(const Params<T> prm) {
       }
       lam = sy <= T(0) ? prm.lam_max : jclip(raw, prm.lam_min, prm.lam_max);
     }
-    // the quasi-Newton pair s, y into GP, DP, with its sums
+    // the quasi-Newton (and PN/SPN) pair s, y into GP, DP, with its sums
     T sy = 0, ss = 0, yy = 0;
     bool moved = false;
-    if constexpr (kQnForm) {
+    if constexpr (kForm != kFirstOrderForm) {
       if (method >= kQN) {
         for (int i = lane; i < n; i += kWarp) {
           const T s = XT[i] - X[i], y = GN[i] - G[i];
@@ -777,7 +939,34 @@ driver_kernel(const Params<T> prm) {
     ++iters;
     __syncwarp();
 
-    if constexpr (kQnForm) {
+    if constexpr (kNewt) {
+      if (method == kPN) {
+        sn = sqrt(ss);
+        yn = sqrt(yy);
+      } else if (method == kSPN) {
+        // pallas_driver.py:980-999: with precond_bb, y is replaced by
+        // H(x_old)^-1 y from the direction's factor (still in the slab),
+        // unless that factor failed or the solve is not finite
+        T sy_b = sy;
+        if (prm.precond_bb) {
+          for (int i = lane; i < n; i += kWarp) XT[i] = DP[i];
+          __syncwarp();
+          chol_solve(Bm, XT, n, lane);
+          bool fin = true;
+          T a = 0;
+          for (int i = lane; i < n; i += kWarp) {
+            fin = fin && isfinite(XT[i]);
+            a += GP[i] * XT[i];
+          }
+          a = warp_sum(a);
+          if (!fact_bad && __all_sync(kFull, fin)) sy_b = a;
+          __syncwarp();
+        }
+        // sy > 0, not sy <= 0: a NaN pair resets to lambda_max too
+        lam = sy_b > T(0) ? jclip(ss / sy_b, prm.lam_min, prm.lam_max) : prm.lam_max;
+      }
+    }
+    if constexpr (kQn) {
       if (method == kQN || method == kQNB) {
         // the dense update (pallas_driver.py:467-588); s in GP, y in DP,
         // B y into D, Broyden's B^T s into XT
@@ -907,7 +1096,7 @@ driver_kernel(const Params<T> prm) {
   }
 }
 
-template <typename T, class Obj, bool kQnForm>
+template <typename T, class Obj, int kForm>
 int launch(const Params<T>& prm, cudaStream_t stream) {
   const int m = prm.method == kLBFGS ? prm.m : 0;
   const long long per_warp = work_elems(prm.n, prm.ring, m) * (long long)sizeof(T);
@@ -915,8 +1104,19 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
   if (wpb > kMaxWarpsPerBlock) wpb = kMaxWarpsPerBlock;
   if (wpb > prm.B) wpb = prm.B;
   if (wpb < 1) return kErrSmem;
+  if (kForm == kNewtonForm) {
+    // a Newton instance runs long on its own slab: spread the instances
+    // over every SM rather than packing 8 warps into a few blocks
+    int dev = 0, sms = 1;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long spread = (prm.B + sms - 1) / sms;
+    if (spread < wpb) wpb = spread;
+  }
   const int smem = (int)(per_warp * wpb);
-  auto kernel = driver_kernel<T, Obj, kQnForm>;
+  auto kernel = driver_kernel<T, Obj, kForm>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -928,5 +1128,8 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
 // the quasi-Newton form of every objective (driver_qn.cu)
 template <typename T>
 int launch_qn(const Params<T>& prm, int objective, cudaStream_t stream);
+// the Newton form of every objective (driver_newton.cu)
+template <typename T>
+int launch_newton(const Params<T>& prm, int objective, cudaStream_t stream);
 
 }  // namespace ost_driver

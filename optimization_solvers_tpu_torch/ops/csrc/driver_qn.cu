@@ -9,8 +9,8 @@ namespace ost_driver {
 
 template <typename T>
 int launch_qn(const Params<T>& prm, int objective, cudaStream_t stream) {
-  if (objective == kRosenbrock) return launch<T, Rosenbrock<T>, true>(prm, stream);
-  return launch<T, WeightedSquares<T>, true>(prm, stream);
+  if (objective == kRosenbrock) return launch<T, Rosenbrock<T>, kQnForm>(prm, stream);
+  return launch<T, WeightedSquares<T>, kQnForm>(prm, stream);
 }
 
 template int launch_qn<float>(const Params<float>&, int, cudaStream_t);

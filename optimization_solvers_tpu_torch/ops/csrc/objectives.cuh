@@ -1,10 +1,18 @@
 // Warp-level objective functors shared by the one-warp-per-instance kernels
-// (K1 lbfgsb_fused.cu and K3 driver.cu): one warp evaluates one instance,
-// coordinate i on lane i % 32, and every lane returns the warp-reduced
-// value.  The caller __syncwarp()s before a call (the functors read other
-// lanes' coordinates of x) and after value_grad (each lane writes only its
-// own coordinates of g).  The plain PyTorch forms in core/problems.py use
-// the same expressions in the same order.
+// (K1 lbfgsb_fused.cu, K3 driver.cu / driver_qn.cu / driver_newton.cu and
+// K4 newton_cg.cu): one warp evaluates one instance, coordinate i on lane
+// i % 32, and every lane returns the warp-reduced value.  The caller
+// __syncwarp()s before a call (the functors read other lanes' coordinates
+// of x and v) and after value_grad, hessian and hvp (each lane writes only
+// its own coordinates of g and of the product, and its own columns of each
+// Hessian row).  K1 and the first-order and quasi-Newton forms of K3
+// compile Rosenbrock and WeightedSquares; K3's Newton form and K4 all
+// three, with the second derivatives: hessian(x, H, n, lane) writes the
+// instance's dense (n, n) Hessian row-major into H (device memory), and
+// hvp(x, v, out, n, lane) writes H v into out.  Every Hessian written here
+// is exactly symmetric, which K3's upper-triangle factorization relies on.
+// The plain PyTorch forms in core/problems.py use the same expressions in
+// the same order.
 
 #pragma once
 
@@ -39,6 +47,37 @@ template <typename T> struct Rosenbrock {
     }
     return warp_sum(s);
   }
+  // H_ii: 1200 x_i^2 - 400 x_{i+1} + 2 from term i, as 800 x_i x_i - 400 a_i
+  // + 2, plus 200 from term i - 1; H_{i,i+1} = H_{i+1,i} = -400 x_i
+  __device__ T hess_diag(const T* x, int i, int n) const {
+    T h = 0;
+    if (i < n - 1) {
+      const T a = x[i + 1] - x[i] * x[i];
+      h = T(800) * x[i] * x[i] - T(400) * a + T(2);
+    }
+    if (i > 0) h += T(200);
+    return h;
+  }
+  __device__ void hessian(const T* x, T* H, int n, int lane) const {
+    for (int i = 0; i < n; ++i) {
+      T* row = H + (long long)i * n;
+      for (int j = lane; j < n; j += kWarp) {
+        T h = 0;
+        if (j == i) h = hess_diag(x, i, n);
+        else if (j == i + 1) h = T(-400) * x[i];
+        else if (j == i - 1) h = T(-400) * x[j];
+        row[j] = h;
+      }
+    }
+  }
+  __device__ void hvp(const T* x, const T* v, T* out, int n, int lane) const {
+    for (int i = lane; i < n; i += kWarp) {
+      T o = hess_diag(x, i, n) * v[i];
+      if (i < n - 1) o += T(-400) * x[i] * v[i + 1];
+      if (i > 0) o += T(-400) * x[i - 1] * v[i - 1];
+      out[i] = o;
+    }
+  }
 };
 
 // 0.5 sum_i d_i (x_i - t_i)^2 with problem data d = d0, t = d1
@@ -62,6 +101,73 @@ template <typename T> struct WeightedSquares {
       s += gi * r;
     }
     return T(0.5) * warp_sum(s);
+  }
+  __device__ void hessian(const T* x, T* H, int n, int lane) const {
+    for (int i = 0; i < n; ++i) {
+      T* row = H + (long long)i * n;
+      for (int j = lane; j < n; j += kWarp) row[j] = j == i ? d0[i] : T(0);
+    }
+  }
+  __device__ void hvp(const T* x, const T* v, T* out, int n, int lane) const {
+    for (int i = lane; i < n; i += kWarp) out[i] = d0[i] * v[i];
+  }
+};
+
+// 0.5 x^T Q x + b^T x with Q = d0 (n x n, row-major, in device memory and
+// shared by every warp) and b = d1.  Lane l owns rows l, l+32, ...: (Q x)_i
+// walks row i, (Q^T x)_i column i (coalesced across the lanes).  The
+// gradient 0.5 (Q x + Q^T x) + b, the Hessian 0.5 (Q + Q^T) and the HVP
+// 0.5 (Q v + Q^T v) are autodiff's for a Q that is not exactly symmetric;
+// the Hessian is then exactly symmetric whatever Q is.
+template <typename T> struct Quadratic {
+  const T* d0;
+  const T* d1;
+  // (Q v)_i and (Q^T v)_i
+  __device__ void rowcol(const T* v, int i, int n, T& qv, T& qtv) const {
+    const T* Qi = d0 + (long long)i * n;
+    qv = 0;
+    qtv = 0;
+    for (int j = 0; j < n; ++j) {
+      qv += Qi[j] * v[j];
+      qtv += d0[(long long)j * n + i] * v[j];
+    }
+  }
+  __device__ T value(const T* x, int n, int lane) const {
+    T sq = 0, sb = 0;
+    for (int i = lane; i < n; i += kWarp) {
+      const T* Qi = d0 + (long long)i * n;
+      T qx = 0;
+      for (int j = 0; j < n; ++j) qx += Qi[j] * x[j];
+      sq += x[i] * qx;
+      sb += d1[i] * x[i];
+    }
+    return T(0.5) * warp_sum(sq) + warp_sum(sb);
+  }
+  __device__ T value_grad(const T* x, T* g, int n, int lane) const {
+    T sq = 0, sb = 0;
+    for (int i = lane; i < n; i += kWarp) {
+      T qx, qtx;
+      rowcol(x, i, n, qx, qtx);
+      sq += x[i] * qx;
+      sb += d1[i] * x[i];
+      g[i] = T(0.5) * (qx + qtx) + d1[i];
+    }
+    return T(0.5) * warp_sum(sq) + warp_sum(sb);
+  }
+  __device__ void hessian(const T* x, T* H, int n, int lane) const {
+    for (int i = 0; i < n; ++i) {
+      const T* Qi = d0 + (long long)i * n;
+      T* row = H + (long long)i * n;
+      for (int j = lane; j < n; j += kWarp)
+        row[j] = T(0.5) * (Qi[j] + d0[(long long)j * n + i]);
+    }
+  }
+  __device__ void hvp(const T* x, const T* v, T* out, int n, int lane) const {
+    for (int i = lane; i < n; i += kWarp) {
+      T qv, qtv;
+      rowcol(v, i, n, qv, qtv);
+      out[i] = T(0.5) * (qv + qtv);
+    }
   }
 };
 

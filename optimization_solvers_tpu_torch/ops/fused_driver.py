@@ -2,17 +2,17 @@
 plain PyTorch version.
 
 Replaces the TPU kernel ``optimization_solvers_tpu/ops/pallas_driver.py``
-(``fused_minimize``, kernel body ``_make_kernel``) for the method specs GD,
-CD, Pnorm, PGD, SPG, NCG (the first-order form), dense quasi-Newton QN and
-QNB (updates bfgs, dfp, broyden, sr1) and L-BFGS (the quasi-Newton form),
-with the search specs NoSearch, BackTracking, BackTrackingB, GLLQuadratic
-(the Armijo family) and MoreThuente, MoreThuenteB, HagerZhang, HagerZhangB
-and StrongWolfe (MINPACK dcsrch; the Wolfe family).  The Newton method
-specs are the next slice (ROADMAP.md Queue 2 item 3).  Both versions here
-run the TPU kernel's algorithm:
+(``fused_minimize``, kernel body ``_make_kernel``) for all its method specs:
+GD, CD, Pnorm, PGD, SPG, NCG (the first-order form), dense quasi-Newton QN
+and QNB (updates bfgs, dfp, broyden, sr1) and L-BFGS (the quasi-Newton
+form), and Newton, ProjectedNewton and SpectralProjectedNewton (the Newton
+form), with the search specs NoSearch, BackTracking, BackTrackingB,
+GLLQuadratic (the Armijo family) and MoreThuente, MoreThuenteB, HagerZhang,
+HagerZhangB and StrongWolfe (MINPACK dcsrch; the Wolfe family).  Both
+versions here run the TPU kernel's algorithm:
 
-* x0 is clipped into the box for the bounded methods (PGD, SPG, QNB), and
-  so is every accepted point;
+* x0 is clipped into the box for the bounded methods (PGD, SPG, QNB, PN,
+  SPN), and so is every accepted point;
 * each iteration takes a direction, runs the search's trial loop until a
   trial is accepted or ``max_iter_ls`` trips are spent, and re-evaluates
   value and gradient at the new point.  The Armijo family evaluates the
@@ -20,6 +20,12 @@ run the TPU kernel's algorithm:
   update of ``t``; the Wolfe family evaluates value and gradient at a
   trial.  On exhaustion More-Thuente takes its last trial step, dcsrch its
   best step ``stx`` and Hager-Zhang its best trial;
+* the Newton form writes the instance's dense Hessian at every direction,
+  factors it by a right-looking Cholesky with the pivot test ``piv <= eps
+  max(max|diag H|, 1)`` (``eps`` the TPU kernel's literal 1.2e-7 / 2.3e-16,
+  ``pallas_driver.py:791``) and pivots ``sqrt(max(piv, eps))``, and solves
+  by forward and back substitution; a factor that failed the test or a
+  solve that is not finite takes the method's fallback direction;
 * status: CONVERGED where converged and finite, else MAX_ITER_REACHED at
   the budget, else OUT_OF_DOMAIN where f is not finite.
 
@@ -35,8 +41,9 @@ is the same.
 
 :func:`fused_minimize` takes the plain version for a CPU ``x0`` and
 launches ``csrc/driver.cu`` (the kernel template in ``csrc/driver.cuh``,
-the quasi-Newton form built in ``csrc/driver_qn.cu``) for a CUDA ``x0``;
-it never falls back from one to the other.
+the quasi-Newton form built in ``csrc/driver_qn.cu``, the Newton form in
+``csrc/driver_newton.cu``) for a CUDA ``x0``; it never falls back from one
+to the other.
 """
 
 from __future__ import annotations
@@ -55,25 +62,33 @@ from ..linesearch.dcsrch import _dcstep
 from ..linesearch.morethuente import (_cubic_minimizer, _quadratic_minimizer_1,
                                       _quadratic_minimizer_2, _update_interval)
 # the method configs only; solvers.driver imports this module
-from ..solvers import lbfgs, nonlinear_cg, quasi_newton, steepest
-from .batched_oracle import (KERNEL_OBJECTIVES, batched_value,
-                             batched_value_and_grad, kernel_operands)
+from ..solvers import lbfgs, newton, nonlinear_cg, quasi_newton, steepest
+from .batched_oracle import (KERNEL_OBJECTIVES, batched_hessian,
+                             batched_value, batched_value_and_grad,
+                             kernel_operands)
 
 # method and search codes of csrc/driver.cuh
-GD, CD, PNORM, PGD, SPG, NCG, QN, QNB, LBFGS = range(9)
+GD, CD, PNORM, PGD, SPG, NCG, QN, QNB, LBFGS, NEWTON, PN, SPN = range(12)
+NEWTON_METHODS = (NEWTON, PN, SPN)
 NOSEARCH, BT, BTB, GLL, MT, MTB, HZ, HZB, SW = range(9)
 NCG_VARIANTS = {"fr": 0, "pr+": 1, "hs": 2, "dy": 3}
 # the dense update rules; any other name is SR1, as in the TPU kernel's
 # _QNSpec (pallas_driver.py:532)
 QN_UPDATES = {"bfgs": 0, "dfp": 1, "broyden": 2, "sr1": 3}
-# the quasi-Newton form's curvature floor: the TPU kernel's literals
-# (pallas_driver.py:475, :700-702), not finfo(dtype).eps
+# the quasi-Newton form's curvature floor and the Newton form's pivot
+# floor: the TPU kernel's literals (pallas_driver.py:475, :700-702, :791),
+# not finfo(dtype).eps
 QN_EPS = {torch.float32: 1.2e-7, torch.float64: 2.3e-16}
-# kSmemPerBlock of csrc/common.cuh, and the functors csrc/driver.cu compiles
+# kSmemPerBlock of csrc/common.cuh, and the functors each form of K3
+# compiles: the first-order and quasi-Newton forms (driver.cu, driver_qn.cu)
+# two, the Newton form (driver_newton.cu) three, with their Hessians
 SMEM_PER_BLOCK = 232448
 K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
+K3_NEWTON_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC")
 KERNEL = "the CUDA driver kernel K3"
 LOCKSTEP = "ROADMAP.md Queue 1 item 7"
+# the LOG_SUM_EXP Hessian and HVP functors
+SECOND_ORDER_LSE = "ROADMAP.md Queue 2 item 8"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -100,6 +115,7 @@ class K3Spec:
     ring: int = 0
     sigma1: float = 0.0
     sigma2: float = 0.0
+    precond_bb: bool = False
     search_bounded: bool = False
     # More-Thuente
     c2: float = 0.0
@@ -123,6 +139,15 @@ class K3Spec:
 
 
 def _method_fields(method) -> Optional[dict]:
+    if isinstance(method, newton.SpectralProjectedNewton):
+        return dict(method=SPN, tol=float(method.grad_tol),
+                    lam_min=float(method.lambda_min),
+                    lam_max=float(method.lambda_max),
+                    precond_bb=bool(method.precond_bb))
+    if isinstance(method, newton.ProjectedNewton):
+        return dict(method=PN, tol=float(method.grad_tol))
+    if isinstance(method, newton.Newton):
+        return dict(method=NEWTON, tol=float(method.tol))
     if isinstance(method, lbfgs.LBFGS):
         return dict(method=LBFGS, tol=float(method.tol),
                     lbfgs_m=int(method.m),
@@ -191,9 +216,9 @@ def _search_fields(line_search) -> Optional[dict]:
 
 
 def build_spec(method, line_search) -> Optional[K3Spec]:
-    """K3's spec for ``(method, line_search)``, or ``None`` where the
-    ported slices have no fused form: another method or search (the
-    Newton specs), PnormDescent without ``inverse_p``,
+    """K3's spec for ``(method, line_search)``, or ``None`` where K3 has no
+    fused form: another method or search, PnormDescent without
+    ``inverse_p``,
     ``MoreThuente(reference_quirks=True)``, or a bounded search
     (BackTrackingB, MoreThuenteB, HagerZhangB, ``StrongWolfe(bounded=
     True)``) with an unbounded method -- the rules of
@@ -202,15 +227,14 @@ def build_spec(method, line_search) -> Optional[K3Spec]:
     s = _search_fields(line_search)
     if m is None or s is None:
         return None
-    bounded = m["method"] in (PGD, SPG, QNB)
+    bounded = m["method"] in (PGD, SPG, QNB, PN, SPN)
     if s.get("search_bounded") and not bounded:
         return None
     return K3Spec(bounded=bounded, **m, **s)
 
 
 def fused_supported(method, line_search) -> bool:
-    """True if (method, line_search) has a form in the ported slices of
-    K3."""
+    """True if (method, line_search) has a form in K3."""
     return build_spec(method, line_search) is not None
 
 
@@ -237,10 +261,12 @@ def _check_fits(n, ring, itemsize, m=0):
 
 
 def workspace_elems(B: int, n: int, method: int) -> int:
-    """Device-memory workspace of the CUDA kernel, in elements: the dense
-    quasi-Newton methods keep each instance's (n, n) inverse-Hessian
-    approximation there (``csrc/driver.cuh`` ``workspace_elems``)."""
-    return B * n * n if method in (QN, QNB) else 0
+    """Device-memory workspace of the CUDA kernel, in elements: one (n, n)
+    slab per instance (``csrc/driver.cuh`` ``workspace_elems``).  The dense
+    quasi-Newton methods keep their inverse-Hessian approximation there,
+    the Newton methods the Hessian, whose Cholesky factor overwrites its
+    upper triangle in place."""
+    return B * n * n if method in (QN, QNB, *NEWTON_METHODS) else 0
 
 
 def _check_workspace(B, n, method, itemsize, device):
@@ -249,11 +275,13 @@ def _check_workspace(B, n, method, itemsize, device):
         return
     free, _ = torch.cuda.mem_get_info(device)
     if need > free:
+        what = ("Hessian slabs" if method in NEWTON_METHODS
+                else "dense quasi-Newton slabs")
         raise NotImplementedError(
             f"{B} instances of width n={n} need {need} bytes of device "
-            f"memory for the dense quasi-Newton slabs of {KERNEL}, more "
-            f"than the {free} free; such a batch waits for the lockstep "
-            f"driver ({LOCKSTEP}) or a smaller batch")
+            f"memory for the {what} of {KERNEL}, more than the {free} "
+            f"free; such a batch waits for the lockstep driver "
+            f"({LOCKSTEP}) or a smaller batch")
 
 
 def _spec_for(method, line_search) -> K3Spec:
@@ -510,6 +538,49 @@ def _sw_plain(spec, bvg, X, d, f0, ginit, active, stpmax, max_iter_ls,
     return torch.where(done, stp, stx)
 
 
+def _cholesky_plain(H, eps):
+    """The TPU kernel's right-looking Cholesky (``pallas_driver.py:
+    785-818``) of each (n, n) Hessian: returns the factor ``L`` with its
+    column j stored as row j (the TPU kernel's L slab) and the per-instance
+    ``bad`` mask of a pivot that failed ``piv <= eps max(max|diag H|, 1)``.
+    Step j takes row j of the downdated H and downdates the trailing block
+    only, which is what the TPU kernel's masked full-slab update changes."""
+    n = H.shape[-1]
+    H = H.clone()
+    L = torch.zeros_like(H)
+    dmax = torch.amax(torch.abs(torch.diagonal(H, dim1=1, dim2=2)), dim=-1)
+    thr = eps * torch.maximum(dmax, torch.ones_like(dmax))
+    bad = torch.zeros_like(dmax, dtype=torch.bool)
+    floor = torch.full_like(dmax, eps)
+    for j in range(n):
+        piv = H[:, j, j]
+        bad = bad | (piv <= thr)
+        piv_s = torch.sqrt(torch.maximum(piv, floor))
+        col = H[:, j, j + 1:] / piv_s[:, None]
+        L[:, j, j] = piv_s
+        L[:, j, j + 1:] = col
+        H[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
+    return L, bad
+
+
+def _tri_solve_plain(L, rhs):
+    """``H w = rhs`` against the factor of :func:`_cholesky_plain`:
+    forward then back substitution in the TPU kernel's order
+    (``pallas_driver.py:820-854``)."""
+    n = rhs.shape[-1]
+    w1 = rhs.clone()
+    w2 = torch.zeros_like(rhs)
+    for j in range(n):
+        yj = w1[:, j] / L[:, j, j]
+        w2[:, j] = w2[:, j] + yj
+        w1[:, j + 1:] = w1[:, j + 1:] - yj[:, None] * L[:, j, j + 1:]
+    w1 = torch.zeros_like(rhs)
+    for j in range(n - 1, -1, -1):
+        dotv = torch.sum(L[:, j, j + 1:] * w1[:, j + 1:], dim=-1)
+        w1[:, j] = w1[:, j] + (w2[:, j] - dotv) / L[:, j, j]
+    return w1
+
+
 def _matvec(Bm, v, transpose=False):
     """``B v`` (or ``B^T v``) per instance."""
     if transpose:
@@ -564,6 +635,20 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         rho = torch.zeros((B, m), dtype=dt, device=dev)
         valid = torch.zeros_like(rho)
         gam = torch.ones((B,), dtype=dt, device=dev)
+    if method in NEWTON_METHODS:
+        bhess = batched_hessian(f, consts)
+        # the factor of the last direction's Hessian and its bad mask
+        # (SPN's precond_bb solves against it after the step)
+        fact = fact_bad = None
+        inf = torch.full((B,), float("inf"), dtype=dt, device=dev)
+        if method == NEWTON:
+            dec2 = inf
+        if method == PN:
+            sn, yn = inf, inf.clone()
+        if method == SPN:
+            mx = torch.amax(torch.abs(clip(X - G) - X), dim=-1)
+            lam = torch.clamp(torch.ones_like(mx) / mx, spec.lam_min,
+                              spec.lam_max)
 
     def converged():
         if method in (QN, QNB):
@@ -574,14 +659,38 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             return g_small | (sn < spec.tol) | (yn < spec.tol)
         if method == LBFGS:
             return torch.amax(torch.abs(G), dim=-1) < spec.tol
+        if method == NEWTON:
+            return dec2 * 0.5 < spec.tol
         pg = G
         if spec.bounded:
             pushing = ((X == lo) & (G > 0.0)) | ((X == up) & (G < 0.0))
             pg = torch.where(pushing, 0.0, G)
-        return torch.amax(torch.abs(pg), dim=-1) < spec.tol
+        small = torch.amax(torch.abs(pg), dim=-1) < spec.tol
+        if method == PN:
+            return (sn < spec.tol) | (yn < spec.tol) | small
+        return small
+
+    def newton_direction():
+        """``pallas_driver.py:893-904``, ``:933-938``, ``:973-978``."""
+        nonlocal fact, fact_bad, dec2
+        fact, fact_bad = _cholesky_plain(bhess(X), QN_EPS[dt])
+        step = _tri_solve_plain(fact, G)
+        ok = ~fact_bad & torch.isfinite(step).all(dim=-1)
+        if method == NEWTON:
+            d = torch.where(ok[:, None], -step, -G)
+            # the decrement (H^-1 d) . d, a second solve against the factor
+            z = _tri_solve_plain(fact, d)
+            dec2 = torch.where(ok, _dot(z, d), dec2)
+            return d
+        step = torch.where(ok[:, None], step, G)
+        if method == PN:
+            return clip(X - step) - X
+        return clip(X - lam[:, None] * step) - X
 
     def direction(active):
         nonlocal ks, pend, rho, valid, gam
+        if method in NEWTON_METHODS:
+            return newton_direction()
         if method in (QN, QNB):
             Bg = _matvec(Bm, G, transpose=spec.qn_update != 2)
             if method == QN:
@@ -849,6 +958,22 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             qn_post_step(active, X - X_old, G - G_old)
         if method == LBFGS:
             lbfgs_post_step(active, X - X_old, G - G_old)
+        if method == PN:
+            s, y = X - X_old, G - G_old
+            sn = torch.where(active, torch.sqrt(_dot(s, s)), sn)
+            yn = torch.where(active, torch.sqrt(_dot(y, y)), yn)
+        if method == SPN:
+            # pallas_driver.py:980-999; precond_bb takes H(x_old)^-1 y from
+            # the direction's factor, the raw y where that factor was bad
+            s, y = X - X_old, G - G_old
+            if spec.precond_bb:
+                yt = _tri_solve_plain(fact, y)
+                bad = fact_bad | ~torch.isfinite(yt).all(dim=-1)
+                y = torch.where(bad[:, None], y, yt)
+            sy = _dot(s, y)
+            lam_bb = torch.clamp(_dot(s, s) / sy, spec.lam_min, spec.lam_max)
+            lam_new = torch.where(sy > 0.0, lam_bb, spec.lam_max)
+            lam = torch.where(active, lam_new, lam)
         iters = iters + active.to(torch.int32)
         active = torch.isfinite(Fv) & ~converged()
 
@@ -881,7 +1006,7 @@ def _slots(spec: K3Spec, dtype):
     ints = [spec.method, spec.search, int(spec.alternate), spec.ncg_variant,
             spec.restart_every, spec.ring, spec.qn_update, int(spec.scale_b0),
             int(spec.restart), spec.lbfgs_m, int(spec.approx_wolfe),
-            int(spec.search_bounded)]
+            int(spec.search_bounded), int(spec.precond_bb)]
     doubles = [spec.tol, spec.lam_min, spec.lam_max, spec.c1, spec.beta,
                spec.sigma1, spec.sigma2, max(spec.curv_eps, QN_EPS[dtype]),
                spec.c2, spec.t_min, spec.t_max, spec.delta, spec.aw_eps,
@@ -895,7 +1020,9 @@ def _slots(spec: K3Spec, dtype):
 def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
                  max_iter_ls):
     """Check the operands, launch ``csrc/driver.cu`` on the current stream
-    and return ``(x, f, iterations, status, nfev)``."""
+    and return ``(x, f, iterations, status, nfev)``.  The Newton methods
+    need a functor of the Newton form (with its Hessian); a
+    ``log_sum_exp`` objective has none yet."""
     from . import _build
 
     if x0.dim() != 2 or x0.dtype not in (torch.float32, torch.float64):
@@ -921,9 +1048,16 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
     code, arrays = kernel_operands(f, consts, x0, kernel=KERNEL,
                                    lockstep=LOCKSTEP)
     name = next(k for k, v in KERNEL_OBJECTIVES.items() if v == code)
-    if name not in K3_OBJECTIVES:
+    newton_form = spec.method in NEWTON_METHODS
+    compiled = K3_NEWTON_OBJECTIVES if newton_form else K3_OBJECTIVES
+    if name not in compiled:
+        if newton_form and name == "LOG_SUM_EXP":
+            raise NotImplementedError(
+                f"the Newton form of {KERNEL} has no LOG_SUM_EXP Hessian "
+                f"functor yet ({SECOND_ORDER_LSE}); the plain version takes "
+                f"such an objective on a CPU tensor")
         raise NotImplementedError(
-            f"{KERNEL} compiles the functors {K3_OBJECTIVES}, not {name}; "
+            f"{KERNEL} compiles the functors {compiled}, not {name}; "
             f"other objectives wait for the lockstep driver ({LOCKSTEP})")
     pinv = None
     if spec.method == PNORM:

@@ -60,10 +60,10 @@ def batch_minimize(method, line_search, oracle, x0, *, bounds: Bounds = None,
     (1000), ``max_iter_ls`` (100), and JAX's lockstep knobs ``callback``
     and ``unroll``; any other raises ``TypeError``.  The lockstep and
     vmapped paths are not ported: ``fused=False``, ``batched_bounds=True``,
-    a ``callback``, an ``unroll`` other than 1, a combination outside this
-    slice of K3, an oracle without a raw objective, or an instance too wide
+    a ``callback``, an ``unroll`` other than 1, a combination K3 has no
+    form for, an oracle without a raw objective, or an instance too wide
     for a block's shared memory raise ``NotImplementedError``; so does, on
-    a CUDA ``x0``, a batch of dense quasi-Newton slabs (``B n^2``
+    a CUDA ``x0``, a batch of dense quasi-Newton or Newton slabs (``B n^2``
     elements) larger than the device's free memory."""
     unknown = set(kwargs) - _KWARGS
     if unknown:
@@ -93,11 +93,11 @@ def batch_minimize(method, line_search, oracle, x0, *, bounds: Bounds = None,
                 f"update waits for the lockstep search ({_LOCKSTEP})")
         raise NotImplementedError(
             f"({type(method).__name__}, {type(line_search).__name__}) has no "
-            "form in the ported slices of K3 (the first-order, dense "
-            "quasi-Newton and L-BFGS methods with the Armijo and Wolfe "
-            "searches; a bounded search needs a bounded method); the Newton "
-            "specs are ROADMAP.md Queue 2 item 3 (the next slice), the "
-            f"lockstep driver {_LOCKSTEP}")
+            "form in K3 (its methods are the first-order, dense "
+            "quasi-Newton, L-BFGS and Newton configs of this package, its "
+            "searches the Armijo and Wolfe configs of its linesearch; a "
+            "bounded search needs a bounded method); anything else needs "
+            f"the lockstep driver ({_LOCKSTEP})")
     x0 = as_batch(x0)
     if x0.dim() != 2:
         raise ValueError(f"x0 must be (B, n), got {tuple(x0.shape)}")

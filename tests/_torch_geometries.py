@@ -1,9 +1,10 @@
 """Geometries shared by the port's tests and ``chip_smoke.py``.
 
 They are the geometries of ``tests/test_fused_lbfgsb.py`` (K1),
-``tests/test_fused_lbfgsb_tall.py`` (K2) and ``tests/test_fused_driver.py``
-(K3), with the port's objectives.  This module imports no JAX, so it also
-runs where only the port is installed.
+``tests/test_fused_lbfgsb_tall.py`` (K2), ``tests/test_fused_driver.py``
+(K3) and ``tests/test_fused_newton_cg.py`` (K4), with the port's
+objectives.  This module imports no JAX, so it also runs where only the
+port is installed.
 """
 
 import numpy as np
@@ -333,6 +334,182 @@ def k3_qn_geometries():
         "lbfgs_hz_out_of_domain": entry(
             solvers.LBFGS(tol=1e-6, m=5), ls.HagerZhang(), x_ood, data=(),
             objective=rosen, max_iter=600, chaotic=True, x_atol=1e-6),
+    }
+
+
+def config5_hessian(n):
+    """Config 5's Hessian (``bench.py:687-741``): its objective ``0.5 sum d
+    x^2 + 0.1 (sum x)^2 / n`` with ``d = linspace(1, 10, n)`` is
+    ``quadratic(Q)`` with ``Q = diag(d) + (0.2 / n) 1 1^T``: dense, SPD."""
+    return np.diag(np.linspace(1.0, 10.0, n)) + 0.2 / n
+
+
+def k3_newton_geometries():
+    """name -> geometry of K3's Newton form, in the form of
+    :func:`k3_geometries`: Newton, ProjectedNewton and
+    SpectralProjectedNewton (with and without ``precond_bb``) with every
+    search family, on library objectives (so the kernel runs them too):
+    weighted squares (diagonal Hessian), Rosenbrock-8 (tridiagonal, and
+    indefinite at many starts, where the factor fails and the fallback
+    direction is taken) and config 5's dense quadratic at n = 32.  Each
+    entry adds ``jax_objective`` (``"rosenbrock"``, ``"weighted_squares"``
+    or ``"quadratic"``) and ``jax_data``, the JAX objective's problem data
+    (``Q`` for the quadratic, whose port objective holds it)."""
+    from optimization_solvers_tpu_torch import linesearch as ls, solvers
+
+    n, B = 8, 16
+    quad = problems.weighted_squares()
+    rosen = problems.rosenbrock()
+    d = np.linspace(1.0, 50.0, n)
+    x0 = np.random.RandomState(0).uniform(-2, 2, (B, n))
+    lo, up = np.full(n, -1.5), np.full(n, 2.5)
+    interior = (d, np.full(n, 0.3))
+    pinned = (d, np.linspace(-2.5, 3.5, n))
+    rng = np.random.RandomState(3)
+    lo_pl = rng.uniform(-2.0, -1.0, (B, n))
+    hi_pl = rng.uniform(0.1, 1.0, (B, n))
+    x_pl = rng.uniform(-0.9, 0.0, (B, n))
+    xr = np.random.RandomState(1).uniform(-2, 2, (B, n))
+    # instance 0 at the minimizer, instance 1 where f overflows
+    x_ood = xr.copy()
+    x_ood[0] = 1.0
+    x_ood[1] = 1e80
+    n5 = 32
+    Q5 = config5_hessian(n5)
+    x5 = np.random.RandomState(5).uniform(-2, 2, (4, n5))
+    newton = solvers.Newton(tol=1e-12)
+    pn = solvers.ProjectedNewton(grad_tol=1e-8)
+    spn = solvers.SpectralProjectedNewton(grad_tol=1e-8)
+    spn_bb = solvers.SpectralProjectedNewton(grad_tol=1e-8, precond_bb=True)
+
+    def entry(method, search, x, lower=None, upper=None, data=interior,
+              objective=quad, max_iter=200, max_iter_ls=40, chaotic=False,
+              x_atol=1e-9, f_rtol=1e-12, jax_data=None, trials_exact=True,
+              far_rtol=1e-12):
+        jax_objective = {"ROSENBROCK": "rosenbrock",
+                         "WEIGHTED_SQUARES": "weighted_squares",
+                         "QUADRATIC": "quadratic"}[objective.functor]
+        return dict(method=method, search=search, objective=objective, x0=x,
+                    lower=lower, upper=upper, data=data, max_iter=max_iter,
+                    max_iter_ls=max_iter_ls, chaotic=chaotic, x_atol=x_atol,
+                    f_rtol=f_rtol, jax_objective=jax_objective,
+                    jax_data=data if jax_data is None else jax_data,
+                    trials_exact=trials_exact, far_rtol=far_rtol)
+
+    box5 = (np.full(n5, -2.0), np.full(n5, 2.0))
+    q5 = problems.quadratic(Q5)
+    return {
+        "newton_bt": entry(newton, ls.BackTracking(), x0),
+        "newton_nosearch": entry(newton, ls.NoSearch(), x0),
+        "newton_mt": entry(newton, ls.MoreThuente(), x0),
+        "newton_hz": entry(newton, ls.HagerZhang(), x0),
+        "newton_sw": entry(newton, ls.StrongWolfe(), x0),
+        "newton_gll": entry(newton, ls.GLLQuadratic(), x0),
+        "pn_btb": entry(pn, ls.BackTrackingB(), x0, lo, up, pinned),
+        "pn_mtb": entry(pn, ls.MoreThuenteB(), x0, lo, up, pinned),
+        "pn_sw_bounded": entry(pn, ls.StrongWolfe(bounded=True), x0, lo, up,
+                               pinned),
+        # the reference BB update freezes on a Newton direction: most
+        # lanes run to the budget (pallas_driver.py:948, PARITY.md)
+        "spn_btb": entry(spn, ls.BackTrackingB(), x0, lo, up, pinned),
+        "spn_precond_btb": entry(spn_bb, ls.BackTrackingB(), x0, lo, up,
+                                 pinned),
+        "spn_precond_hzb": entry(spn_bb, ls.HagerZhangB(), x0, lo, up,
+                                 pinned),
+        # tests/test_fused_driver.py:158: the optimum pinned at the upper
+        # bound of [-1, 1]
+        "pn_btb_active_bound": entry(
+            pn, ls.BackTrackingB(),
+            np.random.RandomState(2).uniform(-1, 1, (B, n)), np.full(n, -1.0),
+            np.full(n, 1.0), (np.linspace(1.0, 5.0, n), np.full(n, 2.0)),
+            max_iter=100),
+        # the first step lands on the upper bounds only to the last bit
+        # (x + (up - x) rounds either way), and the second iteration's
+        # trials compare f values equal to rounding: its iteration counts
+        # are exact, its trial counts are not (a 1e-15 relative change of
+        # x0 moves them)
+        "pn_btb_per_instance_boxes": entry(
+            pn, ls.BackTrackingB(), x_pl, lo_pl, hi_pl,
+            data=(np.linspace(1.0, 12.0, n), np.full(n, 1.2)),
+            trials_exact=False),
+        "newton_bt_rosenbrock": entry(newton, ls.BackTracking(), xr, data=(),
+                                      objective=rosen, chaotic=True,
+                                      x_atol=1e-6),
+        "pn_btb_rosenbrock": entry(pn, ls.BackTrackingB(), xr,
+                                   np.full(n, -2.0), np.full(n, 2.0),
+                                   data=(), objective=rosen, chaotic=True,
+                                   x_atol=1e-6),
+        # the lanes that leave the domain reach |x| ~ 1e110 in a few
+        # undamped steps, and a 1e-15 relative change of x0 moves the plain
+        # version's x there by up to ~6x relative: their x is not held
+        # (``far_rtol`` None), their status and iterations are
+        "newton_nosearch_out_of_domain": entry(
+            newton, ls.NoSearch(), x_ood, data=(), objective=rosen,
+            max_iter=50, chaotic=True, x_atol=1e-6, far_rtol=None),
+        # config 5's dense SPD Hessian at n = 32
+        "pn_btb_config5": entry(solvers.ProjectedNewton(grad_tol=1e-10),
+                                ls.BackTrackingB(), x5, *box5, data=(),
+                                objective=q5, jax_data=(Q5,)),
+        "spn_btb_config5": entry(spn, ls.BackTrackingB(), x5, *box5, data=(),
+                                 objective=q5, max_iter=50, jax_data=(Q5,)),
+        "spn_precond_btb_config5": entry(spn_bb, ls.BackTrackingB(), x5,
+                                         *box5, data=(), objective=q5,
+                                         jax_data=(Q5,)),
+        "newton_mt_config5": entry(newton, ls.MoreThuente(), x5, data=(),
+                                   objective=q5, jax_data=(Q5,)),
+    }
+
+
+def k4_geometries():
+    """name -> geometry of the Newton-CG kernel K4: the geometries of
+    ``tests/test_fused_newton_cg.py`` with the port's objectives, and a
+    factr stop.  Each entry is a dict: ``objective``, ``x0`` (B, n),
+    ``lower``/``upper`` ((n,)), ``data``, ``opts`` (the solver's options),
+    ``jax_objective``, ``jax_data`` and ``chaotic`` (Rosenbrock: a 1e-15
+    relative change of x0 moves the counts, so they are held to the
+    measured spread and x to ``x_atol``)."""
+    rosen = problems.rosenbrock()
+
+    def entry(objective, x0, lower, upper, data=(), jax_objective="rosenbrock",
+              jax_data=None, chaotic=False, x_atol=1e-9, **opts):
+        return dict(objective=objective, x0=x0, lower=lower, upper=upper,
+                    data=data, opts=opts, jax_objective=jax_objective,
+                    jax_data=data if jax_data is None else jax_data,
+                    chaotic=chaotic, x_atol=x_atol)
+
+    d1 = np.random.RandomState(1).uniform(1.0, 5.0, 8)
+    Q2 = np.diag([1.0, 90.0])
+    return {
+        "rosenbrock_interior": entry(
+            rosen, np.random.RandomState(0).uniform(-2, 2, (8, 16)),
+            np.full(16, -5.0), np.full(16, 5.0), chaotic=True, x_atol=1e-6,
+            pgtol=1e-8, factr=0.0, max_iter=300, cg_max=40),
+        "active_bounds_quadratic": entry(
+            problems.weighted_squares(),
+            np.random.RandomState(2).uniform(1.0, 2.0, (8, 8)),
+            np.full(8, 1.0), np.full(8, 2.0), (d1, np.zeros(8)),
+            jax_objective="weighted_squares", pgtol=1e-8, factr=0.0,
+            max_iter=100),
+        # the reference SPG geometry (spg.rs:147-205): optimum (0, 47), one
+        # coordinate at its bound
+        "mixed_active_set": entry(
+            problems.quadratic(Q2),
+            np.random.RandomState(3).uniform(0, 40, (8, 2)),
+            np.array([-1.0, 47.0]), np.array([1e6, 1e6]),
+            jax_objective="quadratic", jax_data=(Q2,), pgtol=1e-10,
+            factr=0.0, max_iter=500),
+        "rosenbrock_upper_active": entry(
+            rosen, np.random.RandomState(4).uniform(-2, 0.5, (8, 12)),
+            np.full(12, -2.0), np.full(12, 0.5), chaotic=True, x_atol=1e-6,
+            pgtol=1e-7, factr=0.0, max_iter=300, cg_max=40),
+        "rosenbrock_xla_twin": entry(
+            rosen, np.random.RandomState(7).uniform(-2, 0.5, (8, 12)),
+            np.full(12, -2.0), np.full(12, 0.5), chaotic=True, x_atol=1e-6,
+            pgtol=1e-7, factr=0.0, max_iter=300, cg_max=40, max_iter_ls=25),
+        "rosenbrock_factr_stop": entry(
+            rosen, np.random.RandomState(9).uniform(-2, 2, (8, 8)),
+            np.full(8, -2.0), np.full(8, 2.0), chaotic=True, x_atol=1e-6,
+            pgtol=1e-12, factr=1e7, max_iter=200, cg_max=8),
     }
 
 

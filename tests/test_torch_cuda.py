@@ -23,15 +23,17 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_geometries import (k1_geometries, k2_geometries, k3_geometries,
-                               k3_qn_geometries, lse_arrays,
+from _torch_geometries import (config5_hessian, k1_geometries, k2_geometries,
+                               k3_geometries, k3_newton_geometries,
+                               k3_qn_geometries, k4_geometries, lse_arrays,
                                perturbation_spread, tiled)
 from optimization_solvers_tpu_torch import (interop, linesearch as ls,
                                             minimize, problems, solvers)
 from optimization_solvers_tpu_torch.core.oracle import make_oracle
 from optimization_solvers_tpu_torch.ops import (_build, fused_driver,
                                                 fused_lbfgsb,
-                                                fused_lbfgsb_tall)
+                                                fused_lbfgsb_tall,
+                                                fused_newton_cg)
 
 pytestmark = pytest.mark.cuda
 
@@ -299,12 +301,19 @@ def test_driver_refuses_rather_than_falls_back(cuda, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         minimize(problems.rosenbrock(), x0, method="gd",
                  search=ls.LineSearch())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        minimize(problems.rosenbrock(), x0, method="newton")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         minimize(problems.rosenbrock(), x0, method="bfgs",
                  search=ls.MoreThuente(reference_quirks=True))
     assert fused_driver.fused_minimize.launches == before
+    # the Newton rows launch K3's Newton form; a log-sum-exp has no Hessian
+    # functor there and is refused
+    r = minimize(problems.rosenbrock(), x0, method="newton", max_iter=5)
+    assert fused_driver.fused_minimize.launches == before + 1
+    assert r.x.device.type == "cuda"
+    lse = problems.log_sum_exp(np.ones((3, 6)), np.zeros(3))
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+        minimize(lse, x0, method="newton")
+    assert fused_driver.fused_minimize.launches == before + 1
 
 
 def test_driver_shared_memory_mirror_matches_the_library(cuda):
@@ -436,7 +445,7 @@ def test_driver_workspace_mirror_matches_the_library(cuda):
     lib = _build.load()
     for B in (1, 64, 1024):
         for n in (1, 33, 100, 4150):
-            for method in range(9):
+            for method in range(12):
                 assert fused_driver.workspace_elems(B, n, method) == (
                     lib.driver_workspace_elems(B, n, method)), (B, n, method)
 
@@ -454,3 +463,144 @@ def test_config2_shape_float32_quality(cuda):
     ok = torch.isin(r.status, torch.tensor([1, 6], device=cuda))
     assert ok.float().mean().item() >= 0.99
     assert bool(torch.isfinite(r.x).all())
+
+
+# ---- the generic driver K3, Newton form -----------------------------------
+
+@pytest.mark.parametrize("name", sorted(k3_newton_geometries()))
+def test_driver_newton_kernel_matches_plain(name, cuda):
+    """Newton, PN and SPN with every search family, float64: status equal,
+    iteration counts within the plain version's spread (max(2, spread) on
+    the Rosenbrock entries), the same trial counts where the counts agree,
+    and x within the entry's tolerance."""
+    g = k3_newton_geometries()[name]
+    x0, lo, up, data = _k3_operands(g, cuda)
+    kw = dict(max_iter=g["max_iter"], max_iter_ls=g["max_iter_ls"])
+    spec = fused_driver.build_spec(g["method"], g["search"])
+    before = fused_driver.fused_minimize.launches
+    x, f, it, st, nfev = fused_driver._launch_cuda(spec, g["objective"], x0,
+                                                   lo, up, data, **kw)
+    torch.cuda.synchronize()
+    assert fused_driver.fused_minimize.launches == before + 1
+
+    def plain(v):
+        (xt,) = interop.tensors_from_numpy(v, device=cuda)
+        return fused_driver.fused_minimize_plain(
+            g["method"], g["search"], g["objective"], xt, lo, up, data, **kw)
+
+    xp, fp, itp, stp, nfevp = plain(g["x0"])
+    spread = perturbation_spread(lambda v: plain(v)[2].cpu().numpy(),
+                                 g["x0"], runs=6)
+    assert torch.equal(st, stp)
+    dit = (it.long() - itp.long()).abs().max().item()
+    assert dit <= (max(2, spread) if g["chaotic"] else spread), (dit, spread)
+    if not g["chaotic"] and spread == 0 and g["trials_exact"]:
+        assert torch.equal(nfev, nfevp)
+    finite = torch.isfinite(f)
+    torch.testing.assert_close(x[finite], xp[finite], rtol=1e-12,
+                               atol=g["x_atol"])
+
+
+def test_driver_newton_route_launches_the_kernel(cuda):
+    """minimize's newton, pn and spn rows with their default and other
+    searches launch K3 once per call, and so does batch_minimize with
+    config 5's call (B = 8, n = 256, float32)."""
+    f = problems.weighted_squares()
+    d, t = np.linspace(1.0, 20.0, 12), np.linspace(-2.0, 2.0, 12)
+    x0 = torch.tensor(np.random.RandomState(1).uniform(-1, 1, (64, 12)),
+                      device=cuda)
+    for method, searches in (
+            ("newton", [None, ls.BackTracking(), ls.HagerZhang(),
+                        ls.StrongWolfe()]),
+            ("pn", [None, ls.MoreThuenteB(), ls.HagerZhangB()]),
+            ("spn", [None, ls.StrongWolfe(bounded=True)])):
+        extra = {} if method == "newton" else {"bounds": (-1.0, 1.0)}
+        for policy in ("fast", "reference"):
+            for search in searches:
+                before = fused_driver.fused_minimize.launches
+                r = minimize(f, x0, method=method, data=(d, t), search=search,
+                             tol=1e-6, max_iter=200, policy=policy, **extra)
+                torch.cuda.synchronize()
+                assert fused_driver.fused_minimize.launches == before + 1, (
+                    method, search)
+                assert r.x.device.type == "cuda" and r.status.shape == (64,)
+    n = 256
+    q = problems.quadratic(torch.tensor(config5_hessian(n),
+                                        dtype=torch.float32, device=cuda))
+    x5 = torch.tensor(np.random.RandomState(5).uniform(-2, 2, (8, n)),
+                      dtype=torch.float32, device=cuda)
+    box = torch.full((n,), 2.0, device=cuda)
+    before = fused_driver.fused_minimize.launches
+    r = solvers.batch_minimize(solvers.ProjectedNewton(grad_tol=1e-4),
+                               ls.BackTrackingB(), make_oracle(q), x5,
+                               bounds=(-box, box), max_iter=50)
+    torch.cuda.synchronize()
+    assert fused_driver.fused_minimize.launches == before + 1
+    assert (r.status == 1).all() and (r.iterations == 1).all()
+    assert r.x.abs().max().item() <= 1e-4
+
+
+# ---- the Newton-CG kernel K4 ------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(k4_geometries()))
+def test_newton_cg_kernel_matches_plain(name, cuda):
+    """float64: status equal, iteration counts within the plain version's
+    spread (max(2, spread) on the Rosenbrock entries), x within the entry's
+    tolerance."""
+    g = k4_geometries()[name]
+    lo, up, *data = interop.tensors_from_numpy(g["lower"], g["upper"],
+                                               *g["data"], device=cuda)
+    (x0,) = interop.tensors_from_numpy(g["x0"], device=cuda)
+    before = fused_newton_cg.newton_cg_solve_fused.launches
+    r = fused_newton_cg.newton_cg_solve_fused(g["objective"], x0, lo, up,
+                                              tuple(data), **g["opts"])
+    torch.cuda.synchronize()
+    assert fused_newton_cg.newton_cg_solve_fused.launches == before + 1
+
+    def plain(v):
+        (xt,) = interop.tensors_from_numpy(v, device=cuda)
+        return fused_newton_cg.newton_cg_solve_plain(
+            g["objective"], xt, lo, up, tuple(data), **g["opts"])
+
+    xp, fp, itp, stp, _, _ = plain(g["x0"])
+    spread = perturbation_spread(lambda v: plain(v)[2].cpu().numpy(),
+                                 g["x0"], runs=6)
+    assert torch.equal(r.status, stp)
+    dit = (r.iterations.long() - itp.long()).abs().max().item()
+    assert dit <= (max(2, spread) if g["chaotic"] else spread), (dit, spread)
+    torch.testing.assert_close(r.x, xp, rtol=0, atol=g["x_atol"])
+    assert r.x.device.type == "cuda" and r.pg_norm.shape == r.f.shape
+
+
+def test_newton_cg_route_and_refusals(cuda, monkeypatch):
+    """minimize(method="newton_cg") launches K4 once; a log-sum-exp (no HVP
+    functor) and an instance too wide for shared memory are refused, and
+    the plain version never runs on a CUDA tensor."""
+    x0 = torch.tensor(np.random.RandomState(42).uniform(-2, 2, (64, 100)),
+                      dtype=torch.float32, device=cuda)
+    before = fused_newton_cg.newton_cg_solve_fused.launches
+    r = minimize(problems.rosenbrock(), x0, method="newton_cg",
+                 bounds=(-5.0, 5.0), tol=1e-3, max_iter=600, cg_max=12)
+    torch.cuda.synchronize()
+    assert fused_newton_cg.newton_cg_solve_fused.launches == before + 1
+    assert (r.status == 1).float().mean().item() >= 0.95
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fused_newton_cg, "newton_cg_solve_plain", plain)
+    lse = problems.log_sum_exp(np.ones((3, 100)), np.zeros(3))
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+        minimize(lse, x0, method="newton_cg", bounds=(-1.0, 1.0))
+    wide = torch.zeros((2, 8000), dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        minimize(problems.rosenbrock(), wide, method="newton_cg")
+    assert fused_newton_cg.newton_cg_solve_fused.launches == before + 1
+
+
+def test_newton_cg_shared_memory_mirror_matches_the_library(cuda):
+    lib = _build.load()
+    for n in (1, 31, 100, 7264, 7265):
+        for itemsize in (4, 8):
+            assert fused_newton_cg.smem_per_instance(n, itemsize) == (
+                lib.newton_cg_smem_per_warp(n, itemsize))

@@ -163,10 +163,14 @@ def test_unknown_and_unported_options_raise(spy):
                 dict(curvature_eps=1e-8)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ostt.minimize(f, x0, method="lbfgsb", **opt)
+    # the Newton rows run K3's Newton form, its plain version on the CPU;
+    # a single instance of newton_cg needs the lockstep loop
+    r = ostt.minimize(f, x0, method="newton", max_iter=5)
+    assert r.x.shape == x0.shape and r.iterations.max().item() <= 5
+    r = ostt.minimize(f, x0, method="spn", bounds=(-1.0, 1.0), max_iter=5)
+    assert r.x.shape == x0.shape and bool((r.x.abs() <= 1.0).all())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ostt.minimize(f, x0, method="newton")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ostt.minimize(f, x0, method="spn", bounds=(-1.0, 1.0))
+        ostt.minimize(f, x0[0], method="newton_cg")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ostt.minimize(f, x0[0], method="lbfgsb")
     for opt in (dict(precision="f32x2"), dict(polish_max_iter=10)):
