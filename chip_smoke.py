@@ -144,6 +144,28 @@ K4_CAPPED_ITERS = 8
 K4_SPREAD_CAPS = (15, 30)
 # calls per configuration of --first-order-times
 FIRST_ORDER_REPEATS = 9
+# the lockstep slice: the lockstep loop's quasi-Newton path at config 2's
+# width (1,024 x Rosenbrock-100, float32) with the fused update K5, without
+# config 2's scale_b0 and restart_on_degeneracy (K5 refuses them), and the
+# Newton path at config 5's width through ops.linalg with the Cholesky
+# kernel K6.  K5 is held against its plain version at the path's shape in
+# float32 (max |d| over the largest entry 1e-5) and float64 (1e-12); K6 by
+# the relative residual ||H x - g|| / ||g|| (1e-4 in float32 on config 5's
+# batch, 1e-10 in float64 at B = LS_K6_F64_ROWS).  The K5 path is held per
+# instance in float64 over its first LS_QN_CAPPED_ITERS iterations against
+# the unfused update (x within the unfused run's own spread under a 1e-15
+# relative change of x0, floored at LS_QN_X_FLOOR), and in full float32
+# solves by success class (CONV_ATOL), median iterations (C2_MED_IT_RTOL)
+# and median f (C2_MED_F_RTOL).  The K6 path must reach config 5's limits
+# (converged 1.0, 1 iteration, max|x| <= C5_X_ATOL) and equal the library
+# path per instance in float64 at B = C5_F64_ROWS (x within 1e-10).
+LOCKSTEP_QN = dict(B=1024, n=100, tol=2e-4, max_iter=1500, max_iter_ls=40)
+LS_QN_CAPPED_ITERS = 30
+LS_QN_X_FLOOR = 1e-12
+K5_RTOL = {"float32": 1e-5, "float64": 1e-12}
+K6_RES = {"float32": 1e-4, "float64": 1e-10}
+LS_K6_F64_ROWS = 16
+LS_PROFILE_ITERS = 50
 
 # the card's rates for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM3 bytes per second and float32 operations per second outside the
@@ -405,6 +427,7 @@ def main(argv=None):
     quasi_newton = qn_slice(dev, card, tensors, sync_time)
     newton_form = newton_slice(dev, card, tensors, sync_time)
     newton_cg = newton_cg_slice(dev, card, tensors, sync_time)
+    k5, k6 = lockstep_slice(dev, card, tensors, sync_time, newton_form["ms"])
     if breakdown:
         driver_breakdown(dev, card, tensors, sync_time)
 
@@ -430,7 +453,8 @@ def main(argv=None):
         "library_ms": None,
         "paths": paths,
     }
-    log(json.dumps({"kernels": [k1, tall, driver, newton_form, newton_cg]}))
+    log(json.dumps({"kernels": [k1, tall, driver, newton_form, newton_cg, k5,
+                                k6]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1662,6 +1686,357 @@ def newton_cg_slice(dev, card, tensors, sync_time):
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+def device_busy_s(fn, sync_time):
+    """Seconds the card spent in kernels and copies while ``fn()`` ran,
+    from ``torch.profiler``'s per-kernel device times (one stream: they do
+    not overlap); ``None`` where the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as p:
+        sync_time(fn)
+    total = 0.0
+    for e in p.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue              # host events (their kernels count below)
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        total += t
+    torch.cuda.synchronize()
+    return total / 1e6 if total > 0 else None
+
+
+def event_ms(fn, reps):
+    """Milliseconds per call of ``fn()`` on the card (CUDA events around
+    ``reps`` calls after one warm-up call)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
+    """Phases 25-29: the lockstep loop's kernels K5 (fused dense
+    quasi-Newton update) and K6 (batched Cholesky solve) against their
+    plain versions at the shapes of their paths, then the two lockstep
+    paths at full width: dense BFGS with ``fused=True`` + More-Thuente
+    through ``solvers.batch_minimize(fused=False)`` (config 2's width) and
+    ProjectedNewton with ``ops.linalg.config.use_kernel = True`` (config 5's
+    width), with times, bounds and the host's share of the wall time.
+    Returns the K5 and K6 entries of the ``kernels`` line."""
+    import torch
+
+    from _torch_geometries import config5_hessian, qn_update_arrays
+    from optimization_solvers_tpu_torch import (linesearch as ls, problems,
+                                                solvers)
+    from optimization_solvers_tpu_torch.core.oracle import make_oracle
+    from optimization_solvers_tpu_torch.ops import (fused_driver,
+                                                    fused_lbfgsb,
+                                                    fused_lbfgsb_tall,
+                                                    fused_newton,
+                                                    fused_newton_cg,
+                                                    fused_qn, linalg)
+
+    K5 = fused_qn.qn_update_direction_fused
+    K6 = fused_newton.cholesky_solve_fused
+    counted = {"K1": fused_lbfgsb.lbfgsb_solve_fused,
+               "K2": fused_lbfgsb_tall.lbfgsb_solve_fused_tall,
+               "K3": fused_driver.fused_minimize,
+               "K4": fused_newton_cg.newton_cg_solve_fused, "K5": K5,
+               "K6": K6}
+
+    def drive(what, fn, kernel):
+        """``fn()`` with every count at 0; ``kernel`` alone must launch."""
+        for k in counted.values():
+            k.launches = 0
+        r, wall = sync_time(fn)
+        counts = {name: k.launches for name, k in counted.items()}
+        log(f"{what}: launches {counts}, {wall:.3f} s")
+        others = [v for name, v in counts.items() if name != kernel]
+        check(counts[kernel] >= 1 and not any(others),
+              f"{what}: launches {counts}, not {kernel} alone")
+        check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
+              f"{what}: non-finite result")
+        return r, wall, counts[kernel]
+
+    def host_share(what, fn, wall):
+        busy = device_busy_s(fn, sync_time)
+        if busy is None:
+            log(f"{what}: device busy time not measured (the profiler shows "
+                f"no device time)")
+            return None
+        share = max(0.0, 1.0 - busy / wall)
+        log(f"{what}: device busy {busy:.4f} s of {wall:.4f} s wall, host "
+            f"share {share:.3f}  [{card}]")
+        return share
+
+    # ---- 25. K5 vs plain at the K5 path's shape, all four rules
+    c = LOCKSTEP_QN
+    B, n = c["B"], c["n"]
+    # curvature pairs (s.y > 0), as the path's Wolfe search feeds K5
+    arrays = qn_update_arrays(B, n, curvature=True)
+    k5_err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        Bm, s, y, g = tensors(*arrays, dtype=dtype)
+        skip = fused_qn.skip_mask(s, y, 1e-8)
+        for kind in fused_qn.KINDS:
+            Bn, Bg = K5(Bm, s, y, g, tol=1e-8, kind=kind)
+            torch.cuda.synchronize()
+            Pn, Pg = fused_qn.qn_update_direction_plain(Bm, s, y, g, skip,
+                                                        kind=kind)
+            rel = max(((Bn - Pn).abs().max() / Pn.abs().max()).item(),
+                      ((Bg - Pg).abs().max() / Pg.abs().max()).item())
+            frozen = torch.equal(Bn[1], Bm[1])
+            if dtype == torch.float32 and kind == "bfgs":
+                k5_err = max((Bn - Pn).abs().max().item(),
+                             (Bg - Pg).abs().max().item())
+            log(f"K5 vs plain {name} {kind} ({B}, {n}, {n}): max|d| / "
+                f"max|entry| {rel:.3g}, skipped instance's B unchanged "
+                f"{frozen}")
+            check(rel <= K5_RTOL[name], f"K5 {name} {kind}: {rel}")
+            check(frozen, f"K5 {name} {kind}: the skipped B changed")
+    Bm, s, y, g = tensors(*arrays, dtype=torch.float32)
+    skip = fused_qn.skip_mask(s, y, 1e-8)
+    k5_ms = event_ms(lambda: K5(Bm, s, y, g, tol=1e-8, kind="bfgs"), 50)
+    k5_plain_ms = event_ms(lambda: fused_qn.qn_update_direction_plain(
+        Bm, s, y, g, skip, kind="bfgs"), 10)
+    # B read and B' written once, s, y, g read and B' g written once; ~10
+    # n^2 operations per instance (B y 2 n^2, the update ~6 n^2, B' g 2 n^2)
+    k5_bound, k5_by = bound((2 * n * n + 4 * n) * B * 4, 10 * n * n * B)
+    log(f"K5 bfgs ({B}, {n}, {n}) float32: kernel {1e3 * k5_ms:.1f} us, plain "
+        f"{1e3 * k5_plain_ms:.1f} us, bound {1e3 * k5_bound:.1f} us "
+        f"({k5_by}); {k5_ms / k5_bound:.1f}x the bound  [{card}]")
+    del Bm, s, y, g, Bn, Bg, Pn, Pg
+
+    # ---- 26. the K5 path: lockstep dense BFGS (fused=True) + More-Thuente
+    # at config 2's width, float32, through batch_minimize(fused=False)
+    rosen = make_oracle(problems.rosenbrock())
+    kw = dict(max_iter=c["max_iter"], max_iter_ls=c["max_iter_ls"])
+    search = ls.MoreThuente(approx_wolfe=True)
+    fused = solvers.QuasiNewton(update="bfgs", tol=c["tol"], fused=True)
+    unfused = solvers.QuasiNewton(update="bfgs", tol=c["tol"])
+    starts = np.random.RandomState(42).uniform(-2.0, 2.0, (B, n))
+
+    def qn_path(xs, method=fused, **extra):
+        return solvers.batch_minimize(method, search, rosen, xs, fused=False,
+                                      **dict(kw, **extra))
+
+    def success(r):
+        return torch.isin(r.status, torch.tensor([1, 6], device=dev)
+                          ).float().mean().item()
+
+    (x32,) = tensors(starts, dtype=torch.float32)
+    r5, wall5, k5_launches = drive(
+        "K5 path (lockstep BFGS fused + MoreThuente, 1,024 x 100, f32) via "
+        "batch_minimize", lambda: qn_path(x32), "K5")
+    lockstep_iters = int(r5.iterations.max())
+    check(k5_launches == lockstep_iters,
+          f"K5 launches {k5_launches}, lockstep iterations {lockstep_iters}")
+    conv5 = report("K5 path", r5, wall5)
+    log(f"K5 path: success (1 or 6) {success(r5):.4f}, converged {conv5:.4f}, "
+        f"{k5_launches} K5 launches = lockstep iterations, "
+        f"{B / wall5:.1f} solves/s  [{card}]")
+    ru, wall_u = sync_time(lambda: qn_path(x32, unfused))
+    report("same solves, unfused update (plain)", ru, wall_u)
+    check(abs(success(r5) - success(ru)) <= CONV_ATOL,
+          f"K5 path: success {success(r5)} vs unfused {success(ru)}")
+    medians_agree("K5 path", r5, ru.f, ru.iterations, C2_MED_IT_RTOL,
+                  C2_MED_F_RTOL, kernel="K5")
+    (x7,) = tensors(np.random.RandomState(7).uniform(-2.0, 2.0, (B, n)),
+                    dtype=torch.float32)
+    r7, wall7 = sync_time(lambda: qn_path(x7))
+    log(f"K5 path, distinct inputs: {wall7:.3f} s, {B / wall7:.1f} solves/s, "
+        f"{int(r7.iterations.max())} lockstep iterations, "
+        f"{1e3 * wall7 / int(r7.iterations.max()):.3f} ms per lockstep "
+        f"iteration  [{card}]")
+    capped = dict(max_iter=LS_PROFILE_ITERS)
+    _, wall_cap = sync_time(lambda: qn_path(x32, **capped))
+    qn_host = host_share(f"K5 path, first {LS_PROFILE_ITERS} iterations",
+                         lambda: qn_path(x32, **capped), wall_cap)
+
+    # ---- 27. the K5 path per instance in float64 over its first iterations:
+    # the fused update (K5) against the unfused one, on the card
+    (x64,) = tensors(starts)
+    cap = dict(max_iter=LS_QN_CAPPED_ITERS)
+    rf = qn_path(x64, **cap)
+    rp = qn_path(x64, unfused, **cap)
+    noise = tensors(np.random.RandomState(100).standard_normal((B, n)))[0]
+    rq = qn_path(x64 * (1 + 1e-15 * noise), unfused, **cap)
+    err = (rf.x - rp.x).abs().max().item()
+    spread = (rq.x - rp.x).abs().max().item()
+    same = [(a == b).float().mean().item()
+            for a, b in ((rf.status, rp.status),
+                         (rf.iterations, rp.iterations))]
+    log(f"K5 path f64, {B} x {n}, first {LS_QN_CAPPED_ITERS} iterations: "
+        f"fused vs unfused status equal {same[0]:.5f}, iterations equal "
+        f"{same[1]:.5f}, max|dx| {err:.3g} (unfused vs unfused with x0 moved "
+        f"by 1e-15 relative: {spread:.3g})")
+    check(min(same) == 1.0, "K5 path f64: status or iterations differ")
+    check(err <= max(spread, LS_QN_X_FLOOR),
+          f"K5 path f64: max|dx| {err} > spread {spread}")
+
+    # ---- 28. K6 vs plain and the library on config 5's batch
+    c5 = CONFIG5
+    n5, B5 = c5["n"], c5["B"]
+    Q64 = config5_hessian(n5)
+    starts5 = np.random.RandomState(5).uniform(-2.0, 2.0, (B5, n5))
+
+    def residual(H, x, g):
+        r = torch.einsum("bij,bj->bi", H, x) - g
+        return (r.norm(dim=-1) / g.norm(dim=-1)).max().item()
+
+    def library(H, g):
+        L = torch.linalg.cholesky(H)
+        return torch.cholesky_solve(g[:, :, None], L)[..., 0]
+
+    k6_err = 0.0
+    for dtype, rows in ((torch.float64, LS_K6_F64_ROWS),
+                        (torch.float32, B5)):
+        name = str(dtype).split(".")[1]
+        (Q,) = tensors(Q64, dtype=dtype)
+        H = Q.expand(rows, n5, n5).contiguous()
+        (g,) = tensors(starts5[:rows] @ Q64.T, dtype=dtype)
+        xk = K6(H, g)
+        torch.cuda.synchronize()
+        xp = fused_newton.cholesky_solve_plain(H, g)
+        xl = linalg.cholesky_solve(H, g)
+        res = [residual(H, v, g) for v in (xk, xp, xl)]
+        dxp = (xk - xp).abs().max().item()
+        log(f"K6 {name} ({rows}, {n5}, {n5}): relative residual kernel "
+            f"{res[0]:.3g}, plain {res[1]:.3g}, library {res[2]:.3g}; "
+            f"max|x - x_plain| {dxp:.3g}, max|x - x_library| "
+            f"{(xk - xl).abs().max().item():.3g}")
+        check(max(res) <= K6_RES[name], f"K6 {name}: residuals {res}")
+        if dtype == torch.float32:
+            k6_err = dxp
+            k6_ms = event_ms(lambda: K6(H, g), 5)
+            k6_plain_ms = event_ms(
+                lambda: fused_newton.cholesky_solve_plain(H, g), 1)
+            k6_lib_ms = event_ms(lambda: library(H, g), 5)
+        del H, g, xk, xp, xl
+    # H and g read once, x written once; n^3 / 3 + 4 n^2 operations per
+    # instance (the factorization and the two substitutions)
+    k6_bound, k6_by = bound((n5 * n5 + 2 * n5) * B5 * 4,
+                            (n5 ** 3 / 3 + 4 * n5 * n5) * B5)
+    log(f"K6 ({B5}, {n5}, {n5}) float32: kernel {k6_ms:.3f} ms, plain "
+        f"{k6_plain_ms:.1f} ms, torch.linalg.cholesky + torch.cholesky_solve "
+        f"{k6_lib_ms:.3f} ms, bound {k6_bound:.3f} ms ({k6_by}); "
+        f"{k6_ms / k6_bound:.1f}x the bound  [{card}]")
+
+    # ---- 29. the K6 path: lockstep ProjectedNewton through ops.linalg with
+    # the kernel, config 5 (B = 256, n = 1,024, float32)
+    (Q,) = tensors(Q64, dtype=torch.float32)
+    quad = make_oracle(problems.quadratic(Q), with_hessian=True)
+    box = torch.full((n5,), c5["box"], device=dev)
+    kw5 = dict(max_iter=c5["max_iter"], max_iter_ls=c5["max_iter_ls"])
+    pn = solvers.ProjectedNewton(grad_tol=c5["tol"])
+
+    def newton_path(xs, method=pn, oracle=quad, lo=-box, up=box):
+        return solvers.batch_minimize(method, ls.BackTrackingB(), oracle, xs,
+                                      bounds=(lo, up), fused=False, **kw5)
+
+    use_kernel = linalg.config.use_kernel
+    linalg.config.use_kernel = True
+    try:
+        (x5,) = tensors(starts5, dtype=torch.float32)
+        r6, wall6, k6_launches = drive(
+            f"K6 path (lockstep PN, {B5} x {n5}, f32) via batch_minimize",
+            lambda: newton_path(x5), "K6")
+        check(k6_launches == int(r6.iterations.max()),
+              f"K6 launches {k6_launches}, iterations "
+              f"{int(r6.iterations.max())}")
+        conv6 = report("K6 path", r6, wall6)
+        xmax = r6.x.abs().max().item()
+        med = r6.iterations.float().median().item()
+        check(conv6 == 1.0 and med == 1 and xmax <= C5_X_ATOL,
+              f"K6 path: converged {conv6}, median iterations {med}, "
+              f"max|x| {xmax}")
+        rng = np.random.RandomState(55)
+        walls = []
+        for _ in range(3):
+            (xs,) = tensors(rng.uniform(-2.0, 2.0, (B5, n5)),
+                            dtype=torch.float32)
+            walls.append(sync_time(lambda: newton_path(xs))[1])
+        pn_ms = 1e3 * statistics.median(walls)
+        log(f"K6 path: {pn_ms:.2f} ms per call (median of 3, distinct inputs; "
+            f"min {1e3 * min(walls):.2f}, max {1e3 * max(walls):.2f}), "
+            f"{B5 / (pn_ms / 1e3):.1f} solves/s; K3's Newton form on the same "
+            f"call {k3_newton_ms:.2f} ms  [{card}]")
+        pn_host = host_share("K6 path", lambda: newton_path(x5),
+                             min(walls))
+        (x64s,) = tensors(starts5[:64], dtype=torch.float32)
+        spn = solvers.SpectralProjectedNewton(grad_tol=c5["tol"],
+                                              precond_bb=True)
+        rs, walls_, spn_launches = drive(
+            "K6 path, SPN precond_bb (64 x 1,024, f32)",
+            lambda: newton_path(x64s, spn), "K6")
+        report("SPN precond_bb", rs, walls_)
+        check(spn_launches == 2 * int(rs.iterations.max()),
+              f"SPN: K6 launches {spn_launches}, iterations "
+              f"{int(rs.iterations.max())}")
+        # float64 per instance: the kernel against the library path
+        (Q8,) = tensors(Q64)
+        q8 = make_oracle(problems.quadratic(Q8), with_hessian=True)
+        x8, lo8, up8 = tensors(starts5[:C5_F64_ROWS], np.full(n5, -c5["box"]),
+                               np.full(n5, c5["box"]))
+        runs = []
+        for flag in (True, False):
+            linalg.config.use_kernel = flag
+            runs.append(newton_path(x8, pn, q8, lo8, up8))
+        dx = (runs[0].x - runs[1].x).abs().max().item()
+        same = (torch.equal(runs[0].status, runs[1].status)
+                and torch.equal(runs[0].iterations, runs[1].iterations))
+        log(f"K6 path f64, {C5_F64_ROWS} x {n5}: kernel vs library status and "
+            f"iterations equal {same}, max|dx| {dx:.3g}")
+        check(same and dx <= 1e-10, f"K6 path f64: {same}, {dx}")
+    finally:
+        linalg.config.use_kernel = use_kernel
+
+    k5 = {
+        "name": "qn_update",
+        "route": "cuda",
+        "source": "optimization_solvers_tpu_torch/ops/csrc/qn_update.cu",
+        "replaces": "optimization_solvers_tpu/ops/pallas_qn.py:92",
+        "launches": k5_launches,
+        "max_abs_err": k5_err,
+        "ms": k5_ms,
+        "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound,
+        "bound_by": k5_by,
+        "library_ms": None,
+        "path": {"seconds": wall5, "solves_per_s": B / wall5,
+                 "lockstep_iterations": lockstep_iters,
+                 "converged": conv5, "success": success(r5),
+                 "host_share": qn_host},
+    }
+    k6 = {
+        "name": "cholesky_solve",
+        "route": "cuda",
+        "source": "optimization_solvers_tpu_torch/ops/csrc/cholesky_solve.cu",
+        "replaces": "optimization_solvers_tpu/ops/pallas_newton.py:101",
+        "launches": k6_launches,
+        "max_abs_err": k6_err,
+        "ms": k6_ms,
+        "plain_ms": k6_plain_ms,
+        "bound_ms": k6_bound,
+        "bound_by": k6_by,
+        "library_ms": k6_lib_ms,
+        "path": {"ms": pn_ms, "solves_per_s": B5 / (pn_ms / 1e3),
+                 "k3_newton_ms": k3_newton_ms, "host_share": pn_host},
+    }
+    return k5, k6
+
 
 if __name__ == "__main__":
     sys.exit(main())

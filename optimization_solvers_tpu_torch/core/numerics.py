@@ -52,9 +52,26 @@ def rust_clamp(t: torch.Tensor, t_min, t_max) -> torch.Tensor:
     return torch.minimum(t1, t_max)
 
 
+def sign(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: NaN stays NaN (``torch.sign`` maps it to 0)."""
+    return torch.where(torch.isnan(v), v, torch.sign(v))
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Last-axis inner product as an elementwise multiply-reduce."""
     return torch.sum(a * b, dim=-1)
+
+
+def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` over the last two axes of ``A`` and the last of ``x``,
+    batch axes broadcast (an ``(n, n)`` matrix against a ``(B, n)``
+    batch, or one matrix per instance)."""
+    return torch.einsum("...ij,...j->...i", A, x)
+
+
+def outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-instance outer product ``a b^T`` of two ``(..., n)`` batches."""
+    return a[..., :, None] * b[..., None, :]
 
 
 def batched_pg_inf_norm(x, g, lower=None, upper=None):

@@ -26,12 +26,21 @@ class Oracle:
     ``x`` is a ``(B, n)`` batch (the port's solvers are batched) or one
     ``(n,)`` point.  ``value(x)`` is the value-only path the Armijo-family
     searches use; without a value function it falls back to the full
+    evaluation.  ``first_order(x)`` is the value and gradient without a
+    Hessian and ``hessian(x)`` the Hessian alone: the lockstep driver
+    evaluates the Hessian once per iteration, at the iterate, and nowhere
+    else (XLA drops the unused Hessians of JAX's full evaluations; eager
+    PyTorch would compute them).  Both fall back to the full
     evaluation."""
 
     def __init__(self, full_fn: Callable[[torch.Tensor], FuncEval],
-                 value_fn: Optional[Callable] = None):
+                 value_fn: Optional[Callable] = None,
+                 first_order_fn: Optional[Callable] = None,
+                 hessian_fn: Optional[Callable] = None):
         self._full = full_fn
         self._value = value_fn
+        self._first = first_order_fn
+        self._hessian = hessian_fn
 
     def __call__(self, x: torch.Tensor) -> FuncEval:
         ev = self._full(x)
@@ -43,6 +52,28 @@ class Oracle:
         if self._value is not None:
             return self._value(x)
         return self(x).f
+
+    def first_order(self, x: torch.Tensor) -> FuncEval:
+        if self._first is not None:
+            return FuncEval(*self._first(x))
+        ev = self(x)
+        return FuncEval(ev.f, ev.g)
+
+    def hessian(self, x: torch.Tensor) -> torch.Tensor:
+        h = self._hessian(x) if self._hessian is not None else self(x).hessian
+        if h is None:
+            raise ValueError(
+                "the method needs Hessians and the oracle gives none; build "
+                "it with make_oracle(f, with_hessian=True)")
+        return h
+
+
+def ensure_oracle(oracle) -> Oracle:
+    """Coerce a plain callable ``x -> FuncEval`` (the reference seam) to
+    :class:`Oracle`."""
+    if isinstance(oracle, Oracle):
+        return oracle
+    return Oracle(oracle)
 
 
 def _one_or_batch(fn):
@@ -77,7 +108,8 @@ def make_oracle(f: Callable, *, with_hessian: bool = False,
         fv, g = vg(x)
         return FuncEval(fv, g, None if hess is None else hess(x))
 
-    oracle = Oracle(full, value_fn=_one_or_batch(batched_value(f, data)))
+    oracle = Oracle(full, value_fn=_one_or_batch(batched_value(f, data)),
+                    first_order_fn=vg, hessian_fn=hess)
     oracle.raw_f = f
     oracle.data = data
     bhvp = batched_hvp(f, data)

@@ -20,6 +20,9 @@ ported:
   their default searches or a ``search=`` of :mod:`.linesearch`, through
   :func:`.solvers.batch_minimize` onto the generic driver kernel K3
   (:mod:`.ops.fused_driver`; the Newton family runs its Newton form);
+  A single instance (a 1-D ``x0``) runs the lockstep loop of
+  :func:`.solvers.minimize` (JAX ``frontend.py:503``), as does a batch
+  that ``batch_minimize`` does not send to K3;
 * ``method="newton_cg"`` through :func:`.solvers.newton_cg_batch_minimize`
   onto the Newton-CG kernel K4 (:mod:`.ops.fused_newton_cg`).  The JAX
   front end runs the XLA twin of the same algorithm there
@@ -61,6 +64,7 @@ from .ops.fused_lbfgsb import lbfgsb_solve_fused
 from .ops.fused_lbfgsb_tall import lbfgsb_solve_fused_tall
 from .solvers import lbfgs, newton, nonlinear_cg, quasi_newton, steepest
 from .solvers.driver import as_batch, batch_minimize
+from .solvers.driver import minimize as minimize_single
 from .solvers.lbfgsb import LbfgsbConfig
 from .solvers.newton_cg import (NewtonCGConfig, newton_cg_batch_minimize,
                                 newton_cg_minimize)
@@ -181,10 +185,13 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
     options name :class:`NewtonCGConfig` fields (``cg_max``, ``c1``, ...).
     It runs its own line search, so a ``search`` raises ``ValueError``.
 
+    A 1-D ``x0`` is one instance: the template methods run it through
+    :func:`.solvers.minimize` and the result has no batch axis.
+
     An unknown option raises ``TypeError``, as in the JAX front end; a
     method, search or option whose machinery is not ported yet raises
     ``NotImplementedError`` naming its ROADMAP item; so does a 1-D ``x0``
-    (the single-instance drivers)."""
+    for ``lbfgsb`` and ``newton_cg`` (their single-instance solvers)."""
     if policy not in ("fast", "reference"):
         raise ValueError(
             f"policy must be 'fast' or 'reference', got {policy!r}")
@@ -331,11 +338,8 @@ def _template(f, x0, method, bounds, data, tol, max_iter, max_iter_ls,
                 f"method {method!r} is unconstrained; use its bounded "
                 "sibling (pgd/spg/pn/spn/bfgsb/dfpb/broydenb/sr1b/lbfgsb) "
                 "for box constraints")
-    if x0.dim() != 2:
-        raise NotImplementedError(
-            "a single instance (1-D x0) runs the single-solve driver, not "
-            "ported yet (ROADMAP.md Queue 1 item 7); pass x0 as (1, n)")
     oracle = f if isinstance(f, Oracle) else make_oracle(
         f, data=data, with_hessian=m.needs_hessian)
-    return batch_minimize(m, s, oracle, x0, bounds=bounds, max_iter=max_iter,
-                          max_iter_ls=max_iter_ls)
+    solve = batch_minimize if x0.dim() == 2 else minimize_single
+    return solve(m, s, oracle, x0, bounds=bounds, max_iter=max_iter,
+                 max_iter_ls=max_iter_ls)

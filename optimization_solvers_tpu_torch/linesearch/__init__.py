@@ -1,9 +1,10 @@
-"""Line searches: the configs the whole-solve kernel K3 runs -- the Armijo
-family (:class:`BackTracking`, :class:`BackTrackingB`,
-:class:`GLLQuadratic`, :class:`NoSearch`) and the Wolfe family
-(:class:`MoreThuente`, :class:`MoreThuenteB`, :class:`HagerZhang`,
-:class:`HagerZhangB`, :class:`StrongWolfe`) -- the shared Wolfe-condition
-predicates, and the MINPACK-2 ``dcstep`` update (:mod:`.dcsrch`)."""
+"""Line searches, each a config that the whole-solve kernel K3 reads and a
+lockstep body that the lockstep driver runs -- the Armijo family
+(:class:`BackTracking`, :class:`BackTrackingB`, :class:`GLLQuadratic`,
+:class:`NoSearch`) and the Wolfe family (:class:`MoreThuente`,
+:class:`MoreThuenteB`, :class:`HagerZhang`, :class:`HagerZhangB`,
+:class:`StrongWolfe`) -- the shared Wolfe-condition predicates, and the
+MINPACK-2 ``dcstep`` update (:mod:`.dcsrch`)."""
 
 from .backtracking import BackTracking, BackTrackingB
 from .base import (Bounds, LineSearch, curvature_condition,

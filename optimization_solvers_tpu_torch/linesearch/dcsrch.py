@@ -8,20 +8,25 @@ PyTorch counterpart of :mod:`optimization_solvers_tpu.linesearch.dcsrch`.
 ``jnp.minimum``/``jnp.maximum`` do, and the NaN-trial handling is the JAX
 function's: a NaN trial value counts as higher, and a NaN trial polynomial
 bisects the bracket.  The search around it runs in the tall kernel's
-dcsrch mode (``ops/fused_lbfgsb_tall.py``) and in K3's StrongWolfe spec
-(``ops/fused_driver.py``); the lockstep search waits for the lockstep
-solvers (ROADMAP.md Queue 1 items 3 and 7).
+dcsrch mode (``ops/fused_lbfgsb_tall.py``), in K3's StrongWolfe spec
+(``ops/fused_driver.py``) and in the lockstep :class:`StrongWolfe` here,
+whose per-instance state is JAX's ``_State`` over ``(B,)`` tensors; it
+returns the accepted step's evaluation with the step, so the driver makes
+no second oracle call.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
-from ..core.numerics import box_projection
-from .base import LineSearch
+from ..core.numerics import box_projection, dot
+from ..core.types import FuncEval
+from .base import (Bounds, LineSearch, full_like_batch, lanes, masked_while,
+                   max_feasible_step, start_done)
 
 
 def _dcstep(stx, fx, dx, sty, fy, dy, stp, fp, dp, brackt, stmin, stmax):
@@ -106,6 +111,28 @@ def _dcstep(stx, fx, dx, sty, fy, dy, stp, fp, dp, brackt, stmin, stmax):
     return stx_n, fx_n, dx_n, sty_n, fy_n, dy_n, stpf, new_brackt
 
 
+class _State(NamedTuple):
+    i: torch.Tensor
+    stp: torch.Tensor
+    stx: torch.Tensor
+    fx: torch.Tensor
+    dx: torch.Tensor
+    sty: torch.Tensor
+    fy: torch.Tensor
+    dy: torch.Tensor
+    brackt: torch.Tensor
+    stage1: torch.Tensor
+    width: torch.Tensor
+    width1: torch.Tensor
+    stmin: torch.Tensor
+    stmax: torch.Tensor
+    done: torch.Tensor
+    # (f, g) at the step the search will return: the current trial's on a
+    # Wolfe or forced exit, the best point stx's on exhaustion
+    f_ret: torch.Tensor
+    g_ret: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
 class StrongWolfe(LineSearch):
     """MINPACK-2 ``dcsrch`` strong-Wolfe search.  Defaults match the Fortran
@@ -121,3 +148,111 @@ class StrongWolfe(LineSearch):
     bounded: bool = False
     xtrapl: float = 1.1
     xtrapu: float = 4.0
+
+    def step_len(self, oracle, x, ev, d, state, bounds: Bounds,
+                 max_iter: int, active=None):
+        t, state, _, _ = self.step_len_ev(oracle, x, ev, d, state, bounds,
+                                          max_iter, active)
+        return t, state
+
+    def step_len_ev(self, oracle, x, ev, d, state, bounds: Bounds,
+                    max_iter: int, active=None):
+        """``(t, state, x_new, ev_new)``: JAX ``dcsrch.py:189-329`` per
+        instance; ``ev_new`` is the returned step's own trial evaluation."""
+        where = torch.where
+        c1, c2, xtol = self.c1, self.c2, self.xtol
+        f0 = ev.f
+        ginit = dot(ev.g, d)
+        gtest = c1 * ginit
+        stpmax_g = full_like_batch(x, self.stp_max)
+        if self.bounded:
+            if bounds is None:
+                raise ValueError("bounded StrongWolfe requires bounds")
+            stpmax_g = torch.minimum(stpmax_g, max_feasible_step(x, d, bounds))
+        stpmin_g = full_like_batch(x, self.stp_min)
+        stp0 = box_projection(full_like_batch(x, 1.0), stpmin_g, stpmax_g)
+        # MINPACK's 'ERROR: INITIAL G .GE. ZERO' guard: a non-descent direction
+        # returns t = 0 at once
+        descent = ginit < 0.0
+        stp0 = where(descent, stp0, torch.zeros_like(stp0))
+        width0 = stpmax_g - stpmin_g
+        zero = torch.zeros_like(stp0)
+        init = _State(
+            i=full_like_batch(x, 0, torch.int32), stp=stp0, stx=zero, fx=f0,
+            dx=ginit, sty=zero, fy=f0, dy=ginit,
+            brackt=torch.zeros_like(descent), stage1=torch.ones_like(descent),
+            width=width0, width1=width0 / 0.5, stmin=zero,
+            stmax=stp0 + self.xtrapu * stp0,
+            done=~descent | start_done(x, active), f_ret=f0, g_ret=ev.g)
+
+        def cond(s):
+            return ~s.done & (s.i < max_iter)
+
+        def body(s):
+            ev_t = oracle(x + lanes(s.stp) * d)
+            f = ev_t.f
+            g = dot(ev_t.g, d)
+            ftest = f0 + s.stp * gtest
+            stage1 = s.stage1 & ~((f <= ftest) & (g >= 0.0))
+            # convergence: strong Wolfe; forced termination: the bracket
+            # collapsed below xtol, or the step is pinned at a global limit
+            wolfe = (f <= ftest) & (torch.abs(g) <= c2 * (-ginit))
+            small = s.brackt & (s.stmax - s.stmin <= xtol * s.stmax)
+            at_max = (s.stp == stpmax_g) & (f <= ftest) & (g <= gtest)
+            at_min = (s.stp == stpmin_g) & ((f > ftest) | (g >= gtest))
+            out_of_interval = s.brackt & ((s.stp <= s.stmin)
+                                          | (s.stp >= s.stmax))
+            finish = wolfe | small | at_max | at_min | out_of_interval
+
+            # stage-1 psi-modified update when the trial is below fx but above
+            # the Armijo line
+            use_mod = stage1 & (f <= s.fx) & (f > ftest)
+            fm = where(use_mod, f - s.stp * gtest, f)
+            fxm = where(use_mod, s.fx - s.stx * gtest, s.fx)
+            fym = where(use_mod, s.fy - s.sty * gtest, s.fy)
+            gm = where(use_mod, g - gtest, g)
+            gxm = where(use_mod, s.dx - gtest, s.dx)
+            gym = where(use_mod, s.dy - gtest, s.dy)
+            stx, fx, dx, sty, fy, dy, stp, brackt = _dcstep(
+                s.stx, fxm, gxm, s.sty, fym, gym, s.stp, fm, gm, s.brackt,
+                s.stmin, s.stmax)
+            fx = where(use_mod, fx + stx * gtest, fx)
+            fy = where(use_mod, fy + sty * gtest, fy)
+            dx = where(use_mod, dx + gtest, dx)
+            dy = where(use_mod, dy + gtest, dy)
+
+            # forced bisection if the bracket failed to shrink enough
+            bisect = brackt & (torch.abs(sty - stx) >= 0.66 * s.width1)
+            stp = where(bisect, stx + 0.5 * (sty - stx), stp)
+            width1 = where(brackt, s.width, s.width1)
+            width = where(brackt, torch.abs(sty - stx), s.width)
+            # fmin/fmax skip a NaN (out-of-domain) far end
+            stmin = where(brackt, torch.fmin(stx, sty),
+                          stp + self.xtrapl * (stp - stx))
+            stmax = where(brackt, torch.fmax(stx, sty),
+                          stp + self.xtrapu * (stp - stx))
+            stp = box_projection(stp, stpmin_g, stpmax_g)
+            # no further progress possible: return the best point so far
+            give_up = (brackt & ((stp <= stmin) | (stp >= stmax))) | (
+                brackt & (stmax - stmin <= xtol * stmax))
+            stp = where(give_up, stx, stp)
+            # the returned evaluation tracks the returned step
+            sel_ev = finish | (stx != s.stx)
+            f_ret = where(sel_ev, f, s.f_ret)
+            g_ret = where(sel_ev[:, None], ev_t.g, s.g_ret)
+            return _State(
+                i=s.i + 1, stp=where(finish, s.stp, stp),
+                stx=where(finish, s.stx, stx), fx=where(finish, s.fx, fx),
+                dx=where(finish, s.dx, dx), sty=where(finish, s.sty, sty),
+                fy=where(finish, s.fy, fy), dy=where(finish, s.dy, dy),
+                brackt=brackt | s.brackt, stage1=stage1,
+                width=where(finish, s.width, width),
+                width1=where(finish, s.width1, width1),
+                stmin=where(finish, s.stmin, stmin),
+                stmax=where(finish, s.stmax, stmax), done=finish, f_ret=f_ret,
+                g_ret=g_ret)
+
+        out = masked_while(cond, body, init)
+        # on exhaustion the best step found (stx), not the live trial
+        t = where(out.done, out.stp, out.stx)
+        return t, state, x + lanes(t) * d, FuncEval(out.f_ret, out.g_ret)

@@ -147,6 +147,26 @@ def load() -> ctypes.CDLL:
                 vp, vp,                  # HVP and trial counts
                 vp,                      # stream
             ]
+            lib.qn_update_smem_elems.restype = ctypes.c_longlong
+            lib.qn_update_smem_elems.argtypes = [i]
+            lib.qn_update_launch.restype = i
+            lib.qn_update_launch.argtypes = [
+                i,                       # dtype
+                vp, vp, vp, vp,          # B, s, y, g
+                vp, vp,                  # B', B' g
+                i, i, i, d,              # batch, n, kind, tol
+                vp,                      # stream
+            ]
+            lib.cholesky_solve_panel.restype = i
+            lib.cholesky_solve_panel.argtypes = [i, i]
+            lib.cholesky_solve_launch.restype = i
+            lib.cholesky_solve_launch.argtypes = [
+                i,                       # dtype
+                vp, vp,                  # H, g
+                vp, vp,                  # workspace (the factors), x
+                i, i,                    # B, n
+                vp,                      # stream
+            ]
             lib.ost_error_string.restype = ctypes.c_char_p
             lib.ost_error_string.argtypes = [i]
             _lib = lib

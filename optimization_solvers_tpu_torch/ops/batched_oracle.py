@@ -96,7 +96,7 @@ def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",
         raise NotImplementedError(
             f"{kernel} needs an objective with a kernel_form "
             "(optimization_solvers_tpu_torch.core.problems); arbitrary torch "
-            f"callables on CUDA wait for the lockstep solver ({lockstep})")
+            f"callables on CUDA need the lockstep solver ({lockstep})")
     name, arrays = form(*data)
     n = x0.shape[-1]
     packed = []

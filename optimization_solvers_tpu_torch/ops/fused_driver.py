@@ -56,8 +56,10 @@ from typing import Optional
 import torch
 
 from .. import linesearch as ls
-from ..core.numerics import batched_pg_inf_norm, rust_clamp, rust_max, rust_min
+from ..core.numerics import (batched_pg_inf_norm, rust_clamp, rust_max,
+                             rust_min, sign)
 from ..core.types import SolveResult, Status
+from ..linesearch.base import max_feasible_step
 from ..linesearch.dcsrch import _dcstep
 from ..linesearch.morethuente import (_cubic_minimizer, _quadratic_minimizer_1,
                                       _quadratic_minimizer_2, _update_interval)
@@ -86,7 +88,7 @@ SMEM_PER_BLOCK = 232448
 K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
 K3_NEWTON_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC")
 KERNEL = "the CUDA driver kernel K3"
-LOCKSTEP = "ROADMAP.md Queue 1 item 7"
+LOCKSTEP = "solvers.batch_minimize with fused=False"
 # the LOG_SUM_EXP Hessian and HVP functors
 SECOND_ORDER_LSE = "ROADMAP.md Queue 2 item 8"
 
@@ -256,8 +258,8 @@ def _check_fits(n, ring, itemsize, m=0):
         raise NotImplementedError(
             f"n={n} needs {smem_per_instance(n, ring, itemsize, m)} bytes of "
             f"shared memory per instance in {KERNEL}, more than a block's "
-            f"{SMEM_PER_BLOCK}; such a batch waits for the lockstep driver "
-            f"({LOCKSTEP})")
+            f"{SMEM_PER_BLOCK}; such a batch needs the lockstep loop "
+            f"({LOCKSTEP}, which batch_minimize's fused='auto' takes)")
 
 
 def workspace_elems(B: int, n: int, method: int) -> int:
@@ -280,8 +282,7 @@ def _check_workspace(B, n, method, itemsize, device):
         raise NotImplementedError(
             f"{B} instances of width n={n} need {need} bytes of device "
             f"memory for the {what} of {KERNEL}, more than the {free} "
-            f"free; such a batch waits for the lockstep driver "
-            f"({LOCKSTEP}) or a smaller batch")
+            f"free; the lockstep loop needs as much: use a smaller batch")
 
 
 def _spec_for(method, line_search) -> K3Spec:
@@ -298,23 +299,8 @@ def _check_bounds(spec, method, lower, upper):
         raise ValueError(f"{type(method).__name__} requires bounds")
 
 
-def _sign(v):
-    """``jnp.sign``: NaN stays NaN (``torch.sign`` gives 0)."""
-    return torch.where(torch.isnan(v), v, torch.sign(v))
-
-
 def _dot(a, b):
     return torch.sum(a * b, dim=-1)
-
-
-def _max_feasible_step(X, d, lo, up):
-    """Per instance ``min_i (bound_i - x_i) / d_i`` with NaN terms as +inf
-    (``pallas_driver.py:128-137``)."""
-    inf = torch.full_like(d, float("inf"))
-    terms = torch.where(d > 0.0, (up - X) / d,
-                        torch.where(d < 0.0, (lo - X) / d, inf))
-    terms = torch.where(torch.isnan(terms), inf, terms)
-    return torch.amin(terms, dim=-1)
 
 
 def _phi(bvg, X, d, t):
@@ -731,7 +717,7 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             ii = torch.arange(n, device=dev)
             idx = torch.amin(torch.where(a == amax, ii, n), dim=-1,
                              keepdim=True)
-            return -_sign(G) * (ii == idx).to(dt)
+            return -sign(G) * (ii == idx).to(dt)
         if method == PNORM:
             # rounded to float32 first, as the TPU kernel's float32 matmul
             # output (preferred_element_type) is
@@ -773,14 +759,14 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             t_min = torch.full((B,), spec.t_min, dtype=dt, device=dev)
             if search == MTB:
                 run_tmax = torch.minimum(
-                    run_tmax, _max_feasible_step(X, d, lo, up))
+                    run_tmax, max_feasible_step(X, d, (lo, up)))
                 t_max = run_tmax
             else:
                 t_max = torch.full((B,), spec.t_max, dtype=dt, device=dev)
             return _mt_plain(spec, bvg, X, d, Fv, g0d, active, t_min, t_max,
                              max_iter_ls, nfev)
         if search in (HZ, HZB):
-            t_max = (_max_feasible_step(X, d, lo, up) if search == HZB else
+            t_max = (max_feasible_step(X, d, (lo, up)) if search == HZB else
                      torch.full((B,), float("inf"), dtype=dt, device=dev))
             return _hz_plain(spec, bvg, X, d, Fv, g0d, active, t_max,
                              max_iter_ls, nfev)
@@ -788,7 +774,7 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             stpmax = torch.full((B,), spec.stp_max, dtype=dt, device=dev)
             if spec.search_bounded:
                 stpmax = torch.minimum(stpmax,
-                                       _max_feasible_step(X, d, lo, up))
+                                       max_feasible_step(X, d, (lo, up)))
             return _sw_plain(spec, bvg, X, d, Fv, g0d, active, stpmax,
                              max_iter_ls, nfev)
         f_ref = Fv
@@ -1058,7 +1044,7 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
                 f"such an objective on a CPU tensor")
         raise NotImplementedError(
             f"{KERNEL} compiles the functors {compiled}, not {name}; "
-            f"other objectives wait for the lockstep driver ({LOCKSTEP})")
+            f"other objectives need the lockstep loop ({LOCKSTEP})")
     pinv = None
     if spec.method == PNORM:
         pinv = spec.pinv.to(device=x0.device, dtype=x0.dtype).contiguous()

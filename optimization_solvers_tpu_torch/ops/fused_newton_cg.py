@@ -51,7 +51,7 @@ from .batched_oracle import (KERNEL_OBJECTIVES, batched_hvp, batched_value,
 SMEM_PER_BLOCK = 232448
 K4_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC")
 KERNEL = "the CUDA Newton-CG kernel K4"
-LOCKSTEP = "ROADMAP.md Queue 1 item 7"
+LOCKSTEP = "ROADMAP.md Queue 1 item 7a"
 SECOND_ORDER_LSE = "ROADMAP.md Queue 2 item 8"
 
 

@@ -1,11 +1,14 @@
-"""Solver layer: the template-method configs that the whole-solve kernel K3
-runs (first-order, dense quasi-Newton, L-BFGS and Newton), the batched
-driver that routes them there, the L-BFGS-B config, and the Newton-CG
-solver (the kernel K4)."""
+"""Solver layer: the template methods (first-order, dense quasi-Newton,
+L-BFGS and Newton) with their lockstep bodies, the generic driver
+(``minimize``, ``minimize_recorded``, ``batch_minimize``, which routes a
+batch to the whole-solve kernel K3 or the lockstep loop, ``make_step``,
+``make_solver``, ``lockstep_loop``), the L-BFGS-B config, and the
+Newton-CG solver (the kernel K4)."""
 
 from .base import BoundedMethod, Method
-from .driver import batch_minimize
-from .lbfgs import LBFGS
+from .driver import (SolverCarry, batch_minimize, lockstep_loop, make_solver,
+                     make_step, minimize, minimize_recorded)
+from .lbfgs import LBFGS, LbfgsState
 from .lbfgsb import LbfgsbConfig
 from .newton import Newton, ProjectedNewton, SpectralProjectedNewton
 from .newton_cg import (NewtonCGConfig, newton_cg_batch_minimize,
@@ -16,7 +19,9 @@ from .quasi_newton import (BFGS, BFGSB, DFP, DFPB, SR1B, Broyden, BroydenB,
 from .steepest import (CoordinateDescent, GradientDescent, PnormDescent,
                        ProjectedGradientDescent, SpectralProjectedGradient)
 
-__all__ = ["BoundedMethod", "Method", "batch_minimize", "LBFGS",
+__all__ = ["BoundedMethod", "Method", "SolverCarry", "batch_minimize",
+           "lockstep_loop", "make_solver", "make_step", "minimize",
+           "minimize_recorded", "LBFGS", "LbfgsState",
            "LbfgsbConfig", "Newton", "ProjectedNewton",
            "SpectralProjectedNewton", "NewtonCGConfig",
            "newton_cg_batch_minimize", "newton_cg_minimize", "NonlinearCG",

@@ -21,7 +21,7 @@ from ..core.types import SolveResult
 from ..ops.fused_newton_cg import newton_cg_solve_fused
 from .driver import as_batch
 
-_LOCKSTEP = "ROADMAP.md Queue 1 item 7"
+_LOCKSTEP = "ROADMAP.md Queue 1 item 7a"
 
 
 @dataclasses.dataclass(frozen=True)

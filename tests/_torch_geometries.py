@@ -537,3 +537,106 @@ def perturbation_spread(iterations_at, x0, runs=3):
         counts.append(np.asarray(iterations_at(x0 * (1 + 1e-15 * noise))))
     c = np.stack(counts).astype(np.int64)
     return int((c.max(0) - c.min(0)).max())
+
+
+# ---- the lockstep driver and its kernels K5 and K6
+
+def lockstep_quadratic():
+    """The geometry of ``tests/test_lockstep_parity.py``: ``0.5 sum d x^2``
+    with ``d = linspace(1, 40, 6)`` (the port's ``weighted_squares`` with
+    ``t = 0``), the box ``[-1.5, 2.5]``, and 5 starts of mixed difficulty
+    (near the optimum, mid-range, far corners), so the instances converge
+    at different iterations.  Returns ``(d, x0, lower, upper)``."""
+    n = 6
+    rng = np.random.RandomState(3)
+    x0 = np.vstack([0.01 * rng.randn(1, n), rng.uniform(-0.5, 0.5, (2, n)),
+                    rng.uniform(-2, 2.5, (2, n))])
+    return np.linspace(1.0, 40.0, n), x0, np.full(n, -1.5), np.full(n, 2.5)
+
+
+def lockstep_combos(solvers, ls):
+    """id -> ``(method, search, bounded, needs_hessian)``, built from either
+    package's ``solvers`` and ``linesearch`` modules (their names and
+    fields agree): every combination of ``tests/test_lockstep_parity.py``,
+    then CD + GLL, Pnorm, SR1B, the bug-for-bug More-Thuente, Hager-Zhang
+    (B), bounded StrongWolfe, SPN with ``precond_bb``, the fused dense
+    update (K5's path) for all four rules, unbounded and bounded, and the
+    ``scale_b0`` / ``restart_on_degeneracy`` variants."""
+    d = np.linspace(1.0, 40.0, 6)
+    combos = {
+        "gd_bt": (solvers.GradientDescent(grad_tol=1e-7), ls.BackTracking()),
+        "cd_gll": (solvers.CoordinateDescent(grad_tol=1e-7),
+                   ls.GLLQuadratic()),
+        "spg_gll": (solvers.SpectralProjectedGradient(grad_tol=1e-7),
+                    ls.GLLQuadratic()),
+        "pgd_btb": (solvers.ProjectedGradientDescent(grad_tol=1e-7),
+                    ls.BackTrackingB()),
+        "ncg_fr_bt": (solvers.NonlinearCG(grad_tol=1e-7, variant="fr"),
+                      ls.BackTracking()),
+        "ncg_prp_mt": (solvers.NonlinearCG(grad_tol=1e-7), ls.MoreThuente()),
+        "pnorm_bt": (solvers.PnormDescent(grad_tol=1e-7,
+                                          inverse_p=np.diag(2.0 / d)),
+                     ls.BackTracking()),
+        "bfgs_mt": (solvers.BFGS(tol=1e-8), ls.MoreThuente()),
+        "bfgs_mt_quirks": (solvers.BFGS(tol=1e-8),
+                           ls.MoreThuente(reference_quirks=True)),
+        "dfp_bt": (solvers.DFP(tol=1e-8), ls.BackTracking()),
+        "bfgsb_btb": (solvers.BFGSB(tol=1e-8), ls.BackTrackingB()),
+        "bfgsb_hzb": (solvers.BFGSB(tol=1e-8), ls.HagerZhangB()),
+        "bfgsb_swb": (solvers.BFGSB(tol=1e-8), ls.StrongWolfe(bounded=True)),
+        "sr1b_mtb": (solvers.SR1B(tol=1e-8), ls.MoreThuenteB()),
+        "bfgs_robust_mt_aw": (solvers.BFGS(tol=1e-8, scale_b0=True,
+                                           restart_on_degeneracy=True),
+                              ls.MoreThuente(approx_wolfe=True)),
+        "newton_nosearch": (solvers.Newton(tol=1e-10), ls.NoSearch()),
+        "pn_btb": (solvers.ProjectedNewton(grad_tol=1e-8), ls.BackTrackingB()),
+        "spn_btb": (solvers.SpectralProjectedNewton(grad_tol=1e-8),
+                    ls.BackTrackingB()),
+        "spn_precond_btb": (solvers.SpectralProjectedNewton(
+            grad_tol=1e-8, precond_bb=True), ls.BackTrackingB()),
+        "lbfgs_sw": (solvers.LBFGS(tol=1e-8, m=4), ls.StrongWolfe()),
+        "lbfgs_hz": (solvers.LBFGS(tol=1e-8, m=4), ls.HagerZhang()),
+    }
+    for kind in ("bfgs", "dfp", "broyden", "sr1"):
+        combos[f"{kind}_fused_mt"] = (
+            solvers.QuasiNewton(tol=1e-8, update=kind, fused=True),
+            ls.MoreThuente())
+        combos[f"{kind}b_fused_mtb"] = (
+            solvers.QuasiNewtonB(tol=1e-8, update=kind, fused=True),
+            ls.MoreThuenteB())
+    return {k: (m, s, isinstance(m, solvers.BoundedMethod),
+                bool(m.needs_hessian)) for k, (m, s) in combos.items()}
+
+
+def qn_update_arrays(b, n, seed=2, curvature=False):
+    """K5's inputs (the geometry of ``tests/test_ops.py:60-78``): SPD
+    ``B = A A^T + 3 I`` (b, n, n) and s, y, g (b, n) from ``RandomState
+    (seed)``; instance 1's pair is scaled by 1e-12, so the degenerate-pair
+    skip fires there.  With ``curvature`` y is ``C s`` for one SPD ``C =
+    M M^T / n + I``, so ``s.y > 0`` as in the pairs a Wolfe search feeds
+    the update; the random pairs' ``s.y`` of either sign make the
+    updates cancel (``tests/_torch_lockstep_reference.py --geometry`` prints
+    how far float32 then falls from float64)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(b, n, n)
+    Bm = A @ np.transpose(A, (0, 2, 1)) + 3.0 * np.eye(n)
+    s, y, g = (rng.randn(b, n) for _ in range(3))
+    if curvature:
+        M = rng.randn(n, n)
+        y = s @ (M @ M.T / n + np.eye(n))
+    s[1] *= 1e-12
+    y[1] *= 1e-12
+    return Bm, s, y, g
+
+
+def spd_arrays(b, n, seed=0, shift=5.0, non_pd=None):
+    """K6's inputs (the geometry of ``tests/test_ops.py:33-41``): SPD
+    ``H = A A^T + shift I`` (b, n, n) and g (b, n) from ``RandomState
+    (seed)``; instance ``non_pd``, if given, is negated (not positive
+    definite: its first pivot is negative)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(b, n, n)
+    H = A @ np.transpose(A, (0, 2, 1)) + shift * np.eye(n)
+    if non_pd is not None:
+        H[non_pd] = -H[non_pd]
+    return H, rng.randn(b, n)

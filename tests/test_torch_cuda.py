@@ -26,14 +26,17 @@ import torch
 from _torch_geometries import (config5_hessian, k1_geometries, k2_geometries,
                                k3_geometries, k3_newton_geometries,
                                k3_qn_geometries, k4_geometries, lse_arrays,
-                               perturbation_spread, tiled)
+                               perturbation_spread, qn_update_arrays,
+                               spd_arrays, tiled)
 from optimization_solvers_tpu_torch import (interop, linesearch as ls,
                                             minimize, problems, solvers)
 from optimization_solvers_tpu_torch.core.oracle import make_oracle
 from optimization_solvers_tpu_torch.ops import (_build, fused_driver,
                                                 fused_lbfgsb,
                                                 fused_lbfgsb_tall,
-                                                fused_newton_cg)
+                                                fused_newton,
+                                                fused_newton_cg, fused_qn,
+                                                linalg)
 
 pytestmark = pytest.mark.cuda
 
@@ -298,12 +301,13 @@ def test_driver_refuses_rather_than_falls_back(cuda, monkeypatch):
         minimize(lambda x: (x * x).sum(), x0, method="gd")
     with pytest.raises(NotImplementedError, match="compiles the functors"):
         minimize(problems.quadratic(np.eye(6)), x0, method="gd")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # what K3 has no form for runs the lockstep loop on the card
+    with pytest.raises(NotImplementedError, match="has no step_len"):
         minimize(problems.rosenbrock(), x0, method="gd",
                  search=ls.LineSearch())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        minimize(problems.rosenbrock(), x0, method="bfgs",
+    r = minimize(problems.rosenbrock(), x0, method="bfgs", max_iter=5,
                  search=ls.MoreThuente(reference_quirks=True))
+    assert r.x.device.type == "cuda" and r.iterations.max().item() <= 5
     assert fused_driver.fused_minimize.launches == before
     # the Newton rows launch K3's Newton form; a log-sum-exp has no Hessian
     # functor there and is refused
@@ -416,9 +420,9 @@ def test_driver_qn_route_launches_the_kernel(cuda):
 
 
 def test_driver_qn_refuses_rather_than_falls_back(cuda, monkeypatch):
-    """reference_quirks and a slab batch beyond the device's free memory
-    raise NotImplementedError naming their ROADMAP item; the plain version
-    never runs on a CUDA tensor."""
+    """reference_quirks runs the lockstep loop on the card; a slab batch
+    beyond the device's free memory raises NotImplementedError; K3's plain
+    version never runs on a CUDA tensor."""
     def plain(*a, **kw):
         raise AssertionError("the plain version ran on a CUDA tensor")
 
@@ -426,10 +430,10 @@ def test_driver_qn_refuses_rather_than_falls_back(cuda, monkeypatch):
     before = fused_driver.fused_minimize.launches
     x0 = torch.zeros((4, 6), dtype=torch.float64, device=cuda)
     oracle = make_oracle(problems.rosenbrock())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        solvers.batch_minimize(solvers.BFGS(),
+    r = solvers.batch_minimize(solvers.BFGS(),
                                ls.MoreThuente(reference_quirks=True), oracle,
-                               x0)
+                               x0, max_iter=5)
+    assert r.x.device.type == "cuda"
     free, _ = torch.cuda.mem_get_info()
     n = 4000
     B = int(free // (n * n * 8)) + 1        # one slab more than fits
@@ -604,3 +608,125 @@ def test_newton_cg_shared_memory_mirror_matches_the_library(cuda):
         for itemsize in (4, 8):
             assert fused_newton_cg.smem_per_instance(n, itemsize) == (
                 lib.newton_cg_smem_per_warp(n, itemsize))
+
+
+# ---- the lockstep loop's kernels K5 (fused QN update) and K6 (Cholesky) ----
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [5, 37, 300])
+def test_qn_update_kernel_matches_plain(n, dtype, cuda):
+    Bm, s, y, g = interop.tensors_from_numpy(*qn_update_arrays(6, n),
+                                             device=cuda, dtype=dtype)
+    skip = fused_qn.skip_mask(s, y, 1e-8)
+    assert skip.tolist() == [False, True, False, False, False, False]
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    for kind in fused_qn.KINDS:
+        before = fused_qn.qn_update_direction_fused.launches
+        Bn, Bg = fused_qn.qn_update_direction_fused(Bm, s, y, g, tol=1e-8,
+                                                    kind=kind)
+        torch.cuda.synchronize()
+        assert fused_qn.qn_update_direction_fused.launches == before + 1
+        Pn, Pg = fused_qn.qn_update_direction_plain(Bm, s, y, g, skip,
+                                                    kind=kind)
+        assert (Bn - Pn).abs().max() <= rtol * Pn.abs().max(), kind
+        assert (Bg - Pg).abs().max() <= rtol * Pg.abs().max(), kind
+        assert torch.equal(Bn[1], Bm[1]), kind
+
+
+def test_qn_update_kernel_refusals(cuda):
+    Bm, s, y, g = interop.tensors_from_numpy(*qn_update_arrays(3, 4),
+                                             device=cuda)
+    before = fused_qn.qn_update_direction_fused.launches
+    with pytest.raises(ValueError, match="float32 or float64"):
+        fused_qn.qn_update_direction_fused(Bm.half(), s.half(), y.half(),
+                                           g.half())
+    with pytest.raises(ValueError, match=r"must be a \(3, 4\)"):
+        fused_qn.qn_update_direction_fused(Bm, s[:2], y, g)
+    n = 6000                     # 5 n float64 elements exceed a block's
+    wide = torch.zeros((1, 1, 1), dtype=torch.float64,
+                       device=cuda).expand(1, n, n)
+    v = torch.zeros((1, n), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_qn.qn_update_direction_fused(wide, v, v, v)
+    assert fused_qn.qn_update_direction_fused.launches == before
+
+
+@pytest.mark.parametrize("n", [1, 24, 33, 100, 301])
+def test_cholesky_kernel_matches_plain(n, cuda):
+    H, g = interop.tensors_from_numpy(*spd_arrays(5, n, non_pd=3),
+                                      device=cuda)
+    before = fused_newton.cholesky_solve_fused.launches
+    H0 = H.clone()
+    x = fused_newton.cholesky_solve_fused(H, g)
+    torch.cuda.synchronize()
+    assert fused_newton.cholesky_solve_fused.launches == before + 1
+    assert torch.equal(H, H0)
+    ref = fused_newton.cholesky_solve_plain(H, g)
+    ok = [0, 1, 2, 4]
+    assert (x[ok] - ref[ok]).abs().max().item() <= 1e-10
+    assert torch.isnan(x[3]).all() and torch.isnan(ref[3]).all()
+    # an expanded (shared) Hessian is taken as it is and not written
+    Hs = H[:1].expand(4, n, n)
+    xs = fused_newton.cholesky_solve_fused(Hs, g[:4])
+    refs = fused_newton.cholesky_solve_plain(Hs.contiguous(), g[:4])
+    assert (xs - refs).abs().max().item() <= 1e-10
+
+
+def test_cholesky_kernel_float32_residual(cuda):
+    n = 256
+    H = torch.tensor(config5_hessian(n), dtype=torch.float32,
+                     device=cuda).expand(16, n, n).contiguous()
+    g = torch.tensor(np.random.RandomState(5).uniform(-2, 2, (16, n)),
+                     dtype=torch.float32, device=cuda)
+    x = fused_newton.cholesky_solve_fused(H, g)
+    res = (torch.einsum("bij,bj->bi", H, x) - g).norm(dim=-1) / g.norm(dim=-1)
+    assert res.max().item() <= 1e-4
+    lib = linalg.cholesky_solve(H, g)
+    assert (x - lib).abs().max().item() <= 1e-4 * lib.abs().max().item()
+
+
+def test_lockstep_kernels_on_the_path(cuda, monkeypatch):
+    """The lockstep QuasiNewton(fused=True) step launches K5 once per
+    iteration, PN through ops.linalg with use_kernel=True K6 once and SPN
+    with precond_bb twice; in float64 each solve equals the one through
+    the plain versions (status and iterations, x within 1e-10)."""
+    f = problems.weighted_squares()
+    d, t = np.linspace(1.0, 40.0, 6), np.zeros(6)
+    oracle = make_oracle(f, data=interop.tensors_from_numpy(d, t,
+                                                            device=cuda))
+    x0 = torch.tensor(np.random.RandomState(3).uniform(-2, 2, (5, 6)),
+                      device=cuda)
+    box = torch.full((6,), 2.5, device=cuda, dtype=torch.float64)
+    for kind in fused_qn.KINDS:
+        method = solvers.QuasiNewton(tol=1e-8, update=kind, fused=True)
+        before = fused_qn.qn_update_direction_fused.launches
+        r = solvers.batch_minimize(method, ls.MoreThuente(), oracle, x0,
+                                   fused=False, max_iter=100)
+        torch.cuda.synchronize()
+        assert fused_qn.qn_update_direction_fused.launches - before == int(
+            r.iterations.max())
+        p = solvers.batch_minimize(method, ls.MoreThuente(), oracle,
+                                   x0.cpu(), fused=False, max_iter=100)
+        assert torch.equal(r.status.cpu(), p.status)
+        assert torch.equal(r.iterations.cpu(), p.iterations)
+        assert (r.x.cpu() - p.x).abs().max().item() <= 1e-10
+    hess = make_oracle(f, with_hessian=True,
+                       data=interop.tensors_from_numpy(d, t, device=cuda))
+    for method, per_iter in (
+            (solvers.ProjectedNewton(grad_tol=1e-8), 1),
+            (solvers.SpectralProjectedNewton(grad_tol=1e-8, precond_bb=True),
+             2)):
+        runs = []
+        for use_kernel in (True, False):
+            monkeypatch.setattr(linalg.config, "use_kernel", use_kernel)
+            before = fused_newton.cholesky_solve_fused.launches
+            runs.append(solvers.batch_minimize(
+                method, ls.BackTrackingB(), hess, x0, bounds=(-box, box),
+                fused=False, max_iter=50))
+            torch.cuda.synchronize()
+            launched = fused_newton.cholesky_solve_fused.launches - before
+            assert launched == (per_iter * int(runs[-1].iterations.max())
+                                if use_kernel else 0)
+        assert torch.equal(runs[0].status, runs[1].status)
+        assert torch.equal(runs[0].iterations, runs[1].iterations)
+        assert (runs[0].x - runs[1].x).abs().max().item() <= 1e-10

@@ -254,34 +254,47 @@ def test_methods_outside_the_slice_name_the_roadmap(method):
                                atol=1e-5)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
+    """What K3 has no form for runs the lockstep loop now; what neither
+    route takes raises."""
     (tx0,) = interop.tensors_from_numpy(X0[:2])
     f = ostt.problems.weighted_squares()
-    for search in (ls.LineSearch(), jls.MoreThuente(), jls.HagerZhang()):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # the base class has no search body; JAX's configs are not the port's
+    with pytest.raises(NotImplementedError, match="has no step_len"):
+        ostt.minimize(f, tx0, method="gd", data=(D, T),
+                      search=ls.LineSearch())
+    for search in (jls.MoreThuente(), jls.HagerZhang()):
+        with pytest.raises(TypeError, match="linesearch"):
             ostt.minimize(f, tx0, method="gd", data=(D, T), search=search)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ostt.minimize(f, tx0, method="bfgs", data=(D, T),
+    k3 = []
+    orig = fused_driver.solve_spec
+    monkeypatch.setattr(fused_driver, "solve_spec",
+                        lambda *a, **kw: k3.append(1) or orig(*a, **kw))
+    r = ostt.minimize(f, tx0, method="bfgs", data=(D, T),
                       search=ls.MoreThuente(reference_quirks=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ostt.minimize(f, tx0[0], method="gd", data=(D, T))
+    assert (r.status == 1).all()
+    r = ostt.minimize(f, tx0[0], method="gd", data=(D, T))
+    assert r.x.shape == (N,) and int(r.status) == 1
     oracle = make_oracle(f, data=interop.tensors_from_numpy(D, T))
     gd, bt = solvers.GradientDescent(), ls.BackTracking()
     for lockstep in (dict(fused=False), dict(batched_bounds=True),
-                     dict(unroll=4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            solvers.batch_minimize(gd, bt, oracle, tx0, **lockstep)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        solvers.batch_minimize(gd, bt, oracle, tx0,
-                               callback=lambda *a: None)
+                     dict(unroll=4), dict(callback=lambda *a: None)):
+        r = solvers.batch_minimize(gd, bt, oracle, tx0, max_iter=5,
+                                   **lockstep)
+        assert r.iterations.tolist() == [5, 5]
     with pytest.raises(ValueError, match="incompatible with callback"):
         solvers.batch_minimize(gd, bt, oracle, tx0, fused=True,
                                callback=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="raw objective"):
-        solvers.batch_minimize(gd, bt, ostt.Oracle(oracle), tx0)
+    r = solvers.batch_minimize(gd, bt, ostt.Oracle(oracle), tx0, max_iter=5)
+    assert r.iterations.tolist() == [5, 5]
+    # an instance too wide for K3's shared memory takes the lockstep loop
     wide = torch.zeros((2, 5000), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        solvers.batch_minimize(gd, bt, make_oracle(lambda x: x.sum()), wide)
+    r = solvers.batch_minimize(gd, bt, make_oracle(lambda x: x.sum()), wide,
+                               max_iter=3)
+    assert r.iterations.tolist() == [3, 3]
+    assert k3 == []
+    solvers.batch_minimize(gd, bt, oracle, tx0, max_iter=5)
+    assert k3 == [1]
     # the Hessians the Newton family takes: analytic for a library
     # objective, torch.func for any other callable
     d, t = interop.tensors_from_numpy(D, T)

@@ -255,6 +255,6 @@ def test_shared_memory_rule():
     assert fused_driver.fits(4150, 0, 8)
     assert not fused_driver.fits(4151, 0, 8)
     assert fused_driver.fits(100, 0, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="lockstep loop"):
         fused_driver._check_fits(5000, 10, 8)
 

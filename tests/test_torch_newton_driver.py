@@ -32,13 +32,14 @@ import torch
 
 import optimization_solvers_tpu.linesearch as jls
 import optimization_solvers_tpu.solvers as jsolvers
-from _torch_geometries import (k3_newton_geometries, lse_arrays,
+from _torch_geometries import (k3_newton_geometries, lse_arrays, spd_arrays,
                                perturbation_spread)
 from optimization_solvers_tpu.core import problems as jproblems
+from optimization_solvers_tpu.core import types as jtypes
 from optimization_solvers_tpu.ops import pallas_driver as jk3
 from optimization_solvers_tpu_torch import (interop, linesearch as ls,
                                             problems, solvers)
-from optimization_solvers_tpu_torch.core.types import Status
+from optimization_solvers_tpu_torch.core.types import FuncEval, Status
 from optimization_solvers_tpu_torch.ops import fused_driver
 from test_torch_fused_driver import _rosen_jax, _ws_jax, to_jax
 
@@ -341,8 +342,25 @@ def test_configs_match_jax():
         port, ref = getattr(solvers, name)(), getattr(jsolvers, name)()
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
         assert port.needs_hessian and ref.needs_hessian
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        solvers.ProjectedNewton().direction(None, None, None, None)
+    # the lockstep direction bodies: per instance, JAX's vmapped
+    H, g = spd_arrays(3, 6, seed=7)
+    x = np.random.RandomState(7).uniform(-1.0, 1.0, (3, 6))
+    lo, up = np.full(6, -0.8), np.full(6, 0.9)
+    tH, tg, tx, tlo, tup = interop.tensors_from_numpy(H, g, x, lo, up)
+    for name in ("Newton", "ProjectedNewton", "SpectralProjectedNewton"):
+        port, ref = getattr(solvers, name)(), getattr(jsolvers, name)()
+        bounds = None if name == "Newton" else (tlo, tup)
+        jb = None if name == "Newton" else (jnp.asarray(lo), jnp.asarray(up))
+        ev = FuncEval(torch.zeros(3, dtype=torch.float64), tg, tH)
+        d, _ = port.direction(port.init(tx, ev, bounds), tx, ev, bounds)
+
+        def jdir(xi, gi, hi, ref=ref, jb=jb):
+            jev = jtypes.FuncEval(jnp.zeros(()), gi, hi)
+            return ref.direction(ref.init(xi, jev, jb), xi, jev, jb)[0]
+
+        jd = jax.vmap(jdir)(jnp.asarray(x), jnp.asarray(g), jnp.asarray(H))
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0,
+                                   atol=1e-12, err_msg=name)
     with pytest.raises(ValueError, match="requires bounds"):
         solvers.SpectralProjectedNewton().prepare_x0(torch.zeros(3), None)
 

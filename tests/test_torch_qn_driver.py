@@ -26,6 +26,7 @@ version on the card in ``tests/test_torch_cuda.py``.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,11 +35,12 @@ import torch
 import optimization_solvers_tpu.linesearch as jls
 import optimization_solvers_tpu.solvers as jsolvers
 from _torch_geometries import k3_qn_geometries, perturbation_spread
+from optimization_solvers_tpu.core import types as jtypes
 from optimization_solvers_tpu.ops import pallas_driver as jk3
 from optimization_solvers_tpu_torch import (interop, linesearch as ls,
                                             problems, solvers)
 from optimization_solvers_tpu_torch.core.oracle import make_oracle
-from optimization_solvers_tpu_torch.core.types import Status
+from optimization_solvers_tpu_torch.core.types import FuncEval, Status
 from optimization_solvers_tpu_torch.ops import fused_driver
 from test_torch_fused_driver import _rosen_jax, run_jax, run_plain, to_jax
 
@@ -289,8 +291,29 @@ def test_configs_match_jax():
     assert str(terr.value) == str(jerr.value)
     with pytest.raises(AssertionError, match="0 < c1 < c2 < 1"):
         ls.MoreThuente(c1=0.95)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        solvers.BFGS().direction(None, None, None, None)
+    # the lockstep bodies: one post-step from B0 = I, then the direction,
+    # per instance as JAX's vmapped ones
+    rng = np.random.RandomState(12)
+    x, xn, g, gn = (rng.uniform(-1, 1, (3, 5)) for _ in range(4))
+    tx, txn, tg, tgn = interop.tensors_from_numpy(x, xn, g, gn)
+    for kind in ("bfgs", "dfp", "broyden", "sr1"):
+        port = solvers.QuasiNewton(update=kind)
+        ref = jsolvers.QuasiNewton(update=kind)
+        ev, evn = FuncEval(tg[:, 0], tg), FuncEval(tgn[:, 0], tgn)
+        st = port.post_step(port.init(tx, ev, None), tx, ev, None, None,
+                            txn, evn, None)
+        d, _ = port.direction(st, txn, evn, None)
+
+        def jstep(xi, xni, gi, gni, ref=ref):
+            jev, jevn = jtypes.FuncEval(gi[0], gi), jtypes.FuncEval(gni[0],
+                                                                   gni)
+            jst = ref.post_step(ref.init(xi, jev, None), xi, jev, None, None,
+                                xni, jevn, None)
+            return ref.direction(jst, xni, jevn, None)[0]
+
+        jd = jax.vmap(jstep)(*(jnp.asarray(a) for a in (x, xn, g, gn)))
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0,
+                                   atol=1e-12, err_msg=kind)
 
 
 def test_wolfe_predicates_match_jax():
@@ -334,11 +357,13 @@ def test_refusals_name_the_roadmap():
     (tx0,) = interop.tensors_from_numpy(
         np.random.RandomState(0).uniform(-1, 1, (4, 6)))
     oracle = make_oracle(problems.rosenbrock())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        solvers.batch_minimize(solvers.BFGS(),
+    # what K3 has no form for runs the lockstep loop, which still needs the
+    # bounds a bounded search reads
+    r = solvers.batch_minimize(solvers.BFGS(),
                                ls.MoreThuente(reference_quirks=True), oracle,
-                               tx0)
-    with pytest.raises(NotImplementedError, match="bounded search needs"):
+                               tx0, max_iter=5)
+    assert r.iterations.max().item() <= 5
+    with pytest.raises(ValueError, match="HagerZhangB requires bounds"):
         solvers.batch_minimize(solvers.BFGS(), ls.HagerZhangB(), oracle, tx0)
     with pytest.raises(ValueError, match="no fused kernel"):
         fused_driver.fused_minimize(solvers.LBFGS(),
@@ -347,11 +372,15 @@ def test_refusals_name_the_roadmap():
     with pytest.raises(ValueError, match="requires bounds"):
         fused_driver.fused_minimize(solvers.BFGSB(), ls.MoreThuenteB(),
                                     problems.rosenbrock(), tx0)
-    # an L-BFGS history too wide for a block's shared memory
+    # an L-BFGS history too wide for a block's shared memory: the lockstep
+    # loop under "auto", a refusal under fused=True
     wide = torch.zeros((2, 1200), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    r = solvers.batch_minimize(solvers.LBFGS(m=10), ls.HagerZhang(), oracle,
+                               wide, max_iter=2)
+    assert r.x.shape == (2, 1200)
+    with pytest.raises(ValueError, match="too wide"):
         solvers.batch_minimize(solvers.LBFGS(m=10), ls.HagerZhang(), oracle,
-                               wide)
+                               wide, fused=True)
 
 
 def test_shared_memory_and_workspace_rules():
