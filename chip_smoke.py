@@ -39,7 +39,15 @@ batched L-BFGS-B path and the template-method paths through
   driver_newton.cu``);
 * the Newton-CG headline (the headline's inputs through
   ``minimize(method="newton_cg", cg_max=12)``), which runs the Newton-CG
-  kernel K4 (``ops/csrc/newton_cg.cu``).
+  kernel K4 (``ops/csrc/newton_cg.cu``);
+* the lockstep loop's kernels K5 (``ops/csrc/qn_update.cu``) and K6
+  (``ops/csrc/cholesky_solve.cu``) on config 2's and config 5's paths;
+* the whole-solve kernels through their entries in ``ops``: K7
+  (``ops.lbfgs_solve_fused``, ``ops/csrc/lbfgs_fused.cu``) on the headline's
+  inputs without the box (m 5, tol 1e-3), K8 (``ops.spg_solve_fused``,
+  ``ops/csrc/spg_fused.cu``) on config 3's and K9 (``ops.bfgs_solve_fused``,
+  ``ops/csrc/bfgs_fused.cu``) on config 2's (tol 1e-5, max_iter 600), each
+  timed beside K3's nearest method and search.
 
 It prints, last, a JSON line of per-kernel results, the card's name and
 power limit, and one JSON line naming the device.  Any failed check exits
@@ -53,6 +61,7 @@ non-zero; so does a machine without a CUDA device.
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -166,6 +175,26 @@ K5_RTOL = {"float32": 1e-5, "float64": 1e-12}
 K6_RES = {"float32": 1e-4, "float64": 1e-10}
 LS_K6_F64_ROWS = 16
 LS_PROFILE_ITERS = 50
+
+# the whole-solve kernels K7-K9 (phases 30-32), float32: K7 on the
+# headline's inputs without its box (m 5, tol 1e-3 on max|g|); K8 on config
+# 3's (tol 1e-4, max_iter_ls 30, gll_m 10); K9 on config 2's (tol 1e-5 on
+# ||g||, max_iter_ls 24).  Per instance in float64 over the first
+# WHOLE_*_CAPPED iterations: x within the plain version's own spread under
+# three changes of x0 by 1e-15 relative, floored at WHOLE_X_FLOOR.  Full
+# Rosenbrock solves are chaotic, so the caps keep that spread well under
+# the floor: at the full batch after 20 iterations it reached 3.4e-9 (K7)
+# and 7.3e-11 (K9), after K8's 30 iterations 7.7e-12 (on an H100 at
+# 700 W); on the CPU at 128 instances K7's is 4.2e-13 after 10 iterations
+# and K9's 4.7e-13 after 10, 1.9e-11 after 20
+WHOLE_K7 = dict(B=10240, n=100, m=5, tol=1e-3, max_iter=600, max_iter_ls=16)
+WHOLE_K8 = dict(B=10240, n=64, box=2.0, tol=1e-4, max_iter=1000,
+                max_iter_ls=30)
+WHOLE_K9 = dict(B=1024, n=100, tol=1e-5, max_iter=600, max_iter_ls=24)
+WHOLE_K7_CAPPED = 10
+WHOLE_K8_CAPPED = 30
+WHOLE_K9_CAPPED = 15
+WHOLE_X_FLOOR = 1e-10
 
 # the card's rates for the bound (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM3 bytes per second and float32 operations per second outside the
@@ -428,6 +457,7 @@ def main(argv=None):
     newton_form = newton_slice(dev, card, tensors, sync_time)
     newton_cg = newton_cg_slice(dev, card, tensors, sync_time)
     k5, k6 = lockstep_slice(dev, card, tensors, sync_time, newton_form["ms"])
+    k7, k8, k9 = whole_solve_slice(dev, card, tensors, sync_time)
     if breakdown:
         driver_breakdown(dev, card, tensors, sync_time)
 
@@ -454,7 +484,7 @@ def main(argv=None):
         "paths": paths,
     }
     log(json.dumps({"kernels": [k1, tall, driver, newton_form, newton_cg, k5,
-                                k6]}))
+                                k6, k7, k8, k9]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1687,6 +1717,24 @@ def newton_cg_slice(dev, card, tensors, sync_time):
         "library_ms": None,
     }
 
+def kernel_wrappers():
+    """Every kernel's wrapper, whose ``.launches`` counts its launches."""
+    from optimization_solvers_tpu_torch.ops import (
+        fused_bfgs, fused_driver, fused_lbfgs, fused_lbfgsb,
+        fused_lbfgsb_tall, fused_newton, fused_newton_cg, fused_qn,
+        fused_spg)
+
+    return {"K1": fused_lbfgsb.lbfgsb_solve_fused,
+            "K2": fused_lbfgsb_tall.lbfgsb_solve_fused_tall,
+            "K3": fused_driver.fused_minimize,
+            "K4": fused_newton_cg.newton_cg_solve_fused,
+            "K5": fused_qn.qn_update_direction_fused,
+            "K6": fused_newton.cholesky_solve_fused,
+            "K7": fused_lbfgs.lbfgs_solve_fused,
+            "K8": fused_spg.spg_solve_fused,
+            "K9": fused_bfgs.bfgs_solve_fused}
+
+
 def device_busy_s(fn, sync_time):
     """Seconds the card spent in kernels and copies while ``fn()`` ran,
     from ``torch.profiler``'s per-kernel device times (one stream: they do
@@ -1740,20 +1788,12 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
     from optimization_solvers_tpu_torch import (linesearch as ls, problems,
                                                 solvers)
     from optimization_solvers_tpu_torch.core.oracle import make_oracle
-    from optimization_solvers_tpu_torch.ops import (fused_driver,
-                                                    fused_lbfgsb,
-                                                    fused_lbfgsb_tall,
-                                                    fused_newton,
-                                                    fused_newton_cg,
-                                                    fused_qn, linalg)
+    from optimization_solvers_tpu_torch.ops import (fused_newton, fused_qn,
+                                                    linalg)
 
     K5 = fused_qn.qn_update_direction_fused
     K6 = fused_newton.cholesky_solve_fused
-    counted = {"K1": fused_lbfgsb.lbfgsb_solve_fused,
-               "K2": fused_lbfgsb_tall.lbfgsb_solve_fused_tall,
-               "K3": fused_driver.fused_minimize,
-               "K4": fused_newton_cg.newton_cg_solve_fused, "K5": K5,
-               "K6": K6}
+    counted = kernel_wrappers()
 
     def drive(what, fn, kernel):
         """``fn()`` with every count at 0; ``kernel`` alone must launch."""
@@ -2036,6 +2076,249 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
                  "k3_newton_ms": k3_newton_ms, "host_share": pn_host},
     }
     return k5, k6
+
+
+def conv_atol(p, B):
+    """Tolerance on the difference of two converged fractions near ``p``
+    over ``B`` instances: CONV_ATOL, or three standard deviations of the
+    difference of two independent binomial fractions where that is larger.
+    Where converging is decided by float32 rounding per instance (K9 at
+    config 2's inputs converges ~0.47: its 2-norm test at 1e-5 sits at
+    float32's gradient noise near x* = 1), kernel and plain draw their
+    outcomes independently, and 0.01 would be 0.45 standard deviations."""
+    return max(CONV_ATOL, 3.0 * math.sqrt(2.0 * p * (1.0 - p) / B))
+
+
+def whole_solve_slice(dev, card, tensors, sync_time):
+    """Phases 30-32: the whole-solve kernels K7 (L-BFGS, the headline
+    without its box), K8 (SPG + GLL, config 3) and K9 (dense BFGS, config
+    2's inputs), each through its entry in ``ops``: float64 per instance
+    against its plain version over the first iterations, the float32 full
+    solve with every count at 0 against the plain version's, times, the
+    bound and K3's time with its nearest method and search.  Returns the
+    three entries of the ``kernels`` line."""
+    import torch
+
+    from optimization_solvers_tpu_torch import (linesearch as ls, minimize,
+                                                problems, solvers)
+    from optimization_solvers_tpu_torch.core.oracle import make_oracle
+    from optimization_solvers_tpu_torch.ops import (fused_bfgs, fused_lbfgs,
+                                                    fused_spg)
+
+    counted = kernel_wrappers()
+    rosen = problems.rosenbrock()
+    c3, c7, c9 = WHOLE_K8, WHOLE_K7, WHOLE_K9
+    n3 = c3["n"]
+    box3 = (np.full(n3, -c3["box"]), np.full(n3, c3["box"]))
+    data3 = (np.logspace(0, 3, n3), np.zeros(n3))
+    # per kernel: entry, plain, its launch (with the kernel's counts),
+    # objective, data, box, options, starts, capped iterations, K3's
+    # nearest call, and the bound's operations per instance from the
+    # kernel's counts (iterations, trials, updates)
+    work = {
+        "K7": dict(
+            name="lbfgs_fused", file="lbfgs_fused.cu",
+            replaces="optimization_solvers_tpu/ops/pallas_lbfgs.py:312",
+            what="K7 (L-BFGS, the headline without its box)",
+            entry=fused_lbfgs.lbfgs_solve_fused,
+            plain=fused_lbfgs.lbfgs_solve_plain,
+            launch=fused_lbfgs._launch_cuda, obj=rosen, data=(), box=(),
+            kw=dict(m=c7["m"], tol=c7["tol"], max_iter=c7["max_iter"],
+                    max_iter_ls=c7["max_iter_ls"], c1=1e-4),
+            B=c7["B"], n=c7["n"], seed=42, lo_hi=(-2.0, 2.0),
+            capped=WHOLE_K7_CAPPED,
+            k3=lambda xs: solvers.batch_minimize(
+                solvers.LBFGS(tol=c7["tol"], m=c7["m"]), ls.BackTracking(),
+                make_oracle(rosen), xs, max_iter=c7["max_iter"],
+                max_iter_ls=c7["max_iter_ls"]),
+            k3_what="K3 LBFGS(m=5) + BackTracking",
+            # two-loop 8mn, value-and-gradient 15n; per trial 8n
+            ops=lambda n, its, tr, upd: its * (8 * c7["m"] * n + 15 * n)
+            + tr * 8 * n),
+        "K8": dict(
+            name="spg_fused", file="spg_fused.cu",
+            replaces="optimization_solvers_tpu/ops/pallas_spg.py:195",
+            what="K8 (SPG + GLL, config 3)",
+            entry=fused_spg.spg_solve_fused, plain=fused_spg.spg_solve_plain,
+            launch=fused_spg._launch_cuda, obj=problems.weighted_squares(),
+            data=data3, box=box3,
+            kw=dict(tol=c3["tol"], max_iter=c3["max_iter"],
+                    max_iter_ls=c3["max_iter_ls"], lam_min=1e-3,
+                    lam_max=1e3, gll_m=10, c1=1e-4),
+            B=c3["B"], n=n3, seed=3, lo_hi=(-2.0, 2.0),
+            capped=WHOLE_K8_CAPPED,
+            k3=lambda xs: minimize(
+                problems.weighted_squares(), xs, method="spg",
+                bounds=(-c3["box"], c3["box"]),
+                data=tensors(*data3, dtype=torch.float32), tol=c3["tol"],
+                policy="reference", max_iter=c3["max_iter"],
+                max_iter_ls=c3["max_iter_ls"]),
+            k3_what='K3 minimize(method="spg", policy="reference")',
+            # projection and step 10n, BB 4n, value-and-gradient 4n; per
+            # trial 4n
+            ops=lambda n, its, tr, upd: its * 18 * n + tr * 4 * n),
+        "K9": dict(
+            name="bfgs_fused", file="bfgs_fused.cu",
+            replaces="optimization_solvers_tpu/ops/pallas_bfgs.py:221",
+            what="K9 (dense BFGS, config 2's inputs)",
+            entry=fused_bfgs.bfgs_solve_fused,
+            plain=fused_bfgs.bfgs_solve_plain,
+            launch=fused_bfgs._launch_cuda, obj=rosen, data=(), box=(),
+            kw=dict(tol=c9["tol"], max_iter=c9["max_iter"],
+                    max_iter_ls=c9["max_iter_ls"], c1=1e-4),
+            B=c9["B"], n=c9["n"], seed=42, lo_hi=(-2.0, 2.0),
+            capped=WHOLE_K9_CAPPED,
+            k3=lambda xs: solvers.batch_minimize(
+                solvers.QuasiNewton(update="bfgs", tol=c9["tol"]),
+                ls.BackTracking(), make_oracle(rosen), xs,
+                max_iter=c9["max_iter"], max_iter_ls=c9["max_iter_ls"]),
+            k3_what='K3 QuasiNewton(update="bfgs") + BackTracking',
+            # B g 2n^2, value-and-gradient 15n; per update B y 2n^2 and
+            # the rank-2 update 6n^2; per trial 8n
+            ops=lambda n, its, tr, upd: its * (2 * n * n + 15 * n)
+            + upd * 8 * n * n + tr * 8 * n),
+    }
+
+    entries = []
+    for key, w in work.items():
+        B, n, kw, what = w["B"], w["n"], w["kw"], w["what"]
+        box = tensors(*w["box"], dtype=torch.float32)
+        data = tensors(*w["data"], dtype=torch.float32)
+        starts = np.random.RandomState(w["seed"]).uniform(*w["lo_hi"], (B, n))
+
+        def plain(x, **extra):
+            return w["plain"](w["obj"], x, *box, data, **dict(kw, **extra))
+
+        # ---- float64 per instance over the first capped iterations: status
+        # equal and x within the plain version's own spread under three
+        # changes of x0 by 1e-15 relative (floored at WHOLE_X_FLOOR)
+        boxd, datad = tensors(*w["box"]), tensors(*w["data"])
+        capped = dict(kw, max_iter=w["capped"])
+        (xd,) = tensors(starts)
+        rk = w["launch"](w["obj"], xd, *boxd, datad, **capped)
+        torch.cuda.synchronize()
+        rp = w["plain"](w["obj"], xd, *boxd, datad, **capped)
+        spread = 0.0
+        for k in range(3):
+            noise = np.random.RandomState(100 + k).standard_normal((B, n))
+            (xq,) = tensors(starts * (1 + 1e-15 * noise))
+            xq = w["plain"](w["obj"], xq, *boxd, datad, **capped)[0]
+            spread = max(spread, (xq - rp[0]).abs().max().item())
+        err = (rk[0] - rp[0]).abs().max().item()
+        same = [(a == b).float().mean().item()
+                for a, b in ((rk[3], rp[3]), (rk[2], rp[2]))]
+        log(f"{key} vs plain f64 at {B} x {n}, {w['capped']} "
+            f"iterations: status equal {same[0]:.5f}, iterations equal "
+            f"{same[1]:.5f}, max|dx| {err:.3g}; plain vs plain with x0 moved "
+            f"by 1e-15 relative: max|dx| {spread:.3g}")
+        check(same[0] == 1.0, f"{key} f64: status differs")
+        check(err <= max(spread, WHOLE_X_FLOOR),
+              f"{key} f64: max|dx| {err} beyond the plain spread {spread}")
+
+        # ---- the main path: float32 full solve through the entry
+        (x,) = tensors(starts, dtype=torch.float32)
+        for k in counted.values():
+            k.launches = 0
+        r, first_s = sync_time(lambda: w["entry"](w["obj"], x, *box, data,
+                                                  **kw))
+        counts = {name: k.launches for name, k in counted.items()}
+        launches = counts[key]
+        others = [v for name, v in counts.items() if name != key]
+        conv = (r.status == 1).float().mean().item()
+        med_f = r.f.median().item()
+        log(f"{what} via ops.{w['entry'].__name__}: launches {counts}, "
+            f"converged {conv:.4f}, median f {med_f:.4g}, median iterations "
+            f"{r.iterations.float().median().item():.0f} (max "
+            f"{r.iterations.max().item()}), first call {first_s:.3f} s")
+        check(launches >= 1 and not any(others),
+              f"{what}: launches {counts}, not {key} alone")
+        check(r.x.shape == (B, n) and r.f.shape == (B,), f"{what}: shapes")
+        check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
+              f"{what}: non-finite result")
+
+        # the plain version's full solve on the same inputs, unless the
+        # capped float32 run projects it past PLAIN_BUDGET_S
+        _, t_cap = sync_time(lambda: plain(x, max_iter=w["capped"]))
+        longest = r.iterations.max().item()
+        if t_cap / w["capped"] * longest <= PLAIN_BUDGET_S:
+            (_, fp, itp, stp), plain_s = sync_time(lambda: plain(x))
+            cp = (stp == 1).float().mean().item()
+            atol = conv_atol(cp, B)
+            log(f"{what} plain on the card: converged {cp:.4f}, median f "
+                f"{fp.median().item():.4g}, median iterations "
+                f"{itp.float().median().item():.0f}, {plain_s:.3f} s; "
+                f"converged fractions may differ by {atol:.4f}")
+            check(abs(conv - cp) <= atol,
+                  f"{what}: converged {conv} vs plain {cp}")
+            if key == "K9":
+                medians_agree(what, r, fp, itp, C2_MED_IT_RTOL,
+                              C2_MED_F_RTOL, kernel=key)
+            plain_ms = 1e3 * plain_s
+        else:
+            plain_ms = 1e3 * t_cap
+            log(f"{what}: the plain full solve would exceed "
+                f"{PLAIN_BUDGET_S:.0f} s; plain_ms is the {w['capped']}-"
+                f"iteration run's, and the converged fractions are not "
+                f"compared")
+
+        # ---- times: CUDA events, median of 3 calls on distinct inputs;
+        # K3's nearest method and search on the same inputs (no check)
+        rng = np.random.RandomState(w["seed"] + 1000)
+        kernel_ms, k3_ms, k3_conv = [], [], []
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        w["k3"](x)                     # warm-up
+        for _ in range(3):
+            (xs,) = tensors(rng.uniform(*w["lo_hi"], (B, n)),
+                            dtype=torch.float32)
+            for fn, times in ((lambda: w["entry"](w["obj"], xs, *box, data,
+                                                  **kw), kernel_ms),
+                              (lambda: w["k3"](xs), k3_ms)):
+                torch.cuda.synchronize()
+                start.record()
+                out = fn()
+                stop.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(stop))
+            k3_conv.append((out.status == 1).float().mean().item())
+        ms = statistics.median(kernel_ms)
+        k3_med = statistics.median(k3_ms)
+        log(f"{what}: kernel {ms:.3f} ms per call (median of 3, distinct "
+            f"inputs; min {min(kernel_ms):.3f}, max {max(kernel_ms):.3f}), "
+            f"{1e3 * B / ms:.0f} solves/s; plain {plain_ms:.0f} ms; "
+            f"{w['k3_what']} {k3_med:.3f} ms (converged "
+            f"{statistics.median(k3_conv):.4f})  [{card}]")
+
+        # ---- bound from this run's counts on the main path's inputs: x0
+        # (and the box and data) read once, x, f, iterations and status
+        # written once
+        counts_k = w["launch"](w["obj"], x, *box, data, **kw)
+        its = counts_k[2].double().sum().item()
+        trials = counts_k[4].double().sum().item()
+        upd = counts_k[5].double().sum().item() if len(counts_k) > 5 else 0.0
+        nbytes = 2 * B * n * 4 + 3 * B * 4 + n * 4 * (len(box) + len(data))
+        bound_ms, bound_by = bound(nbytes,
+                                   w["ops"](n, its, trials, upd) + B * 15 * n)
+        log(f"{key} bound: {bound_ms:.4f} ms ({bound_by}); iterations "
+            f"{its:.0f}, trials per iteration {trials / max(its, 1):.3f}"
+            + (f", updates per iteration {upd / max(its, 1):.3f}"
+               if key == "K9" else "") + f"; kernel {ms:.3f} ms  [{card}]")
+        entries.append({
+            "name": w["name"],
+            "route": "cuda",
+            "source": f"optimization_solvers_tpu_torch/ops/csrc/{w['file']}",
+            "replaces": w["replaces"],
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "k3_ms": k3_med,
+            "converged": conv,
+        })
+    return entries
 
 
 if __name__ == "__main__":

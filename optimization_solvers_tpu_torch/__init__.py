@@ -5,7 +5,7 @@ mirrors its layout and module names:
 
   core/      -- Status, SolveResult, numerics, the oracle, the problem
                 library
-  ops/       -- batched oracle, four whole-solve kernels and two kernels of
+  ops/       -- batched oracle, seven whole-solve kernels and two kernels of
                 the lockstep loop, each a plain PyTorch version (CPU) and
                 a hand-written CUDA kernel (GPU): K1
                 ops/csrc/lbfgsb_fused.cu (L-BFGS-B, small n), the tall K2
@@ -14,9 +14,12 @@ mirrors its layout and module names:
                 first-order, configs 3 and 6; dense quasi-Newton and
                 L-BFGS, config 2; Newton, PN and SPN, config 5), the
                 Newton-CG kernel K4 ops/csrc/newton_cg.cu, the fused dense
-                quasi-Newton update K5 ops/csrc/qn_update.cu and the
+                quasi-Newton update K5 ops/csrc/qn_update.cu, the
                 batched Cholesky solve K6 ops/csrc/cholesky_solve.cu
-                (behind ops.linalg)
+                (behind ops.linalg), and the whole-solve kernels K7
+                ops/csrc/lbfgs_fused.cu (ops.lbfgs_solve_fused), K8
+                ops/csrc/spg_fused.cu (ops.spg_solve_fused) and K9
+                ops/csrc/bfgs_fused.cu (ops.bfgs_solve_fused)
   linesearch/ -- the Armijo- and Wolfe-family searches (configs K3 runs,
                 lockstep bodies), and the MINPACK dcstep update of K2's
                 and K3's dcsrch
@@ -31,8 +34,10 @@ mirrors its layout and module names:
 Ported so far: the batched box-constrained L-BFGS-B main path at small and
 large n, the template methods gd, cd, pgd, pnorm, spg, ncg, bfgs, dfp,
 broyden, bfgsb, dfpb, broydenb, sr1b, lbfgs, newton, pn and spn with every
-line search, batched (K3 or the lockstep loop) and single-instance, and
-newton_cg.  ROADMAP.md lists what follows.
+line search, batched (K3 or the lockstep loop) and single-instance,
+newton_cg, and the whole-solve entries lbfgs_solve_fused, spg_solve_fused
+and bfgs_solve_fused of ops: every TPU kernel of the JAX package has its
+CUDA counterpart.  ROADMAP.md lists what follows.
 """
 
 from . import linesearch, solvers

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of :mod:`optimization_solvers_tpu.core.problems`
 (rosenbrock, quadratic, diag_quadratic, log_sum_exp, shifted_quadratic_2d,
-example_gd), plus the generic :func:`weighted_squares` that carries its
-coefficients as problem data (``data=(d, t)``).
+example_gd, quadratic_2d, example_bfgs, exp_bowl), plus the generic
+:func:`weighted_squares` that carries its coefficients as problem data
+(``data=(d, t)``).
 
 Each entry is an :class:`Objective`: a per-instance ``f(x, *data)`` in torch,
 its batched analytic ``value`` / ``value_and_grad`` over ``(B, n)``, its
@@ -18,14 +19,19 @@ data arrays that functor reads.  Four functors cover the library:
 * ``LOG_SUM_EXP``: ``log sum_r exp(a_r^T x + b_r)`` with data
   ``A (rows, n)``, ``b (rows,)``.
 
-The K1 kernel (``ops/csrc/lbfgsb_fused.cu``) and the first-order and
-quasi-Newton forms of K3 (``ops/csrc/driver.cu``, ``driver_qn.cu``) compile
-the first two; K3's Newton form (``driver_newton.cu``) and the Newton-CG
-kernel K4 (``newton_cg.cu``) the first three, with their Hessian and HVP
-functors; the K2 kernel (``ops/csrc/lbfgsb_tall.cu``) all four.  The
+The K1 kernel (``ops/csrc/lbfgsb_fused.cu``), the SPG kernel K8
+(``spg_fused.cu``) and the first-order and quasi-Newton forms of K3
+(``ops/csrc/driver.cu``, ``driver_qn.cu``) compile the first two; K3's
+Newton form (``driver_newton.cu``) and the Newton-CG kernel K4
+(``newton_cg.cu``) the first three, with their Hessian and HVP functors;
+the L-BFGS and dense BFGS kernels K7 and K9 (``lbfgs_fused.cu``,
+``bfgs_fused.cu``) the first three; the K2 kernel
+(``ops/csrc/lbfgsb_tall.cu``) all four.  The
 second derivatives are written in the expressions and order of the CUDA
 functors (``ops/csrc/objectives.cuh``); ``log_sum_exp`` has them only here,
-in plain PyTorch.
+in plain PyTorch.  ``exp_bowl`` has PyTorch forms only: its kernel form
+names the ``EXP_BOWL`` functor, which no kernel compiles, so a CUDA call
+with it raises.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ ROSENBROCK = "ROSENBROCK"
 WEIGHTED_SQUARES = "WEIGHTED_SQUARES"
 QUADRATIC = "QUADRATIC"
 LOG_SUM_EXP = "LOG_SUM_EXP"
+EXP_BOWL = "EXP_BOWL"
 
 
 class Objective:
@@ -300,3 +307,55 @@ def shifted_quadratic_2d() -> Objective:
 
     return _bound_weighted_squares(f, torch.tensor([2.0, 2.0]),
                                    torch.tensor([2.0, 3.0]))
+
+
+def quadratic_2d(gamma: float) -> Objective:
+    """``f = 0.5 (x1^2 + gamma x2^2)``, the reference's ill-conditioned 2-D
+    quadratic; min 0 at the origin."""
+
+    def f(x):
+        return 0.5 * (x[0] ** 2 + gamma * x[1] ** 2)
+
+    return _bound_weighted_squares(f, torch.tensor([1.0, float(gamma)]),
+                                   torch.zeros(2))
+
+
+def example_bfgs() -> Objective:
+    """``f = x1^2 + 2 x2^2 + 3 x3^2 + x1 x2 + x2 x3``, i.e. ``0.5 x^T Q x``
+    with ``Q = [[2, 1, 0], [1, 4, 1], [0, 1, 6]]``; min 0 at the origin."""
+    return quadratic(torch.tensor([[2.0, 1.0, 0.0], [1.0, 4.0, 1.0],
+                                   [0.0, 1.0, 6.0]]))
+
+
+def exp_bowl() -> Objective:
+    """``f = r + exp(r)`` with ``r = x1^2 + x2^2`` (any n); min 1 at the
+    origin.  PyTorch forms only: no CUDA functor."""
+
+    def f(x):
+        r2 = torch.sum(x ** 2)
+        return r2 + torch.exp(r2)
+
+    def value(X):
+        r2 = torch.sum(X ** 2, dim=-1)
+        return r2 + torch.exp(r2)
+
+    def value_and_grad(X):
+        r2 = torch.sum(X ** 2, dim=-1)
+        e = torch.exp(r2)
+        return r2 + e, 2.0 * X * (1.0 + e)[:, None]
+
+    def hessian(X):
+        # 2 (1 + e) I + 4 e x x^T
+        e = torch.exp(torch.sum(X ** 2, dim=-1))
+        eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+        return (2.0 * (1.0 + e)[:, None, None] * eye
+                + 4.0 * e[:, None, None] * X[:, :, None] * X[:, None, :])
+
+    def hvp(X, V):
+        e = torch.exp(torch.sum(X ** 2, dim=-1))
+        xv = torch.sum(X * V, dim=-1)
+        return (2.0 * (1.0 + e)[:, None] * V
+                + 4.0 * (e * xv)[:, None] * X)
+
+    return Objective(f, value, value_and_grad, EXP_BOWL, lambda: (),
+                     hessian=hessian, hvp=hvp)

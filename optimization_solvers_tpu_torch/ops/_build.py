@@ -167,6 +167,44 @@ def load() -> ctypes.CDLL:
                 i, i,                    # B, n
                 vp,                      # stream
             ]
+            lib.lbfgs_fused_smem_per_warp.restype = ctypes.c_longlong
+            lib.lbfgs_fused_smem_per_warp.argtypes = [i, i, i]
+            lib.lbfgs_fused_launch.restype = i
+            lib.lbfgs_fused_launch.argtypes = [
+                i, i,                    # dtype, objective
+                vp, vp, vp,              # x0, objective data
+                i, i, i,                 # B, n, m
+                d, i, i, d,              # tol, max_iter, ls, c1
+                vp, vp, vp, vp, vp,      # x, f, iterations, status, trials
+                vp,                      # stream
+            ]
+            lib.spg_fused_smem_per_warp.restype = ctypes.c_longlong
+            lib.spg_fused_smem_per_warp.argtypes = [i, i, i]
+            lib.spg_fused_launch.restype = i
+            lib.spg_fused_launch.argtypes = [
+                i, i,                    # dtype, objective
+                vp, vp, vp,              # x0, lower, upper
+                vp, vp,                  # objective data
+                i, i,                    # B, n
+                d, d, d, i, d,           # tol, lam_min, lam_max, gll_m, c1
+                i, i,                    # max_iter, ls
+                vp, vp, vp, vp, vp,      # x, f, iterations, status, trials
+                vp,                      # stream
+            ]
+            lib.bfgs_fused_workspace_elems.restype = ctypes.c_longlong
+            lib.bfgs_fused_workspace_elems.argtypes = [ctypes.c_longlong,
+                                                       ctypes.c_longlong]
+            lib.bfgs_fused_launch.restype = i
+            lib.bfgs_fused_launch.argtypes = [
+                i, i,                    # dtype, objective
+                vp, vp, vp,              # x0, objective data
+                i, i,                    # B, n
+                d, i, i, d,              # tol, max_iter, ls, c1
+                vp,                      # workspace (the inverse Hessians)
+                vp, vp, vp, vp,          # x, f, iterations, status
+                vp, vp,                  # trials, updates
+                vp,                      # stream
+            ]
             lib.ost_error_string.restype = ctypes.c_char_p
             lib.ost_error_string.argtypes = [i]
             _lib = lib

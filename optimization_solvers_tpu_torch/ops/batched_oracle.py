@@ -19,10 +19,10 @@ from typing import Callable
 import torch
 
 # objective functors of the CUDA kernels (enum ObjectiveCode in ops/csrc);
-# K1 (lbfgsb_fused.cu) and K3's first-order and quasi-Newton forms
-# (driver.cu, driver_qn.cu) compile the first two, K3's Newton form
-# (driver_newton.cu) and K4 (newton_cg.cu) the first three, K2
-# (lbfgsb_tall.cu) all four
+# K1 (lbfgsb_fused.cu), K8 (spg_fused.cu) and K3's first-order and
+# quasi-Newton forms (driver.cu, driver_qn.cu) compile the first two, K3's
+# Newton form (driver_newton.cu), K4 (newton_cg.cu), K7 (lbfgs_fused.cu)
+# and K9 (bfgs_fused.cu) the first three, K2 (lbfgsb_tall.cu) all four
 KERNEL_OBJECTIVES = {"ROSENBROCK": 0, "WEIGHTED_SQUARES": 1, "QUADRATIC": 2,
                      "LOG_SUM_EXP": 3}
 
@@ -89,8 +89,9 @@ def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",
     functor reads (``(n,)``; ``Q (n, n)``; ``A (rows, n)``, ``b (rows,)``).
     Raises ``NotImplementedError`` for an objective without a kernel form
     (naming ``kernel``, the kernel that asked, and ``lockstep``, the item of
-    the lockstep solver that would take such a callable) and
-    ``ValueError`` for data of another shape."""
+    the lockstep solver that would take such a callable) or whose functor
+    no kernel compiles (``exp_bowl``), and ``ValueError`` for data of
+    another shape."""
     form = getattr(f, "kernel_form", None)
     if form is None:
         raise NotImplementedError(
@@ -98,6 +99,11 @@ def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",
             "(optimization_solvers_tpu_torch.core.problems); arbitrary torch "
             f"callables on CUDA need the lockstep solver ({lockstep})")
     name, arrays = form(*data)
+    if name not in KERNEL_OBJECTIVES:
+        raise NotImplementedError(
+            f"{kernel} has no {name} functor (ops/csrc/objectives.cuh "
+            f"compiles {', '.join(KERNEL_OBJECTIVES)}); the plain version "
+            "takes this objective on a CPU tensor")
     n = x0.shape[-1]
     packed = []
     for a, shape in zip(arrays, _data_shapes(name, arrays, n)):

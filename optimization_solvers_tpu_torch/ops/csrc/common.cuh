@@ -20,8 +20,8 @@ constexpr long long kSmemPerBlock = 232448;   // 227 KB opt-in per block
 
 // error codes of the C entry points (a cudaError_t is positive)
 enum ErrorCode { kErrArgs = -1, kErrSmem = -2 };
-// objective functors; K1 and K3 compile the first two (objectives.cuh),
-// K2 all four
+// objective functors; K1, K3 and K8 compile the first two (objectives.cuh),
+// K4, K7 and K9 the first three, K2 all four
 enum ObjectiveCode {
   kRosenbrock = 0, kWeightedSquares = 1, kQuadratic = 2, kLogSumExp = 3
 };

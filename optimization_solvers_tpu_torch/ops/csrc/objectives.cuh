@@ -1,13 +1,15 @@
 // Warp-level objective functors shared by the one-warp-per-instance kernels
-// (K1 lbfgsb_fused.cu, K3 driver.cu / driver_qn.cu / driver_newton.cu and
-// K4 newton_cg.cu): one warp evaluates one instance, coordinate i on lane
+// (K1 lbfgsb_fused.cu, K3 driver.cu / driver_qn.cu / driver_newton.cu, K4
+// newton_cg.cu, K7 lbfgs_fused.cu, K8 spg_fused.cu, and the first warp of
+// K9 bfgs_fused.cu): one warp evaluates one instance, coordinate i on lane
 // i % 32, and every lane returns the warp-reduced value.  The caller
 // __syncwarp()s before a call (the functors read other lanes' coordinates
 // of x and v) and after value_grad, hessian and hvp (each lane writes only
 // its own coordinates of g and of the product, and its own columns of each
-// Hessian row).  K1 and the first-order and quasi-Newton forms of K3
-// compile Rosenbrock and WeightedSquares; K3's Newton form and K4 all
-// three, with the second derivatives: hessian(x, H, n, lane) writes the
+// Hessian row).  K1, K8 and the first-order and quasi-Newton forms of K3
+// compile Rosenbrock and WeightedSquares; K7 and K9 all three (values and
+// gradients); K3's Newton form and K4 all three, with the second
+// derivatives: hessian(x, H, n, lane) writes the
 // instance's dense (n, n) Hessian row-major into H (device memory), and
 // hvp(x, v, out, n, lane) writes H v into out.  Every Hessian written here
 // is exactly symmetric, which K3's upper-triangle factorization relies on.

@@ -2,12 +2,14 @@
 
 They are the geometries of ``tests/test_fused_lbfgsb.py`` (K1),
 ``tests/test_fused_lbfgsb_tall.py`` (K2), ``tests/test_fused_driver.py``
-(K3) and ``tests/test_fused_newton_cg.py`` (K4), with the port's
+(K3), ``tests/test_fused_newton_cg.py`` (K4), ``tests/test_fused_lbfgs.py``
+(K7, K9) and ``tests/test_fused_spg.py`` (K8, K9), with the port's
 objectives.  This module imports no JAX, so it also runs where only the
 port is installed.
 """
 
 import numpy as np
+import torch
 
 from optimization_solvers_tpu_torch.core import problems
 
@@ -640,3 +642,122 @@ def spd_arrays(b, n, seed=0, shift=5.0, non_pd=None):
     if non_pd is not None:
         H[non_pd] = -H[non_pd]
     return H, rng.randn(b, n)
+
+
+# ---- the whole-solve kernels K7 (L-BFGS), K8 (SPG + GLL), K9 (dense BFGS)
+
+def exp_bowl_fn(x):
+    """``exp_bowl`` as a plain torch callable (no analytic forms, no kernel
+    form): the plain versions batch it with ``torch.func``."""
+    r2 = torch.sum(x ** 2)
+    return r2 + torch.exp(r2)
+
+
+def diag_quadratic_fn(x, diag):
+    """``0.5 sum diag x^2`` with the diagonal as problem data, a plain torch
+    callable (the JAX test's consts objective)."""
+    return 0.5 * torch.sum(diag * x * x)
+
+
+def _whole_solve(objective, x0, data=(), jax_objective="rosenbrock",
+                 jax_data=None, tile=None, lower=None, upper=None,
+                 kernel=True, chaotic=False, **opts):
+    """A geometry of K7-K9: ``objective`` and ``data`` for the port,
+    ``jax_objective`` (a name the JAX tests map to a function) with
+    ``jax_data`` and the JAX ``tile`` (B unless given), the box of K8,
+    ``kernel`` the ``(objective, data)`` a CUDA call takes (the same unless
+    given; ``None`` where the objective has no functor) and ``chaotic``
+    (Rosenbrock: iteration counts held to the measured spread)."""
+    if kernel is True:
+        kernel = (objective, data)
+    return dict(objective=objective, x0=x0, data=data, opts=opts,
+                jax_objective=jax_objective,
+                jax_data=data if jax_data is None else jax_data,
+                tile=x0.shape[0] if tile is None else tile, lower=lower,
+                upper=upper, kernel=kernel, chaotic=chaotic)
+
+
+def _ws_data():
+    return (np.linspace(1.0, 50.0, 6),
+            np.random.RandomState(5).uniform(-1.0, 1.0, 6))
+
+
+def k7_geometries():
+    """name -> geometry of the L-BFGS kernel K7: ``tests/test_fused_lbfgs.py``
+    (its ``test_fused_matches_driver_quality`` start is
+    ``driver_quality``) plus weighted squares with problem data."""
+    rosen = problems.rosenbrock()
+    return {
+        "rosenbrock_20": _whole_solve(
+            rosen, np.random.RandomState(0).uniform(-2, 2, (8, 20)),
+            chaotic=True, m=10, tol=1e-5, max_iter=800, max_iter_ls=20),
+        "example_bfgs": _whole_solve(
+            problems.example_bfgs(),
+            np.random.RandomState(1).uniform(-5, 5, (16, 3)),
+            jax_objective="example_bfgs", m=5, tol=1e-8, max_iter=200,
+            max_iter_ls=20),
+        "quadratic_2d_multi_tile": _whole_solve(
+            problems.quadratic_2d(90.0),
+            np.random.RandomState(2).uniform(-5, 5, (16, 2)),
+            jax_objective="quadratic_2d_90", tile=8, m=5, tol=1e-8,
+            max_iter=300, max_iter_ls=20),
+        "driver_quality": _whole_solve(
+            rosen, np.random.RandomState(3).uniform(-2, 2, (4, 12)),
+            chaotic=True, m=10, tol=1e-5, max_iter=800, max_iter_ls=20),
+        "weighted_squares_data": _whole_solve(
+            problems.weighted_squares(),
+            np.random.RandomState(4).uniform(-3, 3, (8, 6)), _ws_data(),
+            jax_objective="weighted_squares", m=5, tol=1e-8, max_iter=300,
+            max_iter_ls=20),
+    }
+
+
+def k8_geometries():
+    """name -> geometry of the SPG kernel K8: ``tests/test_fused_spg.py``'s
+    SPG tests (the active bound x[:, 1] = 47, ``exp_bowl`` as a plain torch
+    callable, the box quadratic with its diagonal as problem data) plus
+    Rosenbrock in a box over 30 iterations."""
+    inf = np.inf
+    d = np.random.RandomState(2).uniform(1.0, 10.0, 16)
+    return {
+        "active_bound": _whole_solve(
+            problems.quadratic_2d(90.0),
+            np.random.RandomState(0).uniform(0, 40, (8, 2)),
+            jax_objective="quadratic_2d_90", lower=np.array([-1.0, 47.0]),
+            upper=np.array([inf, inf]), tol=1e-10, max_iter=2000),
+        "exp_bowl": _whole_solve(
+            exp_bowl_fn, np.random.RandomState(1).uniform(-1, 1, (8, 2)),
+            jax_objective="exp_bowl", lower=np.full(2, -1.0),
+            upper=np.full(2, 1.0), kernel=None, tol=1e-8, max_iter=500),
+        "box_quadratic_data": _whole_solve(
+            diag_quadratic_fn,
+            np.random.RandomState(3).uniform(-3, 3, (16, 16)), (d,),
+            jax_objective="diag_consts", lower=np.full(16, -2.0),
+            upper=np.full(16, 2.0),
+            kernel=(problems.weighted_squares(), (d, np.zeros(16))),
+            tol=1e-8, max_iter=1000),
+        "rosenbrock_capped": _whole_solve(
+            problems.rosenbrock(),
+            np.random.RandomState(6).uniform(-2, 2, (8, 10)),
+            lower=np.full(10, -1.5), upper=np.full(10, 1.5), tol=1e-8,
+            max_iter=30),
+    }
+
+
+def k9_geometries():
+    """name -> geometry of the dense BFGS kernel K9: the BFGS tests of
+    ``tests/test_fused_spg.py`` plus weighted squares with problem data."""
+    return {
+        "rosenbrock_20": _whole_solve(
+            problems.rosenbrock(),
+            np.random.RandomState(0).uniform(-2, 2, (8, 20)), tile=4,
+            chaotic=True, tol=1e-5, max_iter=800),
+        "example_bfgs": _whole_solve(
+            problems.example_bfgs(),
+            np.random.RandomState(1).uniform(-5, 5, (8, 3)),
+            jax_objective="example_bfgs", tile=4, tol=1e-8, max_iter=200),
+        "weighted_squares_data": _whole_solve(
+            problems.weighted_squares(),
+            np.random.RandomState(4).uniform(-3, 3, (8, 6)), _ws_data(),
+            jax_objective="weighted_squares", tol=1e-8, max_iter=200),
+    }

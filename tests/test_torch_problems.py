@@ -1,7 +1,9 @@
 """The port's problem library and batched oracle against the JAX package:
 values and analytic gradients against JAX's value and ``jax.grad``
 (rtol 1e-12 in float64: the analytic gradient and autodiff round at other
-places), and the kernel forms each objective maps to."""
+places), the second derivatives of the K7-K9 objectives against
+``jax.hessian`` (the rest are held in ``test_torch_newton_driver.py``), and
+the kernel forms each objective maps to."""
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +49,11 @@ def _cases():
         "log_sum_exp": (tprob.log_sum_exp(A, bA),
                         jprob.log_sum_exp(jnp.asarray(A), jnp.asarray(bA)),
                         8, ()),
+        # the objectives of the whole-solve kernels' tests (K7-K9)
+        "quadratic_2d": (tprob.quadratic_2d(90.0), jprob.quadratic_2d(90.0),
+                         2, ()),
+        "example_bfgs": (tprob.example_bfgs(), jprob.example_bfgs(), 3, ()),
+        "exp_bowl": (tprob.exp_bowl(), jprob.exp_bowl(), 2, ()),
     }
 
 
@@ -136,3 +143,40 @@ def test_kernel_operands_refuse():
     with pytest.raises(ValueError, match=r"shape \(2,\)"):
         batched_oracle.kernel_operands(
             tprob.log_sum_exp(np.ones((2, 4)), np.ones(3)), (), x0)
+
+
+@pytest.mark.parametrize("name", ["quadratic_2d", "example_bfgs", "exp_bowl"])
+def test_hessian_and_hvp_match_jax(name):
+    """The second-derivative forms of the K7-K9 objectives against
+    ``jax.hessian`` and JAX's forward-over-reverse HVP (1e-12 relative)."""
+    tobj, jf, n, _ = _cases()[name]
+    rng = np.random.RandomState(14)
+    X = rng.uniform(-1.0, 1.0, (6, n))
+    V = rng.standard_normal((6, n))
+    jh = np.asarray(jax.vmap(jax.hessian(jf))(jnp.asarray(X)))
+    jhv = np.asarray(jax.vmap(
+        lambda x, v: jax.jvp(jax.grad(jf), (x,), (v,))[1])(
+            jnp.asarray(X), jnp.asarray(V)))
+    H = tobj.hessian(torch.from_numpy(X))
+    Hv = tobj.hvp(torch.from_numpy(X), torch.from_numpy(V))
+    atol = RTOL * np.abs(jh).max()
+    np.testing.assert_allclose(H.numpy(), jh, rtol=RTOL, atol=atol)
+    np.testing.assert_allclose(Hv.numpy(), jhv, rtol=RTOL, atol=atol)
+
+
+def test_exp_bowl_has_no_functor():
+    """A CUDA-bound call with ``exp_bowl`` raises and names the functor no
+    kernel compiles; ``quadratic_2d`` and ``example_bfgs`` map to the
+    weighted-squares and quadratic functors."""
+    x0 = torch.zeros((3, 2), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="EXP_BOWL"):
+        batched_oracle.kernel_operands(tprob.exp_bowl(), (), x0)
+    code, (d, t) = batched_oracle.kernel_operands(tprob.quadratic_2d(90.0),
+                                                  (), x0)
+    assert code == batched_oracle.KERNEL_OBJECTIVES["WEIGHTED_SQUARES"]
+    assert d.tolist() == [1.0, 90.0] and t.tolist() == [0.0, 0.0]
+    code, (Q, b) = batched_oracle.kernel_operands(
+        tprob.example_bfgs(), (), torch.zeros((3, 3), dtype=torch.float64))
+    assert code == batched_oracle.KERNEL_OBJECTIVES["QUADRATIC"]
+    assert Q.tolist() == [[2.0, 1.0, 0.0], [1.0, 4.0, 1.0], [0.0, 1.0, 6.0]]
+    assert b.tolist() == [0.0, 0.0, 0.0]
