@@ -55,7 +55,8 @@ non-zero; so does a machine without a CUDA device.
 
     python3 chip_smoke.py               # the checked run
     python3 chip_smoke.py --breakdown   # also where K3's time goes
-    python3 chip_smoke.py --first-order-times DIR   # only configs 3 and 6,
+    python3 chip_smoke.py --times DIR   # only configs 3, 6 and 5 (K3 and
+                                        # the lockstep K6 path in turns),
                                         # with the package of checkout DIR
 """
 
@@ -67,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -151,8 +153,8 @@ C5_X_ATOL = 1e-4
 NEWTON_CG_MAX = 12
 K4_CAPPED_ITERS = 8
 K4_SPREAD_CAPS = (15, 30)
-# calls per configuration of --first-order-times
-FIRST_ORDER_REPEATS = 9
+# calls per configuration of --times
+TIMES_REPEATS = 9
 # the lockstep slice: the lockstep loop's quasi-Newton path at config 2's
 # width (1,024 x Rosenbrock-100, float32) with the fused update K5, without
 # config 2's scale_b0 and restart_on_degeneracy (K5 refuses them), and the
@@ -174,6 +176,8 @@ LS_QN_X_FLOOR = 1e-12
 K5_RTOL = {"float32": 1e-5, "float64": 1e-12}
 K6_RES = {"float32": 1e-4, "float64": 1e-10}
 LS_K6_F64_ROWS = 16
+# rounds of phase 29's in-turns timing of the K6 path against K3
+C5_TURNS = 9
 LS_PROFILE_ITERS = 50
 
 # the whole-solve kernels K7-K9 (phases 30-32), float32: K7 on the
@@ -211,6 +215,25 @@ def bound(nbytes, ops):
                                        else "operations")
 
 
+def k6_stream_bytes(n, nb, itemsize):
+    """Device-memory bytes the blocked K6 moves per instance at panel width
+    ``nb`` (``ops/csrc/chol_blocked.cuh``): the transposing copy of H's
+    lower triangle, per panel the diagonal block, the panel rows right of
+    it (TRSM) and the trailing triangle (SYRK), each read and written once,
+    the two substitutions reading the factor, g read and x written.  The
+    panel rows staged again for each output tile are left out (L2 serves
+    them), so this is the design's floor."""
+    def tri(m):
+        return m * (m + 1) // 2
+
+    elems = 2 * tri(n) + 2 * tri(n) + 2 * n
+    for k0 in range(0, n, nb):
+        w = min(nb, n - k0)
+        rest = n - k0 - w
+        elems += 2 * tri(w) + 2 * w * rest + 2 * tri(rest)
+    return elems * itemsize
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -234,8 +257,9 @@ def main(argv=None):
         help="also print where K3's time goes at configs 3, 6, 2 and 5 (a "
         "profiled solve, a batch sweep and an iteration cap)")
     parser.add_argument(
-        "--first-order-times", metavar="ROOT",
-        help="only time configs 3 and 6 through minimize with the package "
+        "--times", metavar="ROOT",
+        help="only time configs 3 and 6 through minimize and config 5 "
+        "through K3 and the lockstep K6 path in turns, with the package "
         "found under ROOT (a checkout; '.' for this one), to compare two "
         "commits in turns on one card; prints no result line")
     args = parser.parse_args(argv)
@@ -245,8 +269,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    if args.first_order_times:
-        return first_order_times(args.first_order_times)
+    if args.times:
+        return in_turns_times(args.times)
     from _torch_geometries import k1_geometries, perturbation_spread, tiled
     from optimization_solvers_tpu_torch import minimize, problems
     from optimization_solvers_tpu_torch.ops import (_build, fused_lbfgsb,
@@ -456,7 +480,8 @@ def main(argv=None):
     quasi_newton = qn_slice(dev, card, tensors, sync_time)
     newton_form = newton_slice(dev, card, tensors, sync_time)
     newton_cg = newton_cg_slice(dev, card, tensors, sync_time)
-    k5, k6 = lockstep_slice(dev, card, tensors, sync_time, newton_form["ms"])
+    k5 = lockstep_slice(dev, card, tensors, sync_time)
+    k6 = cholesky_slice(dev, card, tensors, sync_time)
     k7, k8, k9 = whole_solve_slice(dev, card, tensors, sync_time)
     if breakdown:
         driver_breakdown(dev, card, tensors, sync_time)
@@ -1215,17 +1240,21 @@ def qn_slice(dev, card, tensors, sync_time):
     }
 
 
-def first_order_times(root):
-    """Configs 3 (fast) and 6 through ``minimize``, built and imported from
-    the checkout at ``root``: median and spread of FIRST_ORDER_REPEATS calls
-    on distinct seeded inputs, after one warm-up call, and the kernel's
-    device time alone (CUDA events around the launch)."""
+def in_turns_times(root):
+    """Configs 3 (fast) and 6 through ``minimize``, and config 5 (PN, B =
+    256) through ``solvers.batch_minimize`` by K3 and by the lockstep K6
+    path in turns (the order alternating), built and imported from the
+    checkout at ``root``: median and spread of TIMES_REPEATS calls on
+    distinct seeded inputs, after one warm-up call; for configs 3 and 6
+    also the kernel's device time alone (CUDA events around the launch)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
     import optimization_solvers_tpu_torch as ostt
+    from _torch_geometries import config5_hessian
     from optimization_solvers_tpu_torch import linesearch as ls, solvers
-    from optimization_solvers_tpu_torch.ops import _build, fused_driver
+    from optimization_solvers_tpu_torch.core.oracle import make_oracle
+    from optimization_solvers_tpu_torch.ops import _build, fused_driver, linalg
 
     card = card_line()
     t0 = time.perf_counter()
@@ -1262,21 +1291,26 @@ def first_order_times(root):
         return fused_driver._launch_cuda(spec, obj6, x, None, None, (),
                                          c6["max_iter"], c6["max_iter_ls"])
 
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    def spread(ts):
+        return (f"{statistics.median(ts):.3f} ms per call (median of "
+                f"{len(ts)}; min {min(ts):.3f}, max {max(ts):.3f})")
+
     for what, solve, launch, B, n, half, seed in (
             ("config 3 (fast)", solve3, launch3, c["B"], c["n"], 2.0, 33),
             ("config 6", solve6, launch6, c6["B"], c6["n"], 5.0, 66)):
         rng = np.random.RandomState(seed)
         xs = [torch.tensor(rng.uniform(-half, half, (B, n)),
                            dtype=torch.float32, device=dev)
-              for _ in range(FIRST_ORDER_REPEATS + 1)]
+              for _ in range(TIMES_REPEATS + 1)]
         solve(xs[0])
-        ts = []
-        for x in xs[1:]:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            solve(x)
-            torch.cuda.synchronize()
-            ts.append(1e3 * (time.perf_counter() - t))
+        ts = [wall_ms(partial(solve, x)) for x in xs[1:]]
         dev_ms = []
         for x in xs[1:]:
             start = torch.cuda.Event(enable_timing=True)
@@ -1286,17 +1320,55 @@ def first_order_times(root):
             stop.record()
             torch.cuda.synchronize()
             dev_ms.append(start.elapsed_time(stop))
-        log(f"{what}: {statistics.median(ts):.3f} ms per call (median of "
-            f"{len(ts)}; min {min(ts):.3f}, max {max(ts):.3f}); the K3 "
-            f"wrapper alone {statistics.median(dev_ms):.3f} ms (min "
-            f"{min(dev_ms):.3f}, max {max(dev_ms):.3f})  [{card}]")
+        log(f"{what}: {spread(ts)}; the K3 wrapper alone "
+            f"{statistics.median(dev_ms):.3f} ms (min {min(dev_ms):.3f}, max "
+            f"{max(dev_ms):.3f})  [{card}]")
+
+    c5 = CONFIG5
+    n5, B5 = c5["n"], c5["B"]
+    Q = torch.tensor(config5_hessian(n5), dtype=torch.float32, device=dev)
+    box = torch.full((n5,), c5["box"], device=dev)
+    kw5 = dict(max_iter=c5["max_iter"], max_iter_ls=c5["max_iter_ls"])
+    pn = solvers.ProjectedNewton(grad_tol=c5["tol"])
+    q5 = make_oracle(ostt.problems.quadratic(Q))
+    quad = make_oracle(ostt.problems.quadratic(Q), with_hessian=True)
+
+    def k3_path(x):
+        return solvers.batch_minimize(pn, ls.BackTrackingB(), q5, x,
+                                      bounds=(-box, box), **kw5)
+
+    def k6_path(x):
+        return solvers.batch_minimize(pn, ls.BackTrackingB(), quad, x,
+                                      bounds=(-box, box), fused=False, **kw5)
+
+    rng = np.random.RandomState(55)
+    xs = [torch.tensor(rng.uniform(-2.0, 2.0, (B5, n5)), dtype=torch.float32,
+                       device=dev) for _ in range(TIMES_REPEATS + 1)]
+    use_kernel = linalg.config.use_kernel
+    linalg.config.use_kernel = True
+    try:
+        k3_path(xs[0])
+        k6_path(xs[0])
+        k3_ts, k6_ts = [], []
+        for turn, x in enumerate(xs[1:]):
+            pair = ((k3_ts, k3_path), (k6_ts, k6_path))
+            for out, path in pair[::1 if turn % 2 == 0 else -1]:
+                out.append(wall_ms(partial(path, x)))
+    finally:
+        linalg.config.use_kernel = use_kernel
+    ahead = sum(a < b for a, b in zip(k3_ts, k6_ts))
+    log(f"config 5 (B = {B5}) K3: {spread(k3_ts)}; the lockstep K6 path in "
+        f"turns: {spread(k6_ts)}; K3 ahead in {ahead} of {len(k3_ts)}  "
+        f"[{card}]")
     return 0
 
 
 def driver_breakdown(dev, card, tensors, sync_time):
     """Phase 25, with ``--breakdown`` only: where K3's time goes at configs
     3, 6, 2 and 5: the device time by kernel in one profiled solve, a batch
-    sweep and an iteration cap.  Only printed; nothing here is held."""
+    sweep and an iteration cap; at config 5 also K6 on the same batch's
+    Hessians, the blocked factorization K3's Newton form runs, beside the
+    Newton iteration.  Only printed; nothing here is held."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1374,12 +1446,29 @@ def driver_breakdown(dev, card, tensors, sync_time):
             sweep.append(f"B={b}: {1e3 * statistics.median(ts):.3f} ms")
         log(f"{what} batch sweep (median of 3): " + ", ".join(sweep)
             + f"  [{card}]")
-        capped = []
+        capped = {}
         for cap in caps:
             ts = [sync_time(lambda: solve(x, cap))[1] for _ in range(3)]
-            capped.append(f"{cap}: {1e3 * statistics.median(ts):.3f} ms")
+            capped[cap] = 1e3 * statistics.median(ts)
         log(f"{what} iteration cap at B={B} (median of 3): "
-            + ", ".join(capped) + f"  [{card}]")
+            + ", ".join(f"{cap}: {ms:.3f} ms" for cap, ms in capped.items())
+            + f"  [{card}]")
+        if what == "config 5":
+            # the factorization's share of the one Newton iteration: K6 runs
+            # the same blocked routine (with its transposing copy and two
+            # solves) on the same batch's Hessians
+            from optimization_solvers_tpu_torch.ops import fused_newton
+
+            Hb = tensors(config5_hessian(n), dtype=torch.float32)[0].expand(
+                B, n, n).contiguous()
+            gb = torch.ones((B, n), device=dev)
+            k6_ms = event_ms(lambda: fused_newton.cholesky_solve_fused(Hb, gb), 5)
+            it_ms = capped[1] - capped[0]
+            log(f"config 5: one Newton iteration (cap 1 - cap 0) {it_ms:.3f} "
+                f"ms; K6 on the same ({B}, {n}, {n}) Hessians (the blocked "
+                f"factorization and two solves) {k6_ms:.3f} ms, "
+                f"{k6_ms / it_ms:.2f} of the iteration  [{card}]")
+            del Hb
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1773,52 +1862,55 @@ def event_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
-    """Phases 25-29: the lockstep loop's kernels K5 (fused dense
-    quasi-Newton update) and K6 (batched Cholesky solve) against their
-    plain versions at the shapes of their paths, then the two lockstep
-    paths at full width: dense BFGS with ``fused=True`` + More-Thuente
-    through ``solvers.batch_minimize(fused=False)`` (config 2's width) and
-    ProjectedNewton with ``ops.linalg.config.use_kernel = True`` (config 5's
-    width), with times, bounds and the host's share of the wall time.
-    Returns the K5 and K6 entries of the ``kernels`` line."""
+def drive(what, fn, kernel, sync_time):
+    """``fn()`` with every count at 0; ``kernel`` alone must launch.  Returns
+    the result, the wall time and ``kernel``'s launches."""
     import torch
 
-    from _torch_geometries import config5_hessian, qn_update_arrays
+    counted = kernel_wrappers()
+    for k in counted.values():
+        k.launches = 0
+    r, wall = sync_time(fn)
+    counts = {name: k.launches for name, k in counted.items()}
+    log(f"{what}: launches {counts}, {wall:.3f} s")
+    others = [v for name, v in counts.items() if name != kernel]
+    check(counts[kernel] >= 1 and not any(others),
+          f"{what}: launches {counts}, not {kernel} alone")
+    check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
+          f"{what}: non-finite result")
+    return r, wall, counts[kernel]
+
+
+def host_share(what, fn, wall, card, sync_time):
+    """The host's share of ``fn()``'s wall time (``None`` where the profiler
+    shows no device time)."""
+    busy = device_busy_s(fn, sync_time)
+    if busy is None:
+        log(f"{what}: device busy time not measured (the profiler shows "
+            f"no device time)")
+        return None
+    share = max(0.0, 1.0 - busy / wall)
+    log(f"{what}: device busy {busy:.4f} s of {wall:.4f} s wall, host "
+        f"share {share:.3f}  [{card}]")
+    return share
+
+
+def lockstep_slice(dev, card, tensors, sync_time):
+    """Phases 25-27: the lockstep loop's fused dense quasi-Newton update K5
+    against its plain version at the shape of its path, then that path at
+    full width: dense BFGS with ``fused=True`` + More-Thuente through
+    ``solvers.batch_minimize(fused=False)`` (config 2's width), with times,
+    the bound and the host's share of the wall time.  Returns K5's entry
+    of the ``kernels`` line."""
+    import torch
+
+    from _torch_geometries import qn_update_arrays
     from optimization_solvers_tpu_torch import (linesearch as ls, problems,
                                                 solvers)
     from optimization_solvers_tpu_torch.core.oracle import make_oracle
-    from optimization_solvers_tpu_torch.ops import (fused_newton, fused_qn,
-                                                    linalg)
+    from optimization_solvers_tpu_torch.ops import fused_qn
 
     K5 = fused_qn.qn_update_direction_fused
-    K6 = fused_newton.cholesky_solve_fused
-    counted = kernel_wrappers()
-
-    def drive(what, fn, kernel):
-        """``fn()`` with every count at 0; ``kernel`` alone must launch."""
-        for k in counted.values():
-            k.launches = 0
-        r, wall = sync_time(fn)
-        counts = {name: k.launches for name, k in counted.items()}
-        log(f"{what}: launches {counts}, {wall:.3f} s")
-        others = [v for name, v in counts.items() if name != kernel]
-        check(counts[kernel] >= 1 and not any(others),
-              f"{what}: launches {counts}, not {kernel} alone")
-        check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
-              f"{what}: non-finite result")
-        return r, wall, counts[kernel]
-
-    def host_share(what, fn, wall):
-        busy = device_busy_s(fn, sync_time)
-        if busy is None:
-            log(f"{what}: device busy time not measured (the profiler shows "
-                f"no device time)")
-            return None
-        share = max(0.0, 1.0 - busy / wall)
-        log(f"{what}: device busy {busy:.4f} s of {wall:.4f} s wall, host "
-            f"share {share:.3f}  [{card}]")
-        return share
 
     # ---- 25. K5 vs plain at the K5 path's shape, all four rules
     c = LOCKSTEP_QN
@@ -1879,7 +1971,7 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
     (x32,) = tensors(starts, dtype=torch.float32)
     r5, wall5, k5_launches = drive(
         "K5 path (lockstep BFGS fused + MoreThuente, 1,024 x 100, f32) via "
-        "batch_minimize", lambda: qn_path(x32), "K5")
+        "batch_minimize", lambda: qn_path(x32), "K5", sync_time)
     lockstep_iters = int(r5.iterations.max())
     check(k5_launches == lockstep_iters,
           f"K5 launches {k5_launches}, lockstep iterations {lockstep_iters}")
@@ -1903,7 +1995,8 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
     capped = dict(max_iter=LS_PROFILE_ITERS)
     _, wall_cap = sync_time(lambda: qn_path(x32, **capped))
     qn_host = host_share(f"K5 path, first {LS_PROFILE_ITERS} iterations",
-                         lambda: qn_path(x32, **capped), wall_cap)
+                         lambda: qn_path(x32, **capped), wall_cap, card,
+                         sync_time)
 
     # ---- 27. the K5 path per instance in float64 over its first iterations:
     # the fused update (K5) against the unfused one, on the card
@@ -1925,6 +2018,43 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
     check(min(same) == 1.0, "K5 path f64: status or iterations differ")
     check(err <= max(spread, LS_QN_X_FLOOR),
           f"K5 path f64: max|dx| {err} > spread {spread}")
+
+    k5 = {
+        "name": "qn_update",
+        "route": "cuda",
+        "source": "optimization_solvers_tpu_torch/ops/csrc/qn_update.cu",
+        "replaces": "optimization_solvers_tpu/ops/pallas_qn.py:92",
+        "launches": k5_launches,
+        "max_abs_err": k5_err,
+        "ms": k5_ms,
+        "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound,
+        "bound_by": k5_by,
+        "library_ms": None,
+        "path": {"seconds": wall5, "solves_per_s": B / wall5,
+                 "lockstep_iterations": lockstep_iters,
+                 "converged": conv5, "success": success(r5),
+                 "host_share": qn_host},
+    }
+    return k5
+
+
+def cholesky_slice(dev, card, tensors, sync_time):
+    """Phases 28-29: the batched Cholesky solve K6 against its plain
+    version and the library at config 5's batch (with the bound and the
+    blocked design's own streaming floor), then the
+    lockstep Newton path, ProjectedNewton with ``ops.linalg.config.
+    use_kernel = True`` (config 5's width), with times and the host's share
+    of the wall time.  Returns K6's entry of the ``kernels`` line."""
+    import torch
+
+    from _torch_geometries import config5_hessian
+    from optimization_solvers_tpu_torch import (linesearch as ls, problems,
+                                                solvers)
+    from optimization_solvers_tpu_torch.core.oracle import make_oracle
+    from optimization_solvers_tpu_torch.ops import fused_newton, linalg
+
+    K6 = fused_newton.cholesky_solve_fused
 
     # ---- 28. K6 vs plain and the library on config 5's batch
     c5 = CONFIG5
@@ -1973,6 +2103,11 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
         f"{k6_plain_ms:.1f} ms, torch.linalg.cholesky + torch.cholesky_solve "
         f"{k6_lib_ms:.3f} ms, bound {k6_bound:.3f} ms ({k6_by}); "
         f"{k6_ms / k6_bound:.1f}x the bound  [{card}]")
+    nb = fused_newton.PANEL[torch.float32]
+    floor_ms = 1e3 * B5 * k6_stream_bytes(n5, nb, 4) / HBM_BYTES_PER_S
+    log(f"K6 panel width {nb}: the blocked design's streaming floor (its "
+        f"device-memory passes over {HBM_BYTES_PER_S / 1e12:.2f} TB/s) "
+        f"{floor_ms:.3f} ms; kernel {k6_ms:.3f} ms  [{card}]")
 
     # ---- 29. the K6 path: lockstep ProjectedNewton through ops.linalg with
     # the kernel, config 5 (B = 256, n = 1,024, float32)
@@ -1992,7 +2127,7 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
         (x5,) = tensors(starts5, dtype=torch.float32)
         r6, wall6, k6_launches = drive(
             f"K6 path (lockstep PN, {B5} x {n5}, f32) via batch_minimize",
-            lambda: newton_path(x5), "K6")
+            lambda: newton_path(x5), "K6", sync_time)
         check(k6_launches == int(r6.iterations.max()),
               f"K6 launches {k6_launches}, iterations "
               f"{int(r6.iterations.max())}")
@@ -2002,25 +2137,42 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
         check(conv6 == 1.0 and med == 1 and xmax <= C5_X_ATOL,
               f"K6 path: converged {conv6}, median iterations {med}, "
               f"max|x| {xmax}")
+        # this path and K3's Newton form (phase 21's main path) on the same
+        # calls, in turns: each round one input for both, the order
+        # alternating from round to round
+        q5 = make_oracle(problems.quadratic(Q))
+
+        def k3_path(xs):
+            return solvers.batch_minimize(pn, ls.BackTrackingB(), q5, xs,
+                                          bounds=(-box, box), **kw5)
+
         rng = np.random.RandomState(55)
-        walls = []
-        for _ in range(3):
+        walls, k3_walls = [], []
+        for turn in range(C5_TURNS):
             (xs,) = tensors(rng.uniform(-2.0, 2.0, (B5, n5)),
                             dtype=torch.float32)
-            walls.append(sync_time(lambda: newton_path(xs))[1])
+            pair = ((walls, newton_path), (k3_walls, k3_path))
+            for out, path in pair[::1 if turn % 2 == 0 else -1]:
+                out.append(sync_time(partial(path, xs))[1])
         pn_ms = 1e3 * statistics.median(walls)
-        log(f"K6 path: {pn_ms:.2f} ms per call (median of 3, distinct inputs; "
-            f"min {1e3 * min(walls):.2f}, max {1e3 * max(walls):.2f}), "
-            f"{B5 / (pn_ms / 1e3):.1f} solves/s; K3's Newton form on the same "
-            f"call {k3_newton_ms:.2f} ms  [{card}]")
+        k3_ms = 1e3 * statistics.median(k3_walls)
+        k3_ahead = sum(a < b for a, b in zip(k3_walls, walls))
+        log(f"K6 path: {pn_ms:.2f} ms per call (median of {C5_TURNS}, "
+            f"distinct inputs; min {1e3 * min(walls):.2f}, max "
+            f"{1e3 * max(walls):.2f}), {B5 / (pn_ms / 1e3):.1f} solves/s; "
+            f"K3's Newton form on the same calls in turns {k3_ms:.2f} ms (min "
+            f"{1e3 * min(k3_walls):.2f}, max {1e3 * max(k3_walls):.2f}), "
+            f"ahead in {k3_ahead} of {C5_TURNS}  [{card}]")
+        log("K6 path vs K3, ms per round: " + ", ".join(
+            f"{1e3 * a:.2f} / {1e3 * b:.2f}" for a, b in zip(walls, k3_walls)))
         pn_host = host_share("K6 path", lambda: newton_path(x5),
-                             min(walls))
+                             min(walls), card, sync_time)
         (x64s,) = tensors(starts5[:64], dtype=torch.float32)
         spn = solvers.SpectralProjectedNewton(grad_tol=c5["tol"],
                                               precond_bb=True)
         rs, walls_, spn_launches = drive(
             "K6 path, SPN precond_bb (64 x 1,024, f32)",
-            lambda: newton_path(x64s, spn), "K6")
+            lambda: newton_path(x64s, spn), "K6", sync_time)
         report("SPN precond_bb", rs, walls_)
         check(spn_launches == 2 * int(rs.iterations.max()),
               f"SPN: K6 launches {spn_launches}, iterations "
@@ -2043,23 +2195,6 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
     finally:
         linalg.config.use_kernel = use_kernel
 
-    k5 = {
-        "name": "qn_update",
-        "route": "cuda",
-        "source": "optimization_solvers_tpu_torch/ops/csrc/qn_update.cu",
-        "replaces": "optimization_solvers_tpu/ops/pallas_qn.py:92",
-        "launches": k5_launches,
-        "max_abs_err": k5_err,
-        "ms": k5_ms,
-        "plain_ms": k5_plain_ms,
-        "bound_ms": k5_bound,
-        "bound_by": k5_by,
-        "library_ms": None,
-        "path": {"seconds": wall5, "solves_per_s": B / wall5,
-                 "lockstep_iterations": lockstep_iters,
-                 "converged": conv5, "success": success(r5),
-                 "host_share": qn_host},
-    }
     k6 = {
         "name": "cholesky_solve",
         "route": "cuda",
@@ -2073,9 +2208,10 @@ def lockstep_slice(dev, card, tensors, sync_time, k3_newton_ms):
         "bound_by": k6_by,
         "library_ms": k6_lib_ms,
         "path": {"ms": pn_ms, "solves_per_s": B5 / (pn_ms / 1e3),
-                 "k3_newton_ms": k3_newton_ms, "host_share": pn_host},
+                 "k3_newton_ms": k3_ms, "k3_ahead": k3_ahead,
+                 "turns": C5_TURNS, "host_share": pn_host},
     }
-    return k5, k6
+    return k6
 
 
 def conv_atol(p, B):

@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
             ]
             lib.driver_smem_per_warp.restype = ctypes.c_longlong
             lib.driver_smem_per_warp.argtypes = [i, i, i, i]
+            lib.driver_smem_newton.restype = ctypes.c_longlong
+            lib.driver_smem_newton.argtypes = [i, i, i]
             lib.driver_workspace_elems.restype = ctypes.c_longlong
             lib.driver_workspace_elems.argtypes = [ctypes.c_longlong,
                                                    ctypes.c_longlong, i]

@@ -90,6 +90,12 @@ extern "C" long long driver_smem_per_warp(int n, int ring, int m, int elem_size)
   return work_elems(n, ring, m) * (long long)elem_size;
 }
 
+// shared memory of the Newton form's block (one instance), in bytes
+extern "C" long long driver_smem_newton(int n, int ring, int elem_size) {
+  return (elem_size == 8 ? newton_smem_elems<double>(n, ring)
+                         : newton_smem_elems<float>(n, ring)) * (long long)elem_size;
+}
+
 extern "C" long long driver_workspace_elems(long long B, long long n, int method) {
   return workspace_elems(B, n, method);
 }

@@ -35,15 +35,18 @@
 // A slab in shared memory (40 KB per instance), or fewer passes (the next
 // direction formed inside the update), is the way down.  The Newton form
 // writes the dense Hessian into a device-memory slab and factors it there
-// every iteration: n^3 / 6 multiply-adds per instance (1.8e8 at config 5,
-// n = 1,024), each a read and a write of the slab, so ~1.4 GB of slab
-// traffic per instance and iteration in float32.  One warp walking the
-// trailing triangle row by row is latency-bound far above both the byte
-// and the operation bound; a blocked factorization with its panels in
-// shared memory is the way down.
+// every iteration: n^3 / 3 operations per instance (3.6e8 at config 5, n =
+// 1,024), 1.4 ms for 256 instances at the card's float32 rate, with the
+// slab streamed once per panel of the blocked factorization
+// (chol_blocked.cuh, shared with K6).  So the Newton form runs one block of
+// 256 threads per instance: warp 0 runs the instance as the other forms'
+// warps do, and at the Hessian, the factorization, the solves and (for the
+// quadratic, whose passes are n^2) the value and gradient, the block's
+// other warps join it.
 //
 // Design:
-//  * one warp per instance, coordinate i on lane i % 32.  K3's lanes are
+//  * one warp per instance (the Newton form: one block, below), coordinate
+//    i on lane i % 32.  K3's lanes are
 //    independent (every state write of the TPU kernel is masked by its own
 //    lane's active/done flag, and a lane that stops never restarts), so a
 //    warp that leaves when its instance is done computes what the TPU
@@ -71,20 +74,30 @@
 //    in lockstep and discards the values these skip, so every step is the
 //    same;
 //  * the Newton form keeps one (n, n) slab per instance in the device-memory
-//    workspace.  The Hessian functor writes the dense Hessian into it at
-//    every direction; the Cholesky factor then overwrites its upper
-//    triangle in place, column j of the factor as row j of the slab (the
-//    TPU kernel's L slab layout, so the solves read it coalesced).  The
-//    TPU kernel downdates the whole symmetric slab and reads row j; the
-//    functors' Hessians are exactly symmetric and a downdate subtracts
-//    c_i c_k at (i, k) and c_k c_i at (k, i), equal products, so the slab
-//    stays symmetric and its upper triangle alone holds the same values:
-//    the kernel downdates only that triangle, rows k > j from column k on,
-//    lanes along the columns.  The pivot test, the pivot floor sqrt(max(
-//    piv, eps)) and eps (QnLit: 1.2e-7 / 2.3e-16, pallas_driver.py:791)
-//    are the TPU kernel's.  The solves run in place on one shared-memory
-//    vector; the factor stays in the slab until the next direction, where
-//    SPN's precond_bb solves against it after the step;
+//    workspace.  The Hessian functor writes the upper triangle of the dense
+//    Hessian into it at every direction (its warps split the rows); the
+//    blocked Cholesky factor then overwrites that triangle in place, column
+//    j of the factor as row j of the slab (the TPU kernel's L slab layout,
+//    so the solves read it coalesced).  The TPU kernel downdates the whole
+//    symmetric slab and reads row j; the functors' Hessians are exactly
+//    symmetric and a downdate subtracts c_i c_k at (i, k) and c_k c_i at
+//    (k, i), equal products, so the upper triangle alone holds the same
+//    values, and the blocked order gives every element its updates one
+//    multiply-add at a time in column order, as the unblocked loop did.
+//    The pivot test, the pivot floor sqrt(max(piv, eps)) and eps (QnLit:
+//    1.2e-7 / 2.3e-16, pallas_driver.py:791) are the TPU kernel's.  The
+//    solves run in place on one shared-memory vector; the factor stays in
+//    the slab until the next direction, where SPN's precond_bb solves
+//    against it after the step;
+//  * the Newton form's block: warp 0 posts a command (Hessian and factor,
+//    solve, value, value and gradient) in shared memory and all 256 threads
+//    run it between named barriers (barrier.sync 1, non-aligned: warp 0
+//    reaches them from inside its divergent control flow, the worker warps
+//    from their command loop); warp 0 posts exit at the end.  Its shared
+//    memory: X, G, the commands' words, the GLL ring, and D, GN, XT and
+//    the solves' staged block, over which the factorization's scratch lies
+//    (they are dead while it runs); it keeps no GP/DP pair: after a step D
+//    holds s and XT holds y;
 //  * the method and the search are runtime, grid-uniform switches on
 //    integer codes; the template axes are dtype x objective x form: the
 //    first-order form (the first-order methods with the Armijo-family
@@ -108,10 +121,13 @@
 
 #pragma once
 
+#include "chol_blocked.cuh"
 #include "common.cuh"
 #include "objectives.cuh"
 
 namespace ost_driver {
+
+using namespace ost_chol;
 
 constexpr int kMaxWarpsPerBlock = 8;
 
@@ -178,6 +194,28 @@ __host__ __device__ inline long long workspace_elems(long long B, long long n,
   return (method == kQN || method == kQNB || newton_method(method)) ? B * n * n : 0;
 }
 
+// the Newton form: the panel width of its factorization (as K6's), its
+// command words, and its block's shared memory in elements: the region of
+// D, GN, XT and the factorization's scratch, X, G, the words, the GLL ring
+template <typename T> struct NewtonPanel;
+template <> struct NewtonPanel<float> { static constexpr int kNB = 64; };
+template <> struct NewtonPanel<double> { static constexpr int kNB = 32; };
+constexpr int kNewtonWords = 32;
+enum NewtonCmd { kCmdExit = 0, kCmdValue, kCmdValueGrad, kCmdFactor, kCmdSolve };
+
+template <typename T>
+__host__ __device__ inline long long newton_region_elems(int n) {
+  constexpr int nb = NewtonPanel<T>::kNB;
+  const long long scratch = chol_scratch_elems<T, nb>();
+  const long long vecs = 3LL * n + chol_solve_elems<nb>();
+  return ((vecs > scratch ? vecs : scratch) + 3) / 4 * 4;
+}
+
+template <typename T>
+__host__ __device__ inline long long newton_smem_elems(int n, int ring) {
+  return newton_region_elems<T>(n) + 2LL * n + kNewtonWords + ring;
+}
+
 // Rust's f64::min/max: a NaN operand is discarded
 template <typename T> __device__ __forceinline__ T rmin(T a, T b) {
   return a != a ? b : (b != b ? a : (b < a ? b : a));
@@ -228,78 +266,6 @@ __device__ void mv_cols(const T* Bm, const T* v, T* out, int n, int lane) {
   }
 }
 
-// Right-looking Cholesky of the (n, n) slab H in place
-// (pallas_driver.py:785-818): step j reads row j of the downdated upper
-// triangle, tests the pivot against eps max(max|diag H|, 1), writes the
-// factor's column j (pivot sqrt(max(piv, eps)), then H_ji / pivot) into
-// row j, and downdates rows k > j from column k on.  col (shared memory, n)
-// holds column j for the downdate.  Returns true where a pivot failed the
-// test (H not numerically positive definite).
-template <typename T>
-__device__ bool chol_factor(T* H, T* col, int n, int lane) {
-  const T eps = (T)QnLit<T>::eps;
-  T dm = 0;
-  for (int i = lane; i < n; i += kWarp) dm = jmax(dm, (T)fabs(H[(long long)i * n + i]));
-  const T thr = eps * jmax(warp_max(dm), T(1));
-  bool bad = false;
-  for (int j = 0; j < n; ++j) {
-    T* rj = H + (long long)j * n;
-    const T piv = rj[j];
-    bad = bad || piv <= thr;
-    const T ps = sqrt(jmax(piv, eps));
-    __syncwarp();                       // every lane has read the pivot
-    for (int i = j + 1 + lane; i < n; i += kWarp) {
-      const T c = rj[i] / ps;
-      rj[i] = c;
-      col[i] = c;
-    }
-    if (lane == 0) rj[j] = ps;
-    __syncwarp();
-    for (int k = j + 1; k < n; ++k) {
-      const T ck = col[k];
-      T* rk = H + (long long)k * n;
-      int i = k + lane;
-      // four independent rows' worth of loads in flight per lane
-      for (; i + 3 * kWarp < n; i += 4 * kWarp) {
-        const T a0 = rk[i], a1 = rk[i + kWarp], a2 = rk[i + 2 * kWarp],
-                a3 = rk[i + 3 * kWarp];
-        rk[i] = a0 - ck * col[i];
-        rk[i + kWarp] = a1 - ck * col[i + kWarp];
-        rk[i + 2 * kWarp] = a2 - ck * col[i + 2 * kWarp];
-        rk[i + 3 * kWarp] = a3 - ck * col[i + 3 * kWarp];
-      }
-      for (; i < n; i += kWarp) rk[i] = rk[i] - ck * col[i];
-    }
-    __syncwarp();
-  }
-  return bad;
-}
-
-// Solve H w = rhs against the factor of chol_factor, in place on w (shared
-// memory): forward then back substitution (pallas_driver.py:820-854).  The
-// TPU kernel accumulates each solution entry into a zeroed vector; the
-// 0 + y additions keep the signs of its zeros.
-template <typename T>
-__device__ void chol_solve(const T* H, T* w, int n, int lane) {
-  for (int j = 0; j < n; ++j) {
-    const T* rj = H + (long long)j * n;
-    const T yj = w[j] / rj[j];
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += kWarp) w[i] = w[i] - yj * rj[i];
-    if (lane == 0) w[j] = T(0) + yj;
-    __syncwarp();
-  }
-  for (int j = n - 1; j >= 0; --j) {
-    const T* rj = H + (long long)j * n;
-    T s = 0;
-    for (int i = j + 1 + lane; i < n; i += kWarp) s += rj[i] * w[i];
-    const T xj = (w[j] - warp_sum(s)) / rj[j];
-    __syncwarp();
-    if (lane == 0) w[j] = T(0) + xj;
-    __syncwarp();
-  }
-}
-
 template <typename T> struct Params {
   const T* x0;
   const T* lo;
@@ -334,15 +300,88 @@ template <typename T> struct Params {
   int* nfev_out;
 };
 
+// One command of the Newton form, run by all kCholThreads threads of the
+// instance's block: warp 0 posts it in the command words (ctl[0] the
+// command, ctl[1..2] its vectors as offsets from the region), the worker
+// warps wait for it in newton_worker.  Ends with a block barrier, after
+// which warp 0 reads the result (the value in words[16], the failed-pivot
+// flag in ctl[3]).  Not inlined: warp 0 and the workers call it from two
+// sites, and one copy of the factorization per kernel is enough.
+template <typename T, class Obj>
+__device__ __noinline__ void newton_command(const Obj& obj, T* region, const T* X, T* Bm,
+                                            T* words, int n, int tid) {
+  int* ctl = reinterpret_cast<int*>(words + 24);
+  const int cmd = ctl[0];
+  const int lane = tid & (kWarp - 1), warp = tid / kWarp;
+  T* a = region + ctl[1];
+  T* b = region + ctl[2];
+  if (cmd == kCmdFactor) {
+    // the Hessian's upper triangle, its largest |diagonal entry|, the
+    // factor (pallas_driver.py:785-818)
+    obj.hessian(X, Bm, n, tid, region);
+    chol_bar();
+    T dm = 0;
+    for (int i = tid; i < n; i += kCholThreads) dm = jmax(dm, (T)fabs(Bm[(long long)i * n + i]));
+    dm = warp_max(dm);
+    if (lane == 0) words[warp] = dm;
+    chol_bar();
+    T mx = words[0];
+    for (int q = 1; q < kCholWarps; ++q) mx = jmax(mx, words[q]);
+    const T eps = (T)QnLit<T>::eps;
+    const bool bad = chol_factor_blocked<T, NewtonPanel<T>::kNB>(
+        Bm, n, region, tid, PivotFloor<T>{eps * jmax(mx, T(1)), eps});
+    if (tid == 0) ctl[3] = bad;
+  } else if (cmd == kCmdSolve) {
+    // the diagonal blocks are staged past D, GN and XT
+    chol_solve_blocked<T, NewtonPanel<T>::kNB>(Bm, a, region + 3 * n, n, tid);
+  } else {
+    if constexpr (Obj::kBlockEval) {
+      // value of x = a, and with kCmdValueGrad its gradient into b
+      T sq, sb;
+      obj.rows_part(a, cmd == kCmdValueGrad ? b : nullptr, n, warp, kCholWarps, lane, sq, sb);
+      if (cmd == kCmdValueGrad) {
+        chol_bar();
+        obj.cols_grad(a, b, n, tid, kCholThreads);
+      }
+      if (lane == 0) {
+        words[warp] = sq;
+        words[kCholWarps + warp] = sb;
+      }
+      chol_bar();
+      if (tid == 0) {
+        T s1 = 0, s2 = 0;
+        for (int q = 0; q < kCholWarps; ++q) {
+          s1 += words[q];
+          s2 += words[kCholWarps + q];
+        }
+        words[16] = T(0.5) * s1 + s2;
+      }
+    }
+  }
+  chol_bar();
+}
+
+// The Newton form's worker warps (1..7 of the block): run warp 0's
+// commands until it posts exit.
+template <typename T, class Obj>
+__device__ void newton_worker(const Obj& obj, T* region, const T* X, T* Bm,
+                              T* words, int n, int tid) {
+  const int* ctl = reinterpret_cast<const int*>(words + 24);
+  for (;;) {
+    chol_bar();
+    if (ctl[0] == kCmdExit) return;
+    newton_command<T, Obj>(obj, region, X, Bm, words, n, tid);
+  }
+}
+
 template <typename T, class Obj, int kForm>
-__global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock)
-driver_kernel(const Params<T> prm) {
+__device__ __forceinline__ void driver_body(const Params<T>& prm) {
   constexpr bool kQn = kForm == kQnForm;
   constexpr bool kNewt = kForm == kNewtonForm;
-  extern __shared__ unsigned char smem_raw[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
-  const int inst = blockIdx.x * (blockDim.x / kWarp) + warp;
+  const int inst = kNewt ? (int)blockIdx.x : blockIdx.x * (blockDim.x / kWarp) + warp;
   if (inst >= prm.B) return;          // the whole warp leaves together
   const int n = prm.n;
   const int method = prm.method, search = prm.search;
@@ -350,20 +389,36 @@ driver_kernel(const Params<T> prm) {
   const T INF = (T)INFINITY;
   const int m = kQn && method == kLBFGS ? prm.m : 0;
 
-  T* p = reinterpret_cast<T*>(smem_raw) + (long long)warp * work_elems(n, prm.ring, m);
-  T* X = p; p += n;
-  T* G = p; p += n;
-  T* GN = p; p += n;
-  T* D = p; p += n;
-  T* XT = p; p += n;
-  T* GP = p; p += n;
-  T* DP = p; p += n;
-  T* H = p; p += prm.ring;
-  T* S = p; p += (long long)m * n;
-  T* Y = p; p += (long long)m * n;
-  T* RHO = p; p += m;
-  T* VAL = p; p += m;
-  T* AL = p;
+  T *X, *G, *GN, *D, *XT, *GP, *DP, *H, *S, *Y, *RHO, *VAL, *AL;
+  T* region = nullptr;                // the Newton form's block layout
+  T* words = nullptr;
+  if constexpr (kNewt) {
+    region = reinterpret_cast<T*>(smem_raw);
+    D = region;
+    GN = region + n;
+    XT = region + 2 * n;
+    X = region + newton_region_elems<T>(n);
+    G = X + n;
+    words = G + n;
+    H = words + kNewtonWords;
+    GP = DP = GN;                     // unused by the Newton methods
+    S = Y = RHO = VAL = AL = nullptr;
+  } else {
+    T* p = reinterpret_cast<T*>(smem_raw) + (long long)warp * work_elems(n, prm.ring, m);
+    X = p; p += n;
+    G = p; p += n;
+    GN = p; p += n;
+    D = p; p += n;
+    XT = p; p += n;
+    GP = p; p += n;
+    DP = p; p += n;
+    H = p; p += prm.ring;
+    S = p; p += (long long)m * n;
+    Y = p; p += (long long)m * n;
+    RHO = p; p += m;
+    VAL = p; p += m;
+    AL = p;
+  }
 
   const T* lo = bounded ? prm.lo + (long long)inst * prm.bstride : nullptr;
   const T* up = bounded ? prm.up + (long long)inst * prm.bstride : nullptr;
@@ -373,10 +428,49 @@ driver_kernel(const Params<T> prm) {
   const bool sym = prm.qn_update != kBroyden;
   const Obj obj{prm.d0, prm.d1};
 
+  if constexpr (kNewt) {
+    if (warp != 0) {
+      newton_worker<T, Obj>(obj, region, X, Bm, words, n, threadIdx.x);
+      return;
+    }
+  }
+  // the Newton form: post a command to the block and run warp 0's share
+  auto command = [&](int cmd, const T* a, const T* b) {
+    if constexpr (kNewt) {
+      __syncwarp();
+      if (lane == 0) {
+        int* ctl = reinterpret_cast<int*>(words + 24);
+        ctl[0] = cmd;
+        ctl[1] = a == nullptr ? 0 : (int)(a - region);
+        ctl[2] = b == nullptr ? 0 : (int)(b - region);
+      }
+      chol_bar();
+      newton_command<T, Obj>(obj, region, X, Bm, words, n, threadIdx.x);
+    }
+  };
+  // value and value-and-gradient: the block's for the Newton form's
+  // quadratic, warp 0's (or the instance's warp's) otherwise
+  auto eval_value = [&](const T* xv) -> T {
+    if constexpr (kNewt && Obj::kBlockEval) {
+      command(kCmdValue, xv, nullptr);
+      return words[16];
+    } else {
+      return obj.value(xv, n, lane);
+    }
+  };
+  auto eval_value_grad = [&](const T* xv, T* gv) -> T {
+    if constexpr (kNewt && Obj::kBlockEval) {
+      command(kCmdValueGrad, xv, gv);
+      return words[16];
+    } else {
+      return obj.value_grad(xv, gv, n, lane);
+    }
+  };
+
   for (int i = lane; i < n; i += kWarp)
     X[i] = bounded ? jclip(x0[i], lo[i], up[i]) : x0[i];
   __syncwarp();
-  T Fv = obj.value_grad(X, G, n, lane);
+  T Fv = eval_value_grad(X, G);
   __syncwarp();
   int iters = 0, nfev = 0;
 
@@ -520,14 +614,12 @@ driver_kernel(const Params<T> prm) {
       default:
         if constexpr (kNewt) {
           // the Hessian into the slab, its factor in place, the step
-          // H^-1 g in D (pallas_driver.py:893-904, :933-938, :973-978);
-          // GN holds the factor's column
-          obj.hessian(X, Bm, n, lane);
-          __syncwarp();
-          fact_bad = chol_factor(Bm, GN, n, lane);
+          // H^-1 g in D (pallas_driver.py:893-904, :933-938, :973-978),
+          // each by the block
+          command(kCmdFactor, nullptr, nullptr);
+          fact_bad = reinterpret_cast<const int*>(words + 24)[3] != 0;
           for (int i = lane; i < n; i += kWarp) D[i] = G[i];
-          __syncwarp();
-          chol_solve(Bm, D, n, lane);
+          command(kCmdSolve, D, nullptr);
           bool fin = true;
           for (int i = lane; i < n; i += kWarp) fin = fin && isfinite(D[i]);
           const bool ok = !fact_bad && __all_sync(kFull, fin);
@@ -538,8 +630,7 @@ driver_kernel(const Params<T> prm) {
               // the decrement (H^-1 d) . d: a second solve against the
               // factor, in XT
               for (int i = lane; i < n; i += kWarp) XT[i] = D[i];
-              __syncwarp();
-              chol_solve(Bm, XT, n, lane);
+              command(kCmdSolve, XT, nullptr);
               T zd = 0;
               for (int i = lane; i < n; i += kWarp) zd += XT[i] * D[i];
               dec2 = warp_sum(zd);
@@ -651,7 +742,7 @@ driver_kernel(const Params<T> prm) {
           XT[i] = search == kBTB ? jclip(xt, lo[i], up[i]) : xt;
         }
         __syncwarp();
-        const T ft = obj.value(XT, n, lane);
+        const T ft = eval_value(XT);
         ++nfev;
         bool ok;
         if (search == kBTB) {
@@ -686,7 +777,7 @@ driver_kernel(const Params<T> prm) {
       auto phi = [&](T t, T& ft, T& gt) {
         for (int i = lane; i < n; i += kWarp) XT[i] = X[i] + t * D[i];
         __syncwarp();
-        ft = obj.value_grad(XT, GN, n, lane);
+        ft = eval_value_grad(XT, GN);
         __syncwarp();
         T s = 0;
         for (int i = lane; i < n; i += kWarp) s += GN[i] * D[i];
@@ -886,7 +977,7 @@ driver_kernel(const Params<T> prm) {
       XT[i] = bounded ? jclip(xn, lo[i], up[i]) : xn;
     }
     __syncwarp();
-    const T fnew = obj.value_grad(XT, GN, n, lane);
+    const T fnew = eval_value_grad(XT, GN);
     __syncwarp();
     if (method == kSPG) {
       T sy = 0, ss = 0, yy = 0;
@@ -906,33 +997,50 @@ driver_kernel(const Params<T> prm) {
       }
       lam = sy <= T(0) ? prm.lam_max : jclip(raw, prm.lam_min, prm.lam_max);
     }
-    // the quasi-Newton (and PN/SPN) pair s, y into GP, DP, with its sums
+    // the quasi-Newton pair s, y into GP, DP, with its sums; the Newton
+    // form's (PN/SPN) into D and XT, spent once the step is taken
     T sy = 0, ss = 0, yy = 0;
     bool moved = false;
-    if constexpr (kForm != kFirstOrderForm) {
-      if (method >= kQN) {
-        for (int i = lane; i < n; i += kWarp) {
-          const T s = XT[i] - X[i], y = GN[i] - G[i];
-          GP[i] = s;
-          DP[i] = y;
-          sy += s * y;
-          ss += s * s;
-          yy += y * y;
-          moved = moved || s != T(0);
+    if constexpr (kNewt) {
+      for (int i = lane; i < n; i += kWarp) {
+        const T s = XT[i] - X[i], y = GN[i] - G[i];
+        sy += s * y;
+        ss += s * s;
+        yy += y * y;
+        X[i] = XT[i];
+        G[i] = GN[i];
+        D[i] = s;
+        XT[i] = y;
+      }
+      sy = warp_sum(sy);
+      ss = warp_sum(ss);
+      yy = warp_sum(yy);
+    } else {
+      if constexpr (kForm != kFirstOrderForm) {
+        if (method >= kQN) {
+          for (int i = lane; i < n; i += kWarp) {
+            const T s = XT[i] - X[i], y = GN[i] - G[i];
+            GP[i] = s;
+            DP[i] = y;
+            sy += s * y;
+            ss += s * s;
+            yy += y * y;
+            moved = moved || s != T(0);
+          }
+          sy = warp_sum(sy);
+          ss = warp_sum(ss);
+          yy = warp_sum(yy);
+          moved = __any_sync(kFull, moved);
         }
-        sy = warp_sum(sy);
-        ss = warp_sum(ss);
-        yy = warp_sum(yy);
-        moved = __any_sync(kFull, moved);
       }
-    }
-    for (int i = lane; i < n; i += kWarp) {
-      if (method == kNCG) {
-        GP[i] = G[i];
-        DP[i] = D[i];
+      for (int i = lane; i < n; i += kWarp) {
+        if (method == kNCG) {
+          GP[i] = G[i];
+          DP[i] = D[i];
+        }
+        X[i] = XT[i];
+        G[i] = GN[i];
       }
-      X[i] = XT[i];
-      G[i] = GN[i];
     }
     ks += 1;
     Fv = fnew;
@@ -949,14 +1057,13 @@ driver_kernel(const Params<T> prm) {
         // unless that factor failed or the solve is not finite
         T sy_b = sy;
         if (prm.precond_bb) {
-          for (int i = lane; i < n; i += kWarp) XT[i] = DP[i];
-          __syncwarp();
-          chol_solve(Bm, XT, n, lane);
+          // y (in XT) solved in place; s in D
+          command(kCmdSolve, XT, nullptr);
           bool fin = true;
           T a = 0;
           for (int i = lane; i < n; i += kWarp) {
             fin = fin && isfinite(XT[i]);
-            a += GP[i] * XT[i];
+            a += D[i] * XT[i];
           }
           a = warp_sum(a);
           if (!fact_bad && __all_sync(kFull, fin)) sy_b = a;
@@ -1094,27 +1201,48 @@ driver_kernel(const Params<T> prm) {
     prm.st_out[inst] = status;
     prm.nfev_out[inst] = nfev;
   }
+  if constexpr (kNewt) {
+    __syncwarp();
+    if (lane == 0) reinterpret_cast<int*>(words + 24)[0] = kCmdExit;
+    __syncwarp();
+    chol_bar();                       // the worker warps leave
+  }
+}
+
+// the first-order and quasi-Newton forms: one warp per instance, up to
+// kMaxWarpsPerBlock instances per block
+template <typename T, class Obj, int kForm>
+__global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock)
+driver_kernel(const Params<T> prm) {
+  driver_body<T, Obj, kForm>(prm);
+}
+
+// the Newton form: one block of kCholThreads threads per instance, two
+// blocks per SM
+template <typename T, class Obj>
+__global__ void __launch_bounds__(kCholThreads, 2)
+driver_newton_kernel(const Params<T> prm) {
+  driver_body<T, Obj, kNewtonForm>(prm);
 }
 
 template <typename T, class Obj, int kForm>
 int launch(const Params<T>& prm, cudaStream_t stream) {
+  if constexpr (kForm == kNewtonForm) {
+    const long long smem = newton_smem_elems<T>(prm.n, prm.ring) * (long long)sizeof(T);
+    if (smem > kSmemPerBlock) return kErrSmem;
+    auto kernel = driver_newton_kernel<T, Obj>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<prm.B, kCholThreads, smem, stream>>>(prm);
+    return (int)cudaGetLastError();
+  }
   const int m = prm.method == kLBFGS ? prm.m : 0;
   const long long per_warp = work_elems(prm.n, prm.ring, m) * (long long)sizeof(T);
   long long wpb = kSmemPerBlock / per_warp;
   if (wpb > kMaxWarpsPerBlock) wpb = kMaxWarpsPerBlock;
   if (wpb > prm.B) wpb = prm.B;
   if (wpb < 1) return kErrSmem;
-  if (kForm == kNewtonForm) {
-    // a Newton instance runs long on its own slab: spread the instances
-    // over every SM rather than packing 8 warps into a few blocks
-    int dev = 0, sms = 1;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    const long long spread = (prm.B + sms - 1) / sms;
-    if (spread < wpb) wpb = spread;
-  }
   const int smem = (int)(per_warp * wpb);
   auto kernel = driver_kernel<T, Obj, kForm>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,7 +1,8 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a): its Newton form (Newton,
 // PN and SPN with every search), built apart from the first-order form in
-// driver.cu and the quasi-Newton form in driver_qn.cu.  The kernel, the
-// slab factorization and what bounds them are described in driver.cuh.
+// driver.cu and the quasi-Newton form in driver_qn.cu.  The kernel, its
+// one block per instance and what bounds it are described in driver.cuh,
+// the blocked factorization and solves in chol_blocked.cuh.
 
 #include "driver.cuh"
 

@@ -4,20 +4,28 @@
 // K9 bfgs_fused.cu): one warp evaluates one instance, coordinate i on lane
 // i % 32, and every lane returns the warp-reduced value.  The caller
 // __syncwarp()s before a call (the functors read other lanes' coordinates
-// of x and v) and after value_grad, hessian and hvp (each lane writes only
-// its own coordinates of g and of the product, and its own columns of each
-// Hessian row).  K1, K8 and the first-order and quasi-Newton forms of K3
-// compile Rosenbrock and WeightedSquares; K7 and K9 all three (values and
-// gradients); K3's Newton form and K4 all three, with the second
-// derivatives: hessian(x, H, n, lane) writes the
-// instance's dense (n, n) Hessian row-major into H (device memory), and
-// hvp(x, v, out, n, lane) writes H v into out.  Every Hessian written here
-// is exactly symmetric, which K3's upper-triangle factorization relies on.
-// The plain PyTorch forms in core/problems.py use the same expressions in
-// the same order.
+// of x and v) and after value_grad and hvp (each lane writes only its own
+// coordinates of g and of the product).  K1, K8 and the first-order and
+// quasi-Newton forms of K3 compile Rosenbrock and WeightedSquares; K7 and
+// K9 all three (values and gradients); K3's Newton form and K4 all three,
+// with the second derivatives: hvp(x, v, out, n, lane) writes H v into out,
+// and hessian(x, H, n, tid, scratch) is block-level (K3's Newton form runs
+// one block of ost_chol::kCholThreads threads per instance; every thread
+// calls it, tid its index): the block writes the upper triangle (j >= i)
+// of the instance's (n, n) Hessian, row-major, into H (device memory),
+// the warps splitting the rows, or (the quadratic) the block's
+// shared-memory tiles in `scratch`; the caller synchronises the block
+// after it.  Every Hessian here is exactly
+// symmetric, so its upper triangle is all of it, which K3's factorization
+// reads.  A functor with kBlockEval also splits value and value_grad over
+// the block (rows_part, cols_grad; driver.cuh combines them): the
+// quadratic's n^2 passes, which one warp alone walks too slowly at n =
+// 1,024.  The plain PyTorch forms in core/problems.py use the same
+// expressions in the same order.
 
 #pragma once
 
+#include "chol_blocked.cuh"
 #include "common.cuh"
 
 namespace {
@@ -60,14 +68,14 @@ template <typename T> struct Rosenbrock {
     if (i > 0) h += T(200);
     return h;
   }
-  __device__ void hessian(const T* x, T* H, int n, int lane) const {
-    for (int i = 0; i < n; ++i) {
+  static constexpr bool kBlockEval = false;
+  __device__ void hessian(const T* x, T* H, int n, int tid, T*) const {
+    for (int i = tid / kWarp; i < n; i += ost_chol::kCholWarps) {
       T* row = H + (long long)i * n;
-      for (int j = lane; j < n; j += kWarp) {
+      for (int j = i + tid % kWarp; j < n; j += kWarp) {
         T h = 0;
         if (j == i) h = hess_diag(x, i, n);
         else if (j == i + 1) h = T(-400) * x[i];
-        else if (j == i - 1) h = T(-400) * x[j];
         row[j] = h;
       }
     }
@@ -104,10 +112,11 @@ template <typename T> struct WeightedSquares {
     }
     return T(0.5) * warp_sum(s);
   }
-  __device__ void hessian(const T* x, T* H, int n, int lane) const {
-    for (int i = 0; i < n; ++i) {
+  static constexpr bool kBlockEval = false;
+  __device__ void hessian(const T* x, T* H, int n, int tid, T*) const {
+    for (int i = tid / kWarp; i < n; i += ost_chol::kCholWarps) {
       T* row = H + (long long)i * n;
-      for (int j = lane; j < n; j += kWarp) row[j] = j == i ? d0[i] : T(0);
+      for (int j = i + tid % kWarp; j < n; j += kWarp) row[j] = j == i ? d0[i] : T(0);
     }
   }
   __device__ void hvp(const T* x, const T* v, T* out, int n, int lane) const {
@@ -156,12 +165,66 @@ template <typename T> struct Quadratic {
     }
     return T(0.5) * warp_sum(sq) + warp_sum(sb);
   }
-  __device__ void hessian(const T* x, T* H, int n, int lane) const {
-    for (int i = 0; i < n; ++i) {
-      const T* Qi = d0 + (long long)i * n;
-      T* row = H + (long long)i * n;
-      for (int j = lane; j < n; j += kWarp)
-        row[j] = T(0.5) * (Qi[j] + d0[(long long)j * n + i]);
+  // the symmetric part's upper triangle through the block's
+  // double-buffered shared-memory tiles (chol_blocked.cuh), both reads of
+  // Q coalesced
+  __device__ void hessian(const T* x, T* H, int n, int tid, T* scratch) const {
+    ost_chol::upper_from_transpose<T, ost_chol::kSymPart>(H, d0, n, scratch, tid);
+  }
+  // the block's share of value (and of value_grad): rows i = warp, warp +
+  // nwarps, ..., (Q x)_i by the warp's lanes over j, four rows at a time
+  // (their loads in flight together); the warp's partial sums of x_i (Q
+  // x)_i and b_i x_i in row order (on every lane), and (Q x)_i into g[i]
+  // when g is given
+  static constexpr bool kBlockEval = true;
+  __device__ void rows_part(const T* x, T* g, int n, int warp, int nwarps,
+                            int lane, T& sq, T& sb) const {
+    sq = 0;
+    sb = 0;
+    for (int i0 = warp; i0 < n; i0 += 4 * nwarps) {
+      T qx[4] = {0, 0, 0, 0};
+#pragma unroll 8
+      for (int j = lane; j < n; j += kWarp) {
+        const T xj = x[j];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int i = i0 + k * nwarps;
+          if (i < n) qx[k] += d0[(long long)i * n + j] * xj;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k * nwarps;
+        const T q = warp_sum(qx[k]);
+        if (i < n) {
+          sq += x[i] * q;
+          sb += d1[i] * x[i];
+          if (g != nullptr && lane == 0) g[i] = q;
+        }
+      }
+    }
+  }
+  // after rows_part into g and a block barrier: g_i = 0.5 ((Q x)_i + (Q^T
+  // x)_i) + b_i for i = tid, tid + nthreads, ..., (Q^T x)_i walking column i
+  // (coalesced across the threads), four columns at a time.
+  __device__ void cols_grad(const T* x, T* g, int n, int tid, int nthreads) const {
+    for (int i0 = tid; i0 < n; i0 += 4 * nthreads) {
+      T qtx[4] = {0, 0, 0, 0};
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) {
+        const T xj = x[j];
+        const T* Qj = d0 + (long long)j * n;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int i = i0 + k * nthreads;
+          if (i < n) qtx[k] += Qj[i] * xj;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k * nthreads;
+        if (i < n) g[i] = T(0.5) * (g[i] + qtx[k]) + d1[i];
+      }
     }
   }
   __device__ void hvp(const T* x, const T* v, T* out, int n, int lane) const {

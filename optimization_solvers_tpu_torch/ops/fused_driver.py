@@ -65,6 +65,7 @@ from ..linesearch.morethuente import (_cubic_minimizer, _quadratic_minimizer_1,
                                       _quadratic_minimizer_2, _update_interval)
 # the method configs only; solvers.driver imports this module
 from ..solvers import lbfgs, newton, nonlinear_cg, quasi_newton, steepest
+from . import fused_newton
 from .batched_oracle import (KERNEL_OBJECTIVES, batched_hessian,
                              batched_value, batched_value_and_grad,
                              kernel_operands)
@@ -85,6 +86,7 @@ QN_EPS = {torch.float32: 1.2e-7, torch.float64: 2.3e-16}
 # compiles: the first-order and quasi-Newton forms (driver.cu, driver_qn.cu)
 # two, the Newton form (driver_newton.cu) three, with their Hessians
 SMEM_PER_BLOCK = 232448
+NEWTON_WORDS = 32          # csrc/driver.cuh kNewtonWords
 K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
 K3_NEWTON_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC")
 KERNEL = "the CUDA driver kernel K3"
@@ -240,25 +242,38 @@ def fused_supported(method, line_search) -> bool:
     return build_spec(method, line_search) is not None
 
 
-def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0) -> int:
-    """Shared memory one instance takes in the CUDA kernel: ``work_elems``
-    of ``csrc/driver.cuh`` (7 n, the GLL history, and L-BFGS's S and Y
-    rows, rho, valid and alpha: 2 m n + 3 m) times the element size,
-    mirrored here so that the route can decide without the library."""
+def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
+                      method: Optional[int] = None) -> int:
+    """Shared memory one instance takes in the CUDA kernel, mirrored here so
+    that the route can decide without the library.  The first-order and
+    quasi-Newton forms: ``work_elems`` of ``csrc/driver.cuh`` (7 n, the
+    GLL history, and L-BFGS's S and Y rows, rho, valid and alpha: 2 m n +
+    3 m) times the element size.  The Newton form (``method`` Newton, PN or
+    SPN; one block per instance): ``newton_smem_elems``, the region of D,
+    GN, XT and the solves' staged NB x (NB + 1) block, over which the
+    blocked factorization's scratch lies (the larger of the two, rounded up
+    to 4), X and G, 32 command words and the GLL history."""
+    if method in NEWTON_METHODS:
+        nb = fused_newton.PANEL[torch.float32 if itemsize == 4
+                                else torch.float64]
+        region = (max(3 * n + nb * (nb + 1),
+                      fused_newton.scratch_elems(itemsize, nb)) + 3) // 4 * 4
+        return (region + 2 * n + NEWTON_WORDS + ring) * itemsize
     return (7 * n + ring + 2 * m * n + 3 * m) * itemsize
 
 
-def fits(n: int, ring: int, itemsize: int, m: int = 0) -> bool:
+def fits(n: int, ring: int, itemsize: int, m: int = 0,
+         method: Optional[int] = None) -> bool:
     """Whether an instance of width ``n`` fits a block's shared memory."""
-    return smem_per_instance(n, ring, itemsize, m) <= SMEM_PER_BLOCK
+    return smem_per_instance(n, ring, itemsize, m, method) <= SMEM_PER_BLOCK
 
 
-def _check_fits(n, ring, itemsize, m=0):
-    if not fits(n, ring, itemsize, m):
+def _check_fits(n, ring, itemsize, m=0, method=None):
+    if not fits(n, ring, itemsize, m, method):
         raise NotImplementedError(
-            f"n={n} needs {smem_per_instance(n, ring, itemsize, m)} bytes of "
-            f"shared memory per instance in {KERNEL}, more than a block's "
-            f"{SMEM_PER_BLOCK}; such a batch needs the lockstep loop "
+            f"n={n} needs {smem_per_instance(n, ring, itemsize, m, method)} "
+            f"bytes of shared memory per instance in {KERNEL}, more than a "
+            f"block's {SMEM_PER_BLOCK}; such a batch needs the lockstep loop "
             f"({LOCKSTEP}, which batch_minimize's fused='auto' takes)")
 
 
@@ -1051,7 +1066,7 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         if tuple(pinv.shape) != (n, n):
             raise ValueError(f"inverse_p must be ({n}, {n}), got "
                              f"{tuple(pinv.shape)}")
-    _check_fits(n, spec.ring, x0.element_size(), spec.lbfgs_m)
+    _check_fits(n, spec.ring, x0.element_size(), spec.lbfgs_m, spec.method)
     _check_workspace(B, n, spec.method, x0.element_size(), x0.device)
     x0 = x0.contiguous()
     lib = _build.load()

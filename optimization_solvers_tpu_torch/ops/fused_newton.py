@@ -11,31 +11,61 @@ NaN, as the TPU kernel's masked algorithm does; the other instances are
 untouched.
 
 Both versions factor right-looking by panels of columns and substitute
-panel by panel (``csrc/cholesky_solve.cu`` says why); the plain version
-does the trailing update of a panel as one batched matrix product, so the
-two round differently.  :func:`cholesky_solve_fused` takes the plain
-version for CPU tensors and launches the kernel for CUDA tensors; it never
-falls back from one to the other.  The lockstep Newton methods reach it
-through :func:`..ops.linalg.cholesky_solve` when
-``ops.linalg.config.use_kernel`` asks for it.
+panel by panel (``csrc/chol_blocked.cuh`` says why; the routine is shared
+with K3's Newton form); the plain version does the trailing update of a
+panel as one batched matrix product, the kernel one multiply-add per panel
+column and element, so the two round differently.
+:func:`cholesky_solve_fused` takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors; it never falls back from one to the
+other.  The lockstep Newton methods reach it through
+:func:`..ops.linalg.cholesky_solve` when ``ops.linalg.config.use_kernel``
+asks for it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-# the widest panel of the kernel, and its panels in float32 / float64 at a
-# given width come from csrc/cholesky_solve.cu (cholesky_solve_panel)
-PANEL = 32
+# the kernel's panel widths (csrc/cholesky_solve.cu K6Panel): 64 columns in
+# float32, 32 in float64
+PANEL = {torch.float32: 64, torch.float64: 32}
+SMEM_PER_BLOCK = 232448
+_TILE = {4: 64, 8: 32}           # csrc/chol_blocked.cuh CholTile::kTile
+
+
+def scratch_elems(itemsize: int, nb: int) -> int:
+    """Shared memory of the blocked factorization in elements,
+    ``chol_scratch_elems`` of ``csrc/chol_blocked.cuh``: two staged row
+    blocks and three staged column blocks, or the TRSM's diagonal block,
+    its transpose and 256 columns, or two buffers of the transposing
+    copies' tiles, rounded up to 4."""
+    t = _TILE[itemsize]
+    need = max(5 * nb * t, 2 * nb * nb + nb * 256,
+               2 * (t * (t + 1) + t * t))
+    return (need + 3) // 4 * 4
+
+
+def panel_width(n: int, itemsize: int) -> int:
+    """The panel width the kernel takes for width ``n`` (0: ``n`` does not
+    fit a block's shared memory), mirroring ``cholesky_solve_panel``: the
+    factorization's scratch plus the n-vector."""
+    nb = PANEL[torch.float32 if itemsize == 4 else torch.float64]
+    fits = n >= 1 and (scratch_elems(itemsize, nb) + n) * itemsize <= (
+        SMEM_PER_BLOCK)
+    return nb if fits else 0
 
 
 def cholesky_solve_plain(h: torch.Tensor, g: torch.Tensor,
-                         panel: int = PANEL) -> torch.Tensor:
+                         panel: Optional[int] = None) -> torch.Tensor:
     """``H^{-1} g`` by a right-looking blocked Cholesky of the lower
-    triangle of ``h`` and two blocked substitutions, in batched PyTorch.
-    Takes ``(B, n, n)`` and ``(B, n)``, or one instance."""
+    triangle of ``h`` and two blocked substitutions, in batched PyTorch,
+    by panels of ``panel`` columns (the kernel's width for the dtype by
+    default).  Takes ``(B, n, n)`` and ``(B, n)``, or one instance."""
+    if panel is None:
+        panel = PANEL.get(h.dtype, PANEL[torch.float32])
     squeeze = h.dim() == 2
     if squeeze:
         h, g = h[None], g[None]
@@ -82,8 +112,9 @@ def _launch_cuda(h, g):
                          f"{g.device}")
     lib = _build.load()
     if lib.cholesky_solve_panel(n, h.element_size()) == 0:
-        raise ValueError(f"n={n} is too wide for the CUDA kernel K6: not one "
-                         "column of it fits a block's shared memory")
+        raise ValueError(f"n={n} is too wide for the CUDA kernel K6: its "
+                         "right-hand side and the factorization's scratch do "
+                         "not fit a block's shared memory")
     h, g = h.contiguous(), g.contiguous()
     work = torch.empty_like(h)
     x = torch.empty_like(g)

@@ -283,7 +283,7 @@ def batch_minimize(method, line_search, oracle, x0, *, bounds: Bounds = None,
     spec = (fused_driver.build_spec(method, line_search)
             if fused is not False and raw_f is not None else None)
     fits = spec is not None and fused_driver.fits(
-        x0.shape[-1], spec.ring, x0.element_size(), spec.lbfgs_m)
+        x0.shape[-1], spec.ring, x0.element_size(), spec.lbfgs_m, spec.method)
     if fused is True:
         if not fits:
             raise ValueError(

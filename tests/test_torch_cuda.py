@@ -337,6 +337,13 @@ def test_driver_shared_memory_mirror_matches_the_library(cuda):
                                                             m)
                     assert mirror == lib.driver_smem_per_warp(n, ring, m,
                                                               itemsize)
+    # the Newton form's block (one per instance)
+    for n in (1, 31, 64, 100, 1000, 1024, 4150, 8301):
+        for ring in (0, 1, 10):
+            for itemsize in (4, 8):
+                assert fused_driver.smem_per_instance(
+                    n, ring, itemsize, method=fused_driver.PN) == (
+                        lib.driver_smem_newton(n, ring, itemsize)), (n, ring)
 
 
 def test_config6_shape_float32_quality(cuda):
@@ -677,6 +684,86 @@ def test_cholesky_kernel_matches_plain(n, cuda):
     xs = fused_newton.cholesky_solve_fused(Hs, g[:4])
     refs = fused_newton.cholesky_solve_plain(Hs.contiguous(), g[:4])
     assert (xs - refs).abs().max().item() <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [31, 65, 129, 1024])
+def test_cholesky_kernel_panels_match_plain(n, dtype, cuda):
+    """K6 over one panel, several, and a ragged last one (its panels are 64
+    wide in float32, 32 in float64), up to n = 1,024: in float64 x within
+    1e-10 of the plain version, in float32 the relative residual within
+    1e-4 (chip_smoke's K6_RES); the non-PD instance all NaN; H not
+    written."""
+    H, g = interop.tensors_from_numpy(*spd_arrays(3, n, non_pd=1),
+                                      device=cuda, dtype=dtype)
+    H0 = H.clone()
+    ref = fused_newton.cholesky_solve_plain(H, g)
+    before = fused_newton.cholesky_solve_fused.launches
+    x = fused_newton.cholesky_solve_fused(H, g)
+    torch.cuda.synchronize()
+    assert fused_newton.cholesky_solve_fused.launches == before + 1
+    assert torch.isnan(x[1]).all()
+    ok = [0, 2]
+    if dtype == torch.float64:
+        assert (x[ok] - ref[ok]).abs().max().item() <= 1e-10
+    else:
+        r = torch.einsum("bij,bj->bi", H[ok], x[ok]) - g[ok]
+        res = (r.norm(dim=-1) / g[ok].norm(dim=-1)).max().item()
+        assert res <= 1e-4, res
+    assert torch.equal(H, H0)
+    assert fused_newton.panel_width(n, H.element_size()) > 0
+
+
+def test_cholesky_panel_mirror_matches_the_library(cuda):
+    lib = _build.load()
+    for n in (1, 31, 1024, 14527, 20608, 20609, 29055, 33536, 33537):
+        for itemsize in (4, 8):
+            assert fused_newton.panel_width(n, itemsize) == (
+                lib.cholesky_solve_panel(n, itemsize)), (n, itemsize)
+
+
+@pytest.mark.parametrize("n", [32, 33, 100, 257])
+def test_driver_newton_wide_quadratic_matches_plain(n, cuda):
+    """K3's Newton form on config 5's quadratic in float64 at widths of one
+    panel and tile (32) and of several (the blocked factorization's panels
+    and tiles are 32 wide in float64), PN, Newton and SPN with precond_bb,
+    and the Armijo searches bounded and unbounded: status, iterations and
+    trials equal, x within 1e-9."""
+    dtype = torch.float64
+    Q = config5_hessian(n)
+    # a symmetric Q and one with an antisymmetric part (the same objective;
+    # the gradient and the Hessian take Q's symmetric part)
+    A = np.random.RandomState(n).standard_normal((n, n)) / n
+    for Qm in (Q, Q + (A - A.T)):
+        _newton_quadratic_cases(Qm, n, dtype, cuda)
+
+
+def _newton_quadratic_cases(Qm, n, dtype, cuda):
+    q = problems.quadratic(torch.tensor(Qm, dtype=dtype, device=cuda))
+    x0 = torch.tensor(np.random.RandomState(5).uniform(-2, 2, (4, n)),
+                      dtype=dtype, device=cuda)
+    box = torch.full((n,), 2.0, dtype=dtype, device=cuda)
+    kw = dict(max_iter=20, max_iter_ls=20)
+    for method, search, bounds in (
+            (solvers.ProjectedNewton(grad_tol=1e-8), ls.BackTrackingB(), True),
+            (solvers.Newton(tol=1e-12), ls.MoreThuente(), False),
+            (solvers.SpectralProjectedNewton(grad_tol=1e-8, precond_bb=True),
+             ls.BackTrackingB(), True),
+            # value-only Armijo trials, then the step's value and gradient
+            (solvers.Newton(tol=1e-12), ls.BackTracking(), False),
+            (solvers.ProjectedNewton(grad_tol=1e-8), ls.BackTracking(), True)):
+        lo, up = (-box, box) if bounds else (None, None)
+        spec = fused_driver.build_spec(method, search)
+        x, f, it, st, nfev = fused_driver._launch_cuda(spec, q, x0, lo, up,
+                                                       (), **kw)
+        torch.cuda.synchronize()
+        xp, fp, itp, stp, nfevp = fused_driver.fused_minimize_plain(
+            method, search, q, x0, lo, up, (), **kw)
+        name = type(method).__name__
+        assert torch.equal(st, stp), name
+        assert torch.equal(it, itp), name
+        assert torch.equal(nfev, nfevp), name
+        assert (x - xp).abs().max().item() <= 1e-9, name
 
 
 def test_cholesky_kernel_float32_residual(cuda):

@@ -92,6 +92,37 @@ def test_cholesky_plain_matches_jax_kernel():
     assert torch.equal(tH_mixed, before)
 
 
+@pytest.mark.parametrize("panel", [32, 64])
+@pytest.mark.parametrize("n", [1, 31, 33, 65, 100])
+def test_cholesky_plain_panels_match_jax_kernel(n, panel):
+    """The plain version at the kernel's panel widths (64 in float32, 32 in
+    float64; ``fused_newton.PANEL``), ragged widths, one instance not
+    positive definite: within 1e-10 of JAX's K6, that instance all NaN."""
+    H, g = spd_arrays(3, n, seed=n, non_pd=1)
+    ref = np.asarray(cholesky_solve_pallas(jnp.asarray(H), jnp.asarray(g),
+                                           interpret=True))
+    tH, tg = interop.tensors_from_numpy(H, g)
+    x = fused_newton.cholesky_solve_plain(tH, tg, panel=panel).numpy()
+    assert np.isnan(ref[1]).all() and np.isnan(x[1]).all()
+    np.testing.assert_allclose(x[[0, 2]], ref[[0, 2]], rtol=0, atol=1e-10)
+    assert panel in fused_newton.PANEL.values()
+
+
+def test_cholesky_kernel_takes_every_width_it_took():
+    """The blocked kernel's shared memory does not grow with the panel: it
+    takes every width the panel-in-shared-memory kernel took (nb n + n + nb
+    elements for some nb in 32, 16, ..., 1), up to 29,055 in float32 and
+    14,527 in float64."""
+    for itemsize, last in ((4, 29055), (8, 14527)):
+        took = [n for n in range(1, 40000) if any(
+            (nb * n + n + nb) * itemsize <= fused_newton.SMEM_PER_BLOCK
+            for nb in (32, 16, 8, 4, 2, 1))]
+        assert took[-1] == last
+        assert all(fused_newton.panel_width(n, itemsize) for n in took)
+    assert fused_newton.panel_width(1024, 4) == 64
+    assert fused_newton.panel_width(1024, 8) == 32
+
+
 def test_cholesky_non_pd_instance_is_nan_everywhere():
     H, g = spd_arrays(4, 24, non_pd=2)
     ref = np.asarray(cholesky_solve_pallas(jnp.asarray(H), jnp.asarray(g),

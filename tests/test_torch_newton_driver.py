@@ -384,3 +384,22 @@ def test_slabs_and_refusals():
         fused_driver.fused_minimize(solvers.ProjectedNewton(),
                                     ls.BackTrackingB(),
                                     problems.rosenbrock(), x0)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_newton_form_fits_every_width_it_fitted(itemsize):
+    """The Newton form's block (the factorization's scratch over D, GN and
+    XT, then X, G, the command words and the GLL history) takes every width
+    the one-warp form took (7 n + ring elements), at GLL histories of 0 to
+    1,000, and still routes config 5 (n = 1,024) to K3."""
+    for ring in (0, 1, 10, 100, 1000):
+        took = [n for n in range(1, 9000)
+                if (7 * n + ring) * itemsize <= fused_driver.SMEM_PER_BLOCK]
+        assert took and all(fused_driver.fits(n, ring, itemsize, 0, method)
+                            for n in took
+                            for method in fused_driver.NEWTON_METHODS)
+    assert fused_driver.fits(1024, 0, itemsize, 0, fused_driver.PN)
+    # two blocks share an SM at config 5's width in float32
+    if itemsize == 4:
+        assert 2 * fused_driver.smem_per_instance(
+            1024, 0, 4, method=fused_driver.PN) <= 228 * 1024 - 2048
