@@ -11,7 +11,8 @@ batched L-BFGS-B path and the template-method paths through
   (``ops/csrc/lbfgsb_fused.cu``);
 * config 4 (512 x the 10,000-dim bounded log-sum-exp with 512 rows,
   float32, box [-1, 1], m 10, pgtol 1e-5, factr 1e3, max_iter 200), which
-  the route sends to the tall kernel K2 (``ops/csrc/lbfgsb_tall.cu``), with
+  the route sends to the tall kernel K2 (``ops/csrc/lbfgsb_tall.cu``, a
+  tile of up to four instances per block), with
   ``policy="fast"`` (Armijo) and ``policy="reference"`` (dcsrch).  A and the
   starts come from numpy seeds (A: ``RandomState(0)``; the JAX bench draws
   it from ``jax.random.PRNGKey(0)``), and 4 instances are anchored to
@@ -54,10 +55,11 @@ power limit, and one JSON line naming the device.  Any failed check exits
 non-zero; so does a machine without a CUDA device.
 
     python3 chip_smoke.py               # the checked run
-    python3 chip_smoke.py --breakdown   # also where K3's time goes
-    python3 chip_smoke.py --times DIR   # only configs 3, 6 and 5 (K3 and
-                                        # the lockstep K6 path in turns),
-                                        # with the package of checkout DIR
+    python3 chip_smoke.py --breakdown   # also where K2's and K3's time goes
+    python3 chip_smoke.py --times DIR   # only configs 3, 6, 4 and 5 (K3
+                                        # and the lockstep K6 path in
+                                        # turns), with the package of
+                                        # checkout DIR
 """
 
 import argparse
@@ -155,6 +157,9 @@ K4_CAPPED_ITERS = 8
 K4_SPREAD_CAPS = (15, 30)
 # calls per configuration of --times
 TIMES_REPEATS = 9
+# --times also runs config 4 on the first rows of its batch at these sizes,
+# where K2 runs one instance per block
+C4_SMALL_B = (64, 8)
 # the lockstep slice: the lockstep loop's quasi-Newton path at config 2's
 # width (1,024 x Rosenbrock-100, float32) with the fused update K5, without
 # config 2's scale_b0 and restart_on_degeneracy (K5 refuses them), and the
@@ -234,6 +239,31 @@ def k6_stream_bytes(n, nb, itemsize):
     return elems * itemsize
 
 
+def k2_stream_bytes(n, m, itemsize, iterations, rows):
+    """Device-memory bytes the tiled K2 must move for ``iterations``
+    instance-iterations at config 4 (``ops/csrc/lbfgsb_tall.cu``): per
+    iteration four passes over the instance's interleaved histories (rows
+    of ``2m`` padded to a multiple of 4: W^T (xcp - x), the Gram pass, the
+    direction and the update) and the update's write of the new pair, and
+    the body's 47 passes over (n,) vectors, each read or write once (the
+    bounds are shared by the batch and read from L2).  The objective's
+    data (rows x n) counts once.  The Cauchy point's first pass and
+    bisection probes, the line search's trials and the passes over A that
+    L2 serves are left out: this is the design's floor."""
+    R = (2 * m + 3) // 4 * 4
+    per_iter = 4 * n * R + 2 * n + 47 * n
+    return (iterations * per_iter + rows * n) * itemsize
+
+
+def tile_spread(iterations, tile):
+    """K2's lockstep waste: the mean over tiles of the tile's largest
+    iteration count, over the mean count (1: none).  Tiles are
+    consecutive instances, the last one ragged."""
+    it = [int(v) for v in iterations.cpu().tolist()]
+    tops = [max(it[i:i + tile]) for i in range(0, len(it), tile)]
+    return (sum(tops) / len(tops)) / (sum(it) / len(it))
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -254,11 +284,12 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--breakdown", action="store_true",
-        help="also print where K3's time goes at configs 3, 6, 2 and 5 (a "
+        help="also print where K2's time goes at config 4 (iteration caps, "
+        "the bisection's share) and K3's at configs 3, 6, 2 and 5 (a "
         "profiled solve, a batch sweep and an iteration cap)")
     parser.add_argument(
         "--times", metavar="ROOT",
-        help="only time configs 3 and 6 through minimize and config 5 "
+        help="only time configs 3, 6 and 4 through minimize and config 5 "
         "through K3 and the lockstep K6 path in turns, with the package "
         "found under ROOT (a checkout; '.' for this one), to compare two "
         "commits in turns on one card; prints no result line")
@@ -484,6 +515,7 @@ def main(argv=None):
     k6 = cholesky_slice(dev, card, tensors, sync_time)
     k7, k8, k9 = whole_solve_slice(dev, card, tensors, sync_time)
     if breakdown:
+        tall_breakdown(dev, card, tensors, sync_time)
         driver_breakdown(dev, card, tensors, sync_time)
 
     # ---- 26. results.  K3's entry takes config 2 through batch_minimize
@@ -595,8 +627,13 @@ def tall_slice(dev, card, tensors, sync_time):
     launches = K2.launches
     check(K1.launches == 0, "config 4 launched K1")
     conv, text = summary(res)
+    tile = K2.last_tile
     log(f"config 4 via minimize (fast): K2 launches {launches}, K1 launches "
-        f"{K1.launches}, {text}, first call {first_s:.3f} s")
+        f"{K1.launches}, {text}, first call {first_s:.3f} s; tile {tile} "
+        f"({-(-B // tile)} blocks of {K2.last_groups} groups), the tiles' "
+        f"iteration spread (mean tile maximum over mean) "
+        f"{tile_spread(res.iterations, tile):.4f}")
+    check(launches == 1, f"config 4: {launches} K2 launches for one call")
     check(launches >= 1, "config 4 launched no tall kernel")
     check(res.x.shape == (B, n) and res.f.shape == (B,), "config 4 shapes")
     check(bool(torch.isfinite(res.x).all() and torch.isfinite(res.f).all()),
@@ -657,7 +694,8 @@ def tall_slice(dev, card, tensors, sync_time):
     conv_r, text = summary(ref)
     log(f"config 4 via minimize (reference): K2 launches {K2.launches}, K1 "
         f"launches {K1.launches}, {text}, {ref_s:.3f} s "
-        f"({B / ref_s:.0f} solves/s)  [{card}]")
+        f"({B / ref_s:.0f} solves/s); tiles' iteration spread "
+        f"{tile_spread(ref.iterations, K2.last_tile):.4f}  [{card}]")
     check(K2.launches >= 1 and K1.launches == 0,
           "config 4 (reference) did not take the tall kernel alone")
     check(conv_r >= 0.99, f"config 4 (reference) converged {conv_r} < 0.99")
@@ -685,7 +723,11 @@ def tall_slice(dev, card, tensors, sync_time):
         2 * B * n * 4 + rows * n * 4 + rows * 4 + 2 * n * 4 + B * 13,
         res.iterations.double().sum().item() * (6 * rows * n + 14 * m2 * n)
         + B * 4 * rows * n)
-    log(f"K2 bound at config 4: {bound_ms:.4f} ms ({bound_by})  [{card}]")
+    floor_ms = 1e3 * k2_stream_bytes(
+        n, c["m"], 4, res.iterations.double().sum().item(),
+        rows) / HBM_BYTES_PER_S
+    log(f"K2 bound at config 4: {bound_ms:.4f} ms ({bound_by}); the tiled "
+        f"design's streaming floor {floor_ms:.3f} ms; tile {tile}  [{card}]")
     return {
         "name": "lbfgsb_tall",
         "route": "cuda",
@@ -698,7 +740,49 @@ def tall_slice(dev, card, tensors, sync_time):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "tile": tile,
     }
+
+
+def tall_breakdown(dev, card, tensors, sync_time):
+    """With ``--breakdown`` only: where K2's time goes at config 4 (through
+    ``minimize``, medians of 3): iteration caps 0, 1 and 10, and the
+    Cauchy bisection's share, K2 launched directly at ``bisect_iters`` 40
+    (the default) against 2 over the same 10 iterations.  Timing only:
+    nothing here is held."""
+    import torch
+
+    from _torch_geometries import lse_arrays
+    from optimization_solvers_tpu_torch import minimize, problems
+    from optimization_solvers_tpu_torch.ops import fused_lbfgsb_tall
+
+    c = CONFIG4
+    B, n = c["B"], c["n"]
+    lse = problems.log_sum_exp(*tensors(*lse_arrays(n, c["rows"]),
+                                        dtype=torch.float32))
+    (x,) = tensors(np.random.RandomState(4).uniform(-0.5, 0.5, (B, n)),
+                   dtype=torch.float32)
+    box = torch.full((n,), C4_BOX, device=dev)
+
+    def med(fn):
+        fn()
+        return 1e3 * statistics.median(sync_time(fn)[1] for _ in range(3))
+
+    capped = {cap: med(lambda: minimize(
+        lse, x, method="lbfgsb", bounds=(-C4_BOX, C4_BOX), m=c["m"],
+        tol=c["pgtol"], factr=c["factr"], max_iter=cap)) for cap in (0, 1, 10)}
+    gcp = {bi: med(lambda: fused_lbfgsb_tall.lbfgsb_solve_fused_tall(
+        lse, x, -box, box, m=c["m"], pgtol=c["pgtol"], factr=c["factr"],
+        max_iter=10, bisect_iters=bi)) for bi in (40, 2)}
+    it_ms = (capped[10] - capped[0]) / 10
+    log(f"config 4 iteration cap (median of 3): "
+        + ", ".join(f"{k}: {v:.3f} ms" for k, v in capped.items())
+        + f"; one iteration {capped[1] - capped[0]:.3f} ms (cap 1 - cap 0), "
+        f"{it_ms:.3f} ms averaged over 10  [{card}]")
+    log(f"config 4, 10 iterations: bisect_iters 40 {gcp[40]:.3f} ms, 2 "
+        f"{gcp[2]:.3f} ms; the bisection past two probes "
+        f"{(gcp[40] - gcp[2]) / max(gcp[40] - capped[0], 1e-9):.3f} of the "
+        f"10 iterations' time  [{card}]")
 
 
 def k3_against_plain(name, g, tensors):
@@ -1241,9 +1325,10 @@ def qn_slice(dev, card, tensors, sync_time):
 
 
 def in_turns_times(root):
-    """Configs 3 (fast) and 6 through ``minimize``, and config 5 (PN, B =
-    256) through ``solvers.batch_minimize`` by K3 and by the lockstep K6
-    path in turns (the order alternating), built and imported from the
+    """Configs 3 (fast), 6 and 4 (also at each B of C4_SMALL_B) through
+    ``minimize``, and config 5 (PN, B = 256) through
+    ``solvers.batch_minimize`` by K3 and by the lockstep K6 path in turns
+    (the order alternating), built and imported from the
     checkout at ``root``: median and spread of TIMES_REPEATS calls on
     distinct seeded inputs, after one warm-up call; for configs 3 and 6
     also the kernel's device time alone (CUDA events around the launch)."""
@@ -1323,6 +1408,31 @@ def in_turns_times(root):
         log(f"{what}: {spread(ts)}; the K3 wrapper alone "
             f"{statistics.median(dev_ms):.3f} ms (min {min(dev_ms):.3f}, max "
             f"{max(dev_ms):.3f})  [{card}]")
+
+    # config 4 through minimize: K2 of the package at root
+    from _torch_geometries import lse_arrays
+
+    c4 = CONFIG4
+    lse = ostt.problems.log_sum_exp(*(
+        torch.tensor(a, dtype=torch.float32, device=dev)
+        for a in lse_arrays(c4["n"], c4["rows"])))
+
+    def solve4(x):
+        return ostt.minimize(lse, x, method="lbfgsb",
+                             bounds=(-C4_BOX, C4_BOX), m=c4["m"],
+                             tol=c4["pgtol"], factr=c4["factr"],
+                             max_iter=c4["max_iter"])
+
+    rng = np.random.RandomState(44)
+    xs = [torch.tensor(rng.uniform(-0.5, 0.5, (c4["B"], c4["n"])),
+                       dtype=torch.float32, device=dev)
+          for _ in range(TIMES_REPEATS + 1)]
+    for B4 in (c4["B"],) + C4_SMALL_B:
+        solve4(xs[0][:B4])
+        ts = [wall_ms(partial(solve4, x[:B4])) for x in xs[1:]]
+        what = "config 4" if B4 == c4["B"] else f"config 4 at B = {B4}"
+        log(f"{what}: {spread(ts)}  [{card}]")
+    del xs
 
     c5 = CONFIG5
     n5, B5 = c5["n"], c5["B"]

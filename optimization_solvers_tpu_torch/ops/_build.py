@@ -103,12 +103,16 @@ def load() -> ctypes.CDLL:
             ]
             lib.lbfgsb_tall_work_elems.restype = ctypes.c_longlong
             lib.lbfgsb_tall_work_elems.argtypes = [i, i, i]
+            lib.lbfgsb_tall_fit_tile.restype = i
+            lib.lbfgsb_tall_fit_tile.argtypes = [i, i, i, i, i]
+            lib.lbfgsb_tall_fit_groups.restype = i
+            lib.lbfgsb_tall_fit_groups.argtypes = [i, i, i, i, i]
             lib.lbfgsb_tall_launch.restype = i
             lib.lbfgsb_tall_launch.argtypes = [
                 i, i,                    # dtype, objective
                 vp, vp, vp, i,           # x0, lower, upper, bound stride
                 vp, vp, i,               # objective data, LOG_SUM_EXP rows
-                i, i, i,                 # B, n, m
+                i, i, i, i, i,           # B, n, m, tile, groups
                 d, d, i, i, d,           # pgtol, factr, max_iter, ls, c1
                 i, i, i,                 # bisect_iters, guard, line search
                 vp,                      # workspace

@@ -24,7 +24,13 @@ instance solved alone computes what the tile computes.
 
 :func:`lbfgsb_solve_fused_tall` takes the plain version for a CPU ``x0``
 and launches the CUDA kernel ``csrc/lbfgsb_tall.cu`` for a CUDA ``x0``; it
-never falls back from one to the other.
+never falls back from one to the other.  The kernel runs a tile of up to
+``MAX_TILE`` instances per thread block in lockstep, as the TPU kernel
+does: the wrapper picks the tile from the batch and the card's SM count
+(:func:`tile_for`), and shrinks it where the block's shared memory would
+not hold it.  A block has one group of 128 threads per instance, and a
+tile below ``MAX_TILE`` keeps up to ``MAX_TILE`` groups for the
+objective's tile products.
 """
 
 from __future__ import annotations
@@ -44,6 +50,120 @@ LINE_SEARCHES = ("armijo", "dcsrch")
 # kMaxRows of csrc/lbfgsb_tall.cu: LOG_SUM_EXP keeps its softmax in shared
 # memory
 MAX_ROWS = 4096
+# kMaxTile of csrc/lbfgsb_tall.cu: instances per thread block
+MAX_TILE = 4
+
+
+def tile_for(B, sms):
+    """Instances per block of K2 for a batch of ``B`` on a card with
+    ``sms`` SMs: the fewest that put at most one block on each SM (at B =
+    512 on 132 SMs, 4: 128 blocks), at most ``MAX_TILE``."""
+    return max(1, min(MAX_TILE, -(-B // sms)))
+
+
+def _cauchy_bisection(tb, g, z, Y, S, th, M, active, *, eps, bisect_iters,
+                      gcp_guard_maxseg, trace=None):
+    """The generalized Cauchy point of the plain version, every probe a full
+    pass: segment bisection over the breakpoints ``tb`` (B, n), each probe
+    a closed-form evaluation of the path derivative (``seg_eval``), and
+    the budget-exhausted fallback into the bracket's ``lo`` segment.
+
+    ``z`` is the bound each coordinate moves to, less x; ``Y``, ``S`` (B, m,
+    n), ``th`` (B, 1) and the middle inverse ``M`` (B, 2m, 2m) are the
+    model.  Returns ``(t_lo_fin, dtm, multimodal)``: the Cauchy point lies
+    at ``t_lo_fin + dtm``, and ``multimodal`` is the guard's flag per
+    instance (None when ``gcp_guard_maxseg`` is 0).  With a list as
+    ``trace``, each bisection probe appends ``(open, t_lo, t_hi, f1,
+    f2)``."""
+    dt = g.dtype
+    inf = float("inf")
+    zero = torch.zeros_like(th)
+    movingf = (tb > 0.0).to(dt)
+    moving = movingf > 0
+
+    def rsum(v):
+        return torch.sum(v, dim=1, keepdim=True)
+
+    def w_dot(v):
+        return torch.cat([Y @ v, th[:, :, None] * (S @ v)], dim=1)
+
+    def mapp(v):
+        return (M @ v[..., None])[..., 0]
+
+    def seg_min(f1, f2):
+        return torch.where(f2 > eps, -f1 / f2,
+                           torch.where(f1 < 0.0, inf, 0.0))
+
+    def seg_eval(t_lo):
+        """(f1, f2) of the model along the projected path at t_lo+."""
+        freeseg = movingf * (tb > t_lo).to(dt)
+        G2F = rsum(freeseg * g * g)
+        d = -g * freeseg
+        u = movingf * torch.where(tb <= t_lo, z, -g * t_lo)
+        pc = w_dot(torch.stack([d, u], dim=-1))
+        p2, c2 = pc[..., 0], pc[..., 1]
+        f1 = (th * t_lo - 1.0) * G2F - rsum(p2 * mapp(c2))
+        f2 = th * G2F - rsum(p2 * mapp(p2))
+        return f1, f2
+
+    def segment(t_at):
+        """Start of the segment holding t_at, and its end."""
+        t_lo_seg = torch.amax(torch.where(moving & (tb <= t_at), tb, 0.0),
+                              dim=1, keepdim=True)
+        t_hi_seg = torch.amin(
+            torch.where(moving & (tb > t_lo_seg), tb, inf), dim=1,
+            keepdim=True)
+        return t_lo_seg, t_hi_seg
+
+    t_min = torch.amin(torch.where(moving, tb, inf), dim=1, keepdim=True)
+    hi0 = torch.amax(torch.where(moving & torch.isfinite(tb), tb, -inf),
+                     dim=1, keepdim=True)
+    has_fin = hi0 > 0.0
+    f1_0, f2_0 = seg_eval(zero)
+    dt0 = seg_min(f1_0, f2_0)
+    doneA = f1_0 >= 0.0                         # t_cp = 0
+    doneB = ~doneA & (dt0 <= t_min)             # min in the 1st segment
+    f1_L, f2_L = seg_eval(torch.where(has_fin, hi0, zero))
+    dtL = seg_min(f1_L, f2_L)
+    doneC = ~doneA & ~doneB & has_fin & (f1_L < 0.0)
+    done = doneA | doneB | doneC
+    t_fin = torch.where(doneC, hi0, zero)
+    dtm = torch.where(doneA, zero, torch.where(doneB, dt0, dtL))
+    b_lo, b_hi = t_min, hi0
+    for _ in range(bisect_iters):
+        open_ = ~done & active
+        if not bool(open_.any()):
+            break
+        t_lo_seg, t_hi_seg = segment(torch.sqrt(b_lo) * torch.sqrt(b_hi))
+        f1, f2 = seg_eval(t_lo_seg)
+        dtt = seg_min(f1, f2)
+        if trace is not None:
+            trace.append((open_, t_lo_seg, t_hi_seg, f1, f2))
+        found = open_ & (((f1 >= 0.0) & (t_lo_seg <= b_lo))
+                         | ((f1 < 0.0) & (t_lo_seg + dtt <= t_hi_seg)))
+        godn = open_ & ~found & (f1 >= 0.0)
+        goup = open_ & ~found & (f1 < 0.0)
+        b_lo = torch.where(goup, t_hi_seg, b_lo)
+        b_hi = torch.where(godn, t_lo_seg, b_hi)
+        done = done | found
+        t_fin = torch.where(found, t_lo_seg, t_fin)
+        dtm = torch.where(found, dtt, dtm)
+
+    # budget exhausted (non-monotone path derivative): finalize in the
+    # bracket's lo segment with dt clamped into it
+    open_ = ~done
+    t_lo_seg, t_hi_seg = segment(b_lo)
+    dt_fb = box_projection(seg_min(*seg_eval(t_lo_seg)), zero,
+                       t_hi_seg - t_lo_seg)
+    t_lo_fin = torch.where(open_, t_lo_seg, t_fin)
+    dtm = torch.maximum(torch.where(open_, dt_fb, dtm), zero)
+    multimodal = None
+    if gcp_guard_maxseg:
+        # exhausted in a bracket of <= maxseg segments: the path
+        # derivative is non-monotone at this precision for this lane
+        cnt = rsum((moving & (tb > b_lo) & (tb <= b_hi)).to(dt))
+        multimodal = open_ & active & (cnt <= float(gcp_guard_maxseg))
+    return t_lo_fin, dtm, multimodal
 
 
 def lbfgsb_solve_tall_plain(obj, x0, lower, upper, data=(), *, m=10,
@@ -134,10 +254,6 @@ def lbfgsb_solve_tall_plain(obj, x0, lower, upper, data=(), *, m=10,
         return ((Y.transpose(1, 2) @ coef[:, :m, None])[..., 0]
                 + (S.transpose(1, 2)
                    @ (coef[:, m:] * theta)[..., None])[..., 0])
-
-    def seg_min(f1, f2):
-        return torch.where(f2 > eps, -f1 / f2,
-                           torch.where(f1 < 0.0, inf, 0.0))
 
     def line_search_armijo(x, d, f0, g0d, stpmax, active):
         t = torch.minimum(one, stpmax)
@@ -243,77 +359,15 @@ def lbfgsb_solve_tall_plain(obj, x0, lower, upper, data=(), *, m=10,
         tb = torch.where(g < 0.0, (x - up) / g,
                          torch.where(g > 0.0, (x - lo) / g, inf))
         movingf = (tb > 0.0).to(dt)
-        moving = movingf > 0
         bound_vec = torch.where(g < 0.0, up, torch.where(g > 0.0, lo, x))
         z = bound_vec - x
 
-        def seg_eval(t_lo):
-            """(f1, f2) of the model along the projected path at t_lo+."""
-            freeseg = movingf * (tb > t_lo).to(dt)
-            G2F = rsum(freeseg * g * g)
-            d = -g * freeseg
-            u = movingf * torch.where(tb <= t_lo, z, -g * t_lo)
-            pc = w_dot(torch.stack([d, u], dim=-1))
-            p2, c2 = pc[..., 0], pc[..., 1]
-            f1 = (th * t_lo - 1.0) * G2F - rsum(p2 * mapp(c2))
-            f2 = th * G2F - rsum(p2 * mapp(p2))
-            return f1, f2
-
-        def segment(t_at):
-            """Start of the segment holding t_at, and its end."""
-            t_lo_seg = torch.amax(torch.where(moving & (tb <= t_at), tb, 0.0),
-                                  dim=1, keepdim=True)
-            t_hi_seg = torch.amin(
-                torch.where(moving & (tb > t_lo_seg), tb, inf), dim=1,
-                keepdim=True)
-            return t_lo_seg, t_hi_seg
-
-        t_min = torch.amin(torch.where(moving, tb, inf), dim=1, keepdim=True)
-        hi0 = torch.amax(torch.where(moving & torch.isfinite(tb), tb, -inf),
-                         dim=1, keepdim=True)
-        has_fin = hi0 > 0.0
-        f1_0, f2_0 = seg_eval(zero)
-        dt0 = seg_min(f1_0, f2_0)
-        doneA = f1_0 >= 0.0                         # t_cp = 0
-        doneB = ~doneA & (dt0 <= t_min)             # min in the 1st segment
-        f1_L, f2_L = seg_eval(torch.where(has_fin, hi0, zero))
-        dtL = seg_min(f1_L, f2_L)
-        doneC = ~doneA & ~doneB & has_fin & (f1_L < 0.0)
-        done = doneA | doneB | doneC
-        t_fin = torch.where(doneC, hi0, zero)
-        dtm = torch.where(doneA, zero, torch.where(doneB, dt0, dtL))
-        b_lo, b_hi = t_min, hi0
-        for _ in range(bisect_iters):
-            open_ = ~done & active
-            if not bool(open_.any()):
-                break
-            t_lo_seg, t_hi_seg = segment(torch.sqrt(b_lo) * torch.sqrt(b_hi))
-            f1, f2 = seg_eval(t_lo_seg)
-            dtt = seg_min(f1, f2)
-            found = open_ & (((f1 >= 0.0) & (t_lo_seg <= b_lo))
-                             | ((f1 < 0.0) & (t_lo_seg + dtt <= t_hi_seg)))
-            godn = open_ & ~found & (f1 >= 0.0)
-            goup = open_ & ~found & (f1 < 0.0)
-            b_lo = torch.where(goup, t_hi_seg, b_lo)
-            b_hi = torch.where(godn, t_lo_seg, b_hi)
-            done = done | found
-            t_fin = torch.where(found, t_lo_seg, t_fin)
-            dtm = torch.where(found, dtt, dtm)
-
-        # budget exhausted (non-monotone path derivative): finalize in the
-        # bracket's lo segment with dt clamped into it
-        open_ = ~done
-        t_lo_seg, t_hi_seg = segment(b_lo)
-        dt_fb = box_projection(seg_min(*seg_eval(t_lo_seg)), zero,
-                           t_hi_seg - t_lo_seg)
-        t_lo_fin = torch.where(open_, t_lo_seg, t_fin)
-        dtm = torch.maximum(torch.where(open_, dt_fb, dtm), zero)
+        t_lo_fin, dtm, multimodal = _cauchy_bisection(
+            tb, g, z, Y, S, th, M, active, eps=eps,
+            bisect_iters=bisect_iters, gcp_guard_maxseg=gcp_guard_maxseg)
         t_cp = t_lo_fin + dtm
-        if gcp_guard_maxseg:
-            # exhausted in a bracket of <= maxseg segments: the path
-            # derivative is non-monotone at this precision for this lane
-            cnt = rsum((moving & (tb > b_lo) & (tb <= b_hi)).to(dt))
-            gflag = gflag | (open_ & active & (cnt <= float(gcp_guard_maxseg)))
+        if multimodal is not None:
+            gflag = gflag | multimodal
 
         fixedf = movingf * (tb <= t_lo_fin).to(dt)
         freef = movingf * (tb > t_lo_fin).to(dt)
@@ -454,6 +508,16 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
                          f"most {MAX_ROWS} in shared memory")
     x0 = x0.contiguous()
     lib = _build.load()
+    dtype = 1 if x0.dtype == torch.float64 else 0
+    sms = torch.cuda.get_device_properties(x0.device).multi_processor_count
+    tile = lib.lbfgsb_tall_fit_tile(dtype, code, m, rows, tile_for(B, sms))
+    if tile < 1:
+        raise ValueError(f"K2 takes no tile at m = {m}, {rows} rows: the "
+                         "block's shared memory is too small")
+    # a tile below MAX_TILE comes from a batch that puts at most one block
+    # on each SM: the block keeps as many groups as fit, which join only
+    # the objective's tile products and spread them over more threads
+    groups = lib.lbfgsb_tall_fit_groups(dtype, code, m, rows, tile)
     work = torch.empty(lib.lbfgsb_tall_work_elems(B, n, m), dtype=x0.dtype,
                        device=x0.device)
     x = torch.empty_like(x0)
@@ -465,10 +529,10 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     with torch.cuda.device(x0.device):
         rc = lib.lbfgsb_tall_launch(
-            1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(),
+            dtype, code, x0.data_ptr(),
             lo.data_ptr(), up.data_ptr(), n if lo.dim() == 2 else 0, d0, d1,
-            rows, B, n, m, float(pgtol), float(factr), int(max_iter),
-            int(max_iter_ls), float(c1), int(bisect_iters),
+            rows, B, n, m, tile, groups, float(pgtol), float(factr),
+            int(max_iter), int(max_iter_ls), float(c1), int(bisect_iters),
             int(gcp_guard_maxseg), LINE_SEARCHES.index(line_search),
             work.data_ptr(), x.data_ptr(), f.data_ptr(), it.data_ptr(),
             st.data_ptr(), flag.data_ptr(), ctypes.c_void_p(stream))
@@ -476,6 +540,8 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
         raise RuntimeError(f"lbfgsb_tall_launch failed: "
                            f"{_build.error_string(rc)} (code {rc})")
     lbfgsb_solve_fused_tall.launches += 1
+    lbfgsb_solve_fused_tall.last_tile = tile
+    lbfgsb_solve_fused_tall.last_groups = groups
     return x, f, it, st, flag
 
 
@@ -483,7 +549,8 @@ def lbfgsb_solve_fused_tall(obj, x0, lower, upper, data=(), *, m=10,
                             pgtol=1e-5, factr=1e7, max_iter=500,
                             max_iter_ls=20, c1=1e-3, bisect_iters=40,
                             gcp_guard_maxseg=4, line_search="armijo"):
-    """Batched large-n box-constrained solves, one CUDA block per instance.
+    """Batched large-n box-constrained solves, a tile of instances per CUDA
+    block.
 
     ``x0`` is ``(B, n)``; ``lower``/``upper`` are ``(n,)`` shared or
     ``(B, n)`` per instance; ``data`` is the objective's problem data,
@@ -515,3 +582,6 @@ def lbfgsb_solve_fused_tall(obj, x0, lower, upper, data=(), *, m=10,
 
 
 lbfgsb_solve_fused_tall.launches = 0
+# instances per block of the last launch, and its groups of 128 threads
+lbfgsb_solve_fused_tall.last_tile = None
+lbfgsb_solve_fused_tall.last_groups = None

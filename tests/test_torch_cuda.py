@@ -11,7 +11,12 @@ Tolerances (float64): status equal per instance, x within 1e-6, iteration
 counts within ``max(2, spread)`` with ``spread`` the plain version's own
 range under a 1e-15 relative change of x0 (see ``_torch_geometries``); on
 the tall kernel's quadratic and log-sum-exp geometries iteration counts
-equal and f within 1e-10 relative.  The driver kernel K3 is held to the
+equal and f within 1e-10 relative.  The tall kernel's tile (several
+instances per block, in lockstep) is held at its edges with the same
+float64 tolerances (a ragged last tile, B = 1, instances that finish far
+apart, per-instance boxes, each functor, both searches), and in float32
+bit for bit against the same batch at tile 1, and at one group of threads
+per block against four.  The driver kernel K3 is held to the
 tolerances of its geometries (``k3_geometries``): counts within the
 plain version's spread (0 on all but the chaotic entries), x within the
 entry's ``x_atol`` (1e-9 on all but the chaotic entries).  The whole-solve
@@ -160,6 +165,166 @@ def test_tall_kernel_matches_plain(name, line_search, cuda):
     torch.testing.assert_close(r.f, f, rtol=1e-10, atol=1e-10)
     assert r.gcp_multimodal.shape == flag.shape
     assert r.x.device.type == "cuda"
+
+
+# K2 runs a tile of instances per block; each functor, with per-instance
+# boxes (per_lane_boxes) and both searches, at a batch of 7 in tiles of 3
+# (the last tile ragged)
+TILE_EDGES = ["bounded_rosenbrock", "per_lane_boxes", "mixed_infinite_bounds",
+              "lse_config4_class"]
+
+
+def _k2_on_card(name, rows, tile, device, monkeypatch, dtype=torch.float64,
+                x0=None, groups=None, **extra):
+    """K2 at a given tile (and, where given, groups of 128 threads per
+    block; by default as many as fit) on ``rows`` instances of a geometry,
+    and a function running the plain version on the card at any x0."""
+    monkeypatch.setattr(fused_lbfgsb_tall, "tile_for", lambda B, sms: tile)
+    if groups is not None:
+        monkeypatch.setattr(_build.load(), "lbfgsb_tall_fit_groups",
+                            lambda *args: groups)
+    obj, x0_g, lo, up, data, opts = k2_geometries()[name]
+    x0, lo, up = tiled(x0_g if x0 is None else x0, lo, up, rows)
+    lo_t, up_t, *data_t = interop.tensors_from_numpy(
+        lo, up, *data, device=device, dtype=dtype)
+    kw = dict(opts, **extra)
+
+    def plain(x):
+        (xt,) = interop.tensors_from_numpy(x, device=device, dtype=dtype)
+        return fused_lbfgsb_tall.lbfgsb_solve_tall_plain(
+            obj, xt, lo_t, up_t, tuple(data_t), **kw)
+
+    (x0_t,) = interop.tensors_from_numpy(x0, device=device, dtype=dtype)
+    k2 = fused_lbfgsb_tall.lbfgsb_solve_fused_tall
+    before = k2.launches
+    r = k2(obj, x0_t, lo_t, up_t, tuple(data_t), **kw)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1 and k2.last_tile == tile
+    assert k2.last_groups >= tile and groups in (None, k2.last_groups)
+    return r, x0, plain
+
+
+def _against_plain(r, x0, plain):
+    """status equal, x within 1e-6 and iteration counts within max(2,
+    spread) of the plain version (float64)."""
+    x, _, it, st, _ = plain(x0)
+    spread = perturbation_spread(lambda v: plain(v)[2].cpu().numpy(), x0)
+    assert torch.equal(r.status, st)
+    assert (r.x - x).abs().max().item() <= 1e-6
+    dit = (r.iterations.long() - it.long()).abs().max().item()
+    assert dit <= max(2, spread), (dit, spread)
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "dcsrch"])
+@pytest.mark.parametrize("name", TILE_EDGES)
+def test_tall_tile_matches_plain(name, line_search, cuda, monkeypatch):
+    r, x0, plain = _k2_on_card(name, 7, 3, cuda, monkeypatch,
+                               line_search=line_search)
+    _against_plain(r, x0, plain)
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "dcsrch"])
+@pytest.mark.parametrize("name", TILE_EDGES)
+def test_tall_tile_changes_no_instance_f32(name, line_search, cuda,
+                                           monkeypatch):
+    """float32, tile 3 against tile 1 on the same inputs: bit for bit, as
+    every sum of an instance is taken in the same order at any tile (the
+    quadratic's Q^T x too: by sub-blocks of 128 rows, in row order)."""
+    r3, _, _ = _k2_on_card(name, 7, 3, cuda, monkeypatch,
+                           dtype=torch.float32, line_search=line_search)
+    r1, _, _ = _k2_on_card(name, 7, 1, cuda, monkeypatch,
+                           dtype=torch.float32, line_search=line_search)
+    assert torch.equal(r3.status, r1.status)
+    assert torch.equal(r3.iterations, r1.iterations)
+    assert torch.equal(r3.x, r1.x) and torch.equal(r3.f, r1.f)
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "dcsrch"])
+@pytest.mark.parametrize("name", TILE_EDGES)
+def test_tall_groups_change_no_instance_f32(name, line_search, cuda,
+                                            monkeypatch):
+    """float32, tile 1 in blocks of 4 groups (the extra three join only
+    the objective's passes) against blocks of 1 group: bit for bit."""
+    r4, _, _ = _k2_on_card(name, 7, 1, cuda, monkeypatch, groups=4,
+                           dtype=torch.float32, line_search=line_search)
+    r1, _, _ = _k2_on_card(name, 7, 1, cuda, monkeypatch, groups=1,
+                           dtype=torch.float32, line_search=line_search)
+    assert torch.equal(r4.status, r1.status)
+    assert torch.equal(r4.iterations, r1.iterations)
+    assert torch.equal(r4.x, r1.x) and torch.equal(r4.f, r1.f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("line_search", ["armijo", "dcsrch"])
+def test_tall_single_instance(line_search, dtype, cuda, monkeypatch):
+    """B = 1: one block of one instance."""
+    r, x0, plain = _k2_on_card("lse_config4_class", 1, 1, cuda, monkeypatch,
+                               dtype=dtype, line_search=line_search)
+    if dtype == torch.float64:
+        _against_plain(r, x0, plain)
+    else:
+        _, f, _, st, _ = plain(x0)
+        assert torch.equal(r.status, st)
+        assert ((r.f - f).abs() / f.abs()).max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "dcsrch"])
+def test_tall_tile_finishes_apart(line_search, cuda, monkeypatch):
+    """One tile whose first instance starts at the minimum (0 iterations)
+    and whose others take over a hundred: the finished instance stays
+    frozen while the tile runs on."""
+    x0 = k2_geometries()["bounded_rosenbrock"][1][:3].copy()
+    x0[0] = 1.0
+    r, x0, plain = _k2_on_card("bounded_rosenbrock", 3, 3, cuda,
+                               monkeypatch, x0=x0, line_search=line_search)
+    assert r.iterations[0].item() == 0 and r.iterations[1:].min() > 100
+    _against_plain(r, x0, plain)
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "dcsrch"])
+def test_tall_unaligned_log_sum_exp(line_search, cuda, monkeypatch):
+    """Rows of A that are not 16-byte aligned (n = 397) and a row count
+    that is not a multiple of 4 (37): the passes over A take their 4- and
+    8-byte copies; float64 against the plain version, tile 2 over B = 5."""
+    monkeypatch.setattr(fused_lbfgsb_tall, "tile_for", lambda B, sms: 2)
+    n, rows = 397, 37
+    A, b = lse_arrays(n, rows)
+    x0 = np.random.RandomState(8).uniform(-0.05, 0.05, (5, n))
+    lo, up = np.full(n, -0.1), np.full(n, 0.1)
+    x0_t, lo_t, up_t, A_t, b_t = interop.tensors_from_numpy(
+        x0, lo, up, A, b, device=cuda)
+    obj = problems.log_sum_exp(A_t, b_t)
+    kw = dict(m=10, pgtol=1e-7, factr=10.0, max_iter=300,
+              line_search=line_search)
+    k2 = fused_lbfgsb_tall.lbfgsb_solve_fused_tall
+    before = k2.launches
+    r = k2(obj, x0_t, lo_t, up_t, **kw)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1 and k2.last_tile == 2
+
+    def plain(x):
+        (xt,) = interop.tensors_from_numpy(x, device=cuda)
+        return fused_lbfgsb_tall.lbfgsb_solve_tall_plain(obj, xt, lo_t, up_t,
+                                                         **kw)
+
+    _against_plain(r, x0, plain)
+    assert (r.status == 1).all()
+
+
+def test_tall_tile_fits_shared_memory(cuda):
+    """The tile shrinks where the block's shared memory would not hold it:
+    log-sum-exp's rows x tile softmax in float64 near MAX_ROWS."""
+    lib = _build.load()
+    lse, rosen = 3, 0
+    assert lib.lbfgsb_tall_fit_tile(0, lse, 10, 512, 4) == 4
+    assert lib.lbfgsb_tall_fit_tile(1, rosen, 20, 0, 4) >= 1
+    t = lib.lbfgsb_tall_fit_tile(1, lse, 20, fused_lbfgsb_tall.MAX_ROWS, 4)
+    assert 1 <= t < 4
+    assert lib.lbfgsb_tall_fit_tile(1, lse, 10, 64, 8) == 4
+    # a smaller tile keeps the groups that fit: at config 4's shape all 4
+    assert lib.lbfgsb_tall_fit_groups(0, lse, 10, 512, 1) == 4
+    assert t <= lib.lbfgsb_tall_fit_groups(
+        1, lse, 20, fused_lbfgsb_tall.MAX_ROWS, t) <= 4
 
 
 def test_route_on_cuda_by_fit(cuda):
