@@ -55,9 +55,11 @@ power limit, and one JSON line naming the device.  Any failed check exits
 non-zero; so does a machine without a CUDA device.
 
     python3 chip_smoke.py               # the checked run
-    python3 chip_smoke.py --breakdown   # also where K2's and K3's time goes
-    python3 chip_smoke.py --times DIR   # only configs 3, 6, 4 and 5 (K3
-                                        # and the lockstep K6 path in
+    python3 chip_smoke.py --breakdown   # also where K1's, K2's and K3's
+                                        # time goes
+    python3 chip_smoke.py --times DIR   # only the headline (B = 10,240
+                                        # and 1,056), configs 3, 6, 4 and
+                                        # 5 (K3 and the lockstep K6 path in
                                         # turns), with the package of
                                         # checkout DIR
 """
@@ -155,8 +157,12 @@ C5_X_ATOL = 1e-4
 NEWTON_CG_MAX = 12
 K4_CAPPED_ITERS = 8
 K4_SPREAD_CAPS = (15, 30)
+# --breakdown's K1 batch sweep: the headline's first B starts
+K1_SWEEP = (132, 1056, 4224, 10240)
 # calls per configuration of --times
 TIMES_REPEATS = 9
+# --times also runs the headline at this B (one block of 8 warps per SM)
+K1_TIMES_SMALL_B = 1056
 # --times also runs config 4 on the first rows of its batch at these sizes,
 # where K2 runs one instance per block
 C4_SMALL_B = (64, 8)
@@ -284,12 +290,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--breakdown", action="store_true",
-        help="also print where K2's time goes at config 4 (iteration caps, "
-        "the bisection's share) and K3's at configs 3, 6, 2 and 5 (a "
-        "profiled solve, a batch sweep and an iteration cap)")
+        help="also print where K1's time goes at the headline (iteration "
+        "caps, a batch sweep, registers and resident warps), K2's at config "
+        "4 (iteration caps, the bisection's share) and K3's at configs 3, "
+        "6, 2 and 5 (a profiled solve, a batch sweep and an iteration cap)")
     parser.add_argument(
         "--times", metavar="ROOT",
-        help="only time configs 3, 6 and 4 through minimize and config 5 "
+        help="only time the headline and configs 3, 6 and 4 through "
+        "minimize and config 5 "
         "through K3 and the lockstep K6 path in turns, with the package "
         "found under ROOT (a checkout; '.' for this one), to compare two "
         "commits in turns on one card; prints no result line")
@@ -515,6 +523,7 @@ def main(argv=None):
     k6 = cholesky_slice(dev, card, tensors, sync_time)
     k7, k8, k9 = whole_solve_slice(dev, card, tensors, sync_time)
     if breakdown:
+        k1_breakdown(dev, card, tensors, sync_time)
         tall_breakdown(dev, card, tensors, sync_time)
         driver_breakdown(dev, card, tensors, sync_time)
 
@@ -742,6 +751,71 @@ def tall_slice(dev, card, tensors, sync_time):
         "library_ms": None,
         "tile": tile,
     }
+
+
+def k1_breakdown(dev, card, tensors, sync_time):
+    """With ``--breakdown`` only: where K1's time goes at the headline:
+    iteration caps 0, 1 and 10 through ``minimize``, a batch sweep (the
+    headline's first B starts, K1 launched directly, CUDA events; medians
+    of 3), K1's registers and spills as ``ptxas`` reported them, and its
+    launch and resident warps per SM from the card's occupancy calculator.
+    The phase shares come from ``tools/k1_phase_profile.py``.  Timing
+    only: nothing here is held."""
+    import torch
+
+    from optimization_solvers_tpu_torch import minimize, problems
+    from optimization_solvers_tpu_torch.ops import _build, fused_lbfgsb
+
+    f = problems.rosenbrock()
+    B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
+    kw = dict(m=m, pgtol=HEADLINE["pgtol"], factr=HEADLINE["factr"],
+              max_iter=HEADLINE["max_iter"])
+    (x,) = tensors(np.random.RandomState(42).uniform(-2.0, 2.0, (B, n)),
+                   dtype=torch.float32)
+    box = torch.full((n,), BOX, device=dev)
+    with open(_build.LOG) as fh:
+        lines = fh.read().splitlines()
+    for k, line in enumerate(lines):
+        if "Compiling entry" in line and "lbfgsb_fused_kernel" in line:
+            used = next((v.strip() for v in lines[k + 1:k + 4]
+                         if "registers" in v), "?")
+            spill = next((v.strip() for v in lines[k + 1:k + 4]
+                          if "spill" in v), "?")
+            log(f"K1 ptxas: {line.split(chr(39))[1]}: {used}; {spill}")
+    for dtype in (torch.float32, torch.float64):
+        for unbounded in (False, True):
+            log(f"K1 launch at the headline, {str(dtype)[6:]}, "
+                f"{'unbounded' if unbounded else 'bounded'} body: "
+                f"{fused_lbfgsb.kernel_info(dtype, B, n, m, 'ROSENBROCK', unbounded)}")
+
+    def med(fn):
+        fn()
+        return 1e3 * statistics.median(sync_time(fn)[1] for _ in range(3))
+
+    capped = {cap: med(lambda: minimize(
+        f, x, method="lbfgsb", bounds=(-BOX, BOX), tol=kw["pgtol"], m=m,
+        factr=kw["factr"], max_iter=cap)) for cap in (0, 1, 10)}
+    log(f"headline iteration cap (median of 3): "
+        + ", ".join(f"{k}: {v:.3f} ms" for k, v in capped.items())
+        + f"; one iteration {capped[1] - capped[0]:.3f} ms (cap 1 - cap 0), "
+        f"{(capped[10] - capped[0]) / 10:.3f} ms averaged over 10  [{card}]")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for b in K1_SWEEP:
+        xb = x[:b]
+        fused_lbfgsb.lbfgsb_solve_fused(f, xb, -box, box, **kw)
+        ms = []
+        for _ in range(3):
+            start.record()
+            fused_lbfgsb.lbfgsb_solve_fused(f, xb, -box, box, **kw)
+            stop.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(stop))
+        info = fused_lbfgsb.kernel_info(torch.float32, b, n, m)
+        log(f"K1 batch sweep B = {b}: {statistics.median(ms):.3f} ms "
+            f"(median of 3), {info['warps_per_block']} warps per block, "
+            f"{-(-b // info['warps_per_block'])} blocks, "
+            f"{info['warps_per_sm']} resident warps per SM  [{card}]")
 
 
 def tall_breakdown(dev, card, tensors, sync_time):
@@ -1325,13 +1399,15 @@ def qn_slice(dev, card, tensors, sync_time):
 
 
 def in_turns_times(root):
-    """Configs 3 (fast), 6 and 4 (also at each B of C4_SMALL_B) through
-    ``minimize``, and config 5 (PN, B = 256) through
+    """The headline (at B = 10,240 and K1_TIMES_SMALL_B), configs 3 (fast),
+    6 and 4 (also at each B of C4_SMALL_B) through ``minimize``, and config
+    5 (PN, B = 256) through
     ``solvers.batch_minimize`` by K3 and by the lockstep K6 path in turns
     (the order alternating), built and imported from the
     checkout at ``root``: median and spread of TIMES_REPEATS calls on
-    distinct seeded inputs, after one warm-up call; for configs 3 and 6
-    also the kernel's device time alone (CUDA events around the launch)."""
+    distinct seeded inputs, after one warm-up call; for the headline and
+    configs 3 and 6 also the kernel's device time alone (CUDA events around
+    the wrapper's launch)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -1339,7 +1415,8 @@ def in_turns_times(root):
     from _torch_geometries import config5_hessian
     from optimization_solvers_tpu_torch import linesearch as ls, solvers
     from optimization_solvers_tpu_torch.core.oracle import make_oracle
-    from optimization_solvers_tpu_torch.ops import _build, fused_driver, linalg
+    from optimization_solvers_tpu_torch.ops import (_build, fused_driver,
+                                                    fused_lbfgsb, linalg)
 
     card = card_line()
     t0 = time.perf_counter()
@@ -1387,7 +1464,24 @@ def in_turns_times(root):
         return (f"{statistics.median(ts):.3f} ms per call (median of "
                 f"{len(ts)}; min {min(ts):.3f}, max {max(ts):.3f})")
 
+    rosen = ostt.problems.rosenbrock()
+    hkw = dict(m=HEADLINE["m"], factr=HEADLINE["factr"],
+               max_iter=HEADLINE["max_iter"])
+    hbox = torch.full((HEADLINE["n"],), BOX, device=dev)
+
+    def solve1(x):
+        return ostt.minimize(rosen, x, method="lbfgsb", bounds=(-BOX, BOX),
+                             tol=HEADLINE["pgtol"], **hkw)
+
+    def launch1(x):
+        return fused_lbfgsb.lbfgsb_solve_fused(
+            rosen, x, -hbox, hbox, pgtol=HEADLINE["pgtol"], **hkw)
+
     for what, solve, launch, B, n, half, seed in (
+            ("headline", solve1, launch1, HEADLINE["B"], HEADLINE["n"], 2.0,
+             11),
+            (f"headline at B = {K1_TIMES_SMALL_B}", solve1, launch1,
+             K1_TIMES_SMALL_B, HEADLINE["n"], 2.0, 12),
             ("config 3 (fast)", solve3, launch3, c["B"], c["n"], 2.0, 33),
             ("config 6", solve6, launch6, c6["B"], c6["n"], 5.0, 66)):
         rng = np.random.RandomState(seed)
@@ -1405,7 +1499,7 @@ def in_turns_times(root):
             stop.record()
             torch.cuda.synchronize()
             dev_ms.append(start.elapsed_time(stop))
-        log(f"{what}: {spread(ts)}; the K3 wrapper alone "
+        log(f"{what}: {spread(ts)}; the kernel's wrapper alone "
             f"{statistics.median(dev_ms):.3f} ms (min {min(dev_ms):.3f}, max "
             f"{max(dev_ms):.3f})  [{card}]")
 

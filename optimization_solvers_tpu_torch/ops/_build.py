@@ -101,6 +101,12 @@ def load() -> ctypes.CDLL:
                 vp, vp, vp, vp,          # x, f, iterations, status
                 vp,                      # stream
             ]
+            lib.lbfgsb_fused_kernel_info.restype = i
+            lib.lbfgsb_fused_kernel_info.argtypes = [
+                i, i, i,                 # dtype, objective, unbounded
+                i, i, i,                 # B, n, m
+                ctypes.POINTER(i),       # out: 5 ints
+            ]
             lib.lbfgsb_tall_work_elems.restype = ctypes.c_longlong
             lib.lbfgsb_tall_work_elems.argtypes = [i, i, i]
             lib.lbfgsb_tall_fit_tile.restype = i

@@ -5,32 +5,71 @@
 // The plain PyTorch version of the same algorithm is lbfgsb_solve_plain in
 // ../fused_lbfgsb.py; the two are held against each other on the card.
 //
-// What bounds it on this card: not bytes or FLOPs.  Per iteration an
-// instance does O((m + walk) n) multiply-adds and O(m^2) small dense work,
-// almost all of it latency-bound: warp reductions (five shuffles each),
-// shared-memory round trips and the serial O(m^2)/O(m^3) triangular work.
-// The design keeps every per-instance vector in shared memory for the whole
-// solve, so device memory is touched only to read x0, the bounds and the
-// objective data and to write the result; enough warps per SM hide the
-// latency of one another.
+// What bounds it on this card: not bytes or FLOPs.  An instance's iteration
+// is a chain of small dependent steps (passes over the coordinates, warp
+// reductions, O(m^2) triangular work), so the time is that chain times the
+// waves of instances the SMs cannot hold at once, and past ~16 warps per SM
+// the SM's issue rate.  The design shortens the chain and its work:
+//
+//  * residency: every per-instance vector lives in shared memory for the
+//    whole solve ((2m+5) n + 7 m^2 + 13 m elements and a bit mask of n
+//    bits per warp: 7,088 bytes at the headline's n 100, m 5, float32, so
+//    four 8-warp blocks fit an SM), and __launch_bounds__ gives each thread
+//    the registers of two such blocks per SM (16 warps): with the registers
+//    of three or four blocks the compiler spills in the passes, and on an
+//    H100 the headline ran 2.5% and 12.5% slower at 24 and 32 warps
+//    (tools/k1_residency.py).  The launch
+//    picks the warps per block that the card's occupancy calculator says
+//    keep the most warps resident;
+//  * the interior fast path, the headline's common iteration (over 99% of
+//    them): one pass over the coordinates gives the gate's breakpoint
+//    minima, W^T g (2m sums) and g.g together, and the quasi-Newton step is
+//    the compact form of H g (Byrd, Nocedal and Schnabel 1994: H g = g /
+//    theta + S p - Y u / theta with u = R^{-1} S^T g and p = R^{-T} ((D +
+//    Y^T Y / theta) u - Y^T g / theta), R the upper triangle of S^T Y) from
+//    those sums and the Y^T Y table kept beside S^T Y and S^T S, applied in
+//    one more pass that also gives g.d: the two-loop recursion's 2m
+//    dependent passes and reductions are gone, and t = 1 needs no step
+//    bound (the quasi-Newton point lies in the box);
+//  * when a step adds a pair, the step's own pass (its checks, its 4m
+//    products with the ring, the stopping test) also gives the next gate's
+//    sums and breakpoint minima at the new point, so that gate makes no
+//    pass: 6m + 1 sums in one 32-wide butterfly at m 5;
+//  * independent sums share one transposed butterfly (warp_sums: k sums in
+//    k - 1 + 5 - log2 k shuffles and five levels, where one butterfly each
+//    takes 5k shuffles in 5k levels), and the tests of a warp minimum or
+//    maximum against a bound are votes;
+//  * the small algebra runs on as many lanes as the matrices have rows or
+//    entries: the Schur complement and its Cholesky factor one entry per
+//    lane in registers (m <= 7), M^{-1} v (mid_solve_lanes) and the compact
+//    form's triangular solves with lane i holding row i, as column sweeps of
+//    one shuffle each, the two independent ones of the gate interleaved; the
+//    reciprocals of D-hat and of the pivots are taken once per iteration,
+//    and the Gram tables shift on all lanes;
+//  * passes keep kUnroll coordinates per lane in flight (their loads are
+//    issued before any store); the first Armijo trial evaluates the
+//    gradient too (most steps are taken there), and the history update
+//    swaps the X/XT and G/DG buffers instead of copying them.
 //
 // Design:
-//  * one warp per instance; coordinate i belongs to lane i % 32, so a lane
-//    only ever writes its own coordinates of the per-instance vectors;
-//  * dynamic shared memory per warp: X, G, the direction D, the trial /
-//    Cauchy point XT, DG (Cauchy direction, then the trial gradient), TB
-//    (breakpoints, then scratch), FX (fixed, then free mask), the S and Y
-//    histories and the m x m tables: (2m+7) n + 6 m^2 + 17 m elements;
-//  * S and Y are a ring of m slots; hist(p) maps the chronological index p
-//    (0 oldest, m-1 newest) to its slot, and the small Gram tables S.Y and
-//    S.S stay in chronological order, shifted on every accepted pair;
-//  * reductions are __shfl_xor_sync butterflies, so every lane holds the
-//    same sum and the scalar state (f, theta, t, ...) is kept replicated in
-//    registers; all branches on it are warp-uniform;
-//  * the O(m^2)/O(m^3) middle-matrix work runs in shared memory on one lane
-//    (Cholesky columns on several), and the three independent M^{-1}
-//    solves of each Cauchy-walk step on lanes 0, 1 and 2;
-//  * the one-hot gathers of the TPU kernel are direct reads of coordinate b;
+//  * coordinate i belongs to lane i % 32, so a lane only ever writes its own
+//    coordinates of the per-instance vectors;
+//  * S and Y are a ring of m slots (WS: the Y slots, then the S slots);
+//    slot(q) maps the chronological index q (0 oldest, m-1 newest) to its
+//    slot, and the m x m Gram tables S.Y, S.S, Y.Y stay in chronological
+//    order, shifted on every accepted pair; the newest nvalid pairs are the
+//    valid ones, older slots hold zeros (inert rows of W);
+//  * reductions are __shfl_xor_sync butterflies, so the scalar state (f,
+//    theta, t, ...) is replicated in registers; all branches on it are
+//    warp-uniform;
+//  * the Cauchy walk (rare: each instance's first iteration and few others
+//    at the headline) solves its three M^{-1} products of a trip together on
+//    the row lanes; the walk's breakpoints live in D, its fixed set and the
+//    free set after it in the bit mask (bit k of the lane's word is
+//    coordinate lane + 32 k);
+//  * bounds are read through the cache: a shared box is the same n pairs
+//    for every warp of the SM, which L1 holds (each pass reads them once per
+//    coordinate, beside the coordinate's shared-memory loads);
 //  * min/max/clip propagate NaN as jnp.minimum/jnp.maximum do (fminf/fmin
 //    would drop it), the walk's arg-min breaks ties on the lowest index as
 //    jnp.argmin does, and machine epsilon is the JAX kernel's literal
@@ -39,12 +78,45 @@
 #include "common.cuh"
 #include "objectives.cuh"
 
+// Phase counters, compiled in only with -DK1_PROFILE (tools/k1_phase_profile.py
+// builds such a copy; the kernel as shipped has none).  Lane 0 of each warp
+// adds the clock64 cycles of every iteration's phases to k1_prof[0..7] (the
+// phases in that tool's PHASES order); [8] counts instance-iterations, [9]
+// those that took the interior fast path, [10] Cauchy-walk trips, [11]
+// Armijo trials, [12] instances, [13] the cycles of whole instances (set-up
+// and epilogue included).
+#ifdef K1_PROFILE
+__device__ unsigned long long k1_prof[16];
+#define K1_PROF(...) __VA_ARGS__
+#else
+#define K1_PROF(...)
+#endif
+#define K1_PHASE(k) \
+  K1_PROF(if (lane == 0) { const long long t_ = clock64(); prof_acc[k] += t_ - prof_t; prof_t = t_; })
+#define K1_COUNT(k, v) K1_PROF(if (lane == 0) prof_acc[k] += (v);)
+
 namespace {
 
 constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kUnroll = 4;      // coordinates per lane a pass keeps in flight
+constexpr int kSums = 16;       // sums per transposed butterfly of W^T v
+constexpr int kStepSlots = 5;   // ring slots per butterfly of the step's pass (6 sums each)
+constexpr int kRegCholM = 7;    // the Schur factor in registers up to this m
 
+// blocks of kMaxWarpsPerBlock warps per SM that the registers must allow
+// (tools/k1_residency.py builds 2, 3 and 4 with -DK1_MIN_BLOCKS and times
+// them in turns)
+#ifndef K1_MIN_BLOCKS
+#define K1_MIN_BLOCKS 2
+#endif
+constexpr int kMinBlocks = K1_MIN_BLOCKS;
+
+__host__ __device__ inline int mask_words(int n) { return kWarp * ((n + 1023) / 1024); }
 __host__ __device__ inline long long work_elems(int n, int m) {
-  return (long long)(2 * m + 7) * n + 6LL * m * m + 17LL * m;
+  return (long long)(2 * m + 5) * n + 7LL * m * m + 13LL * m;
+}
+__host__ __device__ inline long long work_bytes(int n, int m, int itemsize) {
+  return work_elems(n, m) * itemsize + 4LL * mask_words(n);
 }
 
 // arg-min over the warp, ties to the lowest index (jnp.argmin)
@@ -55,6 +127,85 @@ template <typename T> __device__ __forceinline__ void warp_argmin(T& v, int& idx
     int i2 = __shfl_xor_sync(kFull, idx, o);
     if (v2 < v || (v2 == v && i2 < idx)) { v = v2; idx = i2; }
   }
+}
+
+// one halving exchange of warp_sums, at W sums per lane, then the next (a
+// template level each, so that every loop unrolls and v stays in registers)
+template <int W, int K, typename T> __device__ __forceinline__ void halve(T (&v)[K], int lane) {
+  constexpr int h = W / 2, o = 16 * W / K;
+  const bool hi = lane & o;
+#pragma unroll
+  for (int j = 0; j < h; ++j) {
+    const T send = hi ? v[j] : v[j + h];
+    const T keep = hi ? v[j + h] : v[j];
+    v[j] = keep + __shfl_xor_sync(kFull, send, o);
+  }
+  if constexpr (h > 1) halve<h, K>(v, lane);
+}
+
+// K independent warp sums (K a power of two up to 32) in one transposed
+// butterfly: log2(K) halving exchanges, each lane keeping half of its sums
+// and sending the other half, then 5 - log2(K) plain butterfly steps; K - 1
+// + 5 - log2(K) shuffles in five levels.  Returns sum number lane / (32 / K)
+// on each lane; every pairing tree is the same, so the 32 / K lanes that
+// hold a sum hold the same bits, and equal inputs give equal sums.  v is
+// clobbered.
+template <int K, typename T> __device__ __forceinline__ T warp_sums(T (&v)[K], int lane) {
+  if constexpr (K > 1) halve<K, K>(v, lane);
+  T r = v[0];
+#pragma unroll
+  for (int o = 16 / K; o > 0; o >>= 1) r += __shfl_xor_sync(kFull, r, o);
+  return r;
+}
+
+// out = M^{-1} [a; b] for K right-hand sides in[k] = [a; b] (2m entries in
+// shared memory, chronological) of the 2m x 2m middle matrix: lane i < m
+// returns u[k] = out[i] and v[k] = out[m + i].  SY (chronological), the
+// Schur factor L, DHI = 1 / D-hat; li = 1 / L_ii and dhi = DHI[i] on lane i.
+// The triangular solves sweep columns, one shuffle per column.
+template <int K, typename T>
+__device__ __forceinline__ void mid_solve_lanes(const T* const (&in)[K], T (&u)[K], T (&v)[K],
+                                                const T* SY, const T* L, const T* DHI,
+                                                T li, T dhi, int m, int lane) {
+  const int i = lane;
+  const bool row = i < m;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = row ? in[k][m + i] : T(0);
+  for (int j = 0; j < m; ++j) {        // v = b + L_sy D^-1 a
+    if (row && j < i) {
+      const T s = SY[i * m + j];
+      const T dj = DHI[j];
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = v[k] + s * (in[k][j] * dj);
+    }
+  }
+  for (int j = 0; j < m; ++j) {        // forward: L z = v
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T zj = __shfl_sync(kFull, v[k] * li, j);
+      if (row && i > j) v[k] = v[k] - L[i * m + j] * zj;
+      else if (i == j) v[k] = zj;
+    }
+  }
+  for (int j = m - 1; j >= 0; --j) {   // backward: L^T w = z
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T wj = __shfl_sync(kFull, v[k] * li, j);
+      if (row && i < j) v[k] = v[k] - L[j * m + i] * wj;
+      else if (i == j) v[k] = wj;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) u[k] = row ? -in[k][i] : T(0);
+  for (int j = 0; j < m; ++j) {        // u = D^-1 (-a + L_sy^T v)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T vj = __shfl_sync(kFull, v[k], j);
+      if (row && j > i) u[k] = u[k] + SY[j * m + i] * vj;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) u[k] = u[k] * dhi;
 }
 
 template <typename T> struct Params {
@@ -74,9 +225,9 @@ template <typename T> struct Params {
 };
 
 template <typename T, class Obj, bool UNBOUNDED>
-__global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock)
+__global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock, kMinBlocks)
 lbfgsb_fused_kernel(const Params<T> prm) {
-  extern __shared__ unsigned char smem_raw[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
   const int inst = blockIdx.x * (blockDim.x / kWarp) + warp;
@@ -85,40 +236,95 @@ lbfgsb_fused_kernel(const Params<T> prm) {
   const T INF = (T)INFINITY;
   const T eps = prm.eps;
 
-  T* p = reinterpret_cast<T*>(smem_raw) + (long long)warp * work_elems(n, m);
+  T* p = reinterpret_cast<T*>(smem_raw + (long long)warp * work_bytes(n, m, sizeof(T)));
   T* X = p; p += n;
   T* G = p; p += n;
-  T* D = p; p += n;
-  T* XT = p; p += n;
-  T* DG = p; p += n;
-  T* TB = p; p += n;
-  T* FX = p; p += n;
-  T* S = p; p += (long long)m * n;
-  T* Y = p; p += (long long)m * n;
+  T* D = p; p += n;           // direction; the walk's breakpoints
+  T* XT = p; p += n;          // trial point; the Cauchy point
+  T* DG = p; p += n;          // trial gradient; the Cauchy direction; scratch
+  T* WS = p; p += 2 * m * n;  // ring slots: Y_0 .. Y_{m-1}, S_0 .. S_{m-1}
   T* SY = p; p += m * m;
   T* SS = p; p += m * m;
+  T* YY = p; p += m * m;
   T* L = p; p += m * m;       // Schur factor; in the subspace step H, then its factor
   T* E = p; p += m * m;
   T* GM = p; p += m * m;
   T* EG = p; p += m * m;
   T* DH = p; p += m;
-  T* VAL = p; p += m;
-  T* ALPHA = p; p += m;
-  T* C = p; p += m2;
+  T* DHI = p; p += m;
+  T* R2 = p; p += m;
+  T* WV = p; p += m2;         // W^T g in the gate, W^T r_F in the subspace step
   T* P = p; p += m2;
-  T* WB = p; p += m2;
-  T* R0 = p; p += m2;
-  T* R1 = p; p += m2;
-  T* R2 = p; p += m2;
-  T* UV = p;
+  T* CF = p; p += m2;         // coefficients of a W-apply, in ring-slot order
+  T* C = p; p += m2;
+  T* WB = p; p += m2;         // the walk's W row; the subspace's [u; v]
+  T* GR = C;                  // the history update's 4m products (C, WB: walk only)
+  unsigned* FXW = reinterpret_cast<unsigned*>(p);
+  const int nmask = mask_words(n);
 
+  K1_PROF(long long prof_acc[14] = {0}; const long long prof_t0 = clock64();
+          long long prof_t = prof_t0;)
   const T* lo = prm.lo + (long long)inst * prm.bstride;
   const T* up = prm.up + (long long)inst * prm.bstride;
   const T* x0 = prm.x0 + (long long)inst * n;
   const Obj obj{prm.d0, prm.d1};
 
   int oldest = 0;             // ring slot of the chronologically oldest pair
-  auto hist = [&](T* base, int q) { return base + (long long)((oldest + q) % m) * n; };
+  int nvalid = 0;             // the newest nvalid pairs are valid
+  auto slot = [&](int q) { const int s = oldest + q; return s >= m ? s - m : s; };
+  auto chron = [&](int s) { const int q = s - oldest; return q < 0 ? q + m : q; };
+  auto Yv = [&](int q) { return WS + slot(q) * n; };
+  auto Sv = [&](int q) { return WS + (m + slot(q)) * n; };
+  auto valid = [&](int q) { return q >= m - nvalid; };
+  // the walk's fixed set, then the subspace step's free set
+  auto mbit = [&](int i) -> bool {
+    const int k = i >> 5;
+    return (FXW[(k >> 5) * kWarp + (i & 31)] >> (k & 31)) & 1u;
+  };
+  auto mset = [&](int i, bool v) {
+    const int k = i >> 5;
+    unsigned& w = FXW[(k >> 5) * kWarp + (i & 31)];
+    const unsigned b = 1u << (k & 31);
+    w = v ? (w | b) : (w & ~b);
+  };
+
+  // f(i) on the lane's coordinates, kUnroll at a time
+  auto each = [&](auto&& f) {
+    for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kWarp;
+        if (i < n) f(i);
+      }
+    }
+  };
+  // out[i] = f(i): the kUnroll values are computed before any is stored
+  auto each_store = [&](T* out, auto&& f) {
+    for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+      T v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kWarp;
+        v[u] = i < n ? f(i) : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kWarp;
+        if (i < n) out[i] = v[u];
+      }
+    }
+  };
+  // r[u] += sum_k cf[k] WS_k[i0 + 32 u]: the W-apply with cf in slot order
+  auto apply_w = [&](const T* cf, int i0, T (&r)[kUnroll]) {
+#pragma unroll 2
+    for (int k = 0; k < m2; ++k) {
+      const T c = cf[k];
+      const T* w = WS + k * n + i0;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (i0 + u * kWarp < n) r[u] = r[u] + c * w[u * kWarp];
+    }
+  };
 
   // ---- small dense algebra (shared memory) ------------------------------
 
@@ -153,80 +359,121 @@ lbfgsb_fused_kernel(const Params<T> prm) {
       v[i * stride] = s / A[i * m + i];
     }
   };
-  // out = M^{-1} in for the 2m x 2m middle matrix (one lane; no aliasing)
-  auto mid_solve = [&](const T* in, T* out) {
-    const T* a = in;
-    const T* bv = in + m;
-    T* v = out + m;
-    for (int i = 0; i < m; ++i) {
-      T s = bv[i];
-      for (int k = 0; k < i; ++k) s = s + SY[i * m + k] * a[k] / DH[k];
-      v[i] = s;
-    }
-    chol_solve(L, v, 1);
-    for (int i = 0; i < m; ++i) {
-      T s = -a[i];
-      for (int k = i + 1; k < m; ++k) s = s + SY[k * m + i] * v[k];
-      out[i] = s / DH[i];
-    }
-  };
 
   // ---- W = [Y^T, theta S^T] products --------------------------------------
 
   T theta = 1;
-  // out[0:2m] = W^T vec (written by lane 0)
-  auto w_dot = [&](const T* vec, T* out) {
-    for (int q = 0; q < m; ++q) {
-      const T* Yq = hist(Y, q);
-      T s = 0;
-      for (int i = lane; i < n; i += kWarp) s += Yq[i] * vec[i];
-      s = warp_sum(s);
-      if (lane == 0) out[q] = s;
+  // out[0:2m] = [Y^T v; s_scale S^T v] in chronological order, kSums sums
+  // per transposed butterfly; returns v.v when want_vv.  hook(i) runs on
+  // each coordinate in the same pass (once per kSums sums).
+  auto wt_dot = [&](const T* v, T* out, T s_scale, bool want_vv, auto&& hook) -> T {
+    const int cnt = m2 + (want_vv ? 1 : 0);
+    T vv = 0;
+    for (int c0 = 0; c0 < cnt; c0 += kSums) {
+      T acc[kSums];
+#pragma unroll
+      for (int kk = 0; kk < kSums; ++kk) acc[kk] = 0;
+      for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+        T vu[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * kWarp;
+          vu[u] = i < n ? v[i] : T(0);
+          if (i < n) hook(i);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kSums; ++kk) {
+          const int k = c0 + kk;
+          if (k < m2) {
+            const T* w = WS + k * n + i0;
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u)
+              if (i0 + u * kWarp < n) acc[kk] = acc[kk] + w[u * kWarp] * vu[u];
+          } else if (k == m2 && want_vv) {
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) acc[kk] = acc[kk] + vu[u] * vu[u];
+          }
+        }
+      }
+      const T r = warp_sums<kSums>(acc, lane);
+      const int k = c0 + lane / (kWarp / kSums);
+      if (lane % (kWarp / kSums) == 0 && k < m2)
+        out[k < m ? chron(k) : m + chron(k - m)] = k < m ? r : s_scale * r;
+      if (want_vv && m2 >= c0 && m2 < c0 + kSums)
+        vv = __shfl_sync(kFull, r, (m2 - c0) * (kWarp / kSums));
     }
-    for (int q = 0; q < m; ++q) {
-      const T* Sq = hist(S, q);
-      T s = 0;
-      for (int i = lane; i < n; i += kWarp) s += Sq[i] * vec[i];
-      s = theta * warp_sum(s);
-      if (lane == 0) out[m + q] = s;
-    }
-  };
-  // out = W c (each lane its own coordinates)
-  auto w_apply = [&](const T* c, T* out) {
-    for (int i = lane; i < n; i += kWarp) out[i] = 0;
-    for (int q = 0; q < m; ++q) {
-      const T* Yq = hist(Y, q);
-      const T cq = c[q];
-      for (int i = lane; i < n; i += kWarp) out[i] = out[i] + cq * Yq[i];
-    }
-    for (int q = 0; q < m; ++q) {
-      const T* Sq = hist(S, q);
-      const T cq = c[m + q] * theta;
-      for (int i = lane; i < n; i += kWarp) out[i] = out[i] + cq * Sq[i];
-    }
-  };
-  // r with x - r the quasi-Newton point, H0 = I / theta
-  auto two_loop = [&](T* r) {
-    for (int i = lane; i < n; i += kWarp) r[i] = G[i];
-    for (int j = m - 1; j >= 0; --j) {
-      const T* Sj = hist(S, j);
-      const T* Yj = hist(Y, j);
-      T s = 0;
-      for (int i = lane; i < n; i += kWarp) s += Sj[i] * r[i];
-      const T a = (VAL[j] / DH[j]) * warp_sum(s);
-      if (lane == 0) ALPHA[j] = a;
-      for (int i = lane; i < n; i += kWarp) r[i] = r[i] - a * Yj[i];
-    }
-    for (int i = lane; i < n; i += kWarp) r[i] = r[i] / theta;
     __syncwarp();
-    for (int j = 0; j < m; ++j) {
-      const T* Sj = hist(S, j);
-      const T* Yj = hist(Y, j);
-      T s = 0;
-      for (int i = lane; i < n; i += kWarp) s += Yj[i] * r[i];
-      const T coef = ALPHA[j] - (VAL[j] / DH[j]) * warp_sum(s);
-      for (int i = lane; i < n; i += kWarp) r[i] = r[i] + coef * Sj[i];
+    return vv;
+  };
+  auto no_hook = [](int) {};
+  // out = W c for c in chronological order (each lane its own coordinates)
+  auto w_apply = [&](const T* c, T* out) {
+    for (int q = lane; q < m; q += kWarp) {
+      CF[slot(q)] = c[q];
+      CF[m + slot(q)] = c[m + q] * theta;
     }
+    __syncwarp();
+    for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+      T r[kUnroll] = {};
+      apply_w(CF, i0, r);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (i0 + u * kWarp < n) out[i0 + u * kWarp] = r[u];
+    }
+  };
+  // CF such that H g = g / theta + sum_k CF[k] WS_k (compact form, from
+  // WV = [Y^T g; S^T g] and the tables); lane q < m holds row q of the
+  // triangular solves with R (R_qk = SY[q][k], k >= q; diagonal D-hat).
+  // with_mid: also p^T M^{-1} p for p in P (mid_solve_lanes' three sweeps,
+  // interleaved with these: the two chains are independent); returned.
+  auto small_solves = [&](bool with_mid, T gamma, T li, T dhi) -> T {
+    const int q = lane;
+    const bool row = q < m;
+    T v = with_mid && row ? P[m + q] : T(0);
+    if (with_mid && row)
+      for (int j = 0; j < q; ++j) v = v + SY[q * m + j] * (P[j] * DHI[j]);
+    T a = row ? WV[m + q] : T(0);
+    for (int t = 0; t < m; ++t) {        // u = R^{-1} S^T g; mid: L z = v
+      const int k = m - 1 - t;
+      const T uk = __shfl_sync(kFull, a * dhi, k);
+      if (row && q < k) a = a - SY[q * m + k] * uk;
+      else if (q == k) a = uk;
+      if (with_mid) {
+        const T zt = __shfl_sync(kFull, v * li, t);
+        if (row && q > t) v = v - L[q * m + t] * zt;
+        else if (q == t) v = zt;
+      }
+    }
+    T yu = 0;
+    for (int t = 0; t < m; ++t) {        // Y^T Y u; mid: L^T w = z
+      const T ut = __shfl_sync(kFull, a, t);
+      if (row) yu = yu + YY[q * m + t] * ut;
+      if (with_mid) {
+        const int j = m - 1 - t;
+        const T wj = __shfl_sync(kFull, v * li, j);
+        if (row && q < j) v = v - L[j * m + q] * wj;
+        else if (q == j) v = wj;
+      }
+    }
+    T w = row ? DH[q] * a + gamma * yu - gamma * WV[q] : T(0);
+    T u = with_mid && row ? -P[q] : T(0);
+    for (int t = 0; t < m; ++t) {        // p = R^{-T} ((D + gamma Y^T Y) u - gamma Y^T g)
+      const T pt = __shfl_sync(kFull, w * dhi, t);
+      if (row && q > t) w = w - SY[t * m + q] * pt;
+      else if (q == t) w = pt;
+      if (with_mid) {                    // mid: u = D^-1 (-a + L_sy^T v)
+        const T vt = __shfl_sync(kFull, v, t);
+        if (row && t > q) u = u + SY[t * m + q] * vt;
+      }
+    }
+    if (row) {
+      CF[slot(q)] = -gamma * a;
+      CF[m + slot(q)] = w;
+    }
+    T pMp = 0;
+    if (with_mid) pMp = warp_sum(row ? P[q] * (u * dhi) + P[m + q] * v : T(0));
+    __syncwarp();
+    return pMp;
   };
   auto seg_min = [&](T f1, T f2) -> T {
     return f2 > eps ? -f1 / f2 : (f1 < T(0) ? INF : T(0));
@@ -235,137 +482,229 @@ lbfgsb_fused_kernel(const Params<T> prm) {
     const T g = G[i], x = X[i];
     return g < T(0) ? (x - up[i]) / g : (g > T(0) ? (x - lo[i]) / g : INF);
   };
+  // D-hat and its reciprocals
+  auto set_dh = [&]() {
+    for (int q = lane; q < m; q += kWarp) {
+      const T dh = valid(q) ? SY[q * m + q] : T(1);
+      DH[q] = dh;
+      DHI[q] = T(1) / dh;
+    }
+    __syncwarp();
+  };
+  auto wipe = [&]() {
+    for (int i = lane; i < 2 * m * n; i += kWarp) WS[i] = 0;
+    for (int e = lane; e < m * m; e += kWarp) { SY[e] = 0; SS[e] = 0; YY[e] = 0; }
+    theta = 1;
+    oldest = 0;
+    nvalid = 0;
+    __syncwarp();
+  };
 
   // ---- solver state -------------------------------------------------------
 
   for (int i = lane; i < n; i += kWarp) X[i] = jclip(x0[i], lo[i], up[i]);
-  for (long long i = lane; i < (long long)m * n; i += kWarp) { S[i] = 0; Y[i] = 0; }
-  for (int e = lane; e < m * m; e += kWarp) { SY[e] = 0; SS[e] = 0; }
-  for (int e = lane; e < m; e += kWarp) VAL[e] = 0;
-  __syncwarp();
+  wipe();
   T Fv = obj.value_grad(X, G, n, lane);
   __syncwarp();
   T Fprev = INF;
   int iters = 0;
   bool abn = false;
 
+  // max |x - P(x - g)| <= pgtol, kept for the stopping test: the history
+  // update's pass refreshes it when a step is taken.  Tests of a warp
+  // minimum or maximum against a bound are votes here (a NaN lane votes
+  // no, as the NaN-propagating minimum would)
+  auto pg_at = [&](int i) { return (T)fabs(XT[i] - jclip(XT[i] - DG[i], lo[i], up[i])); };
+  T pgl = 0;
+  each([&](int i) { pgl = jmax(pgl, (T)fabs(X[i] - jclip(X[i] - G[i], lo[i], up[i]))); });
+  bool pg_ok = __all_sync(kFull, pgl <= prm.pgtol);
   auto converged = [&]() -> bool {
-    T pg = 0;
-    for (int i = lane; i < n; i += kWarp)
-      pg = jmax(pg, (T)fabs(X[i] - jclip(X[i] - G[i], lo[i], up[i])));
-    pg = warp_max(pg);
     const T fmax = jmax(jmax((T)fabs(Fv), (T)fabs(Fprev)), T(1));
-    return (pg <= prm.pgtol) ||
+    return pg_ok ||
            (isfinite(Fprev) && (Fprev - Fv) <= prm.f_rtol * fmax);
   };
 
+  // the gate's pass, done ahead by the step's pass when the step added a
+  // pair (ready): the breakpoint minima per lane and g.g; W^T g is in WV
+  bool ready = false;
+  T tmin_n = INF, tfirst_n = INF, gg_n = 0;
   bool active = isfinite(Fv) && !abn && !converged();
+  K1_PROF(prof_t = clock64();)
   for (int it = 0; it < prm.max_iter && active; ++it) {
+    K1_PHASE(7);
+    K1_COUNT(8, 1);
+    const T gamma = T(1) / theta;
+    // on the fast path and in the unbounded body the direction's pass also
+    // gives g.d, and the first trial is t = 1 (the quasi-Newton point lies
+    // in the box, so every max feasible step is at least 1)
+    T g0d = 0;
+    bool direct = UNBOUNDED;
     if (UNBOUNDED) {
       // every bound infinite: the interior fast path is the iteration
-      for (int q = lane; q < m; q += kWarp) DH[q] = VAL[q] > T(0) ? SY[q * m + q] : T(1);
-      __syncwarp();
-      two_loop(D);
-      for (int i = lane; i < n; i += kWarp) D[i] = -D[i];
+      set_dh();
+      if (!ready) wt_dot(G, WV, T(1), false, no_hook);
+      small_solves(false, gamma, T(0), lane < m ? DHI[lane] : T(0));
+      for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+        T r[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) r[u] = i0 + u * kWarp < n ? gamma * G[i0 + u * kWarp] : T(0);
+        apply_w(CF, i0, r);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * kWarp;
+          if (i < n) {
+            D[i] = -r[u];
+            g0d += G[i] * -r[u];
+          }
+        }
+      }
+      g0d = warp_sum(g0d);
+      K1_PHASE(1);
+      K1_COUNT(9, 1);
     } else {
-      // ---- middle matrix: DH and the Cholesky factor of the Schur complement
-      for (int q = lane; q < m; q += kWarp) DH[q] = VAL[q] > T(0) ? SY[q * m + q] : T(1);
-      __syncwarp();
-      for (int e = lane; e < m * m; e += kWarp) {
-        const int r = e / m, q = e % m;
-        if (q > r) continue;
-        T v = theta * SS[e];
-        for (int k = 0; k < q; ++k) v = v + SY[r * m + k] * SY[q * m + k] / DH[k];
-        if (r == q && !(VAL[r] > T(0))) v = T(1);
-        L[e] = v;
-      }
-      __syncwarp();
-      chol(L);
-
-      // ---- interior fast-path gate, decided for this instance
-      T tmin = INF, tfirst = INF, dd = 0;
-      for (int i = lane; i < n; i += kWarp) {
-        const T tb = breakpoint(i);
-        tmin = jmin(tmin, tb);
-        tfirst = jmin(tfirst, tb > T(0) ? tb : INF);
-        const T d0 = tb > T(0) ? -G[i] : T(0);
-        DG[i] = d0;
-        dd += d0 * d0;
-      }
-      const bool blocked = warp_min(tmin) <= T(0);
-      tfirst = warp_min(tfirst);
-      T f1 = -warp_sum(dd);
-      w_dot(DG, P);
-      __syncwarp();
-      if (lane == 0) mid_solve(P, R1);
-      __syncwarp();
-      T pMp = 0;
-      for (int r = 0; r < m2; ++r) pMp = pMp + P[r] * R1[r];
-      T f2 = -theta * f1 - pMp;
-      const T dt0 = seg_min(f1, f2);
-      two_loop(TB);
-      T inmin = INF;
-      for (int i = lane; i < n; i += kWarp) {
-        const T xn = X[i] - TB[i];
-        inmin = jmin(inmin, jmin(xn - lo[i], up[i] - xn));
-      }
-      const bool in_box = warp_min(inmin) >= T(0);
-
-      if (!blocked && dt0 < tfirst && in_box) {
-        for (int i = lane; i < n; i += kWarp)
-          D[i] = jclip(X[i] - TB[i], lo[i], up[i]) - X[i];
+      // ---- middle matrix: D-hat and the Cholesky factor of the Schur complement
+      set_dh();
+      auto schur = [&](int r, int q) {   // theta S.S + L D^-1 L^T, patched
+        T v = theta * SS[r * m + q];
+        for (int k = 0; k < q; ++k) v = v + SY[r * m + k] * SY[q * m + k] * DHI[k];
+        return r == q && !valid(r) ? T(1) : v;
+      };
+      if (m <= kRegCholM) {
+        // one lower entry (r, q) per lane, row-major, factored in registers
+        // (right-looking: each entry takes its updates in chol's order)
+        int r = 0, q = lane;
+        while (q > r && r < m) { q -= r + 1; ++r; }
+        const bool own = r < m;
+        T a = own ? schur(r, q) : T(0);
+        for (int j = 0; j < m; ++j) {
+          const T d = __shfl_sync(kFull, sqrt(jmax(a, eps)), j * (j + 1) / 2 + j);
+          if (own && q == j) a = r == j ? d : a / d;
+          const T lr = __shfl_sync(kFull, a, own && r >= j ? r * (r + 1) / 2 + j : 0);
+          const T lq = __shfl_sync(kFull, a, own && q >= j ? q * (q + 1) / 2 + j : 0);
+          if (own && q > j) a = a - lr * lq;
+        }
+        if (own) L[r * m + q] = a;
+        __syncwarp();
       } else {
+        for (int e = lane; e < m * m; e += kWarp) {
+          const int r = e / m, q = e % m;
+          if (q <= r) L[e] = schur(r, q);
+        }
+        __syncwarp();
+        chol(L);
+      }
+      const T li = lane < m ? T(1) / L[lane * m + lane] : T(0);
+      const T dhi = lane < m ? DHI[lane] : T(0);
+      auto mid_pMp = [&](const T* in) -> T {     // in^T M^{-1} in
+        const T* ins[1] = {in};
+        T u[1], v[1];
+        mid_solve_lanes<1>(ins, u, v, SY, L, DHI, li, dhi, m, lane);
+        return warp_sum(lane < m ? in[lane] * u[0] + in[m + lane] * v[0] : T(0));
+      };
+      K1_PHASE(0);
+
+      // ---- interior fast-path gate, decided for this instance: one pass
+      // gives the breakpoints' minima, W^T g and g.g
+      T tmin = tmin_n, tfirst = tfirst_n, gg = gg_n;
+      if (!ready) {
+        tmin = INF;
+        tfirst = INF;
+        gg = wt_dot(G, WV, T(1), true, [&](int i) {
+          const T tb = breakpoint(i);
+          tmin = jmin(tmin, tb);
+          tfirst = jmin(tfirst, tb > T(0) ? tb : INF);
+        });
+      }
+      const bool blocked = !__any_sync(kFull, tmin != tmin) && __any_sync(kFull, tmin <= T(0));
+      // unblocked, the Cauchy direction is -g: p = W^T d0 = -W^T g
+      T f1 = -gg, f2 = 0;
+      bool fast = false;
+      if (!blocked) {
+        for (int r = lane; r < m2; r += kWarp) P[r] = r < m ? -WV[r] : -(theta * WV[r]);
+        __syncwarp();
+        f2 = -theta * f1 - small_solves(true, gamma, li, dhi);
+        const T dt0 = seg_min(f1, f2);
+        if (dt0 == dt0 && !__any_sync(kFull, tfirst <= dt0)) {     // dt0 < min tfirst
+          T inmin = INF;
+          for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+            T r[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) r[u] = i0 + u * kWarp < n ? gamma * G[i0 + u * kWarp] : T(0);
+            apply_w(CF, i0, r);
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              const int i = i0 + u * kWarp;
+              if (i < n) {
+                const T xn = X[i] - r[u];
+                inmin = jmin(inmin, jmin(xn - lo[i], up[i] - xn));
+                const T d = jclip(xn, lo[i], up[i]) - X[i];
+                D[i] = d;
+                g0d += G[i] * d;
+              }
+            }
+          }
+          fast = __all_sync(kFull, inmin >= T(0));
+          g0d = warp_sum(g0d);
+        }
+      }
+
+      if (fast) {
+        direct = true;
+        K1_PHASE(1);
+        K1_COUNT(9, 1);
+      } else {
+        K1_PHASE(1);
         // ---- generalized Cauchy point: breakpoint walk
         for (int i = lane; i < n; i += kWarp) {
           const T tb = breakpoint(i);
           DG[i] = tb > T(0) ? -G[i] : T(0);
-          TB[i] = tb > T(0) ? tb : INF;
+          D[i] = tb > T(0) ? tb : INF;
           XT[i] = X[i];
-          FX[i] = 0;
         }
+        for (int w = lane; w < nmask; w += kWarp) FXW[w] = 0;
+        for (int r = lane; r < m2; r += kWarp) C[r] = 0;
         __syncwarp();
-        if (lane == 0)
-          for (int r = 0; r < m2; ++r) C[r] = 0;
+        if (blocked) {
+          f1 = -wt_dot(DG, P, theta, true, no_hook);
+          f2 = -theta * f1 - mid_pMp(P);
+        }
         T t_old = 0, dt_min = seg_min(f1, f2);
         for (int trip = 0; trip < n; ++trip) {
           T tv = INF;
           int bi = n;
-          for (int i = lane; i < n; i += kWarp)
-            if (TB[i] < tv) { tv = TB[i]; bi = i; }
+          each([&](int i) { const T b = D[i]; if (b < tv) { tv = b; bi = i; } });
           warp_argmin(tv, bi);
           if (!(isfinite(tv) && dt_min >= tv - t_old)) break;
+          K1_COUNT(10, 1);
           const T dt = tv - t_old;
           const T gb = G[bi];
           const T bound = DG[bi] > T(0) ? up[bi] : lo[bi];
           const T zb = bound - X[bi];
-          if (lane == 0) {
-            for (int r = 0; r < m2; ++r) C[r] = C[r] + dt * P[r];
-            for (int q = 0; q < m; ++q) {
-              WB[q] = hist(Y, q)[bi];
-              WB[m + q] = theta * hist(S, q)[bi];
-            }
+          for (int r = lane; r < m2; r += kWarp) {
+            C[r] = C[r] + dt * P[r];
+            WB[r] = r < m ? WS[slot(r) * n + bi] : theta * WS[(m + slot(r - m)) * n + bi];
           }
           __syncwarp();
-          if (lane == 0) mid_solve(C, R0);
-          else if (lane == 1) mid_solve(P, R1);
-          else if (lane == 2) mid_solve(WB, R2);
-          __syncwarp();
-          T wMc = 0, wMp = 0, wMw = 0;
-          for (int r = 0; r < m2; ++r) {
-            wMc = wMc + WB[r] * R0[r];
-            wMp = wMp + WB[r] * R1[r];
-            wMw = wMw + WB[r] * R2[r];
+          const T* ins[3] = {C, P, WB};
+          T u[3], v[3];
+          mid_solve_lanes<3>(ins, u, v, SY, L, DHI, li, dhi, m, lane);
+          T pc = 0, pp = 0, pw = 0;
+          if (lane < m) {
+            const T w1 = WB[lane], w2 = WB[m + lane];
+            pc = w1 * u[0] + w2 * v[0];
+            pp = w1 * u[1] + w2 * v[1];
+            pw = w1 * u[2] + w2 * v[2];
           }
+          const T wMc = warp_sum(pc), wMp = warp_sum(pp), wMw = warp_sum(pw);
           const T f1n = f1 + dt * f2 + gb * gb + theta * gb * zb - gb * wMc;
           const T f2n = f2 - theta * gb * gb - T(2) * gb * wMp - gb * gb * wMw;
           __syncwarp();
-          if (lane == 0)
-            for (int r = 0; r < m2; ++r) P[r] = P[r] + gb * WB[r];
+          for (int r = lane; r < m2; r += kWarp) P[r] = P[r] + gb * WB[r];
           if (lane == (bi & (kWarp - 1))) {
             DG[bi] = 0;
             XT[bi] = bound;
-            FX[bi] = 1;
-            TB[bi] = INF;
+            mset(bi, true);
+            D[bi] = INF;
           }
           __syncwarp();
           f1 = f1n;
@@ -377,34 +716,43 @@ lbfgsb_fused_kernel(const Params<T> prm) {
         const T t_cp = t_old + dt_min;
         // dt_min = inf: the remaining direction is zero; skip the inf * 0
         const T dt_fin = isfinite(dt_min) ? dt_min : T(0);
-        if (lane == 0)
-          for (int r = 0; r < m2; ++r) C[r] = C[r] + dt_fin * P[r];
+        for (int r = lane; r < m2; r += kWarp) C[r] = C[r] + dt_fin * P[r];
         for (int i = lane; i < n; i += kWarp) {
-          if (!(FX[i] > T(0))) XT[i] = X[i] + (DG[i] == T(0) ? T(0) : t_cp * DG[i]);
-          FX[i] = (breakpoint(i) > T(0) && FX[i] == T(0)) ? T(1) : T(0);   // free
+          const bool fixed = mbit(i);
+          if (!fixed) XT[i] = X[i] + (DG[i] == T(0) ? T(0) : t_cp * DG[i]);
+          mset(i, breakpoint(i) > T(0) && !fixed);   // free
         }
         __syncwarp();
+        K1_PHASE(2);
 
         // ---- primal subspace step from the Cauchy point
-        if (lane == 0) mid_solve(C, R0);
-        __syncwarp();
-        w_apply(R0, TB);
+        {
+          const T* ins[1] = {C};
+          T u[1], v[1];
+          mid_solve_lanes<1>(ins, u, v, SY, L, DHI, li, dhi, m, lane);
+          if (lane < m) {
+            WB[lane] = u[0];
+            WB[m + lane] = v[0];
+          }
+          __syncwarp();
+        }
+        w_apply(WB, DG);
         for (int i = lane; i < n; i += kWarp) {
-          const T r = G[i] + theta * (XT[i] - X[i]) - TB[i];
-          D[i] = FX[i] > T(0) ? r : T(0);
+          const T r = G[i] + theta * (XT[i] - X[i]) - DG[i];
+          D[i] = mbit(i) ? r : T(0);
         }
         // E = D + Y_F Y_F^T / theta, H = theta S_A S_A^T (patched),
         // Gm = L^T - Y_F S_F^T
         for (int r = 0; r < m; ++r) {
-          const T* Yr = hist(Y, r);
-          const T* Sr = hist(S, r);
+          const T* Yr = Yv(r);
+          const T* Sr = Sv(r);
           for (int q = 0; q < m; ++q) {
-            const T* Yq = hist(Y, q);
-            const T* Sq = hist(S, q);
+            const T* Yq = Yv(q);
+            const T* Sq = Sv(q);
             if (q <= r) {
               T se = 0, sh = 0;
               for (int i = lane; i < n; i += kWarp) {
-                const T fr = FX[i];
+                const T fr = mbit(i) ? T(1) : T(0);
                 const T ac = T(1) - fr;
                 se += (Yr[i] * fr) * (Yq[i] * fr);
                 sh += (Sr[i] * ac) * (Sq[i] * ac);
@@ -413,7 +761,7 @@ lbfgsb_fused_kernel(const Params<T> prm) {
               T h = theta * warp_sum(sh);
               if (r == q) {
                 e = e + DH[r];
-                h = h + (VAL[r] > T(0) ? T(0) : T(1));
+                h = h + (valid(r) ? T(0) : T(1));
               }
               if (lane == 0) {
                 E[r * m + q] = e;
@@ -423,7 +771,10 @@ lbfgsb_fused_kernel(const Params<T> prm) {
               }
             }
             T sg = 0;
-            for (int i = lane; i < n; i += kWarp) sg += (Yr[i] * FX[i]) * (Sq[i] * FX[i]);
+            for (int i = lane; i < n; i += kWarp) {
+              const T fr = mbit(i) ? T(1) : T(0);
+              sg += (Yr[i] * fr) * (Sq[i] * fr);
+            }
             const T gm = (q > r ? SY[q * m + r] : T(0)) - warp_sum(sg);
             if (lane == 0) GM[r * m + q] = gm;
           }
@@ -444,30 +795,29 @@ lbfgsb_fused_kernel(const Params<T> prm) {
         }
         __syncwarp();
         chol(L);
-        w_dot(D, R1);                   // [a; b] = W^T r_F
-        __syncwarp();
+        wt_dot(D, WV, theta, false, no_hook);   // [a; b] = W^T r_F
         if (lane == 0) {
-          for (int k = 0; k < m; ++k) R2[k] = R1[k];
+          for (int k = 0; k < m; ++k) R2[k] = WV[k];
           chol_solve(E, R2, 1);         // E^{-1} a
           for (int i = 0; i < m; ++i) {
-            T s = R1[m + i];
+            T s = WV[m + i];
             for (int k = 0; k < m; ++k) s = s + GM[k * m + i] * R2[k];
-            UV[m + i] = s;
+            WB[m + i] = s;
           }
-          chol_solve(L, UV + m, 1);     // v
+          chol_solve(L, WB + m, 1);     // v
           for (int i = 0; i < m; ++i) {
-            T s = -R1[i];
-            for (int k = 0; k < m; ++k) s = s + GM[i * m + k] * UV[m + k];
-            UV[i] = s;
+            T s = -WV[i];
+            for (int k = 0; k < m; ++k) s = s + GM[i * m + k] * WB[m + k];
+            WB[i] = s;
           }
-          chol_solve(E, UV, 1);         // u
+          chol_solve(E, WB, 1);         // u
         }
         __syncwarp();
-        w_apply(UV, TB);
+        w_apply(WB, DG);
         T smin = INF;
         for (int i = lane; i < n; i += kWarp) {
-          const bool fr = FX[i] > T(0);
-          const T du = -(D[i] / theta + (fr ? TB[i] : T(0)) / (theta * theta));
+          const bool fr = mbit(i);
+          const T du = -(D[i] / theta + (fr ? DG[i] : T(0)) / (theta * theta));
           D[i] = du;
           T st = du > T(0) ? (up[i] - XT[i]) / du
                            : (du < T(0) ? (lo[i] - XT[i]) / du : INF);
@@ -478,129 +828,217 @@ lbfgsb_fused_kernel(const Params<T> prm) {
         // clip rounding dust (an epsilon-outward step on a coordinate at its
         // bound would collapse the next max feasible step to -0)
         for (int i = lane; i < n; i += kWarp)
-          D[i] = jclip(XT[i] + alpha * (FX[i] > T(0) ? D[i] : T(0)), lo[i], up[i]) - X[i];
+          D[i] = jclip(XT[i] + alpha * (mbit(i) ? D[i] : T(0)), lo[i], up[i]) - X[i];
+        K1_PHASE(3);
       }
     }
 
     // ---- projected Armijo backtracking, first trial capped at the max
     // feasible step
-    T g0d = 0;
-    for (int i = lane; i < n; i += kWarp) g0d += G[i] * D[i];
-    g0d = warp_sum(g0d);
     T t = 1;
-    if (!UNBOUNDED) {
+    if (!direct) {
+      g0d = 0;        // the gate's pass may have summed a direction not taken
       T fsmin = INF;
-      for (int i = lane; i < n; i += kWarp) {
+      each([&](int i) {
         const T d = D[i];
+        g0d += G[i] * d;
         T fs = d > T(0) ? (up[i] - X[i]) / d : (d < T(0) ? (lo[i] - X[i]) / d : INF);
         if (isnan(fs)) fs = INF;
         fsmin = jmin(fsmin, fs);
-      }
+      });
+      g0d = warp_sum(g0d);
       t = jmin(T(1), warp_min(fsmin));
     }
+    // the first trial evaluates the gradient too: most steps are taken there
+    bool have_xt = false, have_grad = false;
+    T fnew = 0;
     for (int k = 0; k < prm.max_iter_ls; ++k) {
       __syncwarp();
-      for (int i = lane; i < n; i += kWarp) XT[i] = X[i] + t * D[i];
+      each_store(XT, [&](int i) { return X[i] + t * D[i]; });
       __syncwarp();
-      const T fv = obj.value(XT, n, lane);
-      if (fv <= Fv + prm.c1 * t * g0d && isfinite(fv)) break;
+      const T fv = k == 0 ? obj.value_grad(XT, DG, n, lane) : obj.value(XT, n, lane);
+      K1_COUNT(11, 1);
+      if (fv <= Fv + prm.c1 * t * g0d && isfinite(fv)) {
+        have_xt = true;
+        have_grad = k == 0;
+        fnew = fv;
+        break;
+      }
       t = t * T(0.5);
     }
+    K1_PHASE(4);
 
     // ---- step, failure semantics and history update
-    __syncwarp();
-    for (int i = lane; i < n; i += kWarp) XT[i] = X[i] + t * D[i];
-    __syncwarp();
-    const T fnew = obj.value_grad(XT, DG, n, lane);
-    bool fin = true, same = true;
-    for (int i = lane; i < n; i += kWarp) {
-      fin = fin && isfinite(XT[i]) && isfinite(DG[i]);
-      same = same && XT[i] == X[i];
+    if (!have_grad) {
+      if (!have_xt) {
+        __syncwarp();
+        each_store(XT, [&](int i) { return X[i] + t * D[i]; });
+      }
+      __syncwarp();
+      fnew = obj.value_grad(XT, DG, n, lane);
     }
+    __syncwarp();
+    K1_PHASE(5);
+    // one pass: the step's checks, its products with every stored pair and,
+    // for the next iteration's gate, W^T g+ over the ring the new pair
+    // would make, g+.g+ and the breakpoint minima at the new point: per
+    // ring slot k six sums, s.Y_k, S_k.y, s.S_k, y.Y_k (to GR[4k + 0..3])
+    // and Y_k.g+, S_k.g+ (to WV), the slot the new pair would take giving
+    // them for (s, y); the same sums, in the same order, as the gate's pass
+    bool fin = true, same = true;
+    T pgn = 0;
+    tmin_n = INF;
+    tfirst_n = INF;
+    const int oldest_n = oldest + 1 == m ? 0 : oldest + 1;
+    for (int k0 = 0; k0 < m; k0 += kStepSlots) {
+      T acc[kWarp];
+#pragma unroll
+      for (int kk = 0; kk < kWarp; ++kk) acc[kk] = 0;
+      for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+        T su[kUnroll], yu[kUnroll], gu[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * kWarp;
+          su[u] = yu[u] = gu[u] = 0;
+          if (i < n) {
+            const T xt = XT[i], dg = DG[i], x = X[i];
+            if (k0 == 0) {
+              fin = fin && isfinite(xt) && isfinite(dg);
+              same = same && xt == x;
+              pgn = jmax(pgn, pg_at(i));
+              if (!UNBOUNDED) {
+                const T tb = dg < T(0) ? (xt - up[i]) / dg : (dg > T(0) ? (xt - lo[i]) / dg : INF);
+                tmin_n = jmin(tmin_n, tb);
+                tfirst_n = jmin(tfirst_n, tb > T(0) ? tb : INF);
+              }
+            }
+            su[u] = xt - x;
+            yu[u] = dg - G[i];
+            gu[u] = dg;
+          }
+        }
+        if (k0 == 0) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) acc[kWarp - 2] = acc[kWarp - 2] + gu[u] * gu[u];
+        }
+#pragma unroll
+        for (int kj = 0; kj < kStepSlots; ++kj) {
+          const int k = k0 + kj;
+          if (k < m) {
+            const T* yk = WS + k * n + i0;
+            const T* sk = WS + (m + k) * n + i0;
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              if (i0 + u * kWarp < n) {
+                const T yv = k == oldest ? yu[u] : yk[u * kWarp];
+                const T sv = k == oldest ? su[u] : sk[u * kWarp];
+                acc[6 * kj + 0] = acc[6 * kj + 0] + su[u] * yv;
+                acc[6 * kj + 1] = acc[6 * kj + 1] + sv * yu[u];
+                acc[6 * kj + 2] = acc[6 * kj + 2] + su[u] * sv;
+                acc[6 * kj + 3] = acc[6 * kj + 3] + yu[u] * yv;
+                acc[6 * kj + 4] = acc[6 * kj + 4] + yv * gu[u];
+                acc[6 * kj + 5] = acc[6 * kj + 5] + sv * gu[u];
+              }
+            }
+          }
+        }
+      }
+      const T r = warp_sums<kWarp>(acc, lane);
+      const int k = k0 + lane / 6, kind = lane % 6;
+      if (lane < 6 * kStepSlots && k < m) {
+        if (kind < 4) {
+          GR[4 * k + kind] = r;
+        } else {
+          const int q = k - oldest_n;
+          WV[(kind == 4 ? 0 : m) + (q < 0 ? q + m : q)] = r;
+        }
+      }
+      if (k0 == 0) gg_n = __shfl_sync(kFull, r, kWarp - 2);
+    }
+    __syncwarp();
     const bool ok = isfinite(fnew) && __all_sync(kFull, fin);
     const bool no_move = __all_sync(kFull, same);
     const bool fail = !ok || fnew > Fv || t <= T(0) || no_move;
-    bool has_hist = false;
-    for (int q = 0; q < m; ++q) has_hist = has_hist || VAL[q] > T(0);
+    const bool has_hist = nvalid > 0;
     const bool restart = fail && has_hist;
     if (fail && !has_hist) abn = true;
-    T sy = 0, yy = 0;
-    if (!fail) {
-      for (int i = lane; i < n; i += kWarp) {
-        const T s = XT[i] - X[i];
-        const T y = DG[i] - G[i];
-        sy += s * y;
-        yy += y * y;
-      }
-    }
-    sy = warp_sum(sy);
-    yy = warp_sum(yy);
-    if (!fail && sy > eps * yy) {
-      T* Sn = S + (long long)oldest * n;
-      T* Yn = Y + (long long)oldest * n;
-      for (int i = lane; i < n; i += kWarp) {
-        Sn[i] = XT[i] - X[i];
-        Yn[i] = DG[i] - G[i];
-      }
-      oldest = (oldest + 1) % m;
-      __syncwarp();
-      if (lane == 0) {
-        for (int r = 0; r < m - 1; ++r) {
-          for (int q = 0; q < m - 1; ++q) {
-            SY[r * m + q] = SY[(r + 1) * m + q + 1];
-            SS[r * m + q] = SS[(r + 1) * m + q + 1];
+    const T sy = GR[4 * oldest + 0], yy = GR[4 * oldest + 3];
+    ready = !fail && sy > eps * yy;
+    if (ready) {
+      T* Yn = WS + oldest * n;
+      T* Sn = WS + (m + oldest) * n;
+      for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+        T su[kUnroll], yu[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * kWarp;
+          if (i < n) {
+            su[u] = XT[i] - X[i];
+            yu[u] = DG[i] - G[i];
           }
-          VAL[r] = VAL[r + 1];
         }
-        VAL[m - 1] = 1;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * kWarp;
+          if (i < n) {
+            Sn[i] = su[u];
+            Yn[i] = yu[u];
+          }
+        }
       }
+      // shift the tables one place up the diagonal, all lanes: the sources
+      // ([r+1][q+1]) lie past every target of their chunk and of the chunks
+      // before, so each chunk reads, then writes
+      const int mm = (m - 1) * (m - 1);
+      for (int e0 = 0; e0 < mm; e0 += kWarp) {
+        const int e = e0 + lane;
+        const int dst = e < mm ? (e / (m - 1)) * m + e % (m - 1) : 0;
+        T a = 0, b = 0, c = 0;
+        if (e < mm) {
+          a = SY[dst + m + 1];
+          b = SS[dst + m + 1];
+          c = YY[dst + m + 1];
+        }
+        __syncwarp();
+        if (e < mm) {
+          SY[dst] = a;
+          SS[dst] = b;
+          YY[dst] = c;
+        }
+        __syncwarp();
+      }
+      oldest = oldest + 1 == m ? 0 : oldest + 1;
+      nvalid = nvalid < m ? nvalid + 1 : m;
       theta = yy / sy;
-      __syncwarp();
-      const T* Snew = hist(S, m - 1);
-      const T* Ynew = hist(Y, m - 1);
-      for (int j = 0; j < m; ++j) {
-        const T* Sj = hist(S, j);
-        const T* Yj = hist(Y, j);
-        T a = 0, c = 0, s2 = 0;
-        for (int i = lane; i < n; i += kWarp) {
-          a += Snew[i] * Yj[i];
-          c += Sj[i] * Ynew[i];
-          s2 += Snew[i] * Sj[i];
-        }
-        a = warp_sum(a);
-        c = warp_sum(c);
-        s2 = warp_sum(s2);
-        if (lane == 0) {
-          SY[(m - 1) * m + j] = a;
-          SY[j * m + m - 1] = c;
-          SS[(m - 1) * m + j] = s2;
-          SS[j * m + m - 1] = s2;
-        }
+      for (int j = lane; j < m; j += kWarp) {
+        const int k = slot(j);
+        const T a = GR[4 * k + 0], c = GR[4 * k + 1], s2 = GR[4 * k + 2], y2 = GR[4 * k + 3];
+        SY[(m - 1) * m + j] = a;
+        SY[j * m + m - 1] = c;
+        SS[(m - 1) * m + j] = s2;
+        SS[j * m + m - 1] = s2;
+        YY[(m - 1) * m + j] = y2;
+        YY[j * m + m - 1] = y2;
       }
       __syncwarp();
     }
-    if (restart) {
-      // wipe the model: zero pairs are inert rows of W
-      for (long long i = lane; i < (long long)m * n; i += kWarp) { S[i] = 0; Y[i] = 0; }
-      for (int e = lane; e < m * m; e += kWarp) { SY[e] = 0; SS[e] = 0; }
-      for (int e = lane; e < m; e += kWarp) VAL[e] = 0;
-      theta = 1;
-      oldest = 0;
-      __syncwarp();
-    }
+    // a restart wipes the model (zero pairs are inert rows of W)
+    if (restart) wipe();
     // a restart disables the stall exit for the retry iteration
     Fprev = restart ? INF : Fv;
+    const bool pgn_ok = __all_sync(kFull, pgn <= prm.pgtol);
     if (!fail) {
-      for (int i = lane; i < n; i += kWarp) {
-        X[i] = XT[i];
-        G[i] = DG[i];
-      }
+      T* tmp = X; X = XT; XT = tmp;
+      tmp = G; G = DG; DG = tmp;
       Fv = fnew;
+      pg_ok = pgn_ok;
     }
     ++iters;
     __syncwarp();
+    K1_PHASE(6);
     active = isfinite(Fv) && !abn && !converged();
   }
+  K1_PHASE(7);
 
   const bool finite = isfinite(Fv);
   const int status = abn ? 5 : ((converged() && finite) ? 1 : (!finite ? 3 : 2));
@@ -610,23 +1048,70 @@ lbfgsb_fused_kernel(const Params<T> prm) {
     prm.it_out[inst] = iters;
     prm.st_out[inst] = status;
   }
+  K1_PROF(if (lane == 0) {
+    prof_acc[12] = 1;
+    prof_acc[13] = clock64() - prof_t0;
+    for (int k = 0; k < 14; ++k) atomicAdd(&k1_prof[k], (unsigned long long)prof_acc[k]);
+  })
+}
+
+// the launch for a batch of B: the warps per block (1 .. kMaxWarpsPerBlock,
+// at most B) that keep the most warps resident per SM by the card's
+// occupancy calculator, the larger block on a tie; 0 warps if an instance
+// does not fit a block
+template <typename T, class Obj, bool UNBOUNDED>
+cudaError_t configure(int B, int n, int m, int& wpb, int& blocks) {
+  const long long per_warp = work_bytes(n, m, sizeof(T));
+  wpb = 0;
+  blocks = 0;
+  long long most = kSmemPerBlock / per_warp;
+  if (most > kMaxWarpsPerBlock) most = kMaxWarpsPerBlock;
+  if (most > B) most = B;
+  if (most < 1) return cudaSuccess;
+  auto kernel = lbfgsb_fused_kernel<T, Obj, UNBOUNDED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(per_warp * most));
+  for (int w = (int)most; w >= 1 && err == cudaSuccess; --w) {
+    int nb = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, w * kWarp,
+                                                        (size_t)(per_warp * w));
+    if (err == cudaSuccess && nb * w > blocks * wpb) {
+      wpb = w;
+      blocks = nb;
+    }
+  }
+  return err;
 }
 
 template <typename T, class Obj, bool UNBOUNDED>
 int launch(const Params<T>& prm, cudaStream_t stream) {
-  const long long per_warp = work_elems(prm.n, prm.m) * (long long)sizeof(T);
-  long long wpb = kSmemPerBlock / per_warp;
-  if (wpb > kMaxWarpsPerBlock) wpb = kMaxWarpsPerBlock;
-  if (wpb > prm.B) wpb = prm.B;
-  if (wpb < 1) return kErrSmem;
-  const int smem = (int)(per_warp * wpb);
-  auto kernel = lbfgsb_fused_kernel<T, Obj, UNBOUNDED>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int wpb, blocks;
+  cudaError_t err = configure<T, Obj, UNBOUNDED>(prm.B, prm.n, prm.m, wpb, blocks);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (int)((prm.B + wpb - 1) / wpb);
-  kernel<<<grid, (int)wpb * kWarp, smem, stream>>>(prm);
+  if (wpb < 1) return kErrSmem;
+  const int smem = (int)(work_bytes(prm.n, prm.m, sizeof(T)) * wpb);
+  const int grid = (prm.B + wpb - 1) / wpb;
+  lbfgsb_fused_kernel<T, Obj, UNBOUNDED><<<grid, wpb * kWarp, smem, stream>>>(prm);
   return (int)cudaGetLastError();
+}
+
+// out: warps per block, resident blocks per SM, registers per thread, local
+// (spill) bytes per thread, dynamic shared memory per block
+template <typename T, class Obj, bool UNBOUNDED>
+int kernel_info(int B, int n, int m, int* out) {
+  int wpb, blocks;
+  cudaError_t err = configure<T, Obj, UNBOUNDED>(B, n, m, wpb, blocks);
+  if (err != cudaSuccess) return (int)err;
+  if (wpb < 1) return kErrSmem;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, lbfgsb_fused_kernel<T, Obj, UNBOUNDED>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = wpb;
+  out[1] = blocks;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = (int)(work_bytes(n, m, sizeof(T)) * wpb);
+  return 0;
 }
 
 template <typename T>
@@ -639,6 +1124,17 @@ int dispatch(int objective, int unbounded, const Params<T>& prm, cudaStream_t st
     return unbounded ? launch<T, WeightedSquares<T>, true>(prm, stream)
                      : launch<T, WeightedSquares<T>, false>(prm, stream);
   }
+  return kErrArgs;
+}
+
+template <typename T>
+int info_dispatch(int objective, int unbounded, int B, int n, int m, int* out) {
+  if (objective == kRosenbrock)
+    return unbounded ? kernel_info<T, Rosenbrock<T>, true>(B, n, m, out)
+                     : kernel_info<T, Rosenbrock<T>, false>(B, n, m, out);
+  if (objective == kWeightedSquares)
+    return unbounded ? kernel_info<T, WeightedSquares<T>, true>(B, n, m, out)
+                     : kernel_info<T, WeightedSquares<T>, false>(B, n, m, out);
   return kErrArgs;
 }
 
@@ -674,7 +1170,7 @@ int run(int objective, int unbounded, const void* x0, const void* lo,
 }  // namespace
 
 extern "C" long long lbfgsb_fused_smem_per_warp(int n, int m, int elem_size) {
-  return work_elems(n, m) * (long long)elem_size;
+  return work_bytes(n, m, elem_size);
 }
 
 // dtype 0: float32, 1: float64.  Returns 0, a cudaError_t, or a negative
@@ -696,6 +1192,26 @@ extern "C" int lbfgsb_fused_launch(
                        it, st, stream);
   return kErrArgs;
 }
+
+// the launch configuration and the compiled kernel's resources for one
+// call's shape (see kernel_info); returns 0, a cudaError_t or an ErrorCode
+extern "C" int lbfgsb_fused_kernel_info(int dtype, int objective, int unbounded,
+                                        int B, int n, int m, int* out) {
+  if (B < 1 || n < 1 || m < 1 || m > kMaxM) return kErrArgs;
+  if (dtype == 0) return info_dispatch<float>(objective, unbounded, B, n, m, out);
+  if (dtype == 1) return info_dispatch<double>(objective, unbounded, B, n, m, out);
+  return kErrArgs;
+}
+
+#ifdef K1_PROFILE
+extern "C" int k1_prof_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, k1_prof, sizeof(unsigned long long) * 16);
+}
+extern "C" int k1_prof_reset() {
+  const unsigned long long z[16] = {0};
+  return (int)cudaMemcpyToSymbol(k1_prof, z, sizeof(z));
+}
+#endif
 
 extern "C" const char* ost_error_string(int code) {
   if (code == kErrArgs) return "invalid arguments";

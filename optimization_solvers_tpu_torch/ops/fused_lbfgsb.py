@@ -50,10 +50,12 @@ K1_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
 
 
 def smem_per_instance(n: int, m: int, itemsize: int) -> int:
-    """Shared memory one instance takes in the CUDA kernel: ``work_elems``
-    of ``csrc/lbfgsb_fused.cu`` times the element size, mirrored here so
+    """Shared memory one instance takes in the CUDA kernel: ``work_bytes``
+    of ``csrc/lbfgsb_fused.cu`` ((2m+5) n + 7 m^2 + 13 m elements and a
+    bit mask of 32-bit words, 32 per 1,024 coordinates), mirrored here so
     that the route can decide on a machine without the library."""
-    return ((2 * m + 7) * n + 6 * m * m + 17 * m) * itemsize
+    return (((2 * m + 5) * n + 7 * m * m + 13 * m) * itemsize
+            + 4 * 32 * ((n + 1023) // 1024))
 
 
 def fits(n: int, m: int, itemsize: int) -> bool:
@@ -441,6 +443,28 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
                            f"{_build.error_string(rc)} (code {rc})")
     lbfgsb_solve_fused.launches += 1
     return x, f, it, st
+
+
+def kernel_info(dtype, B, n, m, objective="ROSENBROCK", unbounded=False):
+    """The CUDA kernel's launch for a ``(B, n)`` batch of ``dtype`` at
+    history ``m`` with the functor ``objective`` (one of ``K1_OBJECTIVES``),
+    and its compiled resources: warps per block, resident blocks and warps
+    per SM (the card's occupancy calculator), registers and local (spill)
+    bytes per thread, dynamic shared memory per block."""
+    from . import _build
+
+    code = KERNEL_OBJECTIVES[objective]
+    out = (ctypes.c_int * 5)()
+    rc = _build.load().lbfgsb_fused_kernel_info(
+        1 if dtype == torch.float64 else 0, code, int(unbounded), B, n, m,
+        out)
+    if rc != 0:
+        raise RuntimeError(f"lbfgsb_fused_kernel_info failed: "
+                           f"{_build.error_string(rc)} (code {rc})")
+    wpb, blocks, regs, local, smem = list(out)
+    return dict(warps_per_block=wpb, blocks_per_sm=blocks,
+                warps_per_sm=wpb * blocks, registers=regs, local_bytes=local,
+                smem_per_block=smem)
 
 
 def lbfgsb_solve_fused(obj, x0, lower, upper, data=(), *, m=5, pgtol=1e-5,

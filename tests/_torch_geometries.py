@@ -59,6 +59,47 @@ def k1_geometries():
     }
 
 
+def k1_edges():
+    """name -> (B, n, m, box) of the CUDA kernel K1's edges: ``box`` is
+    "shared" (half-width 2), "per_instance" or "none".  The edges of the
+    launch (one instance, a block of 8 warps left ragged), of the lanes
+    (n < 32; one and two coordinate blocks per lane, n 128 and 129; one and
+    two mask words, n 1,024 and 1,025), of the small algebra (m 1 and 20;
+    the Schur factor in registers at m 7, in shared memory at m 8) and of
+    the bodies (per-instance boxes, no box).  ``k1_edge_arrays`` makes the
+    inputs."""
+    return {
+        "one_instance": (1, 20, 5, "shared"),
+        "ragged_block": (13, 20, 5, "shared"),
+        "narrow": (5, 7, 5, "shared"),
+        "m1": (9, 40, 1, "shared"),
+        "m20": (9, 40, 20, "shared"),
+        "m7_registers": (9, 30, 7, "shared"),
+        "m8_shared_memory": (9, 30, 8, "shared"),
+        "n128": (9, 128, 5, "shared"),
+        "n129": (9, 129, 5, "shared"),
+        "n1024": (3, 1024, 5, "shared"),
+        "n1025": (3, 1025, 5, "shared"),
+        "per_instance_boxes": (9, 20, 5, "per_instance"),
+        "unbounded": (9, 20, 5, "none"),
+    }
+
+
+def k1_edge_arrays(B, n, box, seed=0):
+    """x0, lower, upper and the weighted-squares data (weights
+    logspace(0, 2), targets linspace(-3, 3), past the box of half-width 2,
+    so bounds bind and the Cauchy walk and the subspace step run)."""
+    rng = np.random.RandomState(seed)
+    x0 = rng.uniform(-2.0, 2.0, (B, n))
+    if box == "per_instance":
+        lo = -rng.uniform(0.5, 2.5, (B, n))
+        up = rng.uniform(0.5, 2.5, (B, n))
+    else:
+        half = 2.0 if box == "shared" else INF
+        lo, up = np.full(n, -half), np.full(n, half)
+    return x0, lo, up, np.logspace(0.0, 2.0, n), np.linspace(-3.0, 3.0, n)
+
+
 def mixed_quadratic_arrays():
     """Q, lower, upper, x0 of K2's mixed-infinite-bounds geometry: a
     rotated SPD quadratic (condition 1e2) with some bounds infinite."""

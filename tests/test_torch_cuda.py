@@ -9,7 +9,8 @@ is installed; without the repository's JAX conftest and the xdist default:
 
 Tolerances (float64): status equal per instance, x within 1e-6, iteration
 counts within ``max(2, spread)`` with ``spread`` the plain version's own
-range under a 1e-15 relative change of x0 (see ``_torch_geometries``); on
+range under a 1e-15 relative change of x0 (see ``_torch_geometries``; K1's
+edges, ``k1_edges``, in float32 by converged fraction within 0.01); on
 the tall kernel's quadratic and log-sum-exp geometries iteration counts
 equal and f within 1e-10 relative.  The tall kernel's tile (several
 instances per block, in lockstep) is held at its edges with the same
@@ -33,7 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_geometries import (config5_hessian, k1_geometries, k2_geometries,
+from _torch_geometries import (config5_hessian, k1_edge_arrays, k1_edges,
+                               k1_geometries, k2_geometries,
                                k3_geometries, k3_newton_geometries,
                                k3_qn_geometries, k4_geometries, k7_geometries,
                                k8_geometries, k9_geometries, lse_arrays,
@@ -140,6 +142,72 @@ def test_refuses_what_does_not_fit(cuda):
     with pytest.raises(ValueError, match="lies on"):
         fused_lbfgsb.lbfgsb_solve_fused(problems.rosenbrock(), x0[:, :4],
                                         lo[:4].cpu(), -lo[:4])
+
+
+# ---- K1's edges ---------------------------------------------------------------
+
+def k1_against_plain(x0, lo, up, data, obj, kw, dtype):
+    """K1 against its plain version on the card: in float64 status equal,
+    x within 1e-6 and iterations within max(2, spread) (the plain version's
+    own spread under a 1e-15 change of x0), as test_kernel_matches_plain;
+    in float32 the converged fractions within 0.01, as phase 3 of
+    chip_smoke.py holds them."""
+    before = fused_lbfgsb.lbfgsb_solve_fused.launches
+    r = fused_lbfgsb.lbfgsb_solve_fused(obj, x0, lo, up, data, **kw)
+    torch.cuda.synchronize()
+    assert fused_lbfgsb.lbfgsb_solve_fused.launches == before + 1
+    x, _, it, st = fused_lbfgsb.lbfgsb_solve_plain(obj, x0, lo, up, data, **kw)
+    assert bool(torch.isfinite(r.x).all())
+    if dtype == torch.float32:
+        ck, cp = ((v == 1).float().mean().item() for v in (r.status, st))
+        assert abs(ck - cp) <= 0.01, (ck, cp)
+        return
+    spread = perturbation_spread(
+        lambda v: fused_lbfgsb.lbfgsb_solve_plain(
+            obj, torch.tensor(v, device=x0.device), lo, up, data, **kw)[2]
+        .cpu().numpy(), x0.cpu().numpy())
+    assert torch.equal(r.status, st)
+    assert (r.x - x).abs().max().item() <= 1e-6
+    dit = (r.iterations.long() - it.long()).abs().max().item()
+    assert dit <= max(2, spread), (dit, spread)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", sorted(k1_edges()))
+def test_kernel_edges_match_plain(name, dtype, cuda):
+    B, n, m, box = k1_edges()[name]
+    x0, lo, up, d, t = interop.tensors_from_numpy(
+        *k1_edge_arrays(B, n, box), device=cuda, dtype=dtype)
+    pgtol = 1e-8 if dtype == torch.float64 else 1e-3
+    k1_against_plain(x0, lo, up, (d, t), problems.weighted_squares(),
+                     dict(m=m, pgtol=pgtol, factr=10.0, max_iter=300), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_kernel_widest_fit_matches_plain(dtype, cuda):
+    """The largest n that fits a block at m 5 (Python's mirror of the
+    kernel's shared memory decides it), on Rosenbrock over 3 iterations."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    n = 1
+    while fused_lbfgsb.fits(n + 1, 5, itemsize):
+        n += 1
+    x0, lo, up, *_ = interop.tensors_from_numpy(
+        *k1_edge_arrays(2, n, "shared"), device=cuda, dtype=dtype)
+    k1_against_plain(x0, lo, up, (), problems.rosenbrock(),
+                     dict(m=5, pgtol=1e-8, factr=10.0, max_iter=3), dtype)
+    info = fused_lbfgsb.kernel_info(dtype, 2, n, 5)
+    assert info["warps_per_block"] == 1 and info["blocks_per_sm"] >= 1
+
+
+def test_kernel_launch_keeps_warps_resident(cuda):
+    """The headline's launch: blocks of 8 warps, at least 16 resident warps
+    per SM."""
+    info = fused_lbfgsb.kernel_info(torch.float32, 10_240, 100, 5)
+    assert info["warps_per_block"] == 8 and info["warps_per_sm"] >= 16
+    assert info["smem_per_block"] == 8 * fused_lbfgsb.smem_per_instance(
+        100, 5, 4)
 
 
 # ---- the tall kernel K2 and the route by fit ---------------------------------
@@ -357,7 +425,7 @@ def test_shared_memory_mirror_matches_the_library(cuda):
     """The route decides K1's fit in Python (``smem_per_instance``); it
     must equal the kernel's own ``work_elems`` formula."""
     lib = _build.load()
-    for n in (1, 2, 31, 100, 1000, 3404, 3405, 10_000):
+    for n in (1, 2, 31, 100, 1000, 1024, 1025, 3404, 3849, 3850, 10_000):
         for m in (1, 5, 10, 20):
             for itemsize in (4, 8):
                 assert fused_lbfgsb.smem_per_instance(n, m, itemsize) == (

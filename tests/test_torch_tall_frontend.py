@@ -123,14 +123,15 @@ def test_route_by_fit(route):
     q = ostt.problems.quadratic(np.eye(3))
     assert ostt.minimize(q, torch.zeros((2, 3)), method="lbfgsb") == "K2"
     # the fit boundary follows the kernel's shared memory formula
-    # ((2m+7) n + 6 m^2 + 17 m elements; m = 5, float32: n <= 3,404)
-    assert ostt.minimize(rosen, torch.zeros((1, 3404)), method="lbfgsb",
+    # ((2m+5) n + 7 m^2 + 13 m elements and 32 mask words per 1,024
+    # coordinates; m = 5, float32: n <= 3,849)
+    assert ostt.minimize(rosen, torch.zeros((1, 3849)), method="lbfgsb",
                          max_iter=1) == "K1"
-    assert ostt.minimize(rosen, torch.zeros((1, 3405)), method="lbfgsb",
+    assert ostt.minimize(rosen, torch.zeros((1, 3850)), method="lbfgsb",
                          max_iter=1) == "K2"
-    assert fused_lbfgsb.smem_per_instance(3404, 5, 4) <= (
+    assert fused_lbfgsb.smem_per_instance(3849, 5, 4) <= (
         fused_lbfgsb.SMEM_PER_BLOCK) < fused_lbfgsb.smem_per_instance(
-            3405, 5, 4)
+            3850, 5, 4)
 
 
 def test_policy_selects_the_line_search(route):
