@@ -30,7 +30,8 @@ batched L-BFGS-B path and the template-method paths through
   1500, max_iter_ls 40) through ``solvers.batch_minimize`` as the JAX bench
   calls it and through ``minimize(method="bfgs")`` in both policies, and
   L-BFGS + Hager-Zhang (``minimize(method="lbfgs")``, tol 1e-4) at the same
-  shape, which K3 runs in its quasi-Newton form;
+  shape, which K3 runs in its dense form (one block per instance) and its
+  quasi-Newton form (one warp per instance);
 * config 5 (``bench.py:687-741``: 256 and 64 x ``quadratic(Q)`` at n =
   1,024, ``Q = diag(linspace(1, 10)) + (0.2 / n) 1 1^T``, float32, box
   [-2, 2], ``ProjectedNewton(grad_tol=1e-4)`` + ``BackTrackingB``, max_iter
@@ -48,7 +49,11 @@ batched L-BFGS-B path and the template-method paths through
   inputs without the box (m 5, tol 1e-3), K8 (``ops.spg_solve_fused``,
   ``ops/csrc/spg_fused.cu``) on config 3's and K9 (``ops.bfgs_solve_fused``,
   ``ops/csrc/bfgs_fused.cu``) on config 2's (tol 1e-5, max_iter 600), each
-  timed beside K3's nearest method and search.
+  timed beside K3's nearest method and search;
+* K3's dense form (``ops/csrc/driver_dense.cu``, which config 2 runs with
+  its slabs in shared memory) and K9 past the shared-memory fit (n = 400,
+  B = 64, float64 and float32: the slabs in the device-memory workspace),
+  held against their plain versions.
 
 It prints, last, a JSON line of per-kernel results, the card's name and
 power limit, and one JSON line naming the device.  Any failed check exits
@@ -57,11 +62,12 @@ non-zero; so does a machine without a CUDA device.
     python3 chip_smoke.py               # the checked run
     python3 chip_smoke.py --breakdown   # also where K1's, K2's and K3's
                                         # time goes
-    python3 chip_smoke.py --times DIR   # only the headline (B = 10,240
-                                        # and 1,056), configs 3, 6, 4 and
-                                        # 5 (K3 and the lockstep K6 path in
-                                        # turns), with the package of
-                                        # checkout DIR
+    python3 chip_smoke.py --times DIR   # only config 2, K9, L-BFGS, K7,
+                                        # K8, K4, the headline (B = 10,240
+                                        # and 1,056), configs 3, 6, 4 and 5
+                                        # (K3 and the lockstep K6 path in
+                                        # turns) and K6, with the package
+                                        # of checkout DIR
 """
 
 import argparse
@@ -206,6 +212,19 @@ WHOLE_K7 = dict(B=10240, n=100, m=5, tol=1e-3, max_iter=600, max_iter_ls=16)
 WHOLE_K8 = dict(B=10240, n=64, box=2.0, tol=1e-4, max_iter=1000,
                 max_iter_ls=30)
 WHOLE_K9 = dict(B=1024, n=100, tol=1e-5, max_iter=600, max_iter_ls=24)
+# phase 33: the dense kernels past the shared-memory fit (their slabs in
+# the device-memory workspace): B instances of the weighted-squares
+# quadratic at width n (d = linspace(1, 50), t = linspace(-0.5, 2), starts
+# and minimizer inside the box [-2.5, 2.5]), every case converging within
+# max_iter at tol (the 2-norm of g) in both types.  float64: status equal,
+# x within DENSE_FIT_F64_ATOL (each run within tol / min d of the
+# minimizer); float32: status equal on DENSE_FIT_F32_AGREE of the
+# instances, x within DENSE_FIT_F32_ATOL (twice tol / min d)
+DENSE_FIT = dict(B=64, n=400, box=2.5, tol64=1e-8, tol32=1e-3, max_iter=400,
+                 max_iter_ls=40)
+DENSE_FIT_F64_ATOL = 2e-8
+DENSE_FIT_F32_ATOL = 2e-3
+DENSE_FIT_F32_AGREE = 0.99
 WHOLE_K7_CAPPED = 10
 WHOLE_K8_CAPPED = 30
 WHOLE_K9_CAPPED = 15
@@ -243,6 +262,34 @@ def k6_stream_bytes(n, nb, itemsize):
         rest = n - k0 - w
         elems += 2 * tri(w) + 2 * w * rest + 2 * tri(rest)
     return elems * itemsize
+
+
+def dense_slab_stream_bytes(n, itemsize, directions, products, updates):
+    """Device-memory bytes the dense kernels' earlier design streamed
+    through their (n, n) slabs in device memory (K3's QN form and K9 until
+    this design): one read of the slab per direction (B g) and per B y, a
+    read and a write per update.  The new design keeps the slab in shared
+    memory at config 2's shape, where this stream is zero."""
+    return (directions + products + 2 * updates) * n * n * itemsize
+
+
+def dense_smem_floor_ms(n, itemsize, directions, products, updates,
+                        sm_mhz):
+    """The shared-memory floor of the dense kernels' design: the same passes
+    over the packed triangle (n (n + 1) / 2 elements) at 128 bytes per
+    clock on each of the card's 132 SMs and the SM clock ``sm_mhz``."""
+    nbytes = (directions + products + 2 * updates) * n * (n + 1) // 2 \
+        * itemsize
+    return 1e3 * nbytes / (132 * 128 * sm_mhz * 1e6)
+
+
+def sm_clock_mhz():
+    """The card's top SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def k2_stream_bytes(n, m, itemsize, iterations, rows):
@@ -296,8 +343,9 @@ def main(argv=None):
         "6, 2 and 5 (a profiled solve, a batch sweep and an iteration cap)")
     parser.add_argument(
         "--times", metavar="ROOT",
-        help="only time the headline and configs 3, 6 and 4 through "
-        "minimize and config 5 "
+        help="only time config 2 (batch_minimize), K9, L-BFGS + HZ, K7, K8, "
+        "K4, K6, the headline and configs 3, 6 and 4 through minimize and "
+        "config 5 "
         "through K3 and the lockstep K6 path in turns, with the package "
         "found under ROOT (a checkout; '.' for this one), to compare two "
         "commits in turns on one card; prints no result line")
@@ -522,6 +570,8 @@ def main(argv=None):
     k5 = lockstep_slice(dev, card, tensors, sync_time)
     k6 = cholesky_slice(dev, card, tensors, sync_time)
     k7, k8, k9 = whole_solve_slice(dev, card, tensors, sync_time)
+    k3_fit_err, k9_fit_err = dense_fit_slice(dev, card, tensors)
+    k9["max_abs_err"] = max(k9["max_abs_err"], k9_fit_err)
     if breakdown:
         k1_breakdown(dev, card, tensors, sync_time)
         tall_breakdown(dev, card, tensors, sync_time)
@@ -535,13 +585,13 @@ def main(argv=None):
     c2 = paths["config 2"]
     driver = {
         "name": "driver",
-        "forms": ["first-order", "quasi-Newton"],
+        "forms": ["first-order", "quasi-Newton", "dense"],
         "route": "cuda",
         "source": "optimization_solvers_tpu_torch/ops/csrc/driver.cu",
         "replaces": "optimization_solvers_tpu/ops/pallas_driver.py:1874",
         "launches": c2["launches"],
         "max_abs_err": max(first_order["max_abs_err"],
-                           quasi_newton["max_abs_err"]),
+                           quasi_newton["max_abs_err"], k3_fit_err),
         "ms": c2["ms"],
         "plain_ms": c2["plain_ms"],
         "bound_ms": c2["bound_ms"],
@@ -994,9 +1044,11 @@ def k3_main_path(what, solve, x, B, n, sync_time):
     K2 = fused_lbfgsb_tall.lbfgsb_solve_fused_tall
     K3 = fused_driver.fused_minimize
     K1.launches = K2.launches = K3.launches = 0
+    K3.placements = {"shared": 0, "workspace": 0}
     r, wall = sync_time(lambda: solve(x))
     counts = (K1.launches, K2.launches, K3.launches)
-    log(f"{what}: K3 launches {counts[2]}, K1 {counts[0]}, K2 {counts[1]}")
+    log(f"{what}: K3 launches {counts[2]} (dense form by placement "
+        f"{K3.placements}), K1 {counts[0]}, K2 {counts[1]}")
     check(counts[2] >= 1 and counts[:2] == (0, 0),
           f"{what}: launches {counts}, not K3 alone")
     check(r.x.shape == (B, n) and r.f.shape == (B,), f"{what}: shapes")
@@ -1173,8 +1225,8 @@ def driver_slice(dev, card, tensors, sync_time):
 
 
 def qn_slice(dev, card, tensors, sync_time):
-    """Phases 13-16: K3's quasi-Newton form against its plain version on
-    every quasi-Newton geometry and per instance at config 2's shape, then
+    """Phases 13-16: K3's quasi-Newton and dense forms against their plain
+    version on every quasi-Newton geometry and per instance at config 2's shape, then
     config 2 (dense BFGS + More-Thuente, through ``batch_minimize`` as the
     bench calls it and through ``minimize`` in both policies) and L-BFGS +
     Hager-Zhang at the same shape, with times and bounds.  Returns a dict
@@ -1305,6 +1357,10 @@ def qn_slice(dev, card, tensors, sync_time):
 
     r, wall, launches = k3_main_path("config 2 via batch_minimize", bench, x,
                                      B, n, sync_time)
+    placements = dict(K3.placements)
+    check(placements == {"shared": launches, "workspace": 0},
+          f"config 2: the dense form's placements {placements}; its slabs "
+          "must lie in shared memory at this shape")
     trials = kernel_trials(bfgs(), ls.MoreThuente(), x)
     succ, stat = describe("config 2 (bench) K3", r, trials, wall)
     check(succ >= C2_SUCCESS, f"config 2: success class {succ} < "
@@ -1349,6 +1405,17 @@ def qn_slice(dev, card, tensors, sync_time):
                                its * (10 * n * n + 25 * n) + nf * 19 * n)
     log(f"K3 bound at config 2: {bound_ms:.4f} ms ({bound_by}); kernel "
         f"{ms:.2f} ms  [{card}]")
+    # the slab's passes at this run's counts: each iteration a direction
+    # pass, B y and the update (the dense form runs all three unless a
+    # pending reset or scale_b0 replaces B y): the earlier design's stream
+    # through device memory, this design's shared-memory floor
+    mhz = sm_clock_mhz()
+    stream = dense_slab_stream_bytes(n, 4, its, its, its)
+    floor = dense_smem_floor_ms(n, 4, its, its, its, mhz)
+    log(f"config 2 slab passes: the earlier design streamed {stream / 1e9:.3f}"
+        f" GB through device memory ({1e3 * stream / HBM_BYTES_PER_S:.3f} ms"
+        f" at 3.35 TB/s); this design's shared-memory floor {floor:.4f} ms "
+        f"(132 SMs x 128 B per clock at {mhz:.0f} MHz)  [{card}]")
 
     # ---- 16. L-BFGS + Hager-Zhang at the same shape, float32
     def solve_l(xs):
@@ -1391,7 +1458,8 @@ def qn_slice(dev, card, tensors, sync_time):
     return {
         "max_abs_err": max_abs_err,
         "config 2": dict(launches=launches, ms=ms, plain_ms=1e3 * plain_s,
-                         bound_ms=bound_ms, bound_by=bound_by),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         placements=placements),
         "L-BFGS + HagerZhang": dict(launches=launches_l, ms=ms_l,
                                     plain_ms=1e3 * plain_l, bound_ms=b_l,
                                     bound_by=by_l),
@@ -1399,15 +1467,18 @@ def qn_slice(dev, card, tensors, sync_time):
 
 
 def in_turns_times(root):
-    """The headline (at B = 10,240 and K1_TIMES_SMALL_B), configs 3 (fast),
-    6 and 4 (also at each B of C4_SMALL_B) through ``minimize``, and config
-    5 (PN, B = 256) through
+    """Config 2 through ``solvers.batch_minimize`` (the bench call), K9
+    through ``ops.bfgs_solve_fused`` (config 2's inputs), L-BFGS +
+    Hager-Zhang through ``minimize``, K7, K8 and K4 through their entries
+    and K6 on config 5's Hessians, the headline (at B = 10,240 and
+    K1_TIMES_SMALL_B), configs 3 (fast), 6 and 4 (also at each B of
+    C4_SMALL_B) through ``minimize``, and config 5 (PN, B = 256) through
     ``solvers.batch_minimize`` by K3 and by the lockstep K6 path in turns
     (the order alternating), built and imported from the
     checkout at ``root``: median and spread of TIMES_REPEATS calls on
-    distinct seeded inputs, after one warm-up call; for the headline and
-    configs 3 and 6 also the kernel's device time alone (CUDA events around
-    the wrapper's launch)."""
+    distinct seeded inputs, after one warm-up call; for config 2, K9,
+    L-BFGS, the headline and configs 3 and 6 also the kernel's device time
+    alone (CUDA events around the wrapper's launch)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -1415,8 +1486,10 @@ def in_turns_times(root):
     from _torch_geometries import config5_hessian
     from optimization_solvers_tpu_torch import linesearch as ls, solvers
     from optimization_solvers_tpu_torch.core.oracle import make_oracle
-    from optimization_solvers_tpu_torch.ops import (_build, fused_driver,
-                                                    fused_lbfgsb, linalg)
+    from optimization_solvers_tpu_torch.ops import (_build, fused_bfgs,
+                                                    fused_driver, fused_lbfgs,
+                                                    fused_lbfgsb, fused_newton,
+                                                    fused_spg, linalg)
 
     card = card_line()
     t0 = time.perf_counter()
@@ -1477,7 +1550,76 @@ def in_turns_times(root):
         return fused_lbfgsb.lbfgsb_solve_fused(
             rosen, x, -hbox, hbox, pgtol=HEADLINE["pgtol"], **hkw)
 
+    # config 2 (the bench call), L-BFGS + Hager-Zhang at its shape, and K9
+    c2 = CONFIG2
+    spec2 = fused_driver.build_spec(
+        solvers.QuasiNewton(tol=c2["tol"], update="bfgs", scale_b0=True,
+                            restart_on_degeneracy=True), ls.MoreThuente())
+    lbfgs = solvers.LBFGS(tol=LBFGS_RUN["tol"])
+    spec_l = fused_driver.build_spec(lbfgs, ls.HagerZhang())
+    k9kw = {k: WHOLE_K9[k] for k in ("tol", "max_iter", "max_iter_ls")}
+
+    def solve2(x):
+        return solvers.batch_minimize(
+            solvers.QuasiNewton(tol=c2["tol"], update="bfgs", scale_b0=True,
+                                restart_on_degeneracy=True),
+            ls.MoreThuente(), make_oracle(rosen), x,
+            max_iter=c2["max_iter"], max_iter_ls=c2["max_iter_ls"])
+
+    def launch2(x):
+        return fused_driver._launch_cuda(spec2, rosen, x, None, None, (),
+                                         c2["max_iter"], c2["max_iter_ls"])
+
+    def solve_l(x):
+        return ostt.minimize(rosen, x, method="lbfgs", tol=LBFGS_RUN["tol"],
+                             max_iter=LBFGS_RUN["max_iter"])
+
+    def launch_l(x):
+        return fused_driver._launch_cuda(spec_l, rosen, x, None, None, (),
+                                         LBFGS_RUN["max_iter"], 40)
+
+    def solve9(x):
+        return fused_bfgs.bfgs_solve_fused(rosen, x, c1=1e-4, **k9kw)
+
+    def launch9(x):
+        return fused_bfgs._launch_cuda(rosen, x, (), c1=1e-4, **k9kw)
+
+    # K7, K8 and K4 through their entries, on the inputs of phases 30-31
+    # and 24 (the entry is timed twice: the wrapper is the call)
+    box3 = torch.full((c["n"],), c["box"], device=dev)
+
+    def solve_k7(x):
+        return fused_lbfgs.lbfgs_solve_fused(
+            rosen, x, m=WHOLE_K7["m"], tol=WHOLE_K7["tol"],
+            max_iter=WHOLE_K7["max_iter"],
+            max_iter_ls=WHOLE_K7["max_iter_ls"], c1=1e-4)
+
+    def solve_k8(x):
+        return fused_spg.spg_solve_fused(
+            ostt.problems.weighted_squares(), x, -box3, box3, data3,
+            tol=WHOLE_K8["tol"], max_iter=WHOLE_K8["max_iter"],
+            max_iter_ls=WHOLE_K8["max_iter_ls"], lam_min=1e-3, lam_max=1e3,
+            gll_m=10, c1=1e-4)
+
+    def solve_k4(x):
+        return ostt.minimize(rosen, x, method="newton_cg", bounds=(-BOX, BOX),
+                             tol=HEADLINE["pgtol"],
+                             max_iter=HEADLINE["max_iter"],
+                             cg_max=NEWTON_CG_MAX)
+
     for what, solve, launch, B, n, half, seed in (
+            ("config 2 (bench: batch_minimize)", solve2, launch2, c2["B"],
+             c2["n"], 2.0, 22),
+            ("K9 (ops.bfgs_solve_fused)", solve9, launch9, WHOLE_K9["B"],
+             WHOLE_K9["n"], 2.0, 29),
+            ("L-BFGS + HagerZhang", solve_l, launch_l, c2["B"], c2["n"], 2.0,
+             23),
+            ("K7 (ops.lbfgs_solve_fused)", solve_k7, solve_k7,
+             WHOLE_K7["B"], WHOLE_K7["n"], 2.0, 17),
+            ("K8 (ops.spg_solve_fused)", solve_k8, solve_k8, WHOLE_K8["B"],
+             WHOLE_K8["n"], 2.0, 18),
+            ("K4 (the Newton-CG headline)", solve_k4, solve_k4,
+             HEADLINE["B"], HEADLINE["n"], 2.0, 14),
             ("headline", solve1, launch1, HEADLINE["B"], HEADLINE["n"], 2.0,
              11),
             (f"headline at B = {K1_TIMES_SMALL_B}", solve1, launch1,
@@ -1564,6 +1706,21 @@ def in_turns_times(root):
     log(f"config 5 (B = {B5}) K3: {spread(k3_ts)}; the lockstep K6 path in "
         f"turns: {spread(k6_ts)}; K3 ahead in {ahead} of {len(k3_ts)}  "
         f"[{card}]")
+    # K6 alone on config 5's Hessians (CUDA events around each launch)
+    del xs
+    Hb = Q.expand(B5, n5, n5).contiguous()
+    gb = torch.ones((B5, n5), device=dev)
+    fused_newton.cholesky_solve_fused(Hb, gb)
+    k6_ms = []
+    for _ in range(TIMES_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused_newton.cholesky_solve_fused(Hb, gb)
+        stop.record()
+        torch.cuda.synchronize()
+        k6_ms.append(start.elapsed_time(stop))
+    log(f"K6 ({B5}, {n5}, {n5}) float32: {spread(k6_ms)}  [{card}]")
     return 0
 
 
@@ -2418,6 +2575,91 @@ def cholesky_slice(dev, card, tensors, sync_time):
     return k6
 
 
+def dense_fit_slice(dev, card, tensors):
+    """Phase 33: K3's dense form and K9 past the shared-memory fit (n =
+    400, B = 64, float64 and float32: the slabs in the workspace) against
+    their plain versions on the same inputs: BFGS + MoreThuente, BFGSB +
+    HagerZhangB and Broyden + BackTracking through ``fused_driver``, and
+    ``ops.bfgs_solve_fused``; each launch in the workspace placement.
+    (BFGSB + MoreThuenteB stalls at this width: its running step cap, the
+    smallest feasible step of every iteration so far, leaves the plain
+    version unconverged after 400 iterations too.)  Returns the float64
+    max |dx| of K3 and of K9."""
+    import torch
+
+    from optimization_solvers_tpu_torch import (linesearch as ls, problems,
+                                                solvers)
+    from optimization_solvers_tpu_torch.ops import fused_bfgs, fused_driver
+
+    c = DENSE_FIT
+    B, n = c["B"], c["n"]
+    obj = problems.weighted_squares()
+    starts = np.random.RandomState(400).uniform(-2.0, 2.0, (B, n))
+    arrays = (starts, np.linspace(1.0, 50.0, n), np.linspace(-0.5, 2.0, n),
+              np.full(n, -c["box"]), np.full(n, c["box"]))
+    cases = (("BFGS + MoreThuente", solvers.BFGS, ls.MoreThuente, False),
+             ("BFGSB + HagerZhangB", solvers.BFGSB, ls.HagerZhangB, True),
+             ("Broyden + BackTracking", solvers.Broyden, ls.BackTracking,
+              False))
+    K3, K9 = fused_driver.fused_minimize, fused_bfgs.bfgs_solve_fused
+    errs = {"K3": 0.0, "K9": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        tol = c["tol64"] if f64 else c["tol32"]
+        itemsize = 8 if f64 else 4
+        x0, d, t, lo, up = tensors(*arrays, dtype=dtype)
+        kw = dict(max_iter=c["max_iter"], max_iter_ls=c["max_iter_ls"])
+        runs = []
+        for what, make, search, bounded in cases:
+            method, box = make(tol=tol), (lo, up) if bounded else (None, None)
+            spec = fused_driver.build_spec(method, search())
+            check(not fused_driver.dense_in_shared(n, spec.ring, itemsize,
+                                                   spec.qn_update),
+                  f"{what}: n = {n} fits shared memory")
+            K3.placements = {"shared": 0, "workspace": 0}
+            x, _, it, st, _ = fused_driver._launch_cuda(spec, obj, x0, *box,
+                                                        (d, t), **kw)
+            torch.cuda.synchronize()
+            placements = dict(K3.placements)
+            xp, _, itp, stp, _ = fused_driver.fused_minimize_plain(
+                method, search(), obj, x0, *box, (d, t), **kw)
+            runs.append(("K3", what, placements, x, it, st, xp, itp, stp))
+        K9.placements = {"shared": 0, "workspace": 0}
+        x, _, it, st, _, _ = fused_bfgs._launch_cuda(
+            obj, x0, (d, t), tol=tol, max_iter=c["max_iter"], max_iter_ls=24,
+            c1=1e-4)
+        torch.cuda.synchronize()
+        placements = dict(K9.placements)
+        xp, _, itp, stp = fused_bfgs.bfgs_solve_plain(
+            obj, x0, (d, t), tol=tol, max_iter=c["max_iter"], max_iter_ls=24,
+            c1=1e-4)
+        runs.append(("K9", "K9 dense BFGS + Armijo", placements, x, it, st,
+                     xp, itp, stp))
+        for key, what, placements, x, it, st, xp, itp, stp in runs:
+            err = (x - xp).abs().max().item()
+            same = (st == stp).float().mean().item()
+            conv = (st == 1).float().mean().item()
+            dit = (it.long() - itp.long()).abs().max().item()
+            log(f"{what} past the fit, {B} x {n}, {str(dtype)[6:]}: "
+                f"placements {placements}, status equal {same:.4f}, "
+                f"converged {conv:.4f}, max|dx| {err:.3g}, max|d iters| "
+                f"{dit}, median iterations "
+                f"{it.float().median().item():.0f}  [{card}]")
+            check(placements == {"shared": 0, "workspace": 1},
+                  f"{what} past the fit: placements {placements}")
+            if f64:
+                check(same == 1.0 and err <= DENSE_FIT_F64_ATOL,
+                      f"{what} past the fit (float64): status equal {same}, "
+                      f"max|dx| {err}")
+                errs[key] = max(errs[key], err)
+            else:
+                check(same >= DENSE_FIT_F32_AGREE
+                      and err <= DENSE_FIT_F32_ATOL,
+                      f"{what} past the fit (float32): status equal {same}, "
+                      f"max|dx| {err}")
+    return errs["K3"], errs["K9"]
+
+
 def conv_atol(p, B):
     """Tolerance on the difference of two converged fractions near ``p``
     over ``B`` instances: CONV_ATOL, or three standard deviations of the
@@ -2559,9 +2801,12 @@ def whole_solve_slice(dev, card, tensors, sync_time):
         (x,) = tensors(starts, dtype=torch.float32)
         for k in counted.values():
             k.launches = 0
+        fused_bfgs.bfgs_solve_fused.placements = {"shared": 0, "workspace": 0}
         r, first_s = sync_time(lambda: w["entry"](w["obj"], x, *box, data,
                                                   **kw))
         counts = {name: k.launches for name, k in counted.items()}
+        placements = (dict(fused_bfgs.bfgs_solve_fused.placements)
+                      if key == "K9" else None)
         launches = counts[key]
         others = [v for name, v in counts.items() if name != key]
         conv = (r.status == 1).float().mean().item()
@@ -2572,6 +2817,11 @@ def whole_solve_slice(dev, card, tensors, sync_time):
             f"{r.iterations.max().item()}), first call {first_s:.3f} s")
         check(launches >= 1 and not any(others),
               f"{what}: launches {counts}, not {key} alone")
+        if key == "K9":
+            log(f"{what}: launches by placement {placements}")
+            check(placements == {"shared": launches, "workspace": 0},
+                  f"{what}: placements {placements}; the triangles must lie "
+                  "in shared memory at this shape")
         check(r.x.shape == (B, n) and r.f.shape == (B,), f"{what}: shapes")
         check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
               f"{what}: non-finite result")
@@ -2643,6 +2893,17 @@ def whole_solve_slice(dev, card, tensors, sync_time):
             f"{its:.0f}, trials per iteration {trials / max(its, 1):.3f}"
             + (f", updates per iteration {upd / max(its, 1):.3f}"
                if key == "K9" else "") + f"; kernel {ms:.3f} ms  [{card}]")
+        if key == "K9":
+            # a direction pass per iteration, B y and the update's read and
+            # write per update (this run's counts)
+            mhz = sm_clock_mhz()
+            stream = dense_slab_stream_bytes(n, 4, its, upd, upd)
+            floor = dense_smem_floor_ms(n, 4, its, upd, upd, mhz)
+            log(f"K9 slab passes: the earlier design streamed "
+                f"{stream / 1e9:.3f} GB through device memory "
+                f"({1e3 * stream / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s); "
+                f"this design's shared-memory floor {floor:.4f} ms (132 SMs "
+                f"x 128 B per clock at {mhz:.0f} MHz)  [{card}]")
         entries.append({
             "name": w["name"],
             "route": "cuda",
@@ -2657,6 +2918,7 @@ def whole_solve_slice(dev, card, tensors, sync_time):
             "library_ms": None,
             "k3_ms": k3_med,
             "converged": conv,
+            **({"placements": placements} if placements else {}),
         })
     return entries
 

@@ -130,8 +130,17 @@ def load() -> ctypes.CDLL:
             lib.driver_smem_newton.restype = ctypes.c_longlong
             lib.driver_smem_newton.argtypes = [i, i, i]
             lib.driver_workspace_elems.restype = ctypes.c_longlong
-            lib.driver_workspace_elems.argtypes = [ctypes.c_longlong,
-                                                   ctypes.c_longlong, i]
+            lib.driver_workspace_elems.argtypes = [
+                ctypes.c_longlong, i, i,  # B, n, method
+                i, i, i,                  # ring, update kind, element size
+            ]
+            lib.driver_dense_info.restype = i
+            lib.driver_dense_info.argtypes = [
+                i, i, i, i,              # dtype, n, ring, update kind
+                ctypes.POINTER(i),       # out: 6 ints
+            ]
+            lib.driver_smem_dense.restype = ctypes.c_longlong
+            lib.driver_smem_dense.argtypes = [i, i, i, i]
             lib.driver_launch.restype = i
             lib.driver_launch.argtypes = [
                 i, i,                    # dtype, objective
@@ -205,14 +214,18 @@ def load() -> ctypes.CDLL:
             ]
             lib.bfgs_fused_workspace_elems.restype = ctypes.c_longlong
             lib.bfgs_fused_workspace_elems.argtypes = [ctypes.c_longlong,
-                                                       ctypes.c_longlong]
+                                                       i, i]
+            lib.bfgs_fused_smem.restype = ctypes.c_longlong
+            lib.bfgs_fused_smem.argtypes = [i, i]
+            lib.bfgs_fused_info.restype = i
+            lib.bfgs_fused_info.argtypes = [i, i, ctypes.POINTER(i)]
             lib.bfgs_fused_launch.restype = i
             lib.bfgs_fused_launch.argtypes = [
                 i, i,                    # dtype, objective
                 vp, vp, vp,              # x0, objective data
                 i, i,                    # B, n
                 d, i, i, d,              # tol, max_iter, ls, c1
-                vp,                      # workspace (the inverse Hessians)
+                vp,                      # workspace (or None: shared memory)
                 vp, vp, vp, vp,          # x, f, iterations, status
                 vp, vp,                  # trials, updates
                 vp,                      # stream

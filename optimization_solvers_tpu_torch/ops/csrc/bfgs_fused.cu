@@ -1,26 +1,43 @@
-// Whole batched dense BFGS solves on Hopper (sm_90a), one block of four
-// warps per instance (K9).
+// Whole batched dense BFGS solves on Hopper (sm_90a), one block per
+// instance, the matrix in the block's shared memory (K9).
 //
 // Replaces the TPU kernel optimization_solvers_tpu/ops/pallas_bfgs.py
 // (bfgs_solve_fused, kernel body _make_kernel, pl.pallas_call at :221).  The
 // plain PyTorch version of the same algorithm is bfgs_solve_plain in
 // ../fused_bfgs.py; the two are held against each other on the card.
 //
+// What bounds it.  Per iteration an instance makes three passes over its
+// (n, n) inverse-Hessian approximation (d = -B g, B y, the rank-2 update's
+// read and write), ~10 n^2 operations, beside the objective's latency
+// chain on one warp.  The TPU kernel keeps the (n, n, T) slab in VMEM
+// (pallas_bfgs.py:4-7, :216); a slab in device memory (the design until
+// this one: 1,024 slabs of 40 KB at config 2's inputs, 41 MB) streamed
+// ~164 MB per iteration of the batch.  So the slab lives in the block's
+// shared memory (20.2 KB at n = 100 in float32: the packed upper
+// triangle) and the block's warps split each pass.
+//
 // Design:
-//  * each instance's (n, n) inverse-Hessian approximation lives in a
-//    device-memory workspace of B n^2 elements (the TPU kernel's (n, n, T)
-//    VMEM slab; its row_block chunking exists only to fit VMEM and has no
-//    counterpart here), starting at the identity;
-//  * one block of kWarps warps per instance.  d = -B g, B y and the rank-2
-//    update are split by rows: warp w takes rows w, w + kWarps, ..., its
-//    lanes walk a row's columns (coalesced), and a row's product is a warp
-//    reduction;
+//  * each instance's inverse-Hessian approximation, starting at the
+//    identity, is a slab of dense_slab.cuh: its packed upper triangle (the
+//    BFGS update keeps B symmetric bit for bit: the cross term is two
+//    unfused products, whose sum does not depend on their order), in the
+//    block's dynamic shared memory behind the vectors where both fit
+//    kSmemPerBlock, else in a device-memory workspace of one slab per
+//    instance (the launch picks the placement by in_shared, the wrapper
+//    mirrors it); the TPU kernel's row_block chunking exists only to fit
+//    VMEM and has no counterpart here;
+//  * one block of kDenseWarps warps per instance.  d = -B g and B y: thread
+//    k of the block sums output k over the slab (dense_slab.cuh slab_mv);
+//    the rank-2 update splits the rows over the warps, the lanes along a
+//    row;
 //  * the objective, the search and the per-instance vectors run on warp 0
 //    with the warp functors of objectives.cuh (coordinate i on lane i % 32);
-//    the other warps wait at __syncthreads and read the decisions warp 0
-//    leaves in shared memory (the active flag, the update gate, 1 / s.y);
+//    the other warps wait at the block barrier (block_bar) and read the
+//    decisions warp 0 leaves in shared memory (the active flag, the update
+//    gate, 1 / s.y);
 //  * dynamic shared memory per block: X, G, D, the trial / new point XT,
-//    the new gradient GN, s, y, B y and four scalars: 8n + 4 elements;
+//    the new gradient GN, s, y, B y and four scalars (8n + 4 elements),
+//    then the slab;
 //  * the search is value-only Armijo from t = 1, halving up to max_iter_ls
 //    times; a non-finite trial counts as a rejection, and after the last
 //    rejection the halved step is taken all the same;
@@ -30,16 +47,47 @@
 //    restart; stop on the 2-norm ||g|| < tol.
 
 #include "common.cuh"
+#include "dense_slab.cuh"
 #include "objectives.cuh"
+
+// Phase counters, compiled in only with -DK9_PROFILE (tools/k3_phase_profile.py
+// builds such a copy; the kernel as shipped has none).  Lane 0 of warp 0
+// adds the clock64 cycles of every iteration's phases to k9_prof[0..5] (the
+// phases in that tool's K3_PHASES order: the direction's pass, the search
+// trials, the value and gradient, B y, the update, the checks); [6] counts
+// instance-iterations, [7] trials, [8] instances, [9] updates, [10] the
+// cycles of whole instances.
+#ifdef K9_PROFILE
+__device__ unsigned long long k9_prof[16];
+#define K9_PROF(...) __VA_ARGS__
+#else
+#define K9_PROF(...)
+#endif
+#define K9_PHASE(k)                                               \
+  K9_PROF(if (tid == 0) {                                         \
+    const long long t_ = clock64();                               \
+    prof_acc[k] += t_ - prof_t;                                   \
+    prof_t = t_;                                                  \
+  })
 
 namespace {
 
-constexpr int kWarps = 4;
+using namespace ost_slab;
 
-__host__ __device__ inline long long smem_elems(int n) { return 8LL * n + 4; }
+// the block's vectors X, G, D, XT, GN, s, y, B y and four scalar slots,
+// then the slab where it fits (dense_slab.cuh's fit rule)
+__host__ __device__ inline long long vec_elems(int n) { return 8LL * n + 4; }
 
-__host__ __device__ inline long long workspace_elems(long long B, long long n) {
-  return B * n * n;
+__host__ __device__ inline bool in_shared(int n, int elem_size) {
+  return slab_in_shared(vec_elems(n), n, kSlabBFGS, elem_size);
+}
+
+__host__ __device__ inline long long smem_elems(int n, int elem_size) {
+  return vec_elems(n) + (in_shared(n, elem_size) ? slab_elems(n, kSlabBFGS) : 0);
+}
+
+__host__ __device__ inline long long workspace_elems(long long B, int n, int elem_size) {
+  return in_shared(n, elem_size) ? 0 : B * slab_elems(n, kSlabBFGS);
 }
 
 template <typename T> struct Params {
@@ -49,7 +97,8 @@ template <typename T> struct Params {
   int B, n;
   T tol, eps, c1;
   int max_iter, max_iter_ls;
-  T* work;
+  int slab_shared;      // the slab in shared memory (set by the launch)
+  T* work;              // workspace_elems slab elements (else nullptr)
   T* x_out;
   T* f_out;
   int* it_out;
@@ -58,10 +107,12 @@ template <typename T> struct Params {
   int* nupd_out;        // updates of B per instance
 };
 
-template <typename T, class Obj>
-__global__ void __launch_bounds__(kWarp * kWarps)
-bfgs_fused_kernel(const Params<T> prm) {
-  extern __shared__ unsigned char smem_raw[];
+// the body, with the triangle in shared memory (kShared: its pointer taken
+// from the block's buffer, so the passes load and store shared memory with
+// 32-bit addresses) or in the workspace
+template <typename T, class Obj, bool kShared>
+__device__ __forceinline__ void bfgs_body(const Params<T>& prm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int lane = tid & (kWarp - 1);
   const int warp = tid / kWarp;
@@ -77,13 +128,10 @@ bfgs_fused_kernel(const Params<T> prm) {
   T* SV = p; p += n;
   T* YV = p; p += n;
   T* BY = p; p += n;
-  T* SC = p;           // [0] active flag, [1] update gate, [2] 1 / s.y
+  T* SC = p; p += 4;   // [0] active flag, [1] update gate, [2] 1 / s.y
 
-  T* Bm = prm.work + (long long)inst * n * n;
-  for (int r = warp; r < n; r += kWarps) {
-    T* row = Bm + (long long)r * n;
-    for (int j = lane; j < n; j += kWarp) row[j] = j == r ? T(1) : T(0);
-  }
+  T* Bm = kShared ? p : prm.work + (long long)inst * slab_elems(n, kSlabBFGS);
+  slab_identity(Bm, n, kSlabBFGS, tid, kDenseThreads);
 
   const Obj obj{prm.d0, prm.d1};
   // warp 0's replicated state
@@ -106,18 +154,17 @@ bfgs_fused_kernel(const Params<T> prm) {
     const bool active = isfinite(Fv) && !converged() && prm.max_iter > 0;
     if (lane == 0) SC[0] = active ? T(1) : T(0);
   }
-  __syncthreads();
+  block_bar(kDenseThreads);
+  K9_PROF(long long prof_acc[11] = {0}; long long prof_t = clock64();
+          const long long prof_t0 = prof_t;)
 
   while (SC[0] != T(0)) {
-    // ---- d = -B g, by rows
-    for (int r = warp; r < n; r += kWarps) {
-      const T* row = Bm + (long long)r * n;
-      T s = 0;
-      for (int j = lane; j < n; j += kWarp) s += row[j] * G[j];
-      s = warp_sum(s);
-      if (lane == 0) D[r] = -s;
-    }
-    __syncthreads();
+    K9_PROF(if (tid == 0) prof_t = clock64();)
+    // ---- d = -B g by the block (each thread negates the outputs it wrote)
+    slab_mv(Bm, G, D, n, kSlabBFGS, tid, kDenseThreads);
+    for (int k = tid; k < n; k += kDenseThreads) D[k] = -D[k];
+    block_bar(kDenseThreads);
+    K9_PHASE(0);
 
     if (warp == 0) {
       // ---- value-only Armijo backtracking
@@ -134,6 +181,7 @@ bfgs_fused_kernel(const Params<T> prm) {
         if (ft <= Fv + prm.c1 * t * g0d && isfinite(ft)) break;
         t = t * T(0.5);
       }
+      K9_PHASE(1);
 
       // ---- step, new gradient, s, y and the update gate
       for (int i = lane; i < n; i += kWarp) XT[i] = X[i] + t * D[i];
@@ -160,6 +208,7 @@ bfgs_fused_kernel(const Params<T> prm) {
       Fv = fnew;
       ++iters;
       __syncwarp();
+      K9_PHASE(2);
       const bool active = isfinite(Fv) && !converged() && iters < prm.max_iter;
       if (lane == 0) {
         SC[0] = active ? T(1) : T(0);
@@ -167,33 +216,25 @@ bfgs_fused_kernel(const Params<T> prm) {
         SC[2] = T(1) / sy;
       }
     }
-    __syncthreads();
+    block_bar(kDenseThreads);
+    K9_PHASE(5);
 
     if (SC[1] != T(0)) {
-      // ---- B y, by rows
-      for (int r = warp; r < n; r += kWarps) {
-        const T* row = Bm + (long long)r * n;
-        T s = 0;
-        for (int j = lane; j < n; j += kWarp) s += row[j] * YV[j];
-        s = warp_sum(s);
-        if (lane == 0) BY[r] = s;
-      }
-      __syncthreads();
+      // ---- B y by the block
+      slab_mv(Bm, YV, BY, n, kSlabBFGS, tid, kDenseThreads);
+      block_bar(kDenseThreads);
+      K9_PHASE(3);
       // every warp forms y.By itself (the same sum on every warp)
       T yBy = 0;
       for (int i = lane; i < n; i += kWarp) yBy += YV[i] * BY[i];
       yBy = warp_sum(yBy);
       const T rho = SC[2];
-      const T coeff = rho * rho * yBy + rho;
-      // ---- the rank-2 update, by rows
-      for (int r = warp; r < n; r += kWarps) {
-        T* row = Bm + (long long)r * n;
-        const T si = SV[r];
-        const T byi = BY[r];
-        for (int j = lane; j < n; j += kWarp)
-          row[j] = row[j] - rho * (si * BY[j] + byi * SV[j]) + coeff * (si * SV[j]);
-      }
-      __syncthreads();
+      const SlabUpdate<T> u{kSlabBFGS, true,  false, false, false, T(1),
+                            rho,       rho * rho * yBy + rho,  T(0), yBy,  T(0)};
+      // ---- the rank-2 update by the block
+      slab_update(Bm, n, u, SV, BY, (const T*)nullptr, tid, kDenseThreads);
+      block_bar(kDenseThreads);
+      K9_PHASE(4);
     }
   }
 
@@ -209,17 +250,37 @@ bfgs_fused_kernel(const Params<T> prm) {
       prm.nupd_out[inst] = nupd;
     }
   }
+  K9_PROF(if (tid == 0) {
+    prof_acc[6] = iters;
+    prof_acc[7] = nfev;
+    prof_acc[8] = 1;
+    prof_acc[9] = nupd;
+    prof_acc[10] = clock64() - prof_t0;
+    for (int k = 0; k < 11; ++k) atomicAdd(&k9_prof[k], (unsigned long long)prof_acc[k]);
+  })
 }
 
 template <typename T, class Obj>
-int launch(const Params<T>& prm, cudaStream_t stream) {
-  const long long smem = smem_elems(prm.n) * (long long)sizeof(T);
+__global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
+bfgs_fused_kernel(const Params<T> prm) {
+  if (prm.slab_shared)
+    bfgs_body<T, Obj, true>(prm);
+  else
+    bfgs_body<T, Obj, false>(prm);
+}
+
+template <typename T, class Obj>
+int launch(Params<T> prm, cudaStream_t stream) {
+  const int es = (int)sizeof(T);
+  const long long smem = smem_elems(prm.n, es) * es;
   if (smem > kSmemPerBlock) return kErrSmem;
+  prm.slab_shared = in_shared(prm.n, es);
+  if (!prm.slab_shared && prm.work == nullptr) return kErrArgs;
   auto kernel = bfgs_fused_kernel<T, Obj>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<prm.B, kWarps * kWarp, (int)smem, stream>>>(prm);
+  kernel<<<prm.B, kDenseThreads, (int)smem, stream>>>(prm);
   return (int)cudaGetLastError();
 }
 
@@ -254,10 +315,62 @@ int run(int objective, const void* x0, const void* d0, const void* d1, int B,
   return kErrArgs;
 }
 
+template <typename T, class Obj>
+int kernel_info(int n, int* out) {
+  const int es = (int)sizeof(T);
+  const long long smem = smem_elems(n, es) * es;
+  if (smem > kSmemPerBlock) return kErrSmem;
+  auto kernel = bfgs_fused_kernel<T, Obj>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kDenseThreads,
+                                                      (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kDenseThreads;
+  out[1] = blocks;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = (int)smem;
+  out[5] = in_shared(n, es) ? 1 : 2;
+  return 0;
+}
+
 }  // namespace
 
-extern "C" long long bfgs_fused_workspace_elems(long long B, long long n) {
-  return workspace_elems(B, n);
+// The launch at width n (Rosenbrock): out[0] threads per block, [1]
+// resident blocks per SM (the occupancy calculator), [2] registers and
+// [3] local bytes a thread, [4] dynamic shared memory per block, [5] where
+// the matrices live (1 shared memory, 2 the workspace).
+extern "C" int bfgs_fused_info(int dtype, int n, int* out) {
+  if (n < 1 || out == nullptr) return kErrArgs;
+  if (dtype == 0) return kernel_info<float, Rosenbrock<float>>(n, out);
+  if (dtype == 1) return kernel_info<double, Rosenbrock<double>>(n, out);
+  return kErrArgs;
+}
+
+#ifdef K9_PROFILE
+extern "C" int k9_prof_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, k9_prof, sizeof(unsigned long long) * 16);
+}
+extern "C" int k9_prof_reset() {
+  const unsigned long long z[16] = {0};
+  return (int)cudaMemcpyToSymbol(k9_prof, z, sizeof(z));
+}
+#endif
+
+// shared memory of one instance's block, in bytes: the vectors, and the
+// slab where it fits
+extern "C" long long bfgs_fused_smem(int n, int elem_size) {
+  return smem_elems(n, elem_size) * (long long)elem_size;
+}
+
+extern "C" long long bfgs_fused_workspace_elems(long long B, int n, int elem_size) {
+  return workspace_elems(B, n, elem_size);
 }
 
 // dtype 0: float32, 1: float64.  `work` holds bfgs_fused_workspace_elems(B,
@@ -269,7 +382,7 @@ extern "C" int bfgs_fused_launch(int dtype, int objective, const void* x0,
                                  double c1, void* work, void* x, void* f,
                                  void* it, void* st, void* nfev, void* nupd,
                                  void* stream) {
-  if (B < 1 || n < 1 || work == nullptr) return kErrArgs;
+  if (B < 1 || n < 1) return kErrArgs;
   if (dtype == 0)
     return run<float>(objective, x0, d0, d1, B, n, tol, max_iter, max_iter_ls,
                       c1, work, x, f, it, st, nfev, nupd, stream);

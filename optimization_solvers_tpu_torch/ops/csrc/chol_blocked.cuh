@@ -109,7 +109,7 @@ __host__ __device__ constexpr int chol_scratch_elems() {
 }
 
 __device__ __forceinline__ void chol_bar() {
-  asm volatile("barrier.sync 1, %0;" ::"r"(kCholThreads) : "memory");
+  block_bar(kCholThreads);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

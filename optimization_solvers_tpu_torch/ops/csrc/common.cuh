@@ -45,6 +45,17 @@ template <typename T> __device__ __forceinline__ T jsign(T v) {
   return v > T(0) ? T(1) : (v < T(0) ? T(-1) : v);
 }
 
+// One barrier of a block's first `threads` threads (barrier 1, not
+// __syncthreads' barrier 0): non-aligned, so a warp may reach it from inside
+// divergent control flow.  Every block barrier of K3's block forms and K9
+// goes through here; the tests' CPU warp emulator defines OST_EMULATED and
+// its own block_bar.
+#ifndef OST_EMULATED
+__device__ __forceinline__ void block_bar(int threads) {
+  asm volatile("barrier.sync 1, %0;" ::"r"(threads) : "memory");
+}
+#endif
+
 template <typename T> __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);

@@ -1,7 +1,7 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a): its C interface and its
 // first-order form.  The kernel, its design and what bounds it are
 // described in driver.cuh; the quasi-Newton form is built in driver_qn.cu,
-// the Newton form in driver_newton.cu.
+// the dense form in driver_dense.cu, the Newton form in driver_newton.cu.
 
 #include "driver.cuh"
 
@@ -66,6 +66,7 @@ int run(int objective, const void* x0, const void* lo, const void* up,
   prm.hz_1mt = (T)(1.0 - dp[dHzTheta]);
   prm.max_iter = max_iter;
   prm.max_iter_ls = max_iter_ls;
+  prm.slab_shared = 0;
   prm.work = static_cast<T*>(work);
   prm.x_out = static_cast<T*>(x);
   prm.f_out = static_cast<T*>(f);
@@ -79,6 +80,7 @@ int run(int objective, const void* x0, const void* lo, const void* up,
     return kErrArgs;
   if (objective != kRosenbrock && (d0 == nullptr || d1 == nullptr)) return kErrArgs;
   if (newton) return launch_newton<T>(prm, objective, s);
+  if (dense_method(prm.method)) return launch_dense<T>(prm, objective, s);
   if (qn_form(prm.method, prm.search)) return launch_qn<T>(prm, objective, s);
   if (objective == kRosenbrock) return launch<T, Rosenbrock<T>, kFirstOrderForm>(prm, s);
   return launch<T, WeightedSquares<T>, kFirstOrderForm>(prm, s);
@@ -96,8 +98,15 @@ extern "C" long long driver_smem_newton(int n, int ring, int elem_size) {
                          : newton_smem_elems<float>(n, ring)) * (long long)elem_size;
 }
 
-extern "C" long long driver_workspace_elems(long long B, long long n, int method) {
-  return workspace_elems(B, n, method);
+// shared memory of the dense form's block (one instance), in bytes: its
+// vectors, and the slab where dense_in_shared says it fits
+extern "C" long long driver_smem_dense(int n, int ring, int kind, int elem_size) {
+  return dense_smem_elems(n, ring, kind, elem_size) * (long long)elem_size;
+}
+
+extern "C" long long driver_workspace_elems(long long B, int n, int method, int ring,
+                                            int kind, int elem_size) {
+  return workspace_elems(B, n, method, ring, kind, elem_size);
 }
 
 // dtype 0: float32, 1: float64.  ip and dp are host arrays of kIntSlots ints
@@ -122,7 +131,9 @@ extern "C" int driver_launch(
       (bounded_search && !bounded) || (search == kGLL) != (ip[iRing] > 0) ||
       (method == kPnorm && pinv == nullptr) ||
       (method == kLBFGS && ip[iLbfgsM] < 1) ||
-      (workspace_elems(B, n, method) > 0 && work == nullptr))
+      (dense_method(method) && (ip[iQnUpdate] < kBFGS || ip[iQnUpdate] > kSR1)) ||
+      (workspace_elems(B, n, method, ip[iRing], ip[iQnUpdate], dtype == 1 ? 8 : 4) > 0 &&
+       work == nullptr))
     return kErrArgs;
   if (dtype == 0)
     return run<float>(objective, x0, lo, up, bstride, d0, d1, pinv, B, n, ip,

@@ -1,6 +1,7 @@
-// Generic whole-solve driver K3 on Hopper (sm_90a), one warp per instance:
-// the kernel template, shared by driver.cu (the first-order form and the C
-// interface), driver_qn.cu (the quasi-Newton form) and driver_newton.cu
+// Generic whole-solve driver K3 on Hopper (sm_90a), one warp per instance
+// (the block forms: one block): the kernel template, shared by driver.cu
+// (the first-order form and the C interface), driver_qn.cu (the
+// quasi-Newton form), driver_dense.cu (the dense form) and driver_newton.cu
 // (the Newton form).  The forms are compiled in separate sources, so that
 // they build in parallel and the compiler's choices for one form (inlining
 // of the objective, registers) do not depend on another form's code.  The
@@ -24,16 +25,18 @@
 // its n coordinates, each ending in a warp reduction (five shuffles), plus
 // the search's trial evaluations and one value-and-gradient at the
 // accepted point; enough warps per SM hide one another's latency.  The
-// dense quasi-Newton form adds four passes over the instance's (n, n) slab
-// in device memory per iteration (B g, B y, and the update's read and
-// write), ~10 n^2 operations.  At config 2 (n = 100, float32; a slab is 40
-// KB, 1,024 of them 41 MB) those passes set the time: in each pass a lane
-// walks its 4 columns down all 100 rows, so an iteration is a chain of
-// some 1,600 slab accesses per lane (~105 us for one instance alone on an
-// H100), and the batch's ~160 MB of slab traffic per iteration adds a
-// third on top.
-// A slab in shared memory (40 KB per instance), or fewer passes (the next
-// direction formed inside the update), is the way down.  The Newton form
+// dense quasi-Newton methods (QN, QNB) add three passes over the
+// instance's (n, n) slab per iteration (B g, B y, and the update's read
+// and write), ~10 n^2 operations.  Run by one warp over a slab in device
+// memory, those passes set the time at config 2 (n = 100, float32; 1,024
+// slabs of 40 KB, 41 MB): each lane walked its 4 columns down all 100
+// rows, a chain of some 1,600 slab accesses per lane and iteration (~105
+// us for one instance alone on an H100), and the batch streamed ~160 MB of
+// slab per iteration.  So the dense form runs one block of kDenseWarps
+// warps per instance, the slab in the block's shared memory
+// (dense_slab.cuh: the packed upper triangle of the symmetric kinds, 20.2
+// KB at config 2, 8 instances per SM), and splits each pass over the
+// block's threads.  The Newton form
 // writes the dense Hessian into a device-memory slab and factors it there
 // every iteration: n^3 / 3 operations per instance (3.6e8 at config 5, n =
 // 1,024), 1.4 ms for 256 instances at the card's float32 rate, with the
@@ -45,8 +48,8 @@
 // other warps join it.
 //
 // Design:
-//  * one warp per instance (the Newton form: one block, below), coordinate
-//    i on lane i % 32.  K3's lanes are
+//  * one warp per instance (the Newton and dense forms: one block, below),
+//    coordinate i on lane i % 32.  K3's lanes are
 //    independent (every state write of the TPU kernel is masked by its own
 //    lane's active/done flag, and a lane that stops never restarts), so a
 //    warp that leaves when its instance is done computes what the TPU
@@ -56,15 +59,19 @@
 //    (NCG's previous gradient and direction; the quasi-Newton pair s, y),
 //    GLL's f history ring, and L-BFGS's S and Y rows with rho, valid and
 //    the two-loop alphas: 7 n + ring + 2 m n + 3 m elements;
-//  * the dense slab B of QN/QNB lives in a device-memory workspace, one
-//    (n, n) row-major block per instance.  BFGS, DFP and SR1 keep B
-//    symmetric bit for bit (B starts as I or gamma I, and the BFGS
-//    cross term is formed from two unfused products whose sum does not
-//    depend on the order), so their matvecs read B by columns: lane l
-//    owns outputs l, l+32, ... and walks the rows, coalesced, with no
-//    per-row reduction.  Broyden's B is not symmetric: B g and B y by
-//    rows, B^T s by columns.  The updates are elementwise passes, row by
-//    row, lanes along the columns;
+//  * the dense form (QN, QNB; every update kind and search): one block of
+//    kDenseThreads threads per instance.  Warp 0 runs the instance as the
+//    other forms' warps do; at the slab's passes it posts a command (the
+//    direction's B g, the update's B y with Broyden's B^T s, the update)
+//    in the command words, and all the block's threads run it between
+//    named barriers, as in the Newton form.  The slab (dense_slab.cuh:
+//    BFGS, DFP and SR1 keep B symmetric bit for bit, so the packed upper
+//    triangle holds it; Broyden's full) lies in the block's shared memory
+//    behind the vectors where both fit kSmemPerBlock, else in the
+//    device-memory workspace, one slab per instance: the launch picks the
+//    placement by dense_in_shared, the wrapper mirrors it.  Its shared
+//    memory: X, G, GN, D, XT, s (GP), y (DP), the GLL ring, the words;
+//    7 n + ring + 8 elements, then the slab;
 //  * L-BFGS keeps its history as a ring with a write position instead of
 //    the TPU kernel's shift; the two loops walk it newest -> oldest and
 //    back, as the shift's slots m-1 .. 0;
@@ -101,9 +108,10 @@
 //  * the method and the search are runtime, grid-uniform switches on
 //    integer codes; the template axes are dtype x objective x form: the
 //    first-order form (the first-order methods with the Armijo-family
-//    searches, in driver.cu), the quasi-Newton form (the first-order and
-//    quasi-Newton methods with every search, in driver_qn.cu) and the
-//    Newton form (the Newton methods with every search, in
+//    searches, in driver.cu), the quasi-Newton form (L-BFGS, and the
+//    first-order methods with the Wolfe-family searches, in driver_qn.cu),
+//    the dense form (QN and QNB with every search, in driver_dense.cu) and
+//    the Newton form (the Newton methods with every search, in
 //    driver_newton.cu);
 //  * scalars (f, t, lambda, beta, the search state, ...) are replicated in
 //    registers after __shfl_xor_sync butterflies, so every branch is
@@ -123,11 +131,36 @@
 
 #include "chol_blocked.cuh"
 #include "common.cuh"
+#include "dense_slab.cuh"
 #include "objectives.cuh"
+
+// Phase counters of the dense quasi-Newton methods (QN, QNB), compiled in
+// only with -DK3_PROFILE (tools/k3_phase_profile.py builds such a copy; the
+// kernel as shipped has none).  Lane 0 of the instance's warp adds the
+// clock64 cycles of every iteration's phases to k3_prof[0..5] (the phases
+// in that tool's K3_PHASES order); [6] counts instance-iterations, [7]
+// search trials, [8] instances, [9] updates of the slab, [10] the cycles
+// of whole instances (set-up and epilogue included).  Each source that
+// builds a form has its own copy; the source of the dense form reads it.
+#ifdef K3_PROFILE
+namespace {
+__device__ unsigned long long k3_prof[16];
+}
+#define K3_PROF(...) __VA_ARGS__
+#else
+#define K3_PROF(...)
+#endif
+#define K3_PHASE(k)                                               \
+  K3_PROF(if (prof_on && lane == 0) {                             \
+    const long long t_ = clock64();                               \
+    prof_acc[k] += t_ - prof_t;                                   \
+    prof_t = t_;                                                  \
+  })
 
 namespace ost_driver {
 
 using namespace ost_chol;
+using namespace ost_slab;
 
 constexpr int kMaxWarpsPerBlock = 8;
 
@@ -136,7 +169,7 @@ enum MethodCode {
   kQNB = 7, kLBFGS = 8, kNewton = 9, kPN = 10, kSPN = 11
 };
 // the template's forms
-enum Form { kFirstOrderForm = 0, kQnForm = 1, kNewtonForm = 2 };
+enum Form { kFirstOrderForm = 0, kQnForm = 1, kNewtonForm = 2, kDenseForm = 3 };
 enum SearchCode {
   kNoSearch = 0, kBT = 1, kBTB = 2, kGLL = 3, kMT = 4, kMTB = 5, kHZ = 6,
   kHZB = 7, kSW = 8
@@ -180,6 +213,10 @@ __host__ __device__ inline bool qn_form(int method, int search) {
   return method >= kQN || search >= kMT;
 }
 
+__host__ __device__ inline bool dense_method(int method) {
+  return method == kQN || method == kQNB;
+}
+
 __host__ __device__ inline bool bounded_method(int method) {
   return method == kPGD || method == kSPG || method == kQNB || method == kPN ||
          method == kSPN;
@@ -189,9 +226,36 @@ __host__ __device__ inline long long work_elems(int n, int ring, int m) {
   return 7LL * n + ring + 2LL * m * n + 3LL * m;
 }
 
-__host__ __device__ inline long long workspace_elems(long long B, long long n,
-                                                     int method) {
-  return (method == kQN || method == kQNB || newton_method(method)) ? B * n * n : 0;
+// the dense form's block: its vectors X, G, GN, D, XT, GP (s), DP (y), the
+// GLL ring and kDenseWords command words (the update's six scalars, then
+// the command and its flags as ints from kDenseCtl), then the slab where
+// it fits
+constexpr int kDenseWords = 8;
+constexpr int kDenseCtl = 6;
+enum DenseCmd { kDenseExit = 0, kDenseDirection, kDenseProducts, kDenseUpdate };
+
+__host__ __device__ inline long long dense_vec_elems(int n, int ring) {
+  return 7LL * n + ring + kDenseWords;
+}
+
+__host__ __device__ inline bool dense_in_shared(int n, int ring, int kind, int elem_size) {
+  return slab_in_shared(dense_vec_elems(n, ring), n, kind, elem_size);
+}
+
+__host__ __device__ inline long long dense_smem_elems(int n, int ring, int kind,
+                                                      int elem_size) {
+  return dense_vec_elems(n, ring) +
+         (dense_in_shared(n, ring, kind, elem_size) ? slab_elems(n, kind) : 0);
+}
+
+// the device-memory workspace: the Newton form's (n, n) Hessian slabs, the
+// dense form's slabs where they do not fit a block's shared memory
+__host__ __device__ inline long long workspace_elems(long long B, int n, int method,
+                                                     int ring, int kind, int elem_size) {
+  if (newton_method(method)) return B * n * n;
+  if (dense_method(method) && !dense_in_shared(n, ring, kind, elem_size))
+    return B * slab_elems(n, kind);
+  return 0;
 }
 
 // the Newton form: the panel width of its factorization (as K6's), its
@@ -245,27 +309,6 @@ __device__ __forceinline__ T quad_min2(T ta, T tb, T ga, T gb) {
   return ta - ga * ((ta - tb) / (ga - gb));
 }
 
-// out = B v, lane l computing rows l, l+32, ...
-template <typename T>
-__device__ void mv_rows(const T* Bm, const T* v, T* out, int n, int lane) {
-  for (int i = lane; i < n; i += kWarp) {
-    const T* row = Bm + (long long)i * n;
-    T acc = 0;
-    for (int j = 0; j < n; ++j) acc += row[j] * v[j];
-    out[i] = acc;
-  }
-}
-
-// out = B^T v, lane l computing columns l, l+32, ... (coalesced row walks)
-template <typename T>
-__device__ void mv_cols(const T* Bm, const T* v, T* out, int n, int lane) {
-  for (int j = lane; j < n; j += kWarp) {
-    T acc = 0;
-    for (int i = 0; i < n; ++i) acc += Bm[(long long)i * n + j] * v[i];
-    out[j] = acc;
-  }
-}
-
 template <typename T> struct Params {
   const T* x0;
   const T* lo;
@@ -292,7 +335,8 @@ template <typename T> struct Params {
   T aw_fac, hz_2dm1, hz_1mt;
   T xtol, stp_min, stp_max, xtrapl, xtrapu;
   int max_iter, max_iter_ls;
-  T* work;              // QN/QNB, Newton/PN/SPN: B * n * n slab elements
+  int slab_shared;      // QN/QNB: the slab in shared memory (set by the launch)
+  T* work;              // workspace_elems slab elements (else nullptr)
   T* x_out;
   T* f_out;
   int* it_out;
@@ -374,14 +418,84 @@ __device__ void newton_worker(const Obj& obj, T* region, const T* X, T* Bm,
   }
 }
 
+// The dense form's block (QN, QNB): the slab (in the workspace, or
+// nullptr where it lies in shared memory, slab_off elements into the
+// block's dynamic shared memory), the vectors its commands read and write,
+// and the command words (words[0..5] the update's scalars, ctl = words +
+// kDenseCtl: the command and the update's flags).
+template <typename T> struct DenseBlock {
+  T* slab;
+  int slab_off;
+  const T* G;
+  T* D;
+  T* XT;
+  const T* GP;
+  const T* DP;
+  T* words;
+  int n, kind;
+};
+
+// One command of the dense form, run by all kDenseThreads threads: the
+// direction's B g into D, the update's B y into D (and Broyden's B^T s into
+// XT), or the update of the slab.  Ends with a block barrier.  Inlined at
+// warp 0's and the workers' sites (a call was slower: tools/
+// dense_residency.py).
+template <typename T>
+__device__ __forceinline__ void dense_exec(T* slab, const DenseBlock<T>& b, const int* ctl,
+                                           int tid) {
+  const int cmd = ctl[0];
+  if (cmd == kDenseDirection) {
+    slab_mv(slab, b.G, b.D, b.n, b.kind, tid, kDenseThreads);
+  } else if (cmd == kDenseProducts) {
+    if (b.kind == kSlabBroyden)
+      slab_mv_broyden(slab, b.DP, b.D, b.GP, b.XT, b.n, tid, kDenseThreads);
+    else
+      slab_mv(slab, b.DP, b.D, b.n, b.kind, tid, kDenseThreads);
+  } else if (cmd == kDenseUpdate) {
+    const int flags = ctl[1];
+    const T* w = b.words;
+    const SlabUpdate<T> u{b.kind,  (flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0,
+                          (flags & 8) != 0, w[0], w[1], w[2], w[3], w[4], w[5]};
+    slab_update(slab, b.n, u, b.GP, b.D, b.XT, tid, kDenseThreads);
+  }
+}
+
+// the passes run on a pointer the compiler sees is shared memory (from
+// the block's buffer) where the slab lies there: shared loads, 32-bit
+// addresses; on the workspace's generic pointer otherwise
+template <typename T>
+__device__ __forceinline__ void dense_command(const DenseBlock<T>& b, int tid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int* ctl = reinterpret_cast<const int*>(b.words + kDenseCtl);
+  if (b.slab == nullptr)
+    dense_exec(reinterpret_cast<T*>(smem_raw) + b.slab_off, b, ctl, tid);
+  else
+    dense_exec(b.slab, b, ctl, tid);
+  block_bar(kDenseThreads);
+}
+
+// The dense form's worker warps (1 .. kDenseWarps - 1): run warp 0's
+// commands until it posts exit.
+template <typename T>
+__device__ void dense_worker(const DenseBlock<T>& b, int tid) {
+  const int* ctl = reinterpret_cast<const int*>(b.words + kDenseCtl);
+  for (;;) {
+    block_bar(kDenseThreads);
+    if (ctl[0] == kDenseExit) return;
+    dense_command<T>(b, tid);
+  }
+}
+
 template <typename T, class Obj, int kForm>
 __device__ __forceinline__ void driver_body(const Params<T>& prm) {
   constexpr bool kQn = kForm == kQnForm;
   constexpr bool kNewt = kForm == kNewtonForm;
+  constexpr bool kDense = kForm == kDenseForm;
+  constexpr bool kBlock = kNewt || kDense;   // one block per instance
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
-  const int inst = kNewt ? (int)blockIdx.x : blockIdx.x * (blockDim.x / kWarp) + warp;
+  const int inst = kBlock ? (int)blockIdx.x : blockIdx.x * (blockDim.x / kWarp) + warp;
   if (inst >= prm.B) return;          // the whole warp leaves together
   const int n = prm.n;
   const int method = prm.method, search = prm.search;
@@ -404,7 +518,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     GP = DP = GN;                     // unused by the Newton methods
     S = Y = RHO = VAL = AL = nullptr;
   } else {
-    T* p = reinterpret_cast<T*>(smem_raw) + (long long)warp * work_elems(n, prm.ring, m);
+    T* p = reinterpret_cast<T*>(smem_raw) + (kBlock ? 0LL : (long long)warp * work_elems(n, prm.ring, m));
     X = p; p += n;
     G = p; p += n;
     GN = p; p += n;
@@ -418,15 +532,23 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     RHO = p; p += m;
     VAL = p; p += m;
     AL = p;
+    if constexpr (kDense) {
+      words = AL;                     // m = 0: the words follow the ring
+      region = words + kDenseWords;   // the slab, where it is in shared memory
+    }
   }
 
   const T* lo = bounded ? prm.lo + (long long)inst * prm.bstride : nullptr;
   const T* up = bounded ? prm.up + (long long)inst * prm.bstride : nullptr;
   const T* x0 = prm.x0 + (long long)inst * n;
-  T* Bm = ((kQn && (method == kQN || method == kQNB)) || kNewt)
-              ? prm.work + (long long)inst * n * n : nullptr;
-  const bool sym = prm.qn_update != kBroyden;
+  T* Bm = nullptr;
+  if constexpr (kNewt) Bm = prm.work + (long long)inst * n * n;
+  if constexpr (kDense)
+    Bm = prm.slab_shared ? region : prm.work + (long long)inst * slab_elems(n, prm.qn_update);
   const Obj obj{prm.d0, prm.d1};
+  const DenseBlock<T> dense{prm.slab_shared ? nullptr : Bm,
+                            kDense ? (int)(region - reinterpret_cast<T*>(smem_raw)) : 0,
+                            G, D, XT, GP, DP, words, n, prm.qn_update};
 
   if constexpr (kNewt) {
     if (warp != 0) {
@@ -434,18 +556,37 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
       return;
     }
   }
-  // the Newton form: post a command to the block and run warp 0's share
-  auto command = [&](int cmd, const T* a, const T* b) {
-    if constexpr (kNewt) {
+  if constexpr (kDense) {
+    // B0 = I by the block, then warps 1 .. kDenseWarps-1 serve warp 0
+    slab_identity(Bm, n, prm.qn_update, (int)threadIdx.x, kDenseThreads);
+    block_bar(kDenseThreads);
+    if (warp != 0) {
+      dense_worker<T>(dense, threadIdx.x);
+      return;
+    }
+  }
+  // the block forms: post a command to the block and run warp 0's share
+  // (a, b: the Newton form's vectors; flags: the dense update's)
+  auto command = [&](int cmd, const T* a, const T* b, int flags = 0) {
+    if constexpr (kBlock) {
       __syncwarp();
       if (lane == 0) {
-        int* ctl = reinterpret_cast<int*>(words + 24);
+        int* ctl = reinterpret_cast<int*>(words + (kNewt ? 24 : kDenseCtl));
         ctl[0] = cmd;
-        ctl[1] = a == nullptr ? 0 : (int)(a - region);
-        ctl[2] = b == nullptr ? 0 : (int)(b - region);
+        if constexpr (kNewt) {
+          ctl[1] = a == nullptr ? 0 : (int)(a - region);
+          ctl[2] = b == nullptr ? 0 : (int)(b - region);
+        } else {
+          ctl[1] = flags;
+        }
       }
-      chol_bar();
-      newton_command<T, Obj>(obj, region, X, Bm, words, n, threadIdx.x);
+      if constexpr (kNewt) {
+        chol_bar();
+        newton_command<T, Obj>(obj, region, X, Bm, words, n, threadIdx.x);
+      } else {
+        block_bar(kDenseThreads);
+        dense_command<T>(dense, threadIdx.x);
+      }
     }
   };
   // value and value-and-gradient: the block's for the Newton form's
@@ -501,10 +642,6 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
   T dec2 = INF;
   bool fact_bad = false;
   if constexpr (kQn) {
-    if (Bm != nullptr)
-      for (int i = 0; i < n; ++i)
-        for (int j = lane; j < n; j += kWarp)
-          Bm[(long long)i * n + j] = i == j ? T(1) : T(0);
     for (long long e = lane; e < 2LL * m * n; e += kWarp) S[e] = 0;
     for (int e = lane; e < m; e += kWarp) RHO[e] = VAL[e] = 0;
   }
@@ -514,7 +651,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     if constexpr (kNewt) {
       if (method == kNewton) return dec2 * T(0.5) < prm.tol;
     }
-    if constexpr (kQn) {
+    if constexpr (kDense) {
       if (method == kQN || method == kQNB) {
         // the gradient 2-norm, or the s/y stall (pallas_driver.py:431)
         T gg = 0;
@@ -541,8 +678,12 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     return small;
   };
 
+  K3_PROF(long long prof_acc[11] = {0}; long long prof_t = clock64();
+          const long long prof_t0 = prof_t;
+          const bool prof_on = kDense;)
   bool active = isfinite(Fv) && !converged();
   for (int it = 0; it < prm.max_iter && active; ++it) {
+    K3_PROF(if (prof_on && lane == 0) prof_t = clock64();)
     // ---- direction D
     switch (method) {
       case kCD: {
@@ -643,13 +784,12 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
           }
           break;
         }
-        if constexpr (kQn) {
+        if constexpr (kDense) {
           if (method == kQN || method == kQNB) {
-            // D = B g, then the direction; the poison check reads the raw
-            // B g (for QNB before the clip, which would hide it)
-            if (sym) mv_cols(Bm, G, D, n, lane);
-            else mv_rows(Bm, G, D, n, lane);
-            __syncwarp();
+            // D = B g by the block, then the direction; the poison check
+            // reads the raw B g (for QNB before the clip, which would hide
+            // it)
+            command(kDenseDirection, nullptr, nullptr);
             bool fin = true;
             T gd = 0;
             for (int i = lane; i < n; i += kWarp) {
@@ -669,6 +809,8 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
             }
             break;
           }
+        }
+        if constexpr (kQn) {
           if (method == kLBFGS) {
             // two-loop recursion over the ring, newest -> oldest and back
             for (int i = lane; i < n; i += kWarp) D[i] = G[i];
@@ -717,6 +859,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
         break;
     }
     __syncwarp();
+    K3_PHASE(0);
 
     // ---- step length
     T t = 1;
@@ -970,6 +1113,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
       }
     }
     __syncwarp();
+    K3_PHASE(1);
 
     // ---- step (re-clipped for the bounded methods) and state update
     for (int i = lane; i < n; i += kWarp) {
@@ -1046,6 +1190,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     Fv = fnew;
     ++iters;
     __syncwarp();
+    K3_PHASE(2);
 
     if constexpr (kNewt) {
       if (method == kPN) {
@@ -1073,10 +1218,10 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
         lam = sy_b > T(0) ? jclip(ss / sy_b, prm.lam_min, prm.lam_max) : prm.lam_max;
       }
     }
-    if constexpr (kQn) {
+    if constexpr (kDense) {
       if (method == kQN || method == kQNB) {
         // the dense update (pallas_driver.py:467-588); s in GP, y in DP,
-        // B y into D, Broyden's B^T s into XT
+        // B y into D, Broyden's B^T s into XT, each by the block
         const T eps = (T)QnLit<T>::eps;
         const bool pending = prm.restart && pend;
         const T s_norm = sqrt(ss), y_norm = sqrt(yy);
@@ -1094,11 +1239,10 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
             if (upd == kBroyden) XT[i] = pending ? GP[i] : gamma * GP[i];
           }
         } else {
-          if (sym) mv_cols(Bm, DP, D, n, lane);
-          else mv_rows(Bm, DP, D, n, lane);
-          if (upd == kBroyden) mv_cols(Bm, GP, XT, n, lane);
+          command(kDenseProducts, nullptr, nullptr);
         }
         __syncwarp();
+        K3_PHASE(3);
         T yBy = 0, shy_y = 0, shy_sq = 0;
         for (int i = lane; i < n; i += kWarp) {
           yBy += DP[i] * D[i];
@@ -1125,45 +1269,30 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
         ok = ok && s_norm >= prm.tol && y_norm >= prm.tol && isfinite(sy);
         const bool reset = prm.restart && !ok;
         if (ok || reset || pending || scale_cond) {
-          for (int i = 0; i < n; ++i) {
-            const T si = GP[i], byi = D[i], shyi = si - byi;
-            T* row = Bm + (long long)i * n;
-            for (int j = lane; j < n; j += kWarp) {
-              const T eye = i == j ? T(1) : T(0);
-              T b = row[j];
-              if (pending) b = eye;
-              if (scale_cond) b = gamma * eye;
-              T out = b;
-              if (ok) {
-                const T sj = GP[j], byj = D[j];
-                switch (upd) {
-                  case kBFGS: {
-                    // two unfused products: the cross term is the same
-                    // float at (i, j) and (j, i)
-                    T cross;
-                    if constexpr (sizeof(T) == 4)
-                      cross = __fmul_rn(si, byj) + __fmul_rn(byi, sj);
-                    else
-                      cross = __dmul_rn(si, byj) + __dmul_rn(byi, sj);
-                    out = b - rho * cross + coeff * (si * sj);
-                    break;
-                  }
-                  case kDFP: out = b + (si * sj) / sy - (byi * byj) / yBy; break;
-                  case kBroyden: out = b + (shyi * XT[j]) / sy; break;
-                  default: out = b + (shyi * (sj - byj)) / shy_y; break;
-                }
-              }
-              if (reset) out = eye;
-              row[j] = out;
-            }
+          // the update by the block: its scalars in words[0..5], its
+          // flags in the command word
+          if (lane == 0) {
+            words[0] = gamma;
+            words[1] = rho;
+            words[2] = coeff;
+            words[3] = sy;
+            words[4] = yBy;
+            words[5] = shy_y;
           }
+          command(kDenseUpdate, nullptr, nullptr,
+                  (ok ? 1 : 0) | (reset ? 2 : 0) | (pending ? 4 : 0) | (scale_cond ? 8 : 0));
         }
         pend = false;
         sn = s_norm;
         yn = y_norm;
         stc = (ok && !pending) ? 0 : stc + 1;
         __syncwarp();
-      } else if (method == kLBFGS) {
+        K3_PROF(if (lane == 0) prof_acc[9] += ok;)
+        K3_PHASE(4);
+      }
+    }
+    if constexpr (kQn) {
+      if (method == kLBFGS) {
         // ring update and the zero-progress repair
         // (pallas_driver.py:691-731)
         if (sy > prm.lbfgs_eps * yy) {
@@ -1188,6 +1317,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
       }
     }
     active = isfinite(Fv) && !converged();
+    K3_PHASE(5);
   }
 
   // status precedence of the TPU kernel: converged and finite, then the
@@ -1201,11 +1331,19 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     prm.st_out[inst] = status;
     prm.nfev_out[inst] = nfev;
   }
-  if constexpr (kNewt) {
+  K3_PROF(if (prof_on && lane == 0) {
+    prof_acc[6] = iters;
+    prof_acc[7] = nfev;
+    prof_acc[8] = 1;
+    prof_acc[10] = clock64() - prof_t0;
+    for (int k = 0; k < 11; ++k) atomicAdd(&k3_prof[k], (unsigned long long)prof_acc[k]);
+  })
+  if constexpr (kBlock) {
     __syncwarp();
-    if (lane == 0) reinterpret_cast<int*>(words + 24)[0] = kCmdExit;
+    if (lane == 0)
+      reinterpret_cast<int*>(words + (kNewt ? 24 : kDenseCtl))[0] = kNewt ? (int)kCmdExit : (int)kDenseExit;
     __syncwarp();
-    chol_bar();                       // the worker warps leave
+    block_bar(kNewt ? kCholThreads : kDenseThreads);   // the worker warps leave
   }
 }
 
@@ -1225,6 +1363,14 @@ driver_newton_kernel(const Params<T> prm) {
   driver_body<T, Obj, kNewtonForm>(prm);
 }
 
+// the dense form: one block of kDenseThreads threads per instance,
+// kDenseMinBlocks blocks per SM
+template <typename T, class Obj>
+__global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
+driver_dense_kernel(const Params<T> prm) {
+  driver_body<T, Obj, kDenseForm>(prm);
+}
+
 template <typename T, class Obj, int kForm>
 int launch(const Params<T>& prm, cudaStream_t stream) {
   if constexpr (kForm == kNewtonForm) {
@@ -1235,6 +1381,20 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<prm.B, kCholThreads, smem, stream>>>(prm);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (kForm == kDenseForm) {
+    const int kind = prm.qn_update, es = (int)sizeof(T);
+    Params<T> p = prm;
+    p.slab_shared = dense_in_shared(prm.n, prm.ring, kind, es);
+    const long long smem = dense_smem_elems(prm.n, prm.ring, kind, es) * es;
+    if (smem > kSmemPerBlock) return kErrSmem;
+    if (!p.slab_shared && prm.work == nullptr) return kErrArgs;
+    auto kernel = driver_dense_kernel<T, Obj>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<p.B, kDenseThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
   }
   const int m = prm.method == kLBFGS ? prm.m : 0;
@@ -1259,5 +1419,8 @@ int launch_qn(const Params<T>& prm, int objective, cudaStream_t stream);
 // the Newton form of every objective (driver_newton.cu)
 template <typename T>
 int launch_newton(const Params<T>& prm, int objective, cudaStream_t stream);
+// the dense form of every objective (driver_dense.cu)
+template <typename T>
+int launch_dense(const Params<T>& prm, int objective, cudaStream_t stream);
 
 }  // namespace ost_driver

@@ -1,7 +1,7 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a): its quasi-Newton form
-// (dense QN/QNB, L-BFGS, and every method with a Wolfe-family search),
-// built apart from the first-order form in driver.cu.  The kernel is
-// described in driver.cuh.
+// (L-BFGS, and every first-order method with a Wolfe-family search), built
+// apart from the first-order form in driver.cu.  The kernel is described
+// in driver.cuh.
 
 #include "driver.cuh"
 

@@ -18,12 +18,15 @@ Replaces the TPU kernel ``optimization_solvers_tpu/ops/pallas_bfgs.py``
 * stop on the 2-norm ``||g|| < tol``; a non-finite f ends an instance
   ``OUT_OF_DOMAIN``.
 
-In the CUDA kernel B lives in a device-memory workspace of ``B n^2``
-elements, one block of four warps per instance: the matrix-vector products
-and the update are split by rows over the warps, the objective runs on the
-first warp.  :func:`bfgs_solve_fused` takes the plain version for a CPU
-``x0`` and launches ``csrc/bfgs_fused.cu`` for a CUDA ``x0``; it never falls
-back from one to the other.
+In the CUDA kernel each instance runs on one block; B is kept as its
+packed upper triangle (``csrc/dense_slab.cuh``), in the block's shared
+memory where it fits beside the vectors, else in a device-memory workspace
+of one triangle per instance (:func:`slab_in_shared`, a route by shape;
+``bfgs_solve_fused.placements`` counts the launches of each).  The
+matrix-vector products and the update are split over the block's threads,
+the objective runs on the first warp.  :func:`bfgs_solve_fused` takes the
+plain version for a CPU ``x0`` and launches ``csrc/bfgs_fused.cu`` for a
+CUDA ``x0``; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -42,18 +45,33 @@ from .fused_lbfgs import (EPS_MACH, K7_OBJECTIVES, SMEM_PER_BLOCK,
 KERNEL = "the CUDA dense BFGS kernel K9"
 
 
-def workspace_elems(B: int, n: int) -> int:
-    """Device-memory workspace of the CUDA kernel, in elements: one (n, n)
-    inverse Hessian per instance (``csrc/bfgs_fused.cu``
-    ``workspace_elems``)."""
-    return B * n * n
+def slab_elems(n: int) -> int:
+    """Elements of one instance's inverse Hessian: its packed upper
+    triangle (``csrc/dense_slab.cuh`` ``slab_elems``)."""
+    return n * (n + 1) // 2
+
+
+def slab_in_shared(n: int, itemsize: int) -> bool:
+    """Whether the kernel keeps the triangle in the block's shared memory
+    beside the vectors (``csrc/bfgs_fused.cu`` ``in_shared``), else in the
+    device-memory workspace."""
+    return (8 * n + 4 + slab_elems(n)) * itemsize <= SMEM_PER_BLOCK
+
+
+def workspace_elems(B: int, n: int, itemsize: int) -> int:
+    """Device-memory workspace of the CUDA kernel, in elements: one
+    triangle per instance where it does not fit shared memory, else none
+    (``csrc/bfgs_fused.cu`` ``workspace_elems``)."""
+    return 0 if slab_in_shared(n, itemsize) else B * slab_elems(n)
 
 
 def smem_per_instance(n: int, itemsize: int) -> int:
     """Shared memory of one instance's block (``smem_elems`` of
     ``csrc/bfgs_fused.cu``): x, g, d, the trial point, the new gradient, s,
-    y and B y, and four scalar slots."""
-    return (8 * n + 4) * itemsize
+    y and B y, and four scalar slots, then the triangle where it fits."""
+    vecs = 8 * n + 4
+    return (vecs + (slab_elems(n) if slab_in_shared(n, itemsize) else 0)
+            ) * itemsize
 
 
 def bfgs_solve_plain(obj, x0, data=(), *, tol=1e-5, max_iter=500,
@@ -126,14 +144,16 @@ def _launch_cuda(obj, x0, data, *, tol, max_iter, max_iter_ls, c1):
             f"memory per instance in {KERNEL}, more than a block's "
             f"{SMEM_PER_BLOCK}")
     lib = _build.load()
-    elems = lib.bfgs_fused_workspace_elems(B, n)
-    free, _ = torch.cuda.mem_get_info(x0.device)
-    if elems * itemsize > free:
-        raise ValueError(
-            f"B={B}, n={n} needs {elems * itemsize} bytes of device memory "
-            f"for the inverse Hessians of {KERNEL}, more than the {free} "
-            "free: use a smaller batch")
-    work = torch.empty((elems,), dtype=x0.dtype, device=x0.device)
+    elems = workspace_elems(B, n, itemsize)
+    work = None
+    if elems:
+        free, _ = torch.cuda.mem_get_info(x0.device)
+        if elems * itemsize > free:
+            raise ValueError(
+                f"B={B}, n={n} needs {elems * itemsize} bytes of device "
+                f"memory for the inverse Hessians of {KERNEL}, more than the "
+                f"{free} free: use a smaller batch")
+        work = torch.empty((elems,), dtype=x0.dtype, device=x0.device)
     x0 = x0.contiguous()
     outs = outs + (torch.empty_like(outs[4]),)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
@@ -141,16 +161,17 @@ def _launch_cuda(obj, x0, data, *, tol, max_iter, max_iter_ls, c1):
         rc = lib.bfgs_fused_launch(
             1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(), d0,
             d1, B, n, float(tol), int(max_iter), int(max_iter_ls), float(c1),
-            work.data_ptr(), *(t.data_ptr() for t in outs),
-            ctypes.c_void_p(stream))
+            None if work is None else work.data_ptr(),
+            *(t.data_ptr() for t in outs), ctypes.c_void_p(stream))
     check_launch(rc, "bfgs_fused_launch")
     bfgs_solve_fused.launches += 1
+    bfgs_solve_fused.placements["workspace" if elems else "shared"] += 1
     return outs
 
 
 def bfgs_solve_fused(f, x0, data=(), *, tol=1e-5, max_iter=500,
                      max_iter_ls=24, c1=1e-4):
-    """Batched dense BFGS solves, one block of four warps per instance.
+    """Batched dense BFGS solves, one block per instance.
 
     ``x0`` is ``(B, n)`` (any B); ``data`` is the objective's problem data,
     shared across instances.  A CPU ``x0`` runs :func:`bfgs_solve_plain`; a
@@ -172,3 +193,5 @@ def bfgs_solve_fused(f, x0, data=(), *, tol=1e-5, max_iter=500,
 
 
 bfgs_solve_fused.launches = 0
+# launches by where the inverse Hessians lay (slab_in_shared)
+bfgs_solve_fused.placements = {"shared": 0, "workspace": 0}

@@ -41,9 +41,15 @@ is the same.
 
 :func:`fused_minimize` takes the plain version for a CPU ``x0`` and
 launches ``csrc/driver.cu`` (the kernel template in ``csrc/driver.cuh``,
-the quasi-Newton form built in ``csrc/driver_qn.cu``, the Newton form in
+the quasi-Newton form built in ``csrc/driver_qn.cu``, the dense form of QN
+and QNB in ``csrc/driver_dense.cu``, the Newton form in
 ``csrc/driver_newton.cu``) for a CUDA ``x0``; it never falls back from one
-to the other.
+to the other.  The dense form runs one block per instance and keeps the
+instance's slab (``csrc/dense_slab.cuh``: the packed upper triangle of the
+symmetric kinds, Broyden's full matrix) in the block's shared memory where
+it fits beside the vectors, else in a device-memory workspace
+(:func:`dense_in_shared`; ``fused_minimize.placements`` counts the
+launches of each).
 """
 
 from __future__ import annotations
@@ -87,6 +93,8 @@ QN_EPS = {torch.float32: 1.2e-7, torch.float64: 2.3e-16}
 # two, the Newton form (driver_newton.cu) three, with their Hessians
 SMEM_PER_BLOCK = 232448
 NEWTON_WORDS = 32          # csrc/driver.cuh kNewtonWords
+DENSE_WORDS = 8            # csrc/driver.cuh kDenseWords
+DENSE_METHODS = (QN, QNB)
 K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
 K3_NEWTON_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC")
 KERNEL = "the CUDA driver kernel K3"
@@ -242,17 +250,45 @@ def fused_supported(method, line_search) -> bool:
     return build_spec(method, line_search) is not None
 
 
+def dense_slab_elems(n: int, qn_update: int) -> int:
+    """Elements of one dense quasi-Newton slab (``csrc/dense_slab.cuh``
+    ``slab_elems``): the packed upper triangle, n (n + 1) / 2, for the
+    symmetric kinds (bfgs, dfp, sr1); n rows of the odd stride ``n | 1``
+    for broyden."""
+    if qn_update == QN_UPDATES["broyden"]:
+        return n * (n | 1)
+    return n * (n + 1) // 2
+
+
+def dense_in_shared(n: int, ring: int, itemsize: int, qn_update: int) -> bool:
+    """Where the dense form (QN, QNB) keeps an instance's slab
+    (``csrc/driver.cuh`` ``dense_in_shared``): in the block's shared memory
+    when it fits there beside the vectors (7 n + ring + 8 elements), else
+    in the device-memory workspace.  A route by shape, as K1 against K2:
+    both placements run the same code."""
+    vecs = 7 * n + ring + DENSE_WORDS
+    return (vecs + dense_slab_elems(n, qn_update)) * itemsize <= SMEM_PER_BLOCK
+
+
 def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
-                      method: Optional[int] = None) -> int:
+                      method: Optional[int] = None,
+                      qn_update: int = 0) -> int:
     """Shared memory one instance takes in the CUDA kernel, mirrored here so
     that the route can decide without the library.  The first-order and
     quasi-Newton forms: ``work_elems`` of ``csrc/driver.cuh`` (7 n, the
     GLL history, and L-BFGS's S and Y rows, rho, valid and alpha: 2 m n +
-    3 m) times the element size.  The Newton form (``method`` Newton, PN or
+    3 m) times the element size.  The dense form (``method`` QN or QNB; one
+    block per instance): ``dense_smem_elems``, 7 n, the GLL history and 8
+    command words, then the slab of ``qn_update`` where
+    :func:`dense_in_shared`.  The Newton form (``method`` Newton, PN or
     SPN; one block per instance): ``newton_smem_elems``, the region of D,
     GN, XT and the solves' staged NB x (NB + 1) block, over which the
     blocked factorization's scratch lies (the larger of the two, rounded up
     to 4), X and G, 32 command words and the GLL history."""
+    if method in DENSE_METHODS:
+        slab = (dense_slab_elems(n, qn_update)
+                if dense_in_shared(n, ring, itemsize, qn_update) else 0)
+        return (7 * n + ring + DENSE_WORDS + slab) * itemsize
     if method in NEWTON_METHODS:
         nb = fused_newton.PANEL[torch.float32 if itemsize == 4
                                 else torch.float64]
@@ -277,17 +313,26 @@ def _check_fits(n, ring, itemsize, m=0, method=None):
             f"({LOCKSTEP}, which batch_minimize's fused='auto' takes)")
 
 
-def workspace_elems(B: int, n: int, method: int) -> int:
-    """Device-memory workspace of the CUDA kernel, in elements: one (n, n)
-    slab per instance (``csrc/driver.cuh`` ``workspace_elems``).  The dense
-    quasi-Newton methods keep their inverse-Hessian approximation there,
-    the Newton methods the Hessian, whose Cholesky factor overwrites its
-    upper triangle in place."""
-    return B * n * n if method in (QN, QNB, *NEWTON_METHODS) else 0
+def workspace_elems(B: int, n: int, method: int, ring: int = 0,
+                    itemsize: int = 8, qn_update: int = 0) -> int:
+    """Device-memory workspace of the CUDA kernel, in elements
+    (``csrc/driver.cuh`` ``workspace_elems``): the Newton methods keep one
+    (n, n) Hessian slab per instance there, whose Cholesky factor
+    overwrites its upper triangle in place; the dense quasi-Newton methods
+    one slab of ``qn_update`` per instance where it does not fit the
+    block's shared memory (:func:`dense_in_shared`), else none."""
+    if method in NEWTON_METHODS:
+        return B * n * n
+    if method in DENSE_METHODS and not dense_in_shared(n, ring, itemsize,
+                                                       qn_update):
+        return B * dense_slab_elems(n, qn_update)
+    return 0
 
 
-def _check_workspace(B, n, method, itemsize, device):
-    need = workspace_elems(B, n, method) * itemsize
+def _check_workspace(B, n, spec, itemsize, device):
+    method = spec.method
+    need = workspace_elems(B, n, method, spec.ring, itemsize,
+                           spec.qn_update) * itemsize
     if need == 0:
         return
     free, _ = torch.cuda.mem_get_info(device)
@@ -1066,15 +1111,17 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         if tuple(pinv.shape) != (n, n):
             raise ValueError(f"inverse_p must be ({n}, {n}), got "
                              f"{tuple(pinv.shape)}")
-    _check_fits(n, spec.ring, x0.element_size(), spec.lbfgs_m, spec.method)
-    _check_workspace(B, n, spec.method, x0.element_size(), x0.device)
+    itemsize = x0.element_size()
+    _check_fits(n, spec.ring, itemsize, spec.lbfgs_m, spec.method)
+    _check_workspace(B, n, spec, itemsize, x0.device)
     x0 = x0.contiguous()
     lib = _build.load()
     x = torch.empty_like(x0)
     fv = torch.empty((B,), dtype=x0.dtype, device=x0.device)
     it, st, nfev = (torch.empty((B,), dtype=torch.int32, device=x0.device)
                     for _ in range(3))
-    elems = workspace_elems(B, n, spec.method)
+    elems = workspace_elems(B, n, spec.method, spec.ring, itemsize,
+                            spec.qn_update)
     work = (torch.empty((elems,), dtype=x0.dtype, device=x0.device)
             if elems else None)
     ints, doubles = _slots(spec, x0.dtype)
@@ -1096,6 +1143,10 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         raise RuntimeError(f"driver_launch failed: "
                            f"{_build.error_string(rc)} (code {rc})")
     fused_minimize.launches += 1
+    if spec.method in DENSE_METHODS:
+        fused_minimize.placements[
+            "shared" if dense_in_shared(n, spec.ring, itemsize, spec.qn_update)
+            else "workspace"] += 1
     return x, fv, it, st, nfev
 
 
@@ -1169,3 +1220,5 @@ def fused_minimize(method, line_search, f, x0, lower=None, upper=None,
 
 
 fused_minimize.launches = 0
+# the dense form's launches by where the slabs lay (dense_in_shared)
+fused_minimize.placements = {"shared": 0, "workspace": 0}

@@ -570,6 +570,15 @@ def test_driver_shared_memory_mirror_matches_the_library(cuda):
                                                             m)
                     assert mirror == lib.driver_smem_per_warp(n, ring, m,
                                                               itemsize)
+    # the dense form's block (one per instance): the slab where it fits
+    for n in (1, 31, 100, 166, 167, 233, 234, 237, 238, 333, 334, 4000):
+        for ring in (0, 10):
+            for kind in range(4):
+                for itemsize in (4, 8):
+                    assert fused_driver.smem_per_instance(
+                        n, ring, itemsize, method=fused_driver.QN,
+                        qn_update=kind) == lib.driver_smem_dense(
+                            n, ring, kind, itemsize), (n, ring, kind)
     # the Newton form's block (one per instance)
     for n in (1, 31, 64, 100, 1000, 1024, 4150, 8301):
         for ring in (0, 1, 10):
@@ -683,7 +692,8 @@ def test_driver_qn_refuses_rather_than_falls_back(cuda, monkeypatch):
     assert r.x.device.type == "cuda"
     free, _ = torch.cuda.mem_get_info()
     n = 4000
-    B = int(free // (n * n * 8)) + 1        # one slab more than fits
+    # one packed slab more than fits
+    B = int(free // (fused_driver.dense_slab_elems(n, 0) * 8)) + 1
     wide = torch.zeros((1, n), dtype=torch.float64, device=cuda).expand(B, n)
     with pytest.raises(NotImplementedError, match="device memory"):
         solvers.batch_minimize(solvers.BFGS(), ls.MoreThuente(), oracle, wide)
@@ -691,14 +701,20 @@ def test_driver_qn_refuses_rather_than_falls_back(cuda, monkeypatch):
 
 
 def test_driver_workspace_mirror_matches_the_library(cuda):
-    """The slab workspace is sized in Python (``workspace_elems``); it must
-    equal the kernel's own formula."""
+    """The slab workspace is sized in Python (``workspace_elems``: the
+    Newton form's (n, n) slabs, the dense form's slabs past the shared
+    memory fit); it must equal the kernel's own formula."""
     lib = _build.load()
     for B in (1, 64, 1024):
-        for n in (1, 33, 100, 4150):
+        for n in (1, 33, 100, 166, 167, 233, 234, 237, 238, 333, 334, 4150):
             for method in range(12):
-                assert fused_driver.workspace_elems(B, n, method) == (
-                    lib.driver_workspace_elems(B, n, method)), (B, n, method)
+                for ring, kind, itemsize in ((0, 0, 8), (10, 2, 8), (0, 3, 4),
+                                             (0, 2, 4)):
+                    assert fused_driver.workspace_elems(
+                        B, n, method, ring, itemsize, kind) == (
+                            lib.driver_workspace_elems(
+                                B, n, method, ring, kind, itemsize)), (
+                        B, n, method, ring, kind, itemsize)
 
 
 def test_config2_shape_float32_quality(cuda):
@@ -1214,8 +1230,9 @@ def test_whole_solve_kernels_refuse_rather_than_fall_back(cuda, monkeypatch):
 
 
 def test_whole_solve_size_mirrors_match_the_library(cuda):
-    """K7's and K8's shared memory per instance and K9's workspace are
-    sized in Python; they must equal the kernels' own formulas."""
+    """K7's and K8's shared memory per instance and K9's shared memory and
+    workspace are sized in Python; they must equal the kernels' own
+    formulas."""
     lib = _build.load()
     for n in (1, 2, 31, 100, 1000, 4000):
         for itemsize in (4, 8):
@@ -1225,7 +1242,146 @@ def test_whole_solve_size_mirrors_match_the_library(cuda):
             for gll_m in (1, 10, 33):
                 assert fused_spg.smem_per_instance(n, gll_m, itemsize) == (
                     lib.spg_fused_smem_per_warp(n, gll_m, itemsize))
-    for B in (1, 1024, 10240):
-        for n in (1, 100, 1000):
-            assert fused_bfgs.workspace_elems(B, n) == (
-                lib.bfgs_fused_workspace_elems(B, n))
+    for n in (1, 100, 232, 233, 332, 333, 1000):
+        for itemsize in (4, 8):
+            assert fused_bfgs.smem_per_instance(n, itemsize) == (
+                lib.bfgs_fused_smem(n, itemsize))
+            for B in (1, 1024, 10240):
+                assert fused_bfgs.workspace_elems(B, n, itemsize) == (
+                    lib.bfgs_fused_workspace_elems(B, n, itemsize))
+
+
+# ---- the dense slabs of K3's dense form and K9: both placements ----------
+
+# every update kind, QN and QNB, with the restart and scale_b0 forms; on a
+# weighted-squares quadratic (whose counts do not move under rounding; the
+# starts and the minimizer inside the box, so every case converges) at a
+# width whose slab lies in shared memory (24) and one past the fit (240,
+# float64: the slab in the workspace).  BFGSB + MoreThuenteB is left to
+# the geometries (n = 8): its running step cap, the smallest feasible step
+# of every iteration so far, stalls it at these widths (400 iterations,
+# not converged, in the plain version too)
+DENSE_CASES = {
+    "bfgs_mt": (lambda: solvers.BFGS(tol=1e-8), ls.MoreThuente, False),
+    "dfp_bt": (lambda: solvers.DFP(tol=1e-8), ls.BackTracking, False),
+    "broyden_bt": (lambda: solvers.Broyden(tol=1e-8), ls.BackTracking, False),
+    "sr1_hz": (lambda: solvers.QuasiNewton(tol=1e-8, update="sr1"),
+               ls.HagerZhang, False),
+    "bfgs_robust_mt": (lambda: solvers.QuasiNewton(
+        tol=1e-8, update="bfgs", scale_b0=True, restart_on_degeneracy=True),
+        ls.MoreThuente, False),
+    "bfgsb_hzb": (lambda: solvers.BFGSB(tol=1e-8), ls.HagerZhangB, True),
+    "dfpb_btb": (lambda: solvers.DFPB(tol=1e-8), ls.BackTrackingB, True),
+    "broydenb_hzb": (lambda: solvers.BroydenB(tol=1e-8), ls.HagerZhangB,
+                     True),
+    "sr1b_btb": (lambda: solvers.SR1B(tol=1e-8), ls.BackTrackingB, True),
+}
+DENSE_WIDTHS = {24: "shared", 240: "workspace"}
+
+
+def _dense_operands(n, device, seed):
+    d = np.linspace(1.0, 50.0, n)
+    t = np.linspace(-0.5, 2.0, n)
+    x0 = np.random.RandomState(seed).uniform(-2.0, 2.0, (8, n))
+    return (x0, *interop.tensors_from_numpy(d, t, device=device))
+
+
+@pytest.mark.parametrize("n", sorted(DENSE_WIDTHS))
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_form_matches_plain_in_both_placements(name, n, cuda):
+    """K3's dense form against its plain version in float64 with the slab
+    in shared memory and in the workspace: status equal, iterations within
+    max(1, the plain version's spread) (the kernel's sums round otherwise,
+    and the 2-norm test at 1e-8 may pass one iteration apart), x within
+    2e-8 (each run within ||g|| / min d = 1e-8 of the minimizer); the
+    placement counter of the placement the fit rule names moves by one."""
+    make_method, make_search, bounded = DENSE_CASES[name]
+    method, search = make_method(), make_search()
+    spec = fused_driver.build_spec(method, search)
+    x0_np, d, t = _dense_operands(n, cuda, n)
+    (x0,) = interop.tensors_from_numpy(x0_np, device=cuda)
+    lo = up = None
+    if bounded:
+        lo, up = interop.tensors_from_numpy(np.full(n, -2.5), np.full(n, 2.5),
+                                            device=cuda)
+    obj = problems.weighted_squares()
+    kw = dict(max_iter=400, max_iter_ls=40)
+    where = DENSE_WIDTHS[n]
+    assert fused_driver.dense_in_shared(n, spec.ring, 8, spec.qn_update) == (
+        where == "shared")
+    before = dict(fused_driver.fused_minimize.placements)
+    x, f, it, st, nfev = fused_driver._launch_cuda(spec, obj, x0, lo, up,
+                                                   (d, t), **kw)
+    torch.cuda.synchronize()
+    after = fused_driver.fused_minimize.placements
+    assert after[where] == before[where] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+    def plain(v):
+        (xt,) = interop.tensors_from_numpy(v, device=cuda)
+        return fused_driver.fused_minimize_plain(method, search, obj, xt, lo,
+                                                 up, (d, t), **kw)
+
+    xp, fp, itp, stp, _ = plain(x0_np)
+    spread = perturbation_spread(lambda v: plain(v)[2].cpu().numpy(), x0_np,
+                                 runs=3)
+    assert torch.equal(st, stp) and bool((st == 1).all())
+    dit = (it.long() - itp.long()).abs().max().item()
+    assert dit <= max(1, spread), (dit, spread)
+    torch.testing.assert_close(x, xp, rtol=0, atol=2e-8)
+
+
+@pytest.mark.parametrize("n", sorted(DENSE_WIDTHS))
+def test_k9_matches_plain_in_both_placements(n, cuda):
+    """K9 against its plain version in float64 with the triangle in shared
+    memory and in the workspace, with the tolerances of the dense form's
+    test above; the placement counter moves."""
+    x0_np, d, t = _dense_operands(n, cuda, 9 * n)
+    (x0,) = interop.tensors_from_numpy(x0_np, device=cuda)
+    obj = problems.weighted_squares()
+    kw = dict(tol=1e-8, max_iter=400, max_iter_ls=24, c1=1e-4)
+    where = DENSE_WIDTHS[n]
+    assert fused_bfgs.slab_in_shared(n, 8) == (where == "shared")
+    before = dict(fused_bfgs.bfgs_solve_fused.placements)
+    x, f, it, st, _, upd = fused_bfgs._launch_cuda(obj, x0, (d, t), **kw)
+    torch.cuda.synchronize()
+    assert fused_bfgs.bfgs_solve_fused.placements[where] == before[where] + 1
+    xp, fp, itp, stp = fused_bfgs.bfgs_solve_plain(obj, x0, (d, t), **kw)
+    assert torch.equal(st, stp) and bool((st == 1).all())
+    assert (it.long() - itp.long()).abs().max().item() <= 1
+    assert bool((upd > 0).all())
+    torch.testing.assert_close(x, xp, rtol=0, atol=2e-8)
+
+
+def test_dense_launch_failures_raise_rather_than_fall_back(cuda,
+                                                           monkeypatch):
+    """A launch the kernel refuses raises RuntimeError: no plain version,
+    no other placement, no count."""
+    import dataclasses
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fused_driver, "_solve_plain", plain)
+    monkeypatch.setattr(fused_bfgs, "bfgs_solve_plain", plain)
+    x0 = torch.zeros((2, 240), dtype=torch.float64, device=cuda)
+    rosen = problems.rosenbrock()
+    k3_before = (fused_driver.fused_minimize.launches,
+                 dict(fused_driver.fused_minimize.placements))
+    k9_before = (fused_bfgs.bfgs_solve_fused.launches,
+                 dict(fused_bfgs.bfgs_solve_fused.placements))
+    # an update kind the kernel does not know
+    spec = dataclasses.replace(
+        fused_driver.build_spec(solvers.BFGS(), ls.MoreThuente()),
+        qn_update=7)
+    with pytest.raises(RuntimeError, match="driver_launch failed"):
+        fused_driver._launch_cuda(spec, rosen, x0[:, :24], None, None, (),
+                                  5, 5)
+    # no workspace where the triangle does not fit shared memory
+    monkeypatch.setattr(fused_bfgs, "workspace_elems", lambda B, n, i: 0)
+    with pytest.raises(RuntimeError, match="bfgs_fused_launch failed"):
+        fused_bfgs.bfgs_solve_fused(rosen, x0, max_iter=5)
+    assert (fused_driver.fused_minimize.launches,
+            fused_driver.fused_minimize.placements) == k3_before
+    assert (fused_bfgs.bfgs_solve_fused.launches,
+            fused_bfgs.bfgs_solve_fused.placements) == k9_before

@@ -106,7 +106,11 @@ def test_cpu_route_takes_the_plain_version():
 
 
 def test_workspace_mirror():
-    """One (n, n) inverse Hessian per instance: config 2's 1,024 x 100 takes
-    40,960,000 bytes in float32."""
-    assert fused_bfgs.workspace_elems(1024, 100) * 4 == 40_960_000
-    assert fused_bfgs.smem_per_instance(100, 4) == 3216
+    """One packed inverse Hessian per instance: at config 2's 1,024 x 100 in
+    float32 it lies in the block's shared memory (23,416 bytes a block, no
+    workspace); past the fit (n = 400) 1,024 triangles, 328,499,200 bytes,
+    in device memory."""
+    assert fused_bfgs.workspace_elems(1024, 100, 4) == 0
+    assert fused_bfgs.smem_per_instance(100, 4) == (804 + 5050) * 4 == 23_416
+    assert fused_bfgs.workspace_elems(1024, 400, 4) * 4 == 328_499_200
+    assert fused_bfgs.smem_per_instance(400, 4) == 3204 * 4

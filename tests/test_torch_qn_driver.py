@@ -384,16 +384,25 @@ def test_refusals_name_the_roadmap():
 
 
 def test_shared_memory_and_workspace_rules():
-    """7 n + ring + 2 m n + 3 m elements of shared memory per instance; the
-    dense slabs, B n^2 elements, in device memory."""
+    """7 n + ring + 2 m n + 3 m elements of shared memory per instance of
+    the one-warp forms; the dense form's block (QN, QNB): 7 n + ring + 8
+    elements and the slab where it fits (config 2's 1,024 x 100 in float32:
+    the packed triangle in the block's 23,032 bytes, no workspace), else one
+    slab per instance in device memory."""
     assert fused_driver.smem_per_instance(100, 0, 4, 10) == (
         7 * 100 + 2 * 10 * 100 + 30) * 4
     assert fused_driver.smem_per_instance(64, 10, 4) == (7 * 64 + 10) * 4
     assert fused_driver.fits(100, 0, 8, 10)
     assert not fused_driver.fits(1200, 0, 8, 10)
-    assert fused_driver.workspace_elems(1024, 100, fused_driver.QN) == (
-        1024 * 100 * 100)
-    assert fused_driver.workspace_elems(1024, 100, fused_driver.QNB) == (
-        1024 * 100 * 100)
+    for method in (fused_driver.QN, fused_driver.QNB):
+        assert fused_driver.smem_per_instance(100, 0, 4, method=method) == (
+            7 * 100 + 8 + 100 * 101 // 2) * 4 == 23_032
+        assert fused_driver.workspace_elems(1024, 100, method, 0, 4, 0) == 0
+        assert fused_driver.workspace_elems(1024, 400, method, 0, 4, 0) == (
+            1024 * 400 * 401 // 2)
+        assert fused_driver.workspace_elems(1024, 400, method, 0, 4, 2) == (
+            1024 * 400 * 401)
+        assert fused_driver.smem_per_instance(400, 0, 4, method=method) == (
+            7 * 400 + 8) * 4
     for method in (fused_driver.LBFGS, fused_driver.GD, fused_driver.SPG):
         assert fused_driver.workspace_elems(1024, 100, method) == 0
