@@ -63,7 +63,7 @@ non-zero; so does a machine without a CUDA device.
     python3 chip_smoke.py --breakdown   # also where K1's, K2's and K3's
                                         # time goes
     python3 chip_smoke.py --times DIR   # only config 2, K9, L-BFGS, K7,
-                                        # K8, K4, the headline (B = 10,240
+                                        # K8, K4, K5, the headline (B = 10,240
                                         # and 1,056), configs 3, 6, 4 and 5
                                         # (K3 and the lockstep K6 path in
                                         # turns) and K6, with the package
@@ -191,6 +191,9 @@ LOCKSTEP_QN = dict(B=1024, n=100, tol=2e-4, max_iter=1500, max_iter_ls=40)
 LS_QN_CAPPED_ITERS = 30
 LS_QN_X_FLOOR = 1e-12
 K5_RTOL = {"float32": 1e-5, "float64": 1e-12}
+# phase 25b: K5 past the shared placement's fit (float32 n <= 238, float64
+# n <= 167): B instances at width n32 (float32) and n64 (float64)
+K5_FIT = dict(B=64, n32=256, n64=192)
 K6_RES = {"float32": 1e-4, "float64": 1e-10}
 LS_K6_F64_ROWS = 16
 # rounds of phase 29's in-turns timing of the K6 path against K3
@@ -344,7 +347,7 @@ def main(argv=None):
     parser.add_argument(
         "--times", metavar="ROOT",
         help="only time config 2 (batch_minimize), K9, L-BFGS + HZ, K7, K8, "
-        "K4, K6, the headline and configs 3, 6 and 4 through minimize and "
+        "K4, K5, K6, the headline and configs 3, 6 and 4 through minimize and "
         "config 5 "
         "through K3 and the lockstep K6 path in turns, with the package "
         "found under ROOT (a checkout; '.' for this one), to compare two "
@@ -1469,8 +1472,9 @@ def qn_slice(dev, card, tensors, sync_time):
 def in_turns_times(root):
     """Config 2 through ``solvers.batch_minimize`` (the bench call), K9
     through ``ops.bfgs_solve_fused`` (config 2's inputs), L-BFGS +
-    Hager-Zhang through ``minimize``, K7, K8 and K4 through their entries
-    and K6 on config 5's Hessians, the headline (at B = 10,240 and
+    Hager-Zhang through ``minimize``, K7, K8 and K4 through their entries,
+    K5 (bfgs) at its path's shape and K6 on config 5's Hessians, the
+    headline (at B = 10,240 and
     K1_TIMES_SMALL_B), configs 3 (fast), 6 and 4 (also at each B of
     C4_SMALL_B) through ``minimize``, and config 5 (PN, B = 256) through
     ``solvers.batch_minimize`` by K3 and by the lockstep K6 path in turns
@@ -1644,6 +1648,24 @@ def in_turns_times(root):
         log(f"{what}: {spread(ts)}; the kernel's wrapper alone "
             f"{statistics.median(dev_ms):.3f} ms (min {min(dev_ms):.3f}, max "
             f"{max(dev_ms):.3f})  [{card}]")
+
+    # K5 (bfgs) at its path's shape: CUDA events around 50 launches, each
+    # of TIMES_REPEATS rounds
+    from _torch_geometries import qn_update_arrays
+    from optimization_solvers_tpu_torch.ops import fused_qn
+
+    c5q = LOCKSTEP_QN
+    Bm, s, y, g = (torch.tensor(a, dtype=torch.float32, device=dev)
+                   for a in qn_update_arrays(c5q["B"], c5q["n"],
+                                             curvature=True))
+    k5_us = [1e3 * event_ms(lambda: fused_qn.qn_update_direction_fused(
+        Bm, s, y, g, tol=1e-8, kind="bfgs"), 50)
+        for _ in range(TIMES_REPEATS)]
+    log(f"K5 bfgs ({LOCKSTEP_QN['B']}, {LOCKSTEP_QN['n']}, "
+        f"{LOCKSTEP_QN['n']}) float32: {statistics.median(k5_us):.2f} us per "
+        f"launch (median of {TIMES_REPEATS} rounds of 50; min "
+        f"{min(k5_us):.2f}, max {max(k5_us):.2f})  [{card}]")
+    del Bm, s, y, g
 
     # config 4 through minimize: K2 of the package at root
     from _torch_geometries import lse_arrays
@@ -2258,7 +2280,8 @@ def host_share(what, fn, wall, card, sync_time):
 
 def lockstep_slice(dev, card, tensors, sync_time):
     """Phases 25-27: the lockstep loop's fused dense quasi-Newton update K5
-    against its plain version at the shape of its path, then that path at
+    against its plain version at the shape of its path (every rule in both
+    types, timed) and past its shared-memory fit, then that path at
     full width: dense BFGS with ``fused=True`` + More-Thuente through
     ``solvers.batch_minimize(fused=False)`` (config 2's width), with times,
     the bound and the host's share of the wall time.  Returns K5's entry
@@ -2273,19 +2296,25 @@ def lockstep_slice(dev, card, tensors, sync_time):
 
     K5 = fused_qn.qn_update_direction_fused
 
-    # ---- 25. K5 vs plain at the K5 path's shape, all four rules
+    # ---- 25. K5 vs plain at the K5 path's shape, all four rules in both
+    # types, each timed (its B staged in shared memory: the placement)
     c = LOCKSTEP_QN
     B, n = c["B"], c["n"]
     # curvature pairs (s.y > 0), as the path's Wolfe search feeds K5
     arrays = qn_update_arrays(B, n, curvature=True)
     k5_err = 0.0
+    k5_rule_ms = {}
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[1]
         Bm, s, y, g = tensors(*arrays, dtype=dtype)
         skip = fused_qn.skip_mask(s, y, 1e-8)
+        # B read and B' written once, s, y, g read and B' g written once
+        nbytes = (2 * n * n + 4 * n) * B * Bm.element_size()
         for kind in fused_qn.KINDS:
+            K5.placements = {"shared": 0, "workspace": 0}
             Bn, Bg = K5(Bm, s, y, g, tol=1e-8, kind=kind)
             torch.cuda.synchronize()
+            placements = dict(K5.placements)
             Pn, Pg = fused_qn.qn_update_direction_plain(Bm, s, y, g, skip,
                                                         kind=kind)
             rel = max(((Bn - Pn).abs().max() / Pn.abs().max()).item(),
@@ -2294,14 +2323,22 @@ def lockstep_slice(dev, card, tensors, sync_time):
             if dtype == torch.float32 and kind == "bfgs":
                 k5_err = max((Bn - Pn).abs().max().item(),
                              (Bg - Pg).abs().max().item())
+            rule_ms = event_ms(lambda: K5(Bm, s, y, g, tol=1e-8, kind=kind),
+                               50)
+            k5_rule_ms[f"{kind} {name}"] = rule_ms
             log(f"K5 vs plain {name} {kind} ({B}, {n}, {n}): max|d| / "
                 f"max|entry| {rel:.3g}, skipped instance's B unchanged "
-                f"{frozen}")
+                f"{frozen}, placements {placements}; {1e3 * rule_ms:.2f} us "
+                f"per launch, {nbytes / (rule_ms * 1e-3) / 1e12:.3f} TB/s "
+                f"({nbytes / (rule_ms * 1e-3) / HBM_BYTES_PER_S:.3f} of 3.35 "
+                f"TB/s)  [{card}]")
             check(rel <= K5_RTOL[name], f"K5 {name} {kind}: {rel}")
             check(frozen, f"K5 {name} {kind}: the skipped B changed")
+            check(placements == {"shared": 1, "workspace": 0},
+                  f"K5 {name} {kind}: placements {placements}")
     Bm, s, y, g = tensors(*arrays, dtype=torch.float32)
     skip = fused_qn.skip_mask(s, y, 1e-8)
-    k5_ms = event_ms(lambda: K5(Bm, s, y, g, tol=1e-8, kind="bfgs"), 50)
+    k5_ms = k5_rule_ms["bfgs float32"]
     k5_plain_ms = event_ms(lambda: fused_qn.qn_update_direction_plain(
         Bm, s, y, g, skip, kind="bfgs"), 10)
     # B read and B' written once, s, y, g read and B' g written once; ~10
@@ -2311,6 +2348,37 @@ def lockstep_slice(dev, card, tensors, sync_time):
         f"{1e3 * k5_plain_ms:.1f} us, bound {1e3 * k5_bound:.1f} us "
         f"({k5_by}); {k5_ms / k5_bound:.1f}x the bound  [{card}]")
     del Bm, s, y, g, Bn, Bg, Pn, Pg
+
+    # ---- 25b. K5 past the shared placement's fit (the workspace placement:
+    # B read from device memory) against the plain version
+    for dtype, wide in ((torch.float32, K5_FIT["n32"]),
+                        (torch.float64, K5_FIT["n64"])):
+        name = str(dtype).split(".")[1]
+        Bm, s, y, g = tensors(*qn_update_arrays(K5_FIT["B"], wide,
+                                                curvature=True), dtype=dtype)
+        skip = fused_qn.skip_mask(s, y, 1e-8)
+        check(not fused_qn.in_shared(wide, Bm.element_size()),
+              f"K5 past the fit: n = {wide} fits shared memory in {name}")
+        for kind in fused_qn.KINDS:
+            K5.placements = {"shared": 0, "workspace": 0}
+            Bn, Bg = K5(Bm, s, y, g, tol=1e-8, kind=kind)
+            torch.cuda.synchronize()
+            placements = dict(K5.placements)
+            Pn, Pg = fused_qn.qn_update_direction_plain(Bm, s, y, g, skip,
+                                                        kind=kind)
+            rel = max(((Bn - Pn).abs().max() / Pn.abs().max()).item(),
+                      ((Bg - Pg).abs().max() / Pg.abs().max()).item())
+            frozen = torch.equal(Bn[1], Bm[1])
+            log(f"K5 past the fit {name} {kind} ({K5_FIT['B']}, {wide}, "
+                f"{wide}): placements {placements}, max|d| / max|entry| "
+                f"{rel:.3g}, skipped instance's B unchanged {frozen}")
+            check(placements == {"shared": 0, "workspace": 1},
+                  f"K5 past the fit {name} {kind}: placements {placements}")
+            check(rel <= K5_RTOL[name],
+                  f"K5 past the fit {name} {kind}: {rel}")
+            check(frozen, f"K5 past the fit {name} {kind}: the skipped B "
+                  "changed")
+        del Bm, s, y, g, Bn, Bg, Pn, Pg
 
     # ---- 26. the K5 path: lockstep dense BFGS (fused=True) + More-Thuente
     # at config 2's width, float32, through batch_minimize(fused=False)
@@ -2330,12 +2398,15 @@ def lockstep_slice(dev, card, tensors, sync_time):
                           ).float().mean().item()
 
     (x32,) = tensors(starts, dtype=torch.float32)
+    K5.placements = {"shared": 0, "workspace": 0}
     r5, wall5, k5_launches = drive(
         "K5 path (lockstep BFGS fused + MoreThuente, 1,024 x 100, f32) via "
         "batch_minimize", lambda: qn_path(x32), "K5", sync_time)
     lockstep_iters = int(r5.iterations.max())
     check(k5_launches == lockstep_iters,
           f"K5 launches {k5_launches}, lockstep iterations {lockstep_iters}")
+    check(K5.placements == {"shared": k5_launches, "workspace": 0},
+          f"K5 path: placements {K5.placements}")
     conv5 = report("K5 path", r5, wall5)
     log(f"K5 path: success (1 or 6) {success(r5):.4f}, converged {conv5:.4f}, "
         f"{k5_launches} K5 launches = lockstep iterations, "
@@ -2392,6 +2463,7 @@ def lockstep_slice(dev, card, tensors, sync_time):
         "bound_ms": k5_bound,
         "bound_by": k5_by,
         "library_ms": None,
+        "rules_ms": k5_rule_ms,
         "path": {"seconds": wall5, "solves_per_s": B / wall5,
                  "lockstep_iterations": lockstep_iters,
                  "converged": conv5, "success": success(r5),
@@ -2893,6 +2965,21 @@ def whole_solve_slice(dev, card, tensors, sync_time):
             f"{its:.0f}, trials per iteration {trials / max(its, 1):.3f}"
             + (f", updates per iteration {upd / max(its, 1):.3f}"
                if key == "K9" else "") + f"; kernel {ms:.3f} ms  [{card}]")
+        if key == "K7":
+            # the SM time one instance-iteration takes, in the cycles of
+            # one resident warp: time x SM clock x SMs x resident warps
+            info = fused_lbfgs.kernel_info(torch.float32, B, n, kw["m"])
+            mhz = sm_clock_mhz()
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            cycles = (ms * 1e-3 * mhz * 1e6 * sms * info["warps_per_sm"]
+                      / max(its, 1))
+            log(f"K7: {info['warps_per_sm']} resident warps per SM, "
+                f"{info['registers']} registers, {info['local_bytes']} local "
+                f"bytes a thread; {trials / max(its, 1):.3f} trials per "
+                f"iteration, {cycles:.0f} cycles per instance-iteration "
+                f"(kernel time x {mhz:.0f} MHz x {sms} SMs x resident warps "
+                f"/ instance-iterations; tools/k7_phase_profile.py counts "
+                f"them)  [{card}]")
         if key == "K9":
             # a direction pass per iteration, B y and the update's read and
             # write per update (this run's counts)

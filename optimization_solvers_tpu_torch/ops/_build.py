@@ -190,6 +190,11 @@ def load() -> ctypes.CDLL:
             ]
             lib.lbfgs_fused_smem_per_warp.restype = ctypes.c_longlong
             lib.lbfgs_fused_smem_per_warp.argtypes = [i, i, i]
+            lib.lbfgs_fused_kernel_info.restype = i
+            lib.lbfgs_fused_kernel_info.argtypes = [
+                i, i, i, i,              # dtype, B, n, m
+                ctypes.POINTER(i),       # out: 5 ints
+            ]
             lib.lbfgs_fused_launch.restype = i
             lib.lbfgs_fused_launch.argtypes = [
                 i, i,                    # dtype, objective

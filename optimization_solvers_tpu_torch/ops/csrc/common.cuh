@@ -10,6 +10,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -56,6 +57,76 @@ __device__ __forceinline__ void block_bar(int threads) {
 }
 #endif
 
+// Asynchronous bulk copies from device memory to shared memory through the
+// mbarrier `bar` (8 bytes of shared memory, 8-byte aligned), which thread 0
+// of the block initialises once with bulk_barrier_init before the first
+// copy.  bulk_copy(dst, src, count, ...), called by every thread, copies
+// `count` elements to `dst`, which the caller places to agree with src
+// modulo 16 bytes: thread 0 starts the tensor memory accelerator's
+// cp.async.bulk of the 16-byte-aligned middle, which completes on `bar`,
+// and the block's `nthreads` threads (this one is `tid`) copy the ends
+// element by element.  After a block barrier (which publishes the ends and
+// the barrier's initialisation) every thread calls bulk_copy_wait with what
+// bulk_copy returned and the barrier's phase (0 for its first copy, then
+// alternating) before it reads dst; the wait traps rather than hang should
+// the copy never complete.  The tests' CPU warp emulator (OST_EMULATED)
+// copies at once and waits for nothing.
+#ifndef OST_EMULATED
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bulk_barrier_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_copy_start(void* dst, const void* src,
+                                                unsigned bytes, unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy_wait(bool started, unsigned long long* bar,
+                                               unsigned phase) {
+  if (!started) return;
+  unsigned done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(phase)
+        : "memory");
+    if (spins > (1LL << 26)) __trap();
+  }
+}
+#else
+inline void bulk_barrier_init(unsigned long long*) {}
+inline void bulk_copy_start(void* dst, const void* src, unsigned bytes,
+                            unsigned long long*) {
+  memcpy(dst, src, bytes);
+}
+inline void bulk_copy_wait(bool, unsigned long long*, unsigned) {}
+#endif
+template <typename T>
+__device__ __forceinline__ bool bulk_copy(T* dst, const T* src, long long count,
+                                          int tid, int nthreads, unsigned long long* bar) {
+  long long head =
+      ((16 - (int)(reinterpret_cast<uintptr_t>(src) & 15)) & 15) / (int)sizeof(T);
+  if (head > count) head = count;
+  const long long bytes = (count - head) * (long long)sizeof(T) / 16 * 16;
+  const long long tail = head + bytes / (long long)sizeof(T);
+  if (tid == 0 && bytes > 0) bulk_copy_start(dst + head, src + head, (unsigned)bytes, bar);
+  for (long long k = tid; k < head; k += nthreads) dst[k] = src[k];
+  for (long long k = tail + tid; k < count; k += nthreads) dst[k] = src[k];
+  return bytes > 0;
+}
+
 template <typename T> __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -70,6 +141,35 @@ template <typename T> __device__ __forceinline__ T warp_max(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = jmax(v, __shfl_xor_sync(kFull, v, o));
   return v;
+}
+
+// one halving exchange of warp_sums, at W sums per lane, then the next (a
+// template level each, so that every loop unrolls and v stays in registers)
+template <int W, int K, typename T> __device__ __forceinline__ void halve(T (&v)[K], int lane) {
+  constexpr int h = W / 2, o = 16 * W / K;
+  const bool hi = lane & o;
+#pragma unroll
+  for (int j = 0; j < h; ++j) {
+    const T send = hi ? v[j] : v[j + h];
+    const T keep = hi ? v[j + h] : v[j];
+    v[j] = keep + __shfl_xor_sync(kFull, send, o);
+  }
+  if constexpr (h > 1) halve<h, K>(v, lane);
+}
+
+// K independent warp sums (K a power of two up to 32) in one transposed
+// butterfly: log2(K) halving exchanges, each lane keeping half of its sums
+// and sending the other half, then 5 - log2(K) plain butterfly steps; K - 1
+// + 5 - log2(K) shuffles in five levels.  Returns sum number lane / (32 / K)
+// on each lane; every pairing tree is the same, so the 32 / K lanes that
+// hold a sum hold the same bits, and equal inputs give equal sums.  v is
+// clobbered.
+template <int K, typename T> __device__ __forceinline__ T warp_sums(T (&v)[K], int lane) {
+  if constexpr (K > 1) halve<K, K>(v, lane);
+  T r = v[0];
+#pragma unroll
+  for (int o = 16 / K; o > 0; o >>= 1) r += __shfl_xor_sync(kFull, r, o);
+  return r;
 }
 
 // MINPACK-2 dcstep on replicated scalars, shared by K2's dcsrch mode and

@@ -129,35 +129,6 @@ template <typename T> __device__ __forceinline__ void warp_argmin(T& v, int& idx
   }
 }
 
-// one halving exchange of warp_sums, at W sums per lane, then the next (a
-// template level each, so that every loop unrolls and v stays in registers)
-template <int W, int K, typename T> __device__ __forceinline__ void halve(T (&v)[K], int lane) {
-  constexpr int h = W / 2, o = 16 * W / K;
-  const bool hi = lane & o;
-#pragma unroll
-  for (int j = 0; j < h; ++j) {
-    const T send = hi ? v[j] : v[j + h];
-    const T keep = hi ? v[j + h] : v[j];
-    v[j] = keep + __shfl_xor_sync(kFull, send, o);
-  }
-  if constexpr (h > 1) halve<h, K>(v, lane);
-}
-
-// K independent warp sums (K a power of two up to 32) in one transposed
-// butterfly: log2(K) halving exchanges, each lane keeping half of its sums
-// and sending the other half, then 5 - log2(K) plain butterfly steps; K - 1
-// + 5 - log2(K) shuffles in five levels.  Returns sum number lane / (32 / K)
-// on each lane; every pairing tree is the same, so the 32 / K lanes that
-// hold a sum hold the same bits, and equal inputs give equal sums.  v is
-// clobbered.
-template <int K, typename T> __device__ __forceinline__ T warp_sums(T (&v)[K], int lane) {
-  if constexpr (K > 1) halve<K, K>(v, lane);
-  T r = v[0];
-#pragma unroll
-  for (int o = 16 / K; o > 0; o >>= 1) r += __shfl_xor_sync(kFull, r, o);
-  return r;
-}
-
 // out = M^{-1} [a; b] for K right-hand sides in[k] = [a; b] (2m entries in
 // shared memory, chronological) of the 2m x 2m middle matrix: lane i < m
 // returns u[k] = out[i] and v[k] = out[m + i].  SY (chronological), the

@@ -51,13 +51,32 @@ KERNEL = "the CUDA L-BFGS kernel K7"
 def smem_per_instance(n: int, m: int, itemsize: int) -> int:
     """Shared memory one instance takes in the CUDA kernel (``work_elems``
     of ``csrc/lbfgs_fused.cu``): x, g, d, the trial point and the new
-    gradient, the S and Y rings, rho, valid and the two-loop's alphas."""
-    return ((2 * m + 5) * n + 3 * m) * itemsize
+    gradient, the S and Y rings, the tables S^T Y and Y^T Y (m x m each),
+    and S^T g, Y^T g, u, p and valid by slot."""
+    return ((2 * m + 5) * n + 2 * m * m + 5 * m) * itemsize
 
 
 def fits(n: int, m: int, itemsize: int) -> bool:
     """Whether an instance of width ``n`` and history ``m`` fits a block."""
     return smem_per_instance(n, m, itemsize) <= SMEM_PER_BLOCK
+
+
+def kernel_info(dtype, B, n, m):
+    """The CUDA kernel's launch for a ``(B, n)`` batch of ``dtype`` at
+    history ``m`` (the Rosenbrock functor's kernel) and its compiled
+    resources: warps per block, resident blocks and warps per SM (the
+    card's occupancy calculator), registers and local (spill) bytes per
+    thread, dynamic shared memory per block."""
+    from . import _build
+
+    out = (ctypes.c_int * 5)()
+    rc = _build.load().lbfgs_fused_kernel_info(
+        1 if dtype == torch.float64 else 0, B, n, m, out)
+    check_launch(rc, "lbfgs_fused_kernel_info")
+    wpb, blocks, regs, local, smem = list(out)
+    return dict(warps_per_block=wpb, blocks_per_sm=blocks,
+                warps_per_sm=wpb * blocks, registers=regs, local_bytes=local,
+                smem_per_block=smem)
 
 
 def as_device_batch(x0):

@@ -11,8 +11,12 @@ and still returns ``B g``.
 
 :func:`qn_update_direction_fused` takes the plain version for CPU tensors
 and launches ``csrc/qn_update.cu`` for CUDA tensors; it never falls back
-from one to the other.  The lockstep ``QuasiNewton(fused=True)`` post-step
-calls it once per iteration (:mod:`..solvers.quasi_newton`).
+from one to the other.  The kernel stages each instance's ``B`` in its
+block's shared memory where ``B`` and the vectors fit (:func:`in_shared`,
+the ``"shared"`` placement), else reads it from device memory twice (the
+``"workspace"`` placement); ``qn_update_direction_fused.placements``
+counts the launches of each.  The lockstep ``QuasiNewton(fused=True)``
+post-step calls it once per iteration (:mod:`..solvers.quasi_newton`).
 """
 
 from __future__ import annotations
@@ -26,6 +30,23 @@ from ..core.numerics import dot, matvec, outer
 KINDS = ("bfgs", "dfp", "broyden", "sr1")
 # kSmemPerBlock of csrc/common.cuh
 SMEM_PER_BLOCK = 232448
+# threads per block of csrc/qn_update.cu (kK5Threads)
+THREADS = 256
+
+
+def smem_elems(n: int) -> int:
+    """Shared memory the workspace placement takes per block, in elements
+    (``k5_vec_elems``): s, y, g, B y, B^T s and the reduction slots."""
+    return 5 * n + 3 * (THREADS // 32)
+
+
+def in_shared(n: int, itemsize: int) -> bool:
+    """Whether an instance of width ``n`` takes the shared placement
+    (``k5_in_shared``): the vectors (rounded up to 16 bytes), 16 bytes for
+    the copy's barrier, B's staged copy and 16 bytes of alignment within
+    a block's shared memory."""
+    vec = (smem_elems(n) * itemsize + 15) // 16 * 16
+    return vec + 32 + n * n * itemsize <= SMEM_PER_BLOCK
 
 
 def _scale(v, M):
@@ -97,6 +118,8 @@ def _launch_cuda(B, s, y, g, tol, kind):
         raise RuntimeError(f"qn_update_launch failed: "
                            f"{_build.error_string(rc)} (code {rc})")
     qn_update_direction_fused.launches += 1
+    placement = "shared" if in_shared(n, B.element_size()) else "workspace"
+    qn_update_direction_fused.placements[placement] += 1
     return Bn, Bg
 
 
@@ -123,3 +146,4 @@ def qn_update_direction_fused(B, s, y, g, *, tol: float = 1e-8,
 
 
 qn_update_direction_fused.launches = 0
+qn_update_direction_fused.placements = {"shared": 0, "workspace": 0}

@@ -566,20 +566,43 @@ def tiled(x0, lo, up, rows):
     return x0, lo, up
 
 
+def perturbed_starts(x0, runs=3):
+    """x0 and ``runs`` copies of x0 moved by 1e-15 relative, the noise of
+    copy k from ``RandomState(100 + k)``: the starts every spread of
+    chaotic iteration counts is sampled on."""
+    starts = [x0]
+    for k in range(runs):
+        noise = np.random.RandomState(100 + k).standard_normal(x0.shape)
+        starts.append(x0 * (1 + 1e-15 * noise))
+    return starts
+
+
+def iteration_ranges(iterations_at, x0, runs=3):
+    """Per instance, the least and the largest iteration count
+    ``iterations_at(x)`` returns over :func:`perturbed_starts`: two int64
+    arrays."""
+    c = np.stack([np.asarray(iterations_at(x))
+                  for x in perturbed_starts(x0, runs)]).astype(np.int64)
+    return c.min(0), c.max(0)
+
+
 def perturbation_spread(iterations_at, x0, runs=3):
     """Range of the iteration counts ``iterations_at(x)`` returns over x0
-    and ``runs`` copies of x0 moved by 1e-15 relative (seeded).
+    and ``runs`` copies of x0 moved by 1e-15 relative
+    (:func:`perturbed_starts`).
 
     A solve's iteration count reproduces only to within this spread: a
     summation order other than the reference's changes the iterates by
     about as much.  On Rosenbrock it reaches a dozen iterations; on the
     short geometries it is 0."""
-    counts = [np.asarray(iterations_at(x0))]
-    for k in range(runs):
-        noise = np.random.RandomState(100 + k).standard_normal(x0.shape)
-        counts.append(np.asarray(iterations_at(x0 * (1 + 1e-15 * noise))))
-    c = np.stack(counts).astype(np.int64)
-    return int((c.max(0) - c.min(0)).max())
+    lo, hi = iteration_ranges(iterations_at, x0, runs)
+    return int((hi - lo).max())
+
+
+def range_distance(a, b):
+    """Per instance, the gap between two ranges of counts ``a = (lo, hi)``
+    and ``b``: 0 where they overlap."""
+    return np.maximum(0, np.maximum(a[0] - b[1], b[0] - a[1]))
 
 
 # ---- the lockstep driver and its kernels K5 and K6

@@ -2,9 +2,10 @@
 the host C++ compiler against a warp emulator (``CUDA_RUNTIME_H``, written
 out as ``cuda_runtime.h`` beside the build) and run on CPU tensors: a
 kernel's own source, thread by thread, where the card is not there.  K1
-(``lbfgsb_fused.cu``: one warp per instance), K9 (``bfgs_fused.cu``) and
-K3's dense form (``driver_dense.cu``: one block of several warps per
-instance, whose warps meet at block barriers).  A test-only harness: the
+(``lbfgsb_fused.cu``: one warp per instance), K9 (``bfgs_fused.cu``), K3's
+dense form (``driver_dense.cu``) and K5 (``qn_update.cu``: one block of
+several warps per instance, whose warps meet at block barriers), and K7
+(``lbfgs_fused.cu``: one warp per instance).  A test-only harness: the
 port never calls it."""
 
 import ctypes
@@ -145,7 +146,7 @@ struct EmuBlock {
   int threads, cur, done, arrived;
   unsigned gen;
   uint64_t rng;
-  dim3 bid, bdim;
+  dim3 bid, bdim, gdim;
   unsigned char* smem;
 };
 inline EmuBlock* emu_block;
@@ -154,6 +155,7 @@ extern "C" void emu_set_seed(unsigned long long s) { emu_seed = s ? s : 1; }
 #define threadIdx (emu_block->lane[emu_block->cur].tid)
 #define blockIdx (emu_block->bid)
 #define blockDim (emu_block->bdim)
+#define gridDim (emu_block->gdim)
 #define smem_raw (emu_block->smem)
 
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
@@ -362,6 +364,7 @@ void emu_launch(K kernel, int grid, int block, int smem, const P& prm) {
     blk.rng = emu_seed * 0x9E3779B97F4A7C15ull + (uint64_t)bi + 1;
     blk.bid.x = bi;
     blk.bdim.x = block;
+    blk.gdim.x = grid;
     blk.smem = buf.data();
     for (int t = 0; t < block; ++t) {
       blk.lane[t].tid.x = t;
@@ -469,6 +472,72 @@ def build_k9(out_dir):
     lib.bfgs_fused_workspace_elems.restype = ctypes.c_longlong
     lib.bfgs_fused_workspace_elems.argtypes = [ctypes.c_longlong, i, i]
     return lib
+
+
+def build_k7(out_dir):
+    """K7's source (``lbfgs_fused.cu``) for the emulator."""
+    lib = build_sources(out_dir, ["lbfgs_fused.cu"], "lbfgs_fused")
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.lbfgs_fused_launch.restype = i
+    lib.lbfgs_fused_launch.argtypes = [
+        i, i, vp, vp, vp, i, i, i, d, i, i, d, vp, vp, vp, vp, vp, vp]
+    lib.lbfgs_fused_smem_per_warp.restype = ctypes.c_longlong
+    lib.lbfgs_fused_smem_per_warp.argtypes = [i, i, i]
+    return lib
+
+
+def lbfgs_solve(lib, obj, x0, data=(), *, m=10, tol=1e-5, max_iter=500,
+                max_iter_ls=16, c1=1e-4, seed=1):
+    """K7 on CPU tensors through the emulated library, with the arguments
+    ``fused_lbfgs._launch_cuda`` passes; the warps take turns in the order
+    ``seed`` draws.  Returns ``(x, f, iterations, status, trials)``."""
+    from optimization_solvers_tpu_torch.ops import fused_lbfgs
+
+    x0 = x0.contiguous()
+    B, n = x0.shape
+    code, _arrays, (d0, d1), outs = fused_lbfgs.kernel_call_operands(
+        obj, data, x0, fused_lbfgs.KERNEL, fused_lbfgs.K7_OBJECTIVES)
+    lib.emu_set_seed(seed)
+    rc = lib.lbfgs_fused_launch(
+        1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(), d0, d1, B,
+        n, m, float(tol), int(max_iter), int(max_iter_ls), float(c1),
+        *(t.data_ptr() for t in outs), None)
+    if rc != 0:
+        raise RuntimeError(f"lbfgs_fused_launch returned {rc}")
+    return outs
+
+
+def build_k5(out_dir):
+    """K5's source (``qn_update.cu``) for the emulator."""
+    lib = build_sources(out_dir, ["qn_update.cu"], "qn_update")
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.qn_update_launch.restype = i
+    lib.qn_update_launch.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, d,
+                                     vp]
+    lib.qn_update_smem_elems.restype = ctypes.c_longlong
+    lib.qn_update_smem_elems.argtypes = [i]
+    lib.qn_update_in_shared.restype = i
+    lib.qn_update_in_shared.argtypes = [i, i]
+    return lib
+
+
+def qn_update(lib, B, s, y, g, *, tol=1e-8, kind="bfgs", seed=1):
+    """K5 on CPU tensors through the emulated library, with the arguments
+    ``fused_qn._launch_cuda`` passes; the warps take turns in the order
+    ``seed`` draws.  Returns ``(B', B' g)``."""
+    from optimization_solvers_tpu_torch.ops import fused_qn
+
+    B, s, y, g = (v.contiguous() for v in (B, s, y, g))
+    b, n, _ = B.shape
+    Bn, Bg = torch.empty_like(B), torch.empty_like(g)
+    lib.emu_set_seed(seed)
+    rc = lib.qn_update_launch(
+        1 if B.dtype == torch.float64 else 0, B.data_ptr(), s.data_ptr(),
+        y.data_ptr(), g.data_ptr(), Bn.data_ptr(), Bg.data_ptr(), b, n,
+        fused_qn.KINDS.index(kind), float(tol), None)
+    if rc != 0:
+        raise RuntimeError(f"qn_update_launch returned {rc}")
+    return Bn, Bg
 
 
 def solve(lib, obj, x0, lower, upper, data=(), *, m=5, pgtol=1e-5,

@@ -119,8 +119,9 @@ def test_cpu_route_takes_the_plain_version():
 
 def test_shared_memory_mirror():
     """The Python mirror of the kernel's shared memory per instance: the
-    headline width (n = 100, m = 5) takes 6,060 bytes in float32, and an
-    instance too wide for a block does not fit."""
-    assert fused_lbfgs.smem_per_instance(100, 5, 4) == 6060
+    headline width (n = 100, m = 5) takes 6,300 bytes in float32 (the
+    vectors, the rings, and the compact form's tables and sums by slot),
+    and an instance too wide for a block does not fit."""
+    assert fused_lbfgs.smem_per_instance(100, 5, 4) == 6300
     assert fused_lbfgs.fits(100, 5, 4) and fused_lbfgs.fits(1000, 10, 8)
     assert not fused_lbfgs.fits(5000, 10, 8)
