@@ -63,8 +63,8 @@ non-zero; so does a machine without a CUDA device.
     python3 chip_smoke.py --breakdown   # also where K1's, K2's and K3's
                                         # time goes
     python3 chip_smoke.py --times DIR   # only config 2, K9, L-BFGS, K7,
-                                        # K8, K4, K5, the headline (B = 10,240
-                                        # and 1,056), configs 3, 6, 4 and 5
+                                        # K8, K4 and the headline (B = 10,240
+                                        # and 1,056), K5, configs 3, 6, 4 and 5
                                         # (K3 and the lockstep K6 path in
                                         # turns) and K6, with the package
                                         # of checkout DIR
@@ -167,7 +167,8 @@ K4_SPREAD_CAPS = (15, 30)
 K1_SWEEP = (132, 1056, 4224, 10240)
 # calls per configuration of --times
 TIMES_REPEATS = 9
-# --times also runs the headline at this B (one block of 8 warps per SM)
+# --times also runs the headline and the Newton-CG headline at this B (one
+# block of 8 warps per SM)
 K1_TIMES_SMALL_B = 1056
 # --times also runs config 4 on the first rows of its batch at these sizes,
 # where K2 runs one instance per block
@@ -1472,7 +1473,8 @@ def qn_slice(dev, card, tensors, sync_time):
 def in_turns_times(root):
     """Config 2 through ``solvers.batch_minimize`` (the bench call), K9
     through ``ops.bfgs_solve_fused`` (config 2's inputs), L-BFGS +
-    Hager-Zhang through ``minimize``, K7, K8 and K4 through their entries,
+    Hager-Zhang through ``minimize``, K7, K8 and K4 (also at
+    K1_TIMES_SMALL_B) through their entries,
     K5 (bfgs) at its path's shape and K6 on config 5's Hessians, the
     headline (at B = 10,240 and
     K1_TIMES_SMALL_B), configs 3 (fast), 6 and 4 (also at each B of
@@ -1624,6 +1626,8 @@ def in_turns_times(root):
              WHOLE_K8["n"], 2.0, 18),
             ("K4 (the Newton-CG headline)", solve_k4, solve_k4,
              HEADLINE["B"], HEADLINE["n"], 2.0, 14),
+            (f"K4 at B = {K1_TIMES_SMALL_B}", solve_k4, solve_k4,
+             K1_TIMES_SMALL_B, HEADLINE["n"], 2.0, 15),
             ("headline", solve1, launch1, HEADLINE["B"], HEADLINE["n"], 2.0,
              11),
             (f"headline at B = {K1_TIMES_SMALL_B}", solve1, launch1,
@@ -2160,16 +2164,28 @@ def newton_cg_slice(dev, card, tensors, sync_time):
 
     # bound at the Newton-CG headline, from the kernel's own counts on the
     # main path's inputs: x0 and the bounds read once, x, f, iterations and
-    # status written once; per outer iteration (csrc/newton_cg.cu) two
-    # projection-arc norms 8n, the free mask, g_F and its norm 8n, the
-    # fallback pass 3n, the step 4n and the Rosenbrock value-and-gradient
-    # 15n; per Hessian-vector product the product 14n and the CG passes 15n;
-    # per trial the clipped point and g.(x_t - x) 7n and the value 7n
+    # status written once; the operations the function needs at the least
+    # (pallas_newton_cg.py:70-267 without the work its algebra makes
+    # redundant, whatever implements it): per outer iteration one
+    # projection-arc norm 4n, the free mask, g_F and its norm 8n, the
+    # fallback pass 3n, the Rosenbrock Hessian's coefficients 9n (H_ii 8n,
+    # H_{i,i+1} n) and the gradient at the accepted trial 8n (its value and
+    # point are the trial's); per Hessian-vector product the product on
+    # those coefficients 5n and the CG passes 13n (the masked product, p.q,
+    # p.p, the D, R and P updates and r.r; p * fr is p, so no masked
+    # operand); per trial the clipped point and g.(x_t - x) 7n and the value
+    # 7n; per instance the first value and gradient 15n
     _, _, itk, _, ncgk, nfevk = fused_newton_cg._launch_cuda(
         rosen, x0, lo, -lo, (), **kw)
+    info = fused_newton_cg.kernel_info(torch.float32, B, n)
+    log(f"K4 at the Newton-CG headline: {info['registers']} registers, "
+        f"{info['local_bytes']} local bytes a thread, "
+        f"{info['warps_per_block']} warps a block, {info['warps_per_sm']} "
+        f"resident warps per SM, {info['smem_per_block']} bytes of shared "
+        f"memory a block  [{card}]")
     bound_ms, bound_by = bound(
         2 * B * n * 4 + 2 * n * 4 + 3 * B * 4,
-        n * (38 * itk.double().sum().item() + 29 * ncgk.double().sum().item()
+        n * (32 * itk.double().sum().item() + 18 * ncgk.double().sum().item()
              + 14 * nfevk.double().sum().item() + 15 * B))
     log(f"K4 bound at the Newton-CG headline: {bound_ms:.4f} ms ({bound_by}); "
         f"HVPs per iteration {ncgk.sum().item() / itk.sum().item():.3f}, "
@@ -2187,6 +2203,8 @@ def newton_cg_slice(dev, card, tensors, sync_time):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "registers": info["registers"],
+        "warps_per_sm": info["warps_per_sm"],
     }
 
 def kernel_wrappers():

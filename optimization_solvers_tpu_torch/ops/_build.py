@@ -156,6 +156,11 @@ def load() -> ctypes.CDLL:
             ]
             lib.newton_cg_smem_per_warp.restype = ctypes.c_longlong
             lib.newton_cg_smem_per_warp.argtypes = [i, i]
+            lib.newton_cg_kernel_info.restype = i
+            lib.newton_cg_kernel_info.argtypes = [
+                i, i, i,                 # dtype, B, n
+                ctypes.POINTER(i),       # out: 5 ints
+            ]
             lib.newton_cg_launch.restype = i
             lib.newton_cg_launch.argtypes = [
                 i, i,                    # dtype, objective

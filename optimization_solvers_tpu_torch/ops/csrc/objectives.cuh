@@ -22,6 +22,13 @@
 // quadratic's n^2 passes, which one warp alone walks too slowly at n =
 // 1,024.  The plain PyTorch forms in core/problems.py use the same
 // expressions in the same order.
+//
+// Rosenbrock's and WeightedSquares' expressions at one coordinate are their
+// `_at` members, which every loop here calls; K4 (newton_cg.cu), which
+// holds a lane's coordinates in registers, calls the same members.  A
+// coordinate's neighbours come through an accessor: x(d) is x_{i+d} for d
+// = -1, 0, 1, read only where that coordinate exists (x(1) where i < n - 1,
+// x(-1) where i > 0); `in_memory` makes one for a vector in memory.
 
 #pragma once
 
@@ -30,43 +37,70 @@
 
 namespace {
 
+// the accessor of coordinate i's neighbourhood in the vector x
+template <typename T> __device__ __forceinline__ auto in_memory(const T* x, int i) {
+  return [x, i](int d) { return x[i + d]; };
+}
+
 template <typename T> struct Rosenbrock {
   const T* d0;
   const T* d1;
+  // term i (i < n - 1): 100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2
+  template <class X> __device__ static T term_at(const X& x) {
+    const T a = x(1) - x(0) * x(0);
+    const T b = T(1) - x(0);
+    return T(100) * (a * a) + b * b;
+  }
+  // g_i, adding term i (if any) to s
+  template <class X> __device__ static T grad_at(const X& x, int i, int n, T& s) {
+    T gi = 0;
+    if (i < n - 1) {
+      const T a = x(1) - x(0) * x(0);
+      const T b = T(1) - x(0);
+      s += T(100) * (a * a) + b * b;
+      gi = T(-400) * x(0) * a - T(2) * b;
+    }
+    if (i > 0) gi += T(200) * (x(0) - x(-1) * x(-1));
+    return gi;
+  }
+  // H_ii: 1200 x_i^2 - 400 x_{i+1} + 2 from term i, as 800 x_i x_i - 400 a_i
+  // + 2, plus 200 from term i - 1
+  template <class X> __device__ static T hess_diag_at(const X& x, int i, int n) {
+    T h = 0;
+    if (i < n - 1) {
+      const T a = x(1) - x(0) * x(0);
+      h = T(800) * x(0) * x(0) - T(400) * a + T(2);
+    }
+    if (i > 0) h += T(200);
+    return h;
+  }
+  // H_{i,i+1} = H_{i+1,i} = -400 x_i
+  __device__ static T hess_off(T xi) { return T(-400) * xi; }
+  // row i of the Hessian at x: h(d) = H_{i,i+d}
+  template <class X> __device__ static auto hess_row_at(const X& x, int i, int n) {
+    return [x, i, n](int d) {
+      return d == 0 ? hess_diag_at(x, i, n) : hess_off(d > 0 ? x(0) : x(-1));
+    };
+  }
+  // (H v)_i from row i's coefficients h(d) = H_{i,i+d} and v(d) = v_{i+d}
+  template <class H, class V> __device__ static T hvp_at(const H& h, const V& v, int i, int n) {
+    T o = h(0) * v(0);
+    if (i < n - 1) o += h(1) * v(1);
+    if (i > 0) o += h(-1) * v(-1);
+    return o;
+  }
   __device__ T value(const T* x, int n, int lane) const {
     T s = 0;
-    for (int i = lane; i < n - 1; i += kWarp) {
-      T a = x[i + 1] - x[i] * x[i];
-      T b = T(1) - x[i];
-      s += T(100) * (a * a) + b * b;
-    }
+    for (int i = lane; i < n - 1; i += kWarp) s += term_at(in_memory(x, i));
     return warp_sum(s);
   }
   __device__ T value_grad(const T* x, T* g, int n, int lane) const {
     T s = 0;
-    for (int i = lane; i < n; i += kWarp) {
-      T gi = 0;
-      if (i < n - 1) {
-        T a = x[i + 1] - x[i] * x[i];
-        T b = T(1) - x[i];
-        s += T(100) * (a * a) + b * b;
-        gi = T(-400) * x[i] * a - T(2) * b;
-      }
-      if (i > 0) gi += T(200) * (x[i] - x[i - 1] * x[i - 1]);
-      g[i] = gi;
-    }
+    for (int i = lane; i < n; i += kWarp) g[i] = grad_at(in_memory(x, i), i, n, s);
     return warp_sum(s);
   }
-  // H_ii: 1200 x_i^2 - 400 x_{i+1} + 2 from term i, as 800 x_i x_i - 400 a_i
-  // + 2, plus 200 from term i - 1; H_{i,i+1} = H_{i+1,i} = -400 x_i
   __device__ T hess_diag(const T* x, int i, int n) const {
-    T h = 0;
-    if (i < n - 1) {
-      const T a = x[i + 1] - x[i] * x[i];
-      h = T(800) * x[i] * x[i] - T(400) * a + T(2);
-    }
-    if (i > 0) h += T(200);
-    return h;
+    return hess_diag_at(in_memory(x, i), i, n);
   }
   static constexpr bool kBlockEval = false;
   __device__ void hessian(const T* x, T* H, int n, int tid, T*) const {
@@ -75,18 +109,14 @@ template <typename T> struct Rosenbrock {
       for (int j = i + tid % kWarp; j < n; j += kWarp) {
         T h = 0;
         if (j == i) h = hess_diag(x, i, n);
-        else if (j == i + 1) h = T(-400) * x[i];
+        else if (j == i + 1) h = hess_off(x[i]);
         row[j] = h;
       }
     }
   }
   __device__ void hvp(const T* x, const T* v, T* out, int n, int lane) const {
-    for (int i = lane; i < n; i += kWarp) {
-      T o = hess_diag(x, i, n) * v[i];
-      if (i < n - 1) o += T(-400) * x[i] * v[i + 1];
-      if (i > 0) o += T(-400) * x[i - 1] * v[i - 1];
-      out[i] = o;
-    }
+    for (int i = lane; i < n; i += kWarp)
+      out[i] = hvp_at(hess_row_at(in_memory(x, i), i, n), in_memory(v, i), i, n);
   }
 };
 
@@ -94,33 +124,35 @@ template <typename T> struct Rosenbrock {
 template <typename T> struct WeightedSquares {
   const T* d0;
   const T* d1;
+  // g_i = d_i (x_i - t_i), adding d_i (x_i - t_i)^2 to s
+  __device__ T grad_at(T xi, int i, T& s) const {
+    const T r = xi - d1[i];
+    const T gi = d0[i] * r;
+    s += gi * r;
+    return gi;
+  }
+  // H_ii = d_i, the whole Hessian's only non-zero in row i
+  __device__ T hess_diag_at(int i) const { return d0[i]; }
   __device__ T value(const T* x, int n, int lane) const {
     T s = 0;
-    for (int i = lane; i < n; i += kWarp) {
-      T r = x[i] - d1[i];
-      s += d0[i] * r * r;
-    }
+    for (int i = lane; i < n; i += kWarp) grad_at(x[i], i, s);
     return T(0.5) * warp_sum(s);
   }
   __device__ T value_grad(const T* x, T* g, int n, int lane) const {
     T s = 0;
-    for (int i = lane; i < n; i += kWarp) {
-      T r = x[i] - d1[i];
-      T gi = d0[i] * r;
-      g[i] = gi;
-      s += gi * r;
-    }
+    for (int i = lane; i < n; i += kWarp) g[i] = grad_at(x[i], i, s);
     return T(0.5) * warp_sum(s);
   }
   static constexpr bool kBlockEval = false;
   __device__ void hessian(const T* x, T* H, int n, int tid, T*) const {
     for (int i = tid / kWarp; i < n; i += ost_chol::kCholWarps) {
       T* row = H + (long long)i * n;
-      for (int j = i + tid % kWarp; j < n; j += kWarp) row[j] = j == i ? d0[i] : T(0);
+      for (int j = i + tid % kWarp; j < n; j += kWarp)
+        row[j] = j == i ? hess_diag_at(i) : T(0);
     }
   }
   __device__ void hvp(const T* x, const T* v, T* out, int n, int lane) const {
-    for (int i = lane; i < n; i += kWarp) out[i] = d0[i] * v[i];
+    for (int i = lane; i < n; i += kWarp) out[i] = hess_diag_at(i) * v[i];
   }
 };
 

@@ -56,15 +56,38 @@ SECOND_ORDER_LSE = "ROADMAP.md Queue 2 item 8"
 
 
 def smem_per_instance(n: int, itemsize: int) -> int:
-    """Shared memory one instance takes in the CUDA kernel: X, G, D, R, P,
-    the product Hp (also the new gradient), the trial point and the free
-    mask, 8 n elements (``work_elems`` of ``csrc/newton_cg.cu``)."""
+    """Shared memory one instance takes in the CUDA kernel's shared-memory
+    layout (``InShared`` of ``csrc/newton_cg.cu``): X, G, D, R, P, the
+    product Hp (also the trial's gradient), the trial point and the free
+    mask, 8 n elements.  It decides the widest instance the kernel takes;
+    the register layout (Rosenbrock and weighted squares up to n = 128)
+    takes none."""
     return 8 * n * itemsize
 
 
 def fits(n: int, itemsize: int) -> bool:
     """Whether an instance of width ``n`` fits a block's shared memory."""
     return smem_per_instance(n, itemsize) <= SMEM_PER_BLOCK
+
+
+def kernel_info(dtype, B, n):
+    """The CUDA kernel's launch for a ``(B, n)`` batch of ``dtype`` (the
+    Rosenbrock functor's kernel, in the layout n takes) and its compiled
+    resources: warps per block, resident blocks and warps per SM (the
+    card's occupancy calculator), registers and local (spill) bytes per
+    thread, dynamic shared memory per block."""
+    from . import _build
+
+    out = (ctypes.c_int * 5)()
+    rc = _build.load().newton_cg_kernel_info(
+        1 if dtype == torch.float64 else 0, B, n, out)
+    if rc != 0:
+        raise RuntimeError(f"newton_cg_kernel_info failed: "
+                           f"{_build.error_string(rc)} (code {rc})")
+    wpb, blocks, regs, local, smem = list(out)
+    return dict(warps_per_block=wpb, blocks_per_sm=blocks,
+                warps_per_sm=wpb * blocks, registers=regs, local_bytes=local,
+                smem_per_block=smem)
 
 
 def newton_cg_solve_plain(f, x0, lower, upper, consts=(), *, pgtol=1e-5,

@@ -4,8 +4,8 @@ out as ``cuda_runtime.h`` beside the build) and run on CPU tensors: a
 kernel's own source, thread by thread, where the card is not there.  K1
 (``lbfgsb_fused.cu``: one warp per instance), K9 (``bfgs_fused.cu``), K3's
 dense form (``driver_dense.cu``) and K5 (``qn_update.cu``: one block of
-several warps per instance, whose warps meet at block barriers), and K7
-(``lbfgs_fused.cu``: one warp per instance).  A test-only harness: the
+several warps per instance, whose warps meet at block barriers), K7
+(``lbfgs_fused.cu``) and K4 (``newton_cg.cu``), one warp per instance.  A test-only harness: the
 port never calls it."""
 
 import ctypes
@@ -384,7 +384,7 @@ LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<([^,;]+), ([^,;]+), ([^,;]+), "
                     r"([^,;>]+)>>>\(([^;]*)\);")
 
 
-def build_sources(out_dir, sources, name, extra=""):
+def build_sources(out_dir, sources, name, extra="", flags=()):
     """Compile ``sources`` of ``ops/csrc`` (and the C++ text ``extra``) for
     the emulator into one library in ``out_dir``; returns it loaded.  Every
     header and source is copied there with its dynamic shared memory turned
@@ -409,7 +409,8 @@ def build_sources(out_dir, sources, name, extra=""):
         fh.write(CUDA_RUNTIME_H)
     subprocess.run(
         [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-Wno-unknown-pragmas", "-I", out_dir, "-include", "cuda_runtime.h",
+         "-Wno-unknown-pragmas", *flags, "-I", out_dir, "-include",
+         "cuda_runtime.h",
          "-x", "c++", src, "-o", lib], check=True, capture_output=True,
         text=True)
     lib = ctypes.CDLL(lib)
@@ -505,6 +506,52 @@ def lbfgs_solve(lib, obj, x0, data=(), *, m=10, tol=1e-5, max_iter=500,
     if rc != 0:
         raise RuntimeError(f"lbfgs_fused_launch returned {rc}")
     return outs
+
+
+def build_k4(out_dir, extra_flags=()):
+    """K4's source (``newton_cg.cu``) for the emulator."""
+    lib = build_sources(out_dir, ["newton_cg.cu"], "newton_cg",
+                        flags=extra_flags)
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.newton_cg_launch.restype = i
+    lib.newton_cg_launch.argtypes = [
+        i, i, vp, vp, vp, vp, vp, i, i, d, d, d, i, i, i, d,
+        vp, vp, vp, vp, vp, vp, vp]
+    lib.newton_cg_smem_per_warp.restype = ctypes.c_longlong
+    lib.newton_cg_smem_per_warp.argtypes = [i, i]
+    return lib
+
+
+def newton_cg_solve(lib, obj, x0, lower, upper, data=(), *, pgtol=1e-5,
+                    factr=1e7, max_iter=200, cg_max=32, max_iter_ls=25,
+                    c1=1e-4, seed=1):
+    """K4 on CPU tensors through the emulated library, with the arguments
+    ``fused_newton_cg._launch_cuda`` passes; the warps take turns in the
+    order ``seed`` draws.  Returns ``(x, f, iterations, status, ncg,
+    nfev)`` as ``newton_cg_solve_plain`` does."""
+    x0 = x0.contiguous()
+    B, n = x0.shape
+    lo = lower.to(x0.dtype).contiguous()
+    up = upper.to(x0.dtype).contiguous()
+    code, arrays = kernel_operands(obj, data, x0)
+    arrays = [a.contiguous() for a in arrays]
+    x = torch.empty_like(x0)
+    f = torch.empty((B,), dtype=x0.dtype)
+    it, st, ncg, nfev = (torch.empty((B,), dtype=torch.int32)
+                         for _ in range(4))
+    eps = float(torch.finfo(x0.dtype).eps)
+    lib.emu_set_seed(seed)
+    rc = lib.newton_cg_launch(
+        1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(),
+        lo.data_ptr(), up.data_ptr(),
+        arrays[0].data_ptr() if arrays else None,
+        arrays[1].data_ptr() if len(arrays) > 1 else None, B, n,
+        float(pgtol), float(factr) * eps, eps, int(max_iter), int(cg_max),
+        int(max_iter_ls), float(c1), x.data_ptr(), f.data_ptr(),
+        it.data_ptr(), st.data_ptr(), ncg.data_ptr(), nfev.data_ptr(), None)
+    if rc != 0:
+        raise RuntimeError(f"newton_cg_launch returned {rc}")
+    return x, f, it, st, ncg, nfev
 
 
 def build_k5(out_dir):

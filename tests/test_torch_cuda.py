@@ -868,6 +868,43 @@ def test_newton_cg_route_and_refusals(cuda, monkeypatch):
     assert fused_newton_cg.newton_cg_solve_fused.launches == before + 1
 
 
+@pytest.mark.parametrize("n", [100, 128, 129, 300])
+def test_newton_cg_layouts_match_plain(n, cuda):
+    """Rosenbrock at the register layout's widths (n <= 128) and past them
+    (the shared-memory layout), float64, the first 8 iterations: status and
+    iterations equal, x within 1e-6 (past ~10 iterations a 1e-15 change of
+    x0 moves x by more than 1e-9)."""
+    rng = np.random.RandomState(n)
+    x0, lo, up = interop.tensors_from_numpy(
+        rng.uniform(-2, 2, (64, n)), np.full(n, -5.0), np.full(n, 5.0),
+        device=cuda)
+    kw = dict(pgtol=1e-3, factr=100.0, max_iter=8, cg_max=12,
+              max_iter_ls=25, c1=1e-4)
+    x, _, it, st, _, _ = fused_newton_cg._launch_cuda(
+        problems.rosenbrock(), x0, lo, up, (), **kw)
+    xp, _, itp, stp, _, _ = fused_newton_cg.newton_cg_solve_plain(
+        problems.rosenbrock(), x0, lo, up, **kw)
+    assert torch.equal(st, stp) and torch.equal(it, itp)
+    torch.testing.assert_close(x, xp, rtol=0, atol=1e-6)
+
+
+def test_newton_cg_resources_at_the_headline(cuda):
+    """The layout K4 takes by width: at the Newton-CG headline's shape (n =
+    100, both types) the register layout, blocks of 8 warps and no shared
+    memory; past n = 128 the shared-memory layout, 8 n elements a warp.
+    Registers and residency are the compiler's and the profiler's to report
+    (tools/k4_phase_profile.py), not held here."""
+    for dtype in (torch.float32, torch.float64):
+        info = fused_newton_cg.kernel_info(dtype, 10240, 100)
+        assert info["warps_per_block"] == 8, info
+        assert info["smem_per_block"] == 0 and info["blocks_per_sm"] >= 1, info
+        wide = fused_newton_cg.kernel_info(dtype, 10240, 129)
+        size = torch.finfo(dtype).bits // 8
+        assert wide["smem_per_block"] == (
+            wide["warps_per_block"] * fused_newton_cg.smem_per_instance(
+                129, size)) > 0, wide
+
+
 def test_newton_cg_shared_memory_mirror_matches_the_library(cuda):
     lib = _build.load()
     for n in (1, 31, 100, 7264, 7265):
