@@ -122,7 +122,11 @@ CONV_ATOL = 0.01          # kernel vs plain converged fraction, float32
 # on).  Over its first K3_CAPPED_ITERS iterations a 1e-15 relative change
 # moves x far less than K3_X_ATOL (phase 10 prints it; GLL's history of 10
 # wraps three times), so config 3 is held per instance there; config 6
-# (GD + BackTracking) is held over its full solve.
+# (GD + BackTracking) is held over its full solve.  Each instance's x is
+# held within K3_X_ATOL or, where larger, that instance's own spread in the
+# plain version under that change of x0: L-BFGS + Hager-Zhang at config
+# 2's shape moves two chaotic starts of 1,024 by up to 4.8e-9 there over 30
+# iterations
 K3_CAPPED_ITERS = 30
 K3_X_ATOL = 1e-9
 # full float32 solves, kernel vs plain on the same inputs: median
@@ -977,7 +981,9 @@ def k3_per_instance(what, method, search, obj, x0, lo, up, data, kw,
                     tensors):
     """K3, launched directly, against the plain version in float64 on the
     main path's inputs: status, iterations and trials equal and x within
-    K3_X_ATOL for every instance.  Returns max |dx|."""
+    K3_X_ATOL, or where larger the instance's own spread in the plain
+    version under a 1e-15 relative change of x0, for every instance.
+    Returns max |dx|."""
     import torch
 
     from optimization_solvers_tpu_torch.ops import fused_driver
@@ -993,19 +999,29 @@ def k3_per_instance(what, method, search, obj, x0, lo, up, data, kw,
         tuple(x0.shape)))[0]
     xq = plain(method, search, obj, x0 * (1 + 1e-15 * noise), lo, up, data,
                **kw)[0]
-    err = (x - xp).abs().max().item()
+    # per instance: its max|dx| and its own spread
+    row_err = (x - xp).abs().amax(-1)
+    row_spread = (xq - xp).abs().amax(-1)
+    held = row_err <= torch.clamp(row_spread, min=K3_X_ATOL)
+    by_spread = (held & (row_err > K3_X_ATOL)).nonzero().flatten().tolist()
+    err = row_err.max().item()
     same = [(a == b).float().mean().item()
             for a, b in ((st, stp), (it, itp), (nfev, nfevp))]
     log(f"K3 vs plain f64 {what}, {x0.shape[0]} x {x0.shape[1]}, at most "
         f"{kw['max_iter']} iterations: status equal {same[0]:.5f}, "
         f"iterations equal {same[1]:.5f}, trials equal {same[2]:.5f}, "
         f"max|dx| {err:.3g} (plain vs plain with x0 moved by 1e-15 "
-        f"relative: {(xq - xp).abs().max().item():.3g}); trials per "
+        f"relative: {row_spread.max().item():.3g}); "
+        f"{len(by_spread)} instances past K3_X_ATOL held by their own "
+        f"spread {by_spread[:8]}; trials per "
         f"iteration {nfev.sum().item() / max(1, it.sum().item()):.3f}, "
         f"converged {(st == 1).float().mean().item():.4f}")
     check(min(same) == 1.0,
           f"K3 {what}: status, iterations or trials differ per instance")
-    check(err <= K3_X_ATOL, f"K3 {what}: max|dx| {err} > {K3_X_ATOL}")
+    bad = (~held).nonzero().flatten().tolist()
+    check(not bad,
+          f"K3 {what}: {len(bad)} instances {bad[:8]} past both K3_X_ATOL "
+          f"{K3_X_ATOL} and their own plain spread")
     return err
 
 
@@ -1433,6 +1449,14 @@ def qn_slice(dev, card, tensors, sync_time):
     trials_l = fused_driver._launch_cuda(spec_l, rosen, x, None, None, (),
                                          **kw_l)[4]
     describe("L-BFGS + HagerZhang K3", rl, trials_l, wall_l)
+    its_k = rl.iterations.double()
+    log(f"L-BFGS + HagerZhang K3: trials per iteration "
+        f"{trials_l.double().sum().item() / its_k.sum().item():.4f}; "
+        f"iterations over the instances median / p99 / max "
+        f"{its_k.median().item():.0f} / "
+        f"{torch.quantile(its_k, 0.99).item():.1f} / "
+        f"{int(its_k.max().item())} (the slowest instance's chain sets the "
+        f"time of a batch that runs in one wave)")
     (xp, fp, itp, stp, nfevp), plain_l = sync_time(
         lambda: plain(lbfgs, ls.HagerZhang(), rosen, x, **kw_l))
     describe("L-BFGS + HagerZhang plain on the card",
@@ -1448,8 +1472,9 @@ def qn_slice(dev, card, tensors, sync_time):
         (xs,) = tensors(rng.uniform(-2.0, 2.0, (B, n)), dtype=torch.float32)
         walls.append(sync_time(lambda: solve_l(xs))[1])
     ms_l = 1e3 * statistics.median(walls)
-    # per iteration of L-BFGS (m = 10): the two loops 8mn, the history
-    # update 4n, the step, the value-and-gradient 15n and the sums 8n; per
+    # per iteration of L-BFGS (m = 10): H g 8mn (the two loops, or the
+    # compact form's two passes and its step sums), the history update 4n,
+    # the step, the value-and-gradient 15n and the sums 8n; per
     # Hager-Zhang trial 19n, as above
     m = lbfgs.m
     its_l = rl.iterations.double().sum().item()

@@ -89,7 +89,7 @@ int run(int objective, const void* x0, const void* lo, const void* up,
 }  // namespace
 
 extern "C" long long driver_smem_per_warp(int n, int ring, int m, int elem_size) {
-  return work_elems(n, ring, m) * (long long)elem_size;
+  return work_elems(n, ring, m, elem_size) * (long long)elem_size;
 }
 
 // shared memory of the Newton form's block (one instance), in bytes

@@ -25,6 +25,12 @@
 // its n coordinates, each ending in a warp reduction (five shuffles), plus
 // the search's trial evaluations and one value-and-gradient at the
 // accepted point; enough warps per SM hide one another's latency.  The
+// quasi-Newton form: latency too.  L-BFGS at chip_smoke.py's inputs (1,024
+// instances, one wave of about 8 warps per SM) lasts as long as its
+// slowest instance's chain of dependent shuffles, shared-memory loads and
+// divisions, iteration after iteration; the two-loop recursion alone put
+// 2 m butterflies in series on it, which the compact form replaces by two
+// m-step shuffle sweeps.  The
 // dense quasi-Newton methods (QN, QNB) add three passes over the
 // instance's (n, n) slab per iteration (B g, B y, and the update's read
 // and write), ~10 n^2 operations.  Run by one warp over a slab in device
@@ -57,8 +63,10 @@
 //  * dynamic shared memory per warp: X, G, the new or trial gradient GN,
 //    the direction D, the trial point XT, two scratch vectors GP / DP
 //    (NCG's previous gradient and direction; the quasi-Newton pair s, y),
-//    GLL's f history ring, and L-BFGS's S and Y rows with rho, valid and
-//    the two-loop alphas: 7 n + ring + 2 m n + 3 m elements;
+//    GLL's f history ring, and L-BFGS's S and Y rows with three values by
+//    slot (valid, and rho and the two-loop alphas or S^T g and Y^T g): 7 n
+//    + ring + 2 m n + 3 m elements, and where compact_fits the compact
+//    form's u, p and tables S^T Y and Y^T Y, 2 m + 2 m^2 more;
 //  * the dense form (QN, QNB; every update kind and search): one block of
 //    kDenseThreads threads per instance.  Warp 0 runs the instance as the
 //    other forms' warps do; at the slab's passes it posts a command (the
@@ -73,8 +81,32 @@
 //    memory: X, G, GN, D, XT, s (GP), y (DP), the GLL ring, the words;
 //    7 n + ring + 8 elements, then the slab;
 //  * L-BFGS keeps its history as a ring with a write position instead of
-//    the TPU kernel's shift; the two loops walk it newest -> oldest and
-//    back, as the shift's slots m-1 .. 0;
+//    the TPU kernel's shift: head, the oldest pair's slot, moves only when
+//    a pair is accepted, so chronological row q (the shift's slot q) lies
+//    at slot (head + q) % m.  A reset (the descent safeguard, the
+//    zero-progress repair) zeroes VAL (and rho) but leaves S and Y stale;
+//  * L-BFGS's direction is the compact form of H g (Byrd, Nocedal and
+//    Schnabel 1994; K7's design, lbfgs_fused.cu): H g = gamma g + S p -
+//    gamma Y u with u = R^-1 S^T g and p = R^-T ((D + gamma Y^T Y) u -
+//    gamma Y^T g), R the upper triangle of S^T Y in chronological order.
+//    The m x m algebra runs on lanes (lane q holds row q; the triangular
+//    solves are sweeps of one shuffle each), one pass forms d and g.d, and
+//    the search reuses that g.d.  An invalid slot's sums and table entries
+//    are multiplied by its VAL, so it drops out exactly as its rho * dot *
+//    VAL = 0 drops out of the two-loop, and a stale sum that overflowed
+//    still poisons the direction (NaN) and takes the same reset.  The
+//    tables are kept by slot: a pair accepted at slot h is the newest, so
+//    R needs only its column s_k.y_h and Y^T Y its row and column.  The
+//    step's pass forms those with the next direction's S^T g and Y^T g
+//    (4 m sums, kStepSlots slots per transposed butterfly, the new pair
+//    in place of slot h's until it is accepted) and votes max|g| < tol.
+//    Past kLaneM pairs, or where the tables do not fit, the two-loop
+//    recursion runs, newest -> oldest and back;
+//  * where the Wolfe search's last trial is the step (t equals its t, and
+//    a bounded method's clip moves no coordinate), its value and gradient
+//    are the step's: the quasi-Newton form skips the evaluation there
+//    (nfev counts trials only, so every count stays the plain version's).
+//    L-BFGS's step then swaps X/XT and G/GN instead of copying;
 //  * the Wolfe searches evaluate value and gradient at a trial into GN.
 //    More-Thuente evaluates, per trip, t, then tl unless t is accepted,
 //    and tu only for its case-4 step: the TPU kernel evaluates all three
@@ -108,9 +140,11 @@
 //  * the method and the search are runtime, grid-uniform switches on
 //    integer codes; the template axes are dtype x objective x form: the
 //    first-order form (the first-order methods with the Armijo-family
-//    searches, in driver.cu), the quasi-Newton form (L-BFGS, and the
-//    first-order methods with the Wolfe-family searches, in driver_qn.cu),
-//    the dense form (QN and QNB with every search, in driver_dense.cu) and
+//    searches, in driver.cu), the quasi-Newton form (L-BFGS with every
+//    search) and the Wolfe form (the first-order methods with the
+//    Wolfe-family searches: the same code without L-BFGS's, so that its
+//    registers do not cost those methods resident warps), both in
+//    driver_qn.cu, the dense form (QN and QNB with every search, in driver_dense.cu) and
 //    the Newton form (the Newton methods with every search, in
 //    driver_newton.cu);
 //  * scalars (f, t, lambda, beta, the search state, ...) are replicated in
@@ -134,14 +168,17 @@
 #include "dense_slab.cuh"
 #include "objectives.cuh"
 
-// Phase counters of the dense quasi-Newton methods (QN, QNB), compiled in
-// only with -DK3_PROFILE (tools/k3_phase_profile.py builds such a copy; the
-// kernel as shipped has none).  Lane 0 of the instance's warp adds the
-// clock64 cycles of every iteration's phases to k3_prof[0..5] (the phases
-// in that tool's K3_PHASES order); [6] counts instance-iterations, [7]
-// search trials, [8] instances, [9] updates of the slab, [10] the cycles
-// of whole instances (set-up and epilogue included).  Each source that
-// builds a form has its own copy; the source of the dense form reads it.
+// Phase counters of the dense form (QN, QNB) and the quasi-Newton form,
+// compiled in only with -DK3_PROFILE (tools/k3_phase_profile.py builds such
+// a copy; the kernel as shipped has none).  Lane 0 of the instance's warp
+// adds the clock64 cycles of every iteration's phases to k3_prof[0..5] (the
+// phases in that tool's PHASES order for the dense form, QN_PHASES for the
+// quasi-Newton form, which uses [0..4]); [6] counts instance-iterations,
+// [7] search trials, [8] instances, [9] the dense form's updates of the
+// slab and the quasi-Newton form's steps that kept the accepted trial's
+// evaluation, [10] the cycles of whole instances (set-up and epilogue
+// included).  Each source that builds a form has its own copy; the sources
+// of the dense and the quasi-Newton forms read theirs.
 #ifdef K3_PROFILE
 namespace {
 __device__ unsigned long long k3_prof[16];
@@ -156,20 +193,37 @@ __device__ unsigned long long k3_prof[16];
     prof_acc[k] += t_ - prof_t;                                   \
     prof_t = t_;                                                  \
   })
+// sub-phases inside a phase (the quasi-Newton form's k3_prof[11..14]):
+// K3_MARK() starts one, K3_SUB(k) adds its cycles to [k] and starts the next
+#define K3_MARK() K3_PROF(if (prof_on && lane == 0) sub_t = clock64();)
+#define K3_SUB(k)                                                 \
+  K3_PROF(if (prof_on && lane == 0) {                             \
+    const long long t_ = clock64();                               \
+    prof_acc[k] += t_ - sub_t;                                    \
+    sub_t = t_;                                                   \
+  })
 
 namespace ost_driver {
 
 using namespace ost_chol;
 using namespace ost_slab;
 
+// instances (warps) per block of the one-warp forms.  One instance per
+// block puts one on each SM at B = 132: L-BFGS + Hager-Zhang took the same
+// time there as 8 instances per SM on an H100, so an instance's own chain
+// of latencies, not the SM's shared issue or shared-memory rate, sets the
+// quasi-Newton form's time
 constexpr int kMaxWarpsPerBlock = 8;
 
 enum MethodCode {
   kGD = 0, kCD = 1, kPnorm = 2, kPGD = 3, kSPG = 4, kNCG = 5, kQN = 6,
   kQNB = 7, kLBFGS = 8, kNewton = 9, kPN = 10, kSPN = 11
 };
-// the template's forms
-enum Form { kFirstOrderForm = 0, kQnForm = 1, kNewtonForm = 2, kDenseForm = 3 };
+// the template's forms.  The Wolfe form is the quasi-Newton form without
+// L-BFGS's code, for the first-order methods with a Wolfe-family search
+enum Form {
+  kFirstOrderForm = 0, kQnForm = 1, kNewtonForm = 2, kDenseForm = 3, kWolfeForm = 4
+};
 enum SearchCode {
   kNoSearch = 0, kBT = 1, kBTB = 2, kGLL = 3, kMT = 4, kMTB = 5, kHZ = 6,
   kHZB = 7, kSW = 8
@@ -222,8 +276,37 @@ __host__ __device__ inline bool bounded_method(int method) {
          method == kSPN;
 }
 
-__host__ __device__ inline long long work_elems(int n, int ring, int m) {
+// L-BFGS's direction in the compact form of H g (below) runs its m x m
+// algebra on lanes, chronological row q on lane q: up to kLaneM pairs, and
+// where the tables S^T Y and Y^T Y fit beside the vectors.  Past either
+// the two-loop recursion runs in the smaller two-loop layout, so every
+// width that layout fits is taken
+constexpr int kLaneM = kWarp;
+// ring slots per transposed butterfly of L-BFGS's step pass, four sums each
+// (2, 4 or 8: warp_sums<8>, <16>, <32>), one pass over the coordinates per
+// butterfly.  At m = 10 on an H100, L-BFGS + Hager-Zhang at 1,024 x
+// Rosenbrock-100 took 4.728 ms with 4, 4.825 with 8 and 5.791 with 2 in one
+// run in turns: three butterflies of 16 sums beat two of 32
+constexpr int kStepSlots = 4;
+constexpr int kUnroll = 4;      // coordinates a lane of the direction's pass holds
+
+// a warp's shared memory in the first-order and quasi-Newton forms: X, G,
+// GN, D, XT, GP, DP, the GLL ring, L-BFGS's S and Y and by slot VAL and
+// rho (the two-loop) or S^T g (the compact form), the two-loop's alphas or
+// Y^T g; the compact form adds u and p by slot and the tables S^T Y and
+// Y^T Y
+__host__ __device__ inline long long two_loop_elems(int n, int ring, int m) {
   return 7LL * n + ring + 2LL * m * n + 3LL * m;
+}
+
+__host__ __device__ inline bool compact_fits(int n, int ring, int m, int elem_size) {
+  return m >= 1 && m <= kLaneM &&
+         (two_loop_elems(n, ring, m) + 2LL * m * m + 2LL * m) * elem_size <= kSmemPerBlock;
+}
+
+__host__ __device__ inline long long work_elems(int n, int ring, int m, int elem_size) {
+  return two_loop_elems(n, ring, m) +
+         (compact_fits(n, ring, m, elem_size) ? 2LL * m * m + 2LL * m : 0);
 }
 
 // the dense form's block: its vectors X, G, GN, D, XT, GP (s), DP (y), the
@@ -488,7 +571,7 @@ __device__ void dense_worker(const DenseBlock<T>& b, int tid) {
 
 template <typename T, class Obj, int kForm>
 __device__ __forceinline__ void driver_body(const Params<T>& prm) {
-  constexpr bool kQn = kForm == kQnForm;
+  constexpr bool kQn = kForm == kQnForm || kForm == kWolfeForm;
   constexpr bool kNewt = kForm == kNewtonForm;
   constexpr bool kDense = kForm == kDenseForm;
   constexpr bool kBlock = kNewt || kDense;   // one block per instance
@@ -501,9 +584,12 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
   const int method = prm.method, search = prm.search;
   const bool bounded = bounded_method(method);
   const T INF = (T)INFINITY;
-  const int m = kQn && method == kLBFGS ? prm.m : 0;
+  const bool lbfgs = kForm == kQnForm && method == kLBFGS;
+  const int m = lbfgs ? prm.m : 0;
+  const bool compact = kQn && compact_fits(n, prm.ring, m, (int)sizeof(T));
 
   T *X, *G, *GN, *D, *XT, *GP, *DP, *H, *S, *Y, *RHO, *VAL, *AL;
+  T *U = nullptr, *P = nullptr, *SY = nullptr, *YY = nullptr;
   T* region = nullptr;                // the Newton form's block layout
   T* words = nullptr;
   if constexpr (kNewt) {
@@ -518,7 +604,8 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     GP = DP = GN;                     // unused by the Newton methods
     S = Y = RHO = VAL = AL = nullptr;
   } else {
-    T* p = reinterpret_cast<T*>(smem_raw) + (kBlock ? 0LL : (long long)warp * work_elems(n, prm.ring, m));
+    T* p = reinterpret_cast<T*>(smem_raw) +
+           (kBlock ? 0LL : (long long)warp * work_elems(n, prm.ring, m, (int)sizeof(T)));
     X = p; p += n;
     G = p; p += n;
     GN = p; p += n;
@@ -529,9 +616,15 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     H = p; p += prm.ring;
     S = p; p += (long long)m * n;
     Y = p; p += (long long)m * n;
-    RHO = p; p += m;
+    RHO = p; p += m;                  // the compact form: S^T g by slot
     VAL = p; p += m;
-    AL = p;
+    AL = p;                           // the compact form: Y^T g by slot
+    if constexpr (kQn) {
+      U = AL + m;
+      P = U + m;
+      SY = P + m;                     // s_k . y_h at [k * m + h]
+      YY = SY + (long long)m * m;
+    }
     if constexpr (kDense) {
       words = AL;                     // m = 0: the words follow the ring
       region = words + kDenseWords;   // the slab, where it is in shared memory
@@ -643,7 +736,12 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
   bool fact_bad = false;
   if constexpr (kQn) {
     for (long long e = lane; e < 2LL * m * n; e += kWarp) S[e] = 0;
-    for (int e = lane; e < m; e += kWarp) RHO[e] = VAL[e] = 0;
+    if (compact) {
+      // VAL, S^T g and Y^T g by slot, u, p and the tables
+      for (long long e = lane; e < 5LL * m + 2LL * m * m; e += kWarp) RHO[e] = 0;
+    } else {
+      for (int e = lane; e < m; e += kWarp) RHO[e] = VAL[e] = 0;
+    }
   }
   __syncwarp();
 
@@ -678,12 +776,15 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     return small;
   };
 
-  K3_PROF(long long prof_acc[11] = {0}; long long prof_t = clock64();
+  K3_PROF(long long prof_acc[15] = {0}; long long prof_t = clock64(); long long sub_t = 0;
           const long long prof_t0 = prof_t;
-          const bool prof_on = kDense;)
+          const bool prof_on = kDense || kQn;)
   bool active = isfinite(Fv) && !converged();
   for (int it = 0; it < prm.max_iter && active; ++it) {
     K3_PROF(if (prof_on && lane == 0) prof_t = clock64();)
+    // the compact L-BFGS direction's g.d, which the search reuses
+    T g0d_dir = 0;
+    bool have_g0d = false;
     // ---- direction D
     switch (method) {
       case kCD: {
@@ -811,7 +912,116 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
           }
         }
         if constexpr (kQn) {
-          if (method == kLBFGS) {
+          if (lbfgs && compact) {
+            // the compact form of H g: lane q < m holds chronological row
+            // q at slot sq (head is the oldest pair's slot), v its VAL.  A
+            // slot without a valid pair takes R_qq = 1 and has its row's
+            // sums and table entries multiplied by v = 0, so that u_q = p_q
+            // = 0 and it drops out as it contributes RHO * dot * VAL = 0 to
+            // the two-loop; a stale sum that overflowed still gives NaN and
+            // takes the reset below, as it does there
+            K3_MARK();
+            const int q = lane;
+            const bool row = q < m;
+            int sq = head + q;
+            if (sq >= m) sq -= m;
+            const T v = row ? VAL[sq] : T(0);
+            const T dq = row && v != T(0) ? SY[sq * m + sq] : T(1);
+            const T rinv = T(1) / dq;
+            T u = row ? v * RHO[sq] : T(0);
+            // each step's table entry is loaded one step ahead, off the
+            // chain of shuffles
+            {
+              int c = m - 1, sc = head == 0 ? m - 1 : head - 1;
+              T rn = q < c ? v * SY[sq * m + sc] : T(0);
+              while (c >= 0) {                                // u = R^-1 S^T g
+                const T rc = rn;
+                const int c1 = c - 1, sc1 = sc == 0 ? m - 1 : sc - 1;
+                if (q < c1) rn = v * SY[sq * m + sc1];
+                const T uc = __shfl_sync(kFull, u * rinv, c);
+                if (q == c) u = uc;
+                else if (q < c) u = u - rc * uc;
+                c = c1;
+                sc = sc1;
+              }
+            }
+            T yu = 0;
+            {
+              T yn = row ? YY[sq * m + head] : T(0);
+              for (int r = 0, sr = head; r < m; ++r) {
+                const T yr = yn;
+                sr = sr + 1 == m ? 0 : sr + 1;
+                if (row && r + 1 < m) yn = YY[sq * m + sr];
+                const T ur = __shfl_sync(kFull, u, r);
+                if (row) yu += yr * ur;
+              }
+            }
+            T pq = row ? dq * u + gam * (v * (yu - AL[sq])) : T(0);
+            {
+              int c = 0, sc = head;
+              T rn = row && q > 0 ? v * SY[sc * m + sq] : T(0);
+              while (c < m) {                                 // p = R^-T (...)
+                const T rc = rn;
+                const int c1 = c + 1, sc1 = sc + 1 == m ? 0 : sc + 1;
+                if (row && q > c1) rn = v * SY[sc1 * m + sq];
+                const T pc = __shfl_sync(kFull, pq * rinv, c);
+                if (q == c) pq = pc;
+                else if (row && q > c) pq = pq - rc * pc;
+                c = c1;
+                sc = sc1;
+              }
+            }
+            if (row) {
+              U[sq] = u;
+              P[sq] = pq;
+            }
+            __syncwarp();
+            K3_SUB(11);
+            // d = -(gamma (g - Y u) + S p) and g.d in one pass
+            bool fin = true;
+            T gd = 0;
+            for (int i0 = lane; i0 < n; i0 += kWarp * kUnroll) {
+              T yu_i[kUnroll], sp_i[kUnroll];
+#pragma unroll
+              for (int e = 0; e < kUnroll; ++e) yu_i[e] = sp_i[e] = 0;
+              for (int k = 0; k < m; ++k) {
+                const T uk = U[k], pk = P[k];
+                const T* Yk = Y + (long long)k * n;
+                const T* Sk = S + (long long)k * n;
+#pragma unroll
+                for (int e = 0; e < kUnroll; ++e) {
+                  const int i = i0 + e * kWarp;
+                  if (i < n) {
+                    yu_i[e] += Yk[i] * uk;
+                    sp_i[e] += Sk[i] * pk;
+                  }
+                }
+              }
+#pragma unroll
+              for (int e = 0; e < kUnroll; ++e) {
+                const int i = i0 + e * kWarp;
+                if (i < n) {
+                  const T d = -(gam * (G[i] - yu_i[e]) + sp_i[e]);
+                  D[i] = d;
+                  fin = fin && isfinite(d);
+                  gd += G[i] * d;
+                }
+              }
+            }
+            fin = __all_sync(kFull, fin);
+            gd = warp_sum(gd);
+            if (fin && gd < T(0)) {
+              g0d_dir = gd;     // the search's g.d: the same sum
+              have_g0d = true;
+            } else {
+              // a corrupt model: discard it, retry from steepest descent
+              for (int i = lane; i < n; i += kWarp) D[i] = -G[i];
+              for (int e = lane; e < m; e += kWarp) VAL[e] = 0;
+              gam = 1;
+            }
+            break;
+          }
+          if (lbfgs) {
             // two-loop recursion over the ring, newest -> oldest and back
             for (int i = lane; i < n; i += kWarp) D[i] = G[i];
             __syncwarp();
@@ -861,15 +1071,21 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     __syncwarp();
     K3_PHASE(0);
 
-    // ---- step length
+    // ---- step length; the quasi-Newton form keeps the last Wolfe trial's
+    // step and value (its point is in XT, its gradient in GN)
     T t = 1;
+    T t_last = (T)NAN, f_last = 0;
     if (search == kNoSearch) {
     } else if (search <= kGLL) {
       // the Armijo family: value-only trials until one is accepted or the
       // budget is spent; on exhaustion t is the last update, untested
       T g0d = 0;
-      for (int i = lane; i < n; i += kWarp) g0d += G[i] * D[i];
-      g0d = warp_sum(g0d);
+      if (kQn && have_g0d) {
+        g0d = g0d_dir;
+      } else {
+        for (int i = lane; i < n; i += kWarp) g0d += G[i] * D[i];
+        g0d = warp_sum(g0d);
+      }
       T f_ref = Fv;
       if (search == kGLL) {
         if (lane == 0) H[pos] = Fv;
@@ -920,11 +1136,19 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
       auto phi = [&](T t, T& ft, T& gt) {
         for (int i = lane; i < n; i += kWarp) XT[i] = X[i] + t * D[i];
         __syncwarp();
-        ft = eval_value_grad(XT, GN);
-        __syncwarp();
-        T s = 0;
-        for (int i = lane; i < n; i += kWarp) s += GN[i] * D[i];
-        gt = warp_sum(s);
+        if constexpr (kQn) {
+          // the gradient's pass forms g.d too
+          ft = obj.template value_grad<true>(XT, GN, n, lane, D, &gt);
+          __syncwarp();
+          t_last = t;
+          f_last = ft;
+        } else {
+          ft = eval_value_grad(XT, GN);
+          __syncwarp();
+          T s = 0;
+          for (int i = lane; i < n; i += kWarp) s += GN[i] * D[i];
+          gt = warp_sum(s);
+        }
         ++nfev;
       };
       // per instance min_i (bound_i - x_i) / d_i, NaN terms as +inf
@@ -939,8 +1163,12 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
         return warp_min(mn);
       };
       T g0d = 0;
-      for (int i = lane; i < n; i += kWarp) g0d += G[i] * D[i];
-      g0d = warp_sum(g0d);
+      if (kQn && have_g0d) {
+        g0d = g0d_dir;
+      } else {
+        for (int i = lane; i < n; i += kWarp) g0d += G[i] * D[i];
+        g0d = warp_sum(g0d);
+      }
       const T f0 = Fv;
       if (search == kMT || search == kMTB) {
         // More-Thuente, corrected interval update (pallas_driver.py:1141)
@@ -1116,13 +1344,160 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     K3_PHASE(1);
 
     // ---- step (re-clipped for the bounded methods) and state update
-    for (int i = lane; i < n; i += kWarp) {
-      const T xn = X[i] + t * D[i];
-      XT[i] = bounded ? jclip(xn, lo[i], up[i]) : xn;
+    T fnew;
+    if constexpr (kQn) {
+      // where t is the last Wolfe trial's step, the step's point is that
+      // trial's bit for bit unless the clip of a bounded method moves a
+      // coordinate (one vote): its value and gradient (in XT and GN) are
+      // kept, and the evaluation the plain version makes there is skipped
+      bool kept = t == t_last;
+      if (!kept || bounded) {
+        bool clipped = false;
+        for (int i = lane; i < n; i += kWarp) {
+          const T xn = X[i] + t * D[i];
+          const T xc = bounded ? jclip(xn, lo[i], up[i]) : xn;
+          XT[i] = xc;
+          clipped = clipped || xc != xn;
+        }
+        kept = kept && !__any_sync(kFull, clipped);
+      }
+      if (kept) {
+        fnew = f_last;
+        K3_PROF(if (lane == 0) ++prof_acc[9];)
+      } else {
+        __syncwarp();
+        fnew = eval_value_grad(XT, GN);
+        __syncwarp();
+      }
+      K3_PHASE(2);
+    } else {
+      for (int i = lane; i < n; i += kWarp) {
+        const T xn = X[i] + t * D[i];
+        XT[i] = bounded ? jclip(xn, lo[i], up[i]) : xn;
+      }
+      __syncwarp();
+      fnew = eval_value_grad(XT, GN);
+      __syncwarp();
     }
-    __syncwarp();
-    const T fnew = eval_value_grad(XT, GN);
-    __syncwarp();
+    if constexpr (kQn) {
+      if (lbfgs && compact) {
+        // the step's pass: the new pair s = XT - X, y = GN - G and, per
+        // slot k, s_k.y and y_k.y (the tables' column for the pair, if it
+        // is accepted) and s_k.g', y_k.g' (the next direction's S^T g and
+        // Y^T g), the new pair in place of slot head's: kStepSlots slots
+        // per transposed butterfly, chronologically from head, so that
+        // the first butterfly's lanes 0 and per hold s.y and y.y; max|g'|
+        // and whether x moved as votes
+        constexpr int kChunks = kLaneM / kStepSlots;
+        constexpr int kSums = 4 * kStepSlots;            // sums per butterfly
+        static_assert(kSums <= kWarp, "at most 32 sums per butterfly");
+        constexpr int per = kWarp / kSums;               // lanes per sum
+        const int h = head;
+        T gmax = 0, sy = 0, yy = 0;
+        bool moved = false, accept = false;
+        K3_MARK();
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          const int j0 = c * kStepSlots;
+          if (j0 < m) {
+            T acc[kSums];
+#pragma unroll
+            for (int e = 0; e < kSums; ++e) acc[e] = 0;
+            for (int i = lane; i < n; i += kWarp) {
+              const T gn = GN[i];
+              const T si = XT[i] - X[i], yi = gn - G[i];
+              if (c == 0) {
+                moved = moved || si != T(0);
+                gmax = jmax(gmax, (T)fabs(gn));
+              }
+#pragma unroll
+              for (int k = 0; k < kStepSlots; ++k) {
+                const int j = j0 + k;
+                if (j < m) {
+                  int slot = h + j;
+                  if (slot >= m) slot -= m;
+                  const T sk = j == 0 ? si : S[(long long)slot * n + i];
+                  const T yk = j == 0 ? yi : Y[(long long)slot * n + i];
+                  acc[4 * k] += sk * yi;
+                  acc[4 * k + 1] += yk * yi;
+                  acc[4 * k + 2] += sk * gn;
+                  acc[4 * k + 3] += yk * gn;
+                }
+              }
+            }
+            K3_SUB(12);
+            const T r = warp_sums<kSums>(acc, lane);      // sum lane / per
+            K3_SUB(13);
+            if (c == 0) {
+              // the new pair's s.y and y.y, the first butterfly's first sums
+              sy = __shfl_sync(kFull, r, 0);
+              yy = __shfl_sync(kFull, r, per);
+              accept = sy > prm.lbfgs_eps * yy;
+            }
+            // the ring update (pallas_driver.py:691-731): an accepted pair
+            // goes to slot head with its column of the tables; S^T g and
+            // Y^T g of every other slot are the new ones either way
+            const int sum = lane / per, kind = sum & 3, j = j0 + (sum >> 2);
+            if (j < m) {
+              int slot = h + j;
+              if (slot >= m) slot -= m;
+              if (kind == 0) {
+                if (accept) SY[slot * m + h] = r;
+              } else if (kind == 1) {
+                if (accept) YY[slot * m + h] = YY[h * m + slot] = r;
+              } else if (j != 0 || accept) {
+                (kind == 2 ? RHO : AL)[slot] = r;
+              }
+            }
+            K3_SUB(14);
+          }
+        }
+        moved = __any_sync(kFull, moved);
+        const bool conv = __all_sync(kFull, gmax < prm.tol);
+        if (accept) {
+          T* s_ = S + (long long)h * n;
+          T* y_ = Y + (long long)h * n;
+          for (int i = lane; i < n; i += kWarp) {
+            s_[i] = XT[i] - X[i];
+            y_[i] = GN[i] - G[i];
+          }
+          if (lane == 0) VAL[h] = 1;
+          head = h + 1 == m ? 0 : h + 1;
+          gam = sy / yy;
+        } else {
+          // slot head keeps its pair: its S^T g and Y^T g at the new g
+          const T* s_ = S + (long long)h * n;
+          const T* y_ = Y + (long long)h * n;
+          T acc[2] = {0, 0};
+          for (int i = lane; i < n; i += kWarp) {
+            acc[0] += s_[i] * GN[i];
+            acc[1] += y_[i] * GN[i];
+          }
+          const T rr = warp_sums<2>(acc, lane);
+          if (lane == 0) RHO[h] = rr;
+          if (lane == kWarp / 2) AL[h] = rr;
+        }
+        if (!moved) {
+          // the zero-progress repair: the model is dropped, S and Y stay
+          for (int e = lane; e < m; e += kWarp) VAL[e] = 0;
+          gam = 1;
+        }
+        T* w = X;
+        X = XT;
+        XT = w;
+        w = G;
+        G = GN;
+        GN = w;
+        Fv = fnew;
+        ++iters;
+        __syncwarp();
+        K3_SUB(14);
+        K3_PHASE(3);
+        active = isfinite(Fv) && !conv;
+        K3_PHASE(4);
+        continue;
+      }
+    }
     if (method == kSPG) {
       T sy = 0, ss = 0, yy = 0;
       for (int i = lane; i < n; i += kWarp) {
@@ -1190,7 +1565,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     Fv = fnew;
     ++iters;
     __syncwarp();
-    K3_PHASE(2);
+    K3_PHASE(kQn ? 3 : 2);
 
     if constexpr (kNewt) {
       if (method == kPN) {
@@ -1292,7 +1667,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
       }
     }
     if constexpr (kQn) {
-      if (method == kLBFGS) {
+      if (lbfgs) {
         // ring update and the zero-progress repair
         // (pallas_driver.py:691-731)
         if (sy > prm.lbfgs_eps * yy) {
@@ -1314,10 +1689,11 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
           gam = 1;
         }
         __syncwarp();
+        K3_PHASE(3);
       }
     }
     active = isfinite(Fv) && !converged();
-    K3_PHASE(5);
+    K3_PHASE(kQn ? 4 : 5);
   }
 
   // status precedence of the TPU kernel: converged and finite, then the
@@ -1336,7 +1712,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     prof_acc[7] = nfev;
     prof_acc[8] = 1;
     prof_acc[10] = clock64() - prof_t0;
-    for (int k = 0; k < 11; ++k) atomicAdd(&k3_prof[k], (unsigned long long)prof_acc[k]);
+    for (int k = 0; k < 15; ++k) atomicAdd(&k3_prof[k], (unsigned long long)prof_acc[k]);
   })
   if constexpr (kBlock) {
     __syncwarp();
@@ -1398,7 +1774,7 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
     return (int)cudaGetLastError();
   }
   const int m = prm.method == kLBFGS ? prm.m : 0;
-  const long long per_warp = work_elems(prm.n, prm.ring, m) * (long long)sizeof(T);
+  const long long per_warp = work_elems(prm.n, prm.ring, m, (int)sizeof(T)) * (long long)sizeof(T);
   long long wpb = kSmemPerBlock / per_warp;
   if (wpb > kMaxWarpsPerBlock) wpb = kMaxWarpsPerBlock;
   if (wpb > prm.B) wpb = prm.B;

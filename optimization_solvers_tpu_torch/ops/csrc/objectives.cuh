@@ -6,7 +6,8 @@
 // __syncwarp()s before a call (the functors read other lanes' coordinates
 // of x and v) and after value_grad and hvp (each lane writes only its own
 // coordinates of g and of the product).  K1, K8 and the first-order and
-// quasi-Newton forms of K3 compile Rosenbrock and WeightedSquares; K7 and
+// quasi-Newton forms of K3 compile Rosenbrock and WeightedSquares (the
+// quasi-Newton form's Wolfe trials through value_grad<true>); K7 and
 // K9 all three (values and gradients); K3's Newton form and K4 all three,
 // with the second derivatives: hvp(x, v, out, n, lane) writes H v into out,
 // and hessian(x, H, n, tid, scratch) is block-level (K3's Newton form runs
@@ -94,9 +95,19 @@ template <typename T> struct Rosenbrock {
     for (int i = lane; i < n - 1; i += kWarp) s += term_at(in_memory(x, i));
     return warp_sum(s);
   }
-  __device__ T value_grad(const T* x, T* g, int n, int lane) const {
-    T s = 0;
-    for (int i = lane; i < n; i += kWarp) g[i] = grad_at(in_memory(x, i), i, n, s);
+  // with kDot, g.d for a direction d into *gd in the same pass, the two
+  // warp sums side by side (a Wolfe trial's value and directional
+  // derivative)
+  template <bool kDot = false>
+  __device__ T value_grad(const T* x, T* g, int n, int lane, const T* d = nullptr,
+                          T* gd = nullptr) const {
+    T s = 0, p = 0;
+    for (int i = lane; i < n; i += kWarp) {
+      const T gi = grad_at(in_memory(x, i), i, n, s);
+      g[i] = gi;
+      if constexpr (kDot) p += gi * d[i];
+    }
+    if constexpr (kDot) *gd = warp_sum(p);
     return warp_sum(s);
   }
   __device__ T hess_diag(const T* x, int i, int n) const {
@@ -138,9 +149,16 @@ template <typename T> struct WeightedSquares {
     for (int i = lane; i < n; i += kWarp) grad_at(x[i], i, s);
     return T(0.5) * warp_sum(s);
   }
-  __device__ T value_grad(const T* x, T* g, int n, int lane) const {
-    T s = 0;
-    for (int i = lane; i < n; i += kWarp) g[i] = grad_at(x[i], i, s);
+  template <bool kDot = false>
+  __device__ T value_grad(const T* x, T* g, int n, int lane, const T* d = nullptr,
+                          T* gd = nullptr) const {
+    T s = 0, p = 0;
+    for (int i = lane; i < n; i += kWarp) {
+      const T gi = grad_at(x[i], i, s);
+      g[i] = gi;
+      if constexpr (kDot) p += gi * d[i];
+    }
+    if constexpr (kDot) *gd = warp_sum(p);
     return T(0.5) * warp_sum(s);
   }
   static constexpr bool kBlockEval = false;

@@ -94,6 +94,7 @@ QN_EPS = {torch.float32: 1.2e-7, torch.float64: 2.3e-16}
 SMEM_PER_BLOCK = 232448
 NEWTON_WORDS = 32          # csrc/driver.cuh kNewtonWords
 DENSE_WORDS = 8            # csrc/driver.cuh kDenseWords
+LANE_M = 32                # csrc/driver.cuh kLaneM: pairs the compact form holds
 DENSE_METHODS = (QN, QNB)
 K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
 K3_NEWTON_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC")
@@ -276,8 +277,11 @@ def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
     """Shared memory one instance takes in the CUDA kernel, mirrored here so
     that the route can decide without the library.  The first-order and
     quasi-Newton forms: ``work_elems`` of ``csrc/driver.cuh`` (7 n, the
-    GLL history, and L-BFGS's S and Y rows, rho, valid and alpha: 2 m n +
-    3 m) times the element size.  The dense form (``method`` QN or QNB; one
+    GLL history, and L-BFGS's S and Y rows and three values by slot: 2 m
+    n + 3 m; where :func:`compact_fits`, the compact form's u, p and
+    tables S^T Y and Y^T Y, 2 m + 2 m^2 more) times the element size.
+    Every width the two-loop layout fits keeps fitting: the compact form
+    only takes the room it finds.  The dense form (``method`` QN or QNB; one
     block per instance): ``dense_smem_elems``, 7 n, the GLL history and 8
     command words, then the slab of ``qn_update`` where
     :func:`dense_in_shared`.  The Newton form (``method`` Newton, PN or
@@ -295,7 +299,18 @@ def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
         region = (max(3 * n + nb * (nb + 1),
                       fused_newton.scratch_elems(itemsize, nb)) + 3) // 4 * 4
         return (region + 2 * n + NEWTON_WORDS + ring) * itemsize
-    return (7 * n + ring + 2 * m * n + 3 * m) * itemsize
+    extra = 2 * m * m + 2 * m if compact_fits(n, ring, itemsize, m) else 0
+    return (7 * n + ring + 2 * m * n + 3 * m + extra) * itemsize
+
+
+def compact_fits(n: int, ring: int, itemsize: int, m: int) -> bool:
+    """Whether L-BFGS's direction runs in the compact form of H g
+    (``compact_fits`` of ``csrc/driver.cuh``): its m x m algebra on lanes,
+    so m <= LANE_M, and its tables beside the vectors in a block's shared
+    memory; else the two-loop recursion runs."""
+    return 1 <= m <= LANE_M and (
+        7 * n + ring + 2 * m * n + 5 * m + 2 * m * m) * itemsize <= (
+            SMEM_PER_BLOCK)
 
 
 def fits(n: int, ring: int, itemsize: int, m: int = 0,

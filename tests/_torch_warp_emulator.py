@@ -5,8 +5,9 @@ kernel's own source, thread by thread, where the card is not there.  K1
 (``lbfgsb_fused.cu``: one warp per instance), K9 (``bfgs_fused.cu``), K3's
 dense form (``driver_dense.cu``) and K5 (``qn_update.cu``: one block of
 several warps per instance, whose warps meet at block barriers), K7
-(``lbfgs_fused.cu``) and K4 (``newton_cg.cu``), one warp per instance.  A test-only harness: the
-port never calls it."""
+(``lbfgs_fused.cu``), K4 (``newton_cg.cu``) and K3's first-order and
+quasi-Newton forms (``driver.cu``, ``driver_qn.cu``), one warp per
+instance.  A test-only harness: the port never calls it."""
 
 import ctypes
 import glob
@@ -456,6 +457,8 @@ def build_k3(out_dir):
         ctypes.POINTER(d), i, i, vp, vp, vp, vp, vp, vp, vp]
     lib.driver_smem_dense.restype = ctypes.c_longlong
     lib.driver_smem_dense.argtypes = [i, i, i, i]
+    lib.driver_smem_per_warp.restype = ctypes.c_longlong
+    lib.driver_smem_per_warp.argtypes = [i, i, i, i]
     lib.driver_workspace_elems.restype = ctypes.c_longlong
     lib.driver_workspace_elems.argtypes = [ctypes.c_longlong, i, i, i, i, i]
     return lib

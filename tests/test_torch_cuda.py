@@ -638,6 +638,33 @@ def test_driver_qn_kernel_matches_plain(name, cuda):
                                atol=g["x_atol"])
 
 
+@pytest.mark.parametrize("n,m,compact", [(40, 10, True), (40, 33, False),
+                                          (1070, 10, False)])
+def test_driver_qn_lbfgs_directions_match_plain(n, m, compact, cuda):
+    """L-BFGS + Hager-Zhang on a weighted-squares quadratic, float64: the
+    compact form of H g (m = 10), and the two-loop recursion where m
+    exceeds a warp's lanes (m = 33) or the compact form's tables do not fit
+    beside the vectors (n = 1,070), over the first 40 iterations (none
+    converges by then): status, iterations and trials equal, x within
+    1e-9."""
+    assert fused_driver.compact_fits(n, 0, 8, m) == compact
+    f = problems.weighted_squares()
+    d = torch.tensor(np.logspace(0, 2, n), device=cuda)
+    t = torch.tensor(np.linspace(-1.0, 1.0, n), device=cuda)
+    x0 = torch.tensor(np.random.RandomState(4).uniform(-2, 2, (8, n)),
+                      device=cuda)
+    method, search = solvers.LBFGS(tol=1e-8, m=m), ls.HagerZhang()
+    kw = dict(max_iter=40, max_iter_ls=40)
+    x, _, it, st, nfev = fused_driver._launch_cuda(
+        fused_driver.build_spec(method, search), f, x0, None, None, (d, t),
+        **kw)
+    xp, _, itp, stp, nfevp = fused_driver.fused_minimize_plain(
+        method, search, f, x0, consts=(d, t), **kw)
+    assert torch.equal(st, stp) and torch.equal(it, itp)
+    assert torch.equal(nfev, nfevp)
+    assert (x - xp).abs().max().item() <= 1e-9
+
+
 def test_driver_qn_route_launches_the_kernel(cuda):
     """minimize with every quasi-Newton row, its default search and every
     search that may replace it, launches K3 once per call; so does

@@ -385,12 +385,15 @@ def test_refusals_name_the_roadmap():
 
 def test_shared_memory_and_workspace_rules():
     """7 n + ring + 2 m n + 3 m elements of shared memory per instance of
-    the one-warp forms; the dense form's block (QN, QNB): 7 n + ring + 8
-    elements and the slab where it fits (config 2's 1,024 x 100 in float32:
-    the packed triangle in the block's 23,032 bytes, no workspace), else one
-    slab per instance in device memory."""
+    the one-warp forms, and L-BFGS's compact form of H g 2 m^2 + 2 m more
+    where it runs (m <= 32 and the total fits); the dense form's block (QN,
+    QNB): 7 n + ring + 8 elements and the slab where it fits (config 2's
+    1,024 x 100 in float32: the packed triangle in the block's 23,032
+    bytes, no workspace), else one slab per instance in device memory."""
     assert fused_driver.smem_per_instance(100, 0, 4, 10) == (
-        7 * 100 + 2 * 10 * 100 + 30) * 4
+        7 * 100 + 2 * 10 * 100 + 30 + 2 * 10 * 10 + 2 * 10) * 4
+    assert fused_driver.smem_per_instance(100, 0, 4, 33) == (
+        7 * 100 + 2 * 33 * 100 + 3 * 33) * 4
     assert fused_driver.smem_per_instance(64, 10, 4) == (7 * 64 + 10) * 4
     assert fused_driver.fits(100, 0, 8, 10)
     assert not fused_driver.fits(1200, 0, 8, 10)

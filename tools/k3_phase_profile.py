@@ -30,7 +30,31 @@ the kernels' device times (CUDA events around the wrapper's launch,
 median of 3) at iteration caps 0, 1 and 10 and at B = 132, 1,024 and
 1,056 (the first starts of a ``RandomState(6)`` draw).
 
+``--lbfgs`` profiles K3's quasi-Newton form instead, at ``chip_smoke.py``'s
+phase-16 inputs: L-BFGS (m 10) + Hager-Zhang on 1,024 x Rosenbrock-100,
+float32, tol 1e-4 on max|g|, max_iter 1,500, max_iter_ls 40, starts
+``RandomState(42)`` uniform(-2, 2).  It builds that form alone (``driver.cu``
+for the C interface, ``driver_qn.cu``, the other forms stubbed; nvcc,
+``sm_90a``, every build started together, into ``chip_tree/k3_qn/``) from
+this checkout with ``-DK3_PROFILE`` and as shipped, as shipped from each
+``--against`` checkout, and from this checkout with the nvcc flags of each
+``--variant`` (a macro that an experiment adds to the source).  It prints
+the ``ptxas`` line of each build's float32 and float64 Rosenbrock kernels
+and its launch (warps per block, resident warps per SM); from the counting
+build each phase's share of the summed per-warp cycles, the cycles per
+instance-iteration, the trials per iteration and the share of steps that
+kept the accepted trial's evaluation (full solves and capped at 1 and 10
+iterations); the spread of iterations over the instances (median / p99 /
+max); a batch sweep of the shipped builds in turns (B = 132, 1,024, 4,224,
+10,240: the first B rows of one ``RandomState(42)`` draw; CUDA events,
+median of QN_ROUNDS); and, in turns at B = 1,024 and 10,240 on the same
+starts, the form's other workloads (QN_OTHER: NCG + More-Thuente in
+float32, L-BFGS + Hager-Zhang in float64), with each build's residency
+where it reports one.
+
     python3 tools/k3_phase_profile.py [--breakdown] [--root DIR]
+    python3 tools/k3_phase_profile.py --lbfgs [--against DIR ...]
+        [--variant NAME=FLAG[,FLAG] ...]
 """
 
 import argparse
@@ -52,6 +76,39 @@ CONFIG2 = dict(tol=2e-4, max_iter=1500, max_iter_ls=40)
 K9 = dict(tol=1e-5, max_iter=600, max_iter_ls=24, c1=1e-4)
 SWEEP = (132, 1024, 1056)
 CAPS = (0, 1, 10)
+# --lbfgs: the quasi-Newton form's counters [0..4], in order, its workload
+# and its sweep
+QN_PHASES = ["direction", "search trials", "the step's evaluation",
+             "pair sums and ring update", "convergence"]
+# the compact form's sub-phases, k3_prof[11..14]
+QN_SUB = {11: "the direction's m x m algebra", 12: "the step's passes",
+          13: "the step's butterflies",
+          14: "the step's stores, pair and swap"}
+QN = dict(B=1024, n=100, m=10, tol=1e-4, max_iter=1500, max_iter_ls=40)
+QN_SWEEP = (132, 1024, 4224, 10240)
+# the form's other workloads, timed at QN_OTHER_B on the same starts and
+# the same tol and caps: a first-order method with a Wolfe search, and
+# L-BFGS in float64
+QN_OTHER = (("NCG (PR+) + More-Thuente, float32", "ncg", "float32"),
+            ("L-BFGS (m 10) + Hager-Zhang, float64", "lbfgs", "float64"))
+QN_OTHER_B = (1024, 10240)
+QN_ROUNDS = 6
+QN_OUT = os.path.join(ROOT, "chip_tree", "k3_qn")
+# the form of a driver_kernel entry, by the digit of its mangled name
+QN_FORMS = {"1": "quasi-Newton form", "4": "Wolfe form"}
+# the other forms, which driver.cu's C interface reaches, as stubs
+QN_STUB = """#include "driver.cuh"
+namespace ost_driver {
+template <typename T>
+int launch_newton(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
+template <typename T>
+int launch_dense(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
+template int launch_newton<float>(const Params<float>&, int, cudaStream_t);
+template int launch_newton<double>(const Params<double>&, int, cudaStream_t);
+template int launch_dense<float>(const Params<float>&, int, cudaStream_t);
+template int launch_dense<double>(const Params<double>&, int, cudaStream_t);
+}  // namespace ost_driver
+"""
 
 
 def card_line():
@@ -156,6 +213,215 @@ def times(root):
     return 0
 
 
+def build_qn(variants):
+    """Build K3's quasi-Newton form per variant (name -> (checkout, extra
+    nvcc flags)), every compilation started together; returns {name:
+    loaded library} after printing ptxas's line for each build's float32
+    Rosenbrock kernel."""
+    nvcc = os.environ.get("NVCC", "/usr/local/cuda/bin/nvcc")
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+    jobs = {}
+    for name, (root, extra) in variants.items():
+        out = os.path.join(QN_OUT, name)
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        csrc = os.path.join(os.path.abspath(root),
+                            "optimization_solvers_tpu_torch", "ops", "csrc")
+        stub = os.path.join(out, "stub.cu")
+        with open(stub, "w") as fh:
+            fh.write(QN_STUB)
+        srcs = [os.path.join(csrc, "driver.cu"),
+                os.path.join(csrc, "driver_qn.cu"), stub]
+        objs = [os.path.join(out, f"{k}.o") for k in range(len(srcs))]
+        jobs[name] = (out, objs, [subprocess.Popen(
+            [nvcc, *flags, *extra, "-I", csrc, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)])
+    libs = {}
+    for name, (out, objs, procs) in jobs.items():
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed for {name}:\n" + "\n".join(
+                log[-3000:] for log in logs))
+        lines = logs[1].splitlines()
+        for j, line in enumerate(lines):
+            for t, word in (("f", "float32"), ("d", "float64")):
+                if ("Compiling entry" in line and f"driver_kernelI{t}" in line
+                        and f"RosenbrockI{t}" in line):
+                    form = QN_FORMS.get(line.split("EELi")[-1][:1], "?")
+                    print(f"{name}: {word} Rosenbrock kernel, {form}: "
+                          + "; ".join(
+                              v.split(":", 1)[-1].strip()
+                              for v in lines[j + 1:j + 4]
+                              if "spill" in v or "registers" in v))
+        lib_path = os.path.join(out, "libk3_qn.so")
+        subprocess.run([nvcc, *flags[:2], "-shared", "-o", lib_path, *objs],
+                       check=True)
+        lib = ctypes.CDLL(lib_path)
+        vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.driver_launch.restype = i
+        lib.driver_launch.argtypes = [
+            i, i, vp, vp, vp, i, vp, vp, vp, i, i, ctypes.POINTER(i),
+            ctypes.POINTER(d), i, i, vp, vp, vp, vp, vp, vp, vp]
+        if hasattr(lib, "driver_qn_info"):
+            lib.driver_qn_info.restype = i
+            lib.driver_qn_info.argtypes = [i, i, i, i, i, vp]
+        libs[name] = lib
+    return libs
+
+
+def lbfgs(against, variants=()):
+    """``--lbfgs``: K3's quasi-Newton form at chip_smoke.py's phase-16
+    inputs (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from optimization_solvers_tpu_torch import linesearch as ls, solvers
+    from optimization_solvers_tpu_torch.ops import fused_driver
+
+    card = card_line()
+    builds = {"profile": (ROOT, ["-DK3_PROFILE"]), "shipped": (ROOT, [])}
+    for k, root in enumerate(against):
+        builds[f"against{k}"] = (root, [])
+    for v in variants:
+        name, flags = v.split("=", 1)
+        builds[name] = (ROOT, flags.split(","))
+    t0 = time.perf_counter()
+    libs = build_qn(builds)
+    print(f"built {len(libs)} copies of the quasi-Newton form in "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    for k, root in enumerate(against):
+        print(f"against{k}: {os.path.abspath(root)}")
+    n, m = QN["n"], QN["m"]
+    specs = {"lbfgs": fused_driver.build_spec(
+        solvers.LBFGS(tol=QN["tol"], m=m), ls.HagerZhang()),
+        "ncg": fused_driver.build_spec(
+            solvers.NonlinearCG(grad_tol=QN["tol"]), ls.MoreThuente())}
+    slots = {(k, dt): fused_driver._slots(spec, getattr(torch, dt))
+             for k, spec in specs.items() for dt in ("float32", "float64")}
+    dev = torch.device("cuda")
+    draw = torch.tensor(np.random.RandomState(42).uniform(
+        -2.0, 2.0, (max(QN_SWEEP), n)), dtype=torch.float32, device=dev)
+
+    def launch(lib, x, max_iter=QN["max_iter"], method="lbfgs"):
+        b = x.shape[0]
+        dt = str(x.dtype).split(".")[-1]
+        ints, doubles = slots[(method, dt)]
+        out = [torch.empty_like(x), torch.empty_like(x[:, 0]),
+               *(torch.empty(b, dtype=torch.int32, device=dev)
+                 for _ in range(3))]
+        rc = lib.driver_launch(
+            int(dt == "float64"), 0, x.data_ptr(), None, None, 0, None, None,
+            None, b, n, ints, doubles, max_iter, QN["max_iter_ls"], None,
+            *(t.data_ptr() for t in out),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"driver_launch returned {rc}")
+        return out
+
+    def in_turns(names, run):
+        """{name: [ms, ...]}: QN_ROUNDS timed calls of ``run(name)`` per
+        build after one untimed call each, the order reversed every other
+        round."""
+        ts = {k: [] for k in names}
+        for k in names:
+            run(k)
+        for r in range(QN_ROUNDS):
+            for k in (names if r % 2 == 0 else names[::-1]):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(k)
+                stop.record()
+                torch.cuda.synchronize()
+                ts[k].append(start.elapsed_time(stop))
+        return ts
+
+    def timings(ts):
+        return "; ".join(
+            f"{k} {statistics.median(t):.3f} ms (min {min(t):.3f}, max "
+            f"{max(t):.3f})" for k, t in ts.items()) + (
+            f" (CUDA events, median of {QN_ROUNDS} in turns)  [{card}]")
+
+    x = draw[:QN["B"]].contiguous()
+    for name, lib in libs.items():
+        _, f, it, st, nfev = launch(lib, x)
+        torch.cuda.synchronize()
+        info = ""
+        if hasattr(lib, "driver_qn_info"):
+            v = (ctypes.c_int * 5)()
+            rc = lib.driver_qn_info(0, specs["lbfgs"].method, QN["B"], n, m,
+                                    ctypes.addressof(v))
+            info = (f"rc {rc}" if rc else
+                    f"{v[0]} warps per block, {v[0] * v[1]} resident warps "
+                    f"per SM, {v[2]} registers, {v[3]} local bytes a "
+                    f"thread, {v[4]} bytes of shared memory a block; ")
+        itf = it.double()
+        print(f"{name}: {info}converged {(st == 1).double().mean().item():.4f}"
+              f", median f {f.median().item():.4g}, iterations median / p99 "
+              f"/ max {itf.median().item():.0f} / "
+              f"{torch.quantile(itf, 0.99).item():.1f} / "
+              f"{int(it.max().item())}, trials per iteration "
+              f"{nfev.double().sum().item() / itf.sum().item():.4f}")
+
+    prof = libs["profile"]
+    prof.k3_qn_prof_read.argtypes = [ctypes.c_void_p]
+    for cap in (QN["max_iter"], 1, 10):
+        prof.k3_qn_prof_reset()
+        launch(prof, x, cap)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 16)()
+        prof.k3_qn_prof_read(ctypes.addressof(buf))
+        v = list(buf)
+        total = sum(v[:5])
+        its = max(v[6], 1)
+        print(f"L-BFGS + HZ, max_iter {cap}: {v[8]} instances, {v[6]} "
+              f"instance-iterations, {v[7] / its:.4f} trials per iteration, "
+              f"{v[9] / its:.4f} of the steps kept the trial's evaluation; "
+              f"cycles per instance-iteration {total / its:.0f}, the loop "
+              f"{total / max(v[10], 1):.3f} of the instances' cycles")
+        print("   " + "; ".join(f"{p} {v[k] / max(total, 1):.3f}"
+                                for k, p in enumerate(QN_PHASES)))
+        print("   of which (cycles per instance-iteration): " + "; ".join(
+            f"{p} {v[k] / its:.0f}" for k, p in QN_SUB.items()))
+
+    names = [k for k in libs if k != "profile"]
+    for b in QN_SWEEP:
+        xb = draw[:b].contiguous()
+        ts = in_turns(names, lambda k: launch(libs[k], xb))
+        print(f"B = {b}: " + timings(ts))
+
+    for what, method, dt in QN_OTHER:
+        mo = specs[method].lbfgs_m
+        for b in QN_OTHER_B:
+            xb = draw[:b].to(getattr(torch, dt)).contiguous()
+            for k in names:
+                _, f, it, st, nfev = launch(libs[k], xb, method=method)
+                torch.cuda.synchronize()
+                info = ""
+                if hasattr(libs[k], "driver_qn_info"):
+                    v = (ctypes.c_int * 5)()
+                    rc = libs[k].driver_qn_info(
+                        int(dt == "float64"), specs[method].method, b, n, mo,
+                        ctypes.addressof(v))
+                    info = (f"rc {rc}; " if rc else
+                            f"{v[0] * v[1]} resident warps per SM, {v[2]} "
+                            f"registers, {v[3]} local bytes a thread, "
+                            f"{v[4]} bytes of shared memory a block; ")
+                itf = it.double()
+                print(f"{what}, B = {b}, {k}: {info}converged "
+                      f"{(st == 1).double().mean().item():.4f}, median f "
+                      f"{f.median().item():.4g}, iterations median / max "
+                      f"{itf.median().item():.0f} / {int(it.max().item())},"
+                      f" trials per iteration "
+                      f"{nfev.double().sum().item() / itf.sum().item():.4f}")
+            ts = in_turns(names, lambda k: launch(libs[k], xb, method=method))
+            print(f"{what}, B = {b}: " + timings(ts))
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--breakdown", action="store_true",
@@ -164,12 +430,24 @@ def main(argv=None):
     parser.add_argument("--root", default=ROOT, help="the checkout whose "
                         "package --breakdown times (default: this one)")
     parser.add_argument("--times", metavar="ROOT", help=argparse.SUPPRESS)
+    parser.add_argument("--lbfgs", action="store_true",
+                        help="profile the quasi-Newton form (L-BFGS + "
+                        "Hager-Zhang) instead of the dense kernels")
+    parser.add_argument("--against", metavar="DIR", action="append",
+                        default=[], help="with --lbfgs: also build DIR's "
+                        "quasi-Newton form as shipped and time it in turns")
+    parser.add_argument("--variant", metavar="NAME=FLAG[,FLAG]",
+                        action="append", default=[], help="with --lbfgs: "
+                        "also build this checkout's form with these nvcc "
+                        "flags and time it in turns")
     args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("k3_phase_profile: no CUDA device", file=sys.stderr)
         return 1
+    if args.lbfgs:
+        return lbfgs(args.against, args.variant)
     if args.times:
         return times(args.times)
     if args.breakdown:
