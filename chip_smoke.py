@@ -53,7 +53,12 @@ batched L-BFGS-B path and the template-method paths through
 * K3's dense form (``ops/csrc/driver_dense.cu``, which config 2 runs with
   its slabs in shared memory) and K9 past the shared-memory fit (n = 400,
   B = 64, float64 and float32: the slabs in the device-memory workspace),
-  held against their plain versions.
+  held against their plain versions;
+* K3's first-order form (``ops/csrc/driver_first.cuh``: every first-order
+  method with each Armijo-family search it takes) and K8 in each of their
+  layouts (two coordinates a lane in registers at n = 64, four at 100, the
+  warp's shared memory at 160), float64 and float32, held against their
+  plain versions.
 
 It prints, last, a JSON line of per-kernel results, the card's name and
 power limit, and one JSON line naming the device.  Any failed check exits
@@ -233,6 +238,37 @@ DENSE_FIT = dict(B=64, n=400, box=2.5, tol64=1e-8, tol32=1e-3, max_iter=400,
 DENSE_FIT_F64_ATOL = 2e-8
 DENSE_FIT_F32_ATOL = 2e-3
 DENSE_FIT_F32_AGREE = 0.99
+# phase 34: K3's first-order form and K8 in each of their layouts (two
+# coordinates a lane up to n = 64, four up to 128, the warp's shared memory
+# past it; widths), B instances of the weighted-squares quadratic (d =
+# linspace(1, 10), t = linspace(-1, 1); NoSearch d = linspace(0.2, 1.8)),
+# box [-0.5, 0.5] for the bounded methods: float64 per instance over the
+# first `iters` iterations (the GLL ring of 10 wraps three times), step
+# for step (status, iterations and trials equal, x within K3_X_ATOL),
+# float32 full solves at tol32 (converged fraction at least CONV_FLOOR and
+# within CONV_ATOL of the plain version's, median iterations and f within
+# MED_IT_RTOL and MED_F_RTOL).  Near x* the order of a sum decides an
+# Armijo test: SPG + BackTrackingB at n = 64 compared f(x_t) - f(x) =
+# -8.9e-16, one ulp of f ~ 7.9, with -c1 |x_t - x|^2 = -1.4e-17 at one
+# instance's 13th iteration.  Traced on the CPU from the kernel's own
+# source: the plain version's torch.sum loses the change of one term
+# there and rejects, the kernel's lanes (two terms each, then a
+# butterfly) keep it and accept (on the card 2 of 256 instances took
+# another path over 40 iterations).  A change of x0 by 1e-15 or of the
+# coordinates' order does not move the plain version's branch there, so
+# no spread of its own shows it.  The plain version marks each instance's first decision that
+# lies within the rounding bound of any order of its sums (``ties``):
+# such an instance is held step for step through the iterations before
+# that decision (the kernel and the plain version run again to there),
+# and by status over `iters` iterations.  tol32: at 3e-3 float32 rounding
+# decides PGD's iteration counts (f ~ 8-19 there, its last decreases an
+# ulp or two): the plain version with its coordinates reversed agrees
+# with itself on 2-5% of instances, its median 22 -> 21 (the card's
+# kernel 19 against 21 at n = 100); at 1e-2 on all of them, and every
+# case's plain version converges (GD + GLL 255 of 256 at n = 64 and 100)
+LAYOUT_CHECK = dict(B=256, widths=(64, 100, 160), iters=40, tol32=1e-2,
+                    max_iter=1500)
+CONV_FLOOR = 0.99
 WHOLE_K7_CAPPED = 10
 WHOLE_K8_CAPPED = 30
 WHOLE_K9_CAPPED = 15
@@ -580,6 +616,8 @@ def main(argv=None):
     k7, k8, k9 = whole_solve_slice(dev, card, tensors, sync_time)
     k3_fit_err, k9_fit_err = dense_fit_slice(dev, card, tensors)
     k9["max_abs_err"] = max(k9["max_abs_err"], k9_fit_err)
+    k3_layout_err, k8_layout_err = layouts_slice(dev, card, tensors)
+    k8["max_abs_err"] = max(k8["max_abs_err"], k8_layout_err)
     if breakdown:
         k1_breakdown(dev, card, tensors, sync_time)
         tall_breakdown(dev, card, tensors, sync_time)
@@ -599,7 +637,8 @@ def main(argv=None):
         "replaces": "optimization_solvers_tpu/ops/pallas_driver.py:1874",
         "launches": c2["launches"],
         "max_abs_err": max(first_order["max_abs_err"],
-                           quasi_newton["max_abs_err"], k3_fit_err),
+                           quasi_newton["max_abs_err"], k3_fit_err,
+                           k3_layout_err),
         "ms": c2["ms"],
         "plain_ms": c2["plain_ms"],
         "bound_ms": c2["bound_ms"],
@@ -1184,16 +1223,18 @@ def driver_slice(dev, card, tensors, sync_time):
 
     # bound at config 3, from the kernel's own counts on the main path's
     # inputs: x0, d, t and the bounds read once, x, f, iterations, status
-    # and trial counts written once; per iteration (csrc/driver.cu, SPG +
-    # GLL) the direction 5n, g.d 2n, the step, its clip and the
-    # value-and-gradient 8n, the BB update 8n and the convergence test 6n,
-    # and per trial the trial point and its value 6n
+    # and trial counts written once; the least work the function needs
+    # (SPG + GLL): per iteration the direction clip(x - lam g) - x 5n, g.d
+    # 2n, the step's clip 2n and gradient 2n (its point and value are the
+    # accepted trial's), the BB sums 8n and the masked convergence test 6n,
+    # and per trial the trial point and its value 6n (an earlier count,
+    # 29n per iteration, took the step's point and value again)
     spec = fused_driver.build_spec(spg("fast"), ls.GLLQuadratic())
     _, _, itk, _, nfevk = fused_driver._launch_cuda(
         spec, obj3, x3, lo3, up3, data3, **kw3)
     bound_ms, bound_by = bound(
         2 * B * n * 4 + 4 * n * 4 + 4 * B * 4,
-        n * (29 * itk.double().sum().item() + 6 * nfevk.double().sum().item()
+        n * (25 * itk.double().sum().item() + 6 * nfevk.double().sum().item()
              + 10 * B))
     log(f"K3 bound at config 3 (fast): {bound_ms:.4f} ms ({bound_by}); "
         f"trials per iteration {nfevk.sum().item() / itk.sum().item():.3f}; "
@@ -1226,11 +1267,14 @@ def driver_slice(dev, card, tensors, sync_time):
         solvers.GradientDescent(grad_tol=c6["tol"]), ls.BackTracking())
     _, _, itk6, _, nfevk6 = fused_driver._launch_cuda(
         spec6, obj6, x6, None, None, (), **kw6)
-    # per iteration (GD + BackTracking): direction n, g.d 2n, step and
-    # value-and-gradient 6n, convergence 2n; per trial 6n
+    # the least work (GD + BackTracking): per iteration the direction n,
+    # g.d 2n, the step's gradient 2n (its point and value are the accepted
+    # trial's) and the convergence test 2n; per trial the trial point and
+    # its value 6n (an earlier count, 11n per iteration, took the step's
+    # point and value again)
     b6, by6 = bound(
         2 * B6 * n6 * 4 + 2 * n6 * 4 + 4 * B6 * 4,
-        n6 * (11 * itk6.double().sum().item()
+        n6 * (7 * itk6.double().sum().item()
               + 6 * nfevk6.double().sum().item() + 4 * B6))
     log(f"K3 bound at config 6: {b6:.4f} ms ({by6}); trials per iteration "
         f"{nfevk6.sum().item() / itk6.sum().item():.3f}; kernel {ms6:.2f} ms"
@@ -2775,6 +2819,175 @@ def dense_fit_slice(dev, card, tensors):
     return errs["K3"], errs["K9"]
 
 
+def layouts_slice(dev, card, tensors):
+    """Phase 34: K3's first-order form (every first-order method with each
+    Armijo-family search it takes) and K8 in each of their layouts
+    (LAYOUT_CHECK's widths: two coordinates a lane, four, the warp's shared
+    memory) against their plain versions, float64 per instance and
+    float32 full solves; the layout each launch took from the kernels'
+    launch reports.  Returns the float64 max |dx| of K3 and of K8."""
+    import torch
+
+    from optimization_solvers_tpu_torch import (linesearch as ls, problems,
+                                                solvers)
+    from optimization_solvers_tpu_torch.ops import fused_driver, fused_spg
+
+    c = LAYOUT_CHECK
+    B = c["B"]
+    obj = problems.weighted_squares()
+    spg = solvers.SpectralProjectedGradient
+    cases = (
+        ("GD + BackTracking", solvers.GradientDescent, ls.BackTracking, {}),
+        ("GD + GLL", solvers.GradientDescent, ls.GLLQuadratic, {}),
+        ("GD + NoSearch", solvers.GradientDescent, ls.NoSearch, {}),
+        ("CD + BackTracking", solvers.CoordinateDescent, ls.BackTracking, {}),
+        ("Pnorm + BackTracking", solvers.PnormDescent, ls.BackTracking, {}),
+        ("PGD + BackTracking", solvers.ProjectedGradientDescent,
+         ls.BackTracking, {}),
+        ("PGD + BackTrackingB", solvers.ProjectedGradientDescent,
+         ls.BackTrackingB, {}),
+        ("SPG (bb1) + GLL", spg, ls.GLLQuadratic, {}),
+        ("SPG (alternate) + GLL", spg, ls.GLLQuadratic,
+         {"bb_variant": "alternate"}),
+        ("SPG + BackTrackingB", spg, ls.BackTrackingB, {}),
+        ("NCG (pr+) + BackTracking", solvers.NonlinearCG, ls.BackTracking,
+         {"variant": "pr+"}),
+    )
+    errs = {"K3": 0.0, "K8": 0.0}
+    for n in c["widths"]:
+        rng = np.random.RandomState(n)
+        starts = rng.uniform(-2.0, 2.0, (B, n))
+        d, t = np.linspace(1.0, 10.0, n), np.linspace(-1.0, 1.0, n)
+        for dtype in (torch.float64, torch.float32):
+            f64 = dtype == torch.float64
+            tol = 1e-6 if f64 else c["tol32"]
+            max_iter = c["iters"] if f64 else c["max_iter"]
+            x0, lo, up = tensors(starts, np.full(n, -0.5), np.full(n, 0.5),
+                                 dtype=dtype)
+            for what, make, search, extra in cases:
+                data = (np.linspace(0.2, 1.8, n) if "NoSearch" in what
+                        else d, t)
+                if make is solvers.PnormDescent:
+                    extra = {"inverse_p": np.diag(1.0 / d) + 1e-3}
+                method = make(grad_tol=tol, **extra)
+                spec = fused_driver.build_spec(method, search())
+                box = (lo, up) if spec.bounded else (None, None)
+                dd = tensors(*data, dtype=dtype)
+                lanes = fused_driver.first_order_info(
+                    dtype, B, n, spec.method, spec.ring)["lane_coordinates"]
+
+                def kernel(iters, spec=spec, box=box, dd=dd):
+                    return fused_driver._launch_cuda(
+                        spec, obj, x0, *box, dd, max_iter=iters,
+                        max_iter_ls=40)
+
+                def plain(iters, ties=None, method=method, search=search,
+                          box=box, dd=dd):
+                    return fused_driver.fused_minimize_plain(
+                        method, search(), obj, x0, *box, dd, max_iter=iters,
+                        max_iter_ls=40, ties=ties)
+
+                errs["K3"] = max(errs["K3"], layout_held(
+                    f"K3 {what}", n, dtype, lanes, B, kernel, plain,
+                    max_iter, card))
+            # K8 on the same inputs in the box
+            kw8 = dict(tol=tol, lam_min=1e-3, lam_max=1e3, gll_m=10, c1=1e-4,
+                       max_iter_ls=30)
+            dd = tensors(d, t, dtype=dtype)
+            lanes = fused_spg.kernel_info(dtype, B, n)["lane_coordinates"]
+
+            def kernel8(iters, dd=dd):
+                return fused_spg._launch_cuda(obj, x0, lo, up, dd,
+                                              max_iter=iters, **kw8)
+
+            def plain8(iters, ties=None, dd=dd):
+                nfev = torch.zeros((B,), dtype=torch.int32, device=dev)
+                xp, fp, itp, stp = fused_spg.spg_solve_plain(
+                    obj, x0, lo, up, dd, max_iter=iters, nfev=nfev,
+                    ties=ties, **kw8)
+                return xp, fp, itp, stp, nfev
+
+            errs["K8"] = max(errs["K8"], layout_held(
+                "K8", n, dtype, lanes, B, kernel8, plain8, max_iter, card))
+    return errs["K3"], errs["K8"]
+
+
+def layout_held(what, n, dtype, lanes, B, kernel, plain, max_iter, card):
+    """Phase 34's check of one kernel against its plain version, each a
+    function of the iteration budget returning ``(x, f, iterations,
+    status, trials)``.  float64 per instance: status equal; iterations and
+    trials equal and x within K3_X_ATOL where f is finite, on every
+    instance whose plain run takes no decision that the order of a sum
+    could flip, and on the others through the iterations before the first
+    such decision (both run again to there).  float32: converged fraction
+    at least CONV_FLOOR and within CONV_ATOL of the plain version's,
+    median iterations and f within MED_IT_RTOL and MED_F_RTOL.  Returns
+    float64's max |dx|."""
+    import torch
+
+    layout = f"{lanes} a lane" if lanes else "shared memory"
+    want = 2 if n <= 64 else (4 if n <= 128 else 0)
+    check(lanes == want, f"{what} at n = {n}: layout {layout}")
+    f64 = dtype == torch.float64
+    x, fk, it, st, nfev = kernel(max_iter)
+    torch.cuda.synchronize()
+    ties = torch.full_like(it, -1) if f64 else None
+    xp, fp, itp, stp, nfevp = plain(max_iter, ties)
+    tied = (ties >= 0) if f64 else torch.zeros_like(st, dtype=torch.bool)
+    fin = torch.isfinite(x).all(-1) & torch.isfinite(xp).all(-1)
+    rows = fin & ~tied
+    err = (x - xp)[rows].abs().max().item() if bool(rows.any()) else 0.0
+    same = [(a == b).float().mean().item()
+            for a, b in ((st, stp), (it, itp), (nfev, nfevp))]
+    conv, cp = ((v == 1).float().mean().item() for v in (st, stp))
+    mi, mip = (v.float().median().item() for v in (it, itp))
+    mf, mfp = fk.median().item(), fp.median().item()
+    log(f"{what}, n = {n} ({layout}), {B} instances, {str(dtype)[6:]}, at "
+        f"most {max_iter} iterations: status / iterations / trials equal "
+        f"{same[0]:.4f} / {same[1]:.4f} / {same[2]:.4f}, max|dx| {err:.3g}"
+        f", converged {conv:.4f} (plain {cp:.4f}), median iterations "
+        f"{mi:.0f} (plain {mip:.0f}), median f {mf:.6g} (plain {mfp:.6g})"
+        f"  [{card}]")
+    if not f64:
+        check(min(conv, cp) >= CONV_FLOOR and abs(conv - cp) <= CONV_ATOL,
+              f"{what} at n = {n} (float32): converged {conv} vs plain {cp}")
+        check(abs(mi - mip) <= MED_IT_RTOL * mip,
+              f"{what} at n = {n} (float32): median iterations {mi} vs "
+              f"plain {mip}")
+        check(abs(mf - mfp) <= MED_F_RTOL * abs(mfp),
+              f"{what} at n = {n} (float32): median f {mf} vs plain {mfp}")
+        return 0.0
+    check(torch.equal(st, stp),
+          f"{what} at n = {n} (float64): status differs per instance")
+    check(bool(((it == itp) & (nfev == nfevp))[~tied].all())
+          and err <= K3_X_ATOL,
+          f"{what} at n = {n} (float64): counts or x differ")
+    check(torch.equal(fin, torch.isfinite(xp).all(-1)),
+          f"{what} at n = {n} (float64): finite where plain is not")
+    apart = ((it != itp) | (nfev != nfevp)
+             | ((x - xp).abs().amax(-1) > K3_X_ATOL))[tied]
+    for k in sorted(set(ties[tied].tolist()) - {0}):
+        # the tied instances through the iterations before their decision
+        held = ties == k
+        xk, _, itk, stk, nfk = kernel(k)
+        torch.cuda.synchronize()
+        xq, _, itq, stq, nfq = plain(k)
+        dk = (xk - xq)[held].abs().max().item()
+        check(all(torch.equal(a[held], b[held]) for a, b in
+                  ((stk, stq), (itk, itq), (nfk, nfq))) and dk <= K3_X_ATOL,
+              f"{what} at n = {n} (float64): an instance whose first tie "
+              f"is at iteration {k + 1} differs before it (max|dx| {dk})")
+        err = max(err, dk)
+    if bool(tied.any()):
+        log(f"{what}, n = {n}: {int(tied.sum())} instances take a decision "
+            f"within the rounding of a sum (first after "
+            f"{int(ties[tied].min())} to {int(ties[tied].max())} "
+            f"iterations), held step for step before it, max|dx| "
+            f"{err:.3g}; {int(apart.sum())} of them take another path "
+            f"after it")
+    return err
+
+
 def conv_atol(p, B):
     """Tolerance on the difference of two converged fractions near ``p``
     over ``B`` instances: CONV_ATOL, or three standard deviations of the
@@ -2851,9 +3064,13 @@ def whole_solve_slice(dev, card, tensors, sync_time):
                 policy="reference", max_iter=c3["max_iter"],
                 max_iter_ls=c3["max_iter_ls"]),
             k3_what='K3 minimize(method="spg", policy="reference")',
-            # projection and step 10n, BB 4n, value-and-gradient 4n; per
-            # trial 4n
-            ops=lambda n, its, tr, upd: its * 18 * n + tr * 4 * n),
+            # the least work: per iteration the direction clip(x - lam g)
+            # - x 5n, g.d 2n, the step's gradient 2n (its point and value
+            # are the accepted trial's), the BB pair and s.y, s.s 6n and
+            # the test |x - clip(x - g)| 6n; per trial the trial point and
+            # its value 6n (an earlier count, 18n and 4n, left out the
+            # trial point and the convergence test)
+            ops=lambda n, its, tr, upd: its * 21 * n + tr * 6 * n),
         "K9": dict(
             name="bfgs_fused", file="bfgs_fused.cu",
             replaces="optimization_solvers_tpu/ops/pallas_bfgs.py:221",

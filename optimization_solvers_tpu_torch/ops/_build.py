@@ -139,6 +139,11 @@ def load() -> ctypes.CDLL:
                 i, i, i, i,              # dtype, n, ring, update kind
                 ctypes.POINTER(i),       # out: 6 ints
             ]
+            lib.driver_first_info.restype = i
+            lib.driver_first_info.argtypes = [
+                i, i, i, i, i,           # dtype, B, n, ring, method
+                ctypes.POINTER(i),       # out: 6 ints
+            ]
             lib.driver_smem_dense.restype = ctypes.c_longlong
             lib.driver_smem_dense.argtypes = [i, i, i, i]
             lib.driver_launch.restype = i
@@ -211,6 +216,11 @@ def load() -> ctypes.CDLL:
             ]
             lib.spg_fused_smem_per_warp.restype = ctypes.c_longlong
             lib.spg_fused_smem_per_warp.argtypes = [i, i, i]
+            lib.spg_fused_info.restype = i
+            lib.spg_fused_info.argtypes = [
+                i, i, i, i,              # dtype, B, n, gll_m
+                ctypes.POINTER(i),       # out: 6 ints
+            ]
             lib.spg_fused_launch.restype = i
             lib.spg_fused_launch.argtypes = [
                 i, i,                    # dtype, objective

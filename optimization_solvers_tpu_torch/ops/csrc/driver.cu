@@ -1,9 +1,10 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a): its C interface and its
-// first-order form.  The kernel, its design and what bounds it are
-// described in driver.cuh; the quasi-Newton form is built in driver_qn.cu,
-// the dense form in driver_dense.cu, the Newton form in driver_newton.cu.
+// first-order form (driver_first.cuh).  The kernel template, its other
+// forms' design and what bounds them are described in driver.cuh; the
+// quasi-Newton form is built in driver_qn.cu, the dense form in
+// driver_dense.cu, the Newton form in driver_newton.cu.
 
-#include "driver.cuh"
+#include "driver_first.cuh"
 
 using namespace ost_driver;
 
@@ -82,11 +83,43 @@ int run(int objective, const void* x0, const void* lo, const void* up,
   if (newton) return launch_newton<T>(prm, objective, s);
   if (dense_method(prm.method)) return launch_dense<T>(prm, objective, s);
   if (qn_form(prm.method, prm.search)) return launch_qn<T>(prm, objective, s);
-  if (objective == kRosenbrock) return launch<T, Rosenbrock<T>, kFirstOrderForm>(prm, s);
-  return launch<T, WeightedSquares<T>, kFirstOrderForm>(prm, s);
+  if (objective == kRosenbrock) return launch_first<T, Rosenbrock<T>>(prm, s);
+  return launch_first<T, WeightedSquares<T>>(prm, s);
 }
 
 }  // namespace
+
+// The launch of the first-order form for the weighted-squares functor at
+// batch B and width n with a GLL ring of `ring` and method code `method`:
+// out[0] warps (instances) per block, [1] resident blocks per SM (the
+// occupancy calculator), [2] registers and [3] local bytes a thread, [4]
+// dynamic shared memory per block, [5] the coordinates a lane holds in
+// registers (0: the shared-memory layout).
+extern "C" int driver_first_info(int dtype, int B, int n, int ring, int method, int* out) {
+  if (B < 1 || n < 1 || ring < 0 || out == nullptr) return kErrArgs;
+  auto info = [&](auto zero) {
+    using T = decltype(zero);
+    Params<T> prm{};
+    prm.B = B;
+    prm.n = n;
+    prm.ring = ring;
+    prm.method = method;
+    return first_order_info_for<T>(prm, out);
+  };
+  if (dtype == 0) return info(0.0f);
+  if (dtype == 1) return info(0.0);
+  return kErrArgs;
+}
+
+#ifdef K3_PROFILE
+extern "C" int k3_fo_prof_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, k3_prof, sizeof(unsigned long long) * 32);
+}
+extern "C" int k3_fo_prof_reset() {
+  const unsigned long long z[32] = {0};
+  return (int)cudaMemcpyToSymbol(k3_prof, z, sizeof(z));
+}
+#endif
 
 extern "C" long long driver_smem_per_warp(int n, int ring, int m, int elem_size) {
   return work_elems(n, ring, m, elem_size) * (long long)elem_size;

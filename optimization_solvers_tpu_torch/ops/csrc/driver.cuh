@@ -1,10 +1,11 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a), one warp per instance
 // (the block forms: one block): the kernel template, shared by driver.cu
-// (the first-order form and the C interface), driver_qn.cu (the
-// quasi-Newton form), driver_dense.cu (the dense form) and driver_newton.cu
-// (the Newton form).  The forms are compiled in separate sources, so that
-// they build in parallel and the compiler's choices for one form (inlining
-// of the objective, registers) do not depend on another form's code.  The
+// (the C interface, and the first-order form, whose kernel of its own is
+// in driver_first.cuh), driver_qn.cu (the quasi-Newton and Wolfe forms),
+// driver_dense.cu (the dense form) and driver_newton.cu (the Newton form).
+// The forms are compiled in separate sources, so that they build in
+// parallel and the compiler's choices for one form (inlining of the
+// objective, registers) do not depend on another form's code.  The
 // first-order and quasi-Newton forms compile the Rosenbrock and
 // WeightedSquares functors, the Newton form these and Quadratic, with
 // their Hessians (objectives.cuh).
@@ -21,11 +22,7 @@
 // in ../fused_driver.py; the two are held against each other on the card.
 //
 // What bounds it on this card.  The first-order form: latency, not bytes
-// or FLOPs.  Per iteration an instance does a few elementwise passes over
-// its n coordinates, each ending in a warp reduction (five shuffles), plus
-// the search's trial evaluations and one value-and-gradient at the
-// accepted point; enough warps per SM hide one another's latency.  The
-// quasi-Newton form: latency too.  L-BFGS at chip_smoke.py's inputs (1,024
+// or FLOPs (driver_first.cuh).  The quasi-Newton form: latency too.  L-BFGS at chip_smoke.py's inputs (1,024
 // instances, one wave of about 8 warps per SM) lasts as long as its
 // slowest instance's chain of dependent shuffles, shared-memory loads and
 // divisions, iteration after iteration; the two-loop recursion alone put
@@ -139,9 +136,7 @@
 //    holds s and XT holds y;
 //  * the method and the search are runtime, grid-uniform switches on
 //    integer codes; the template axes are dtype x objective x form: the
-//    first-order form (the first-order methods with the Armijo-family
-//    searches, in driver.cu), the quasi-Newton form (L-BFGS with every
-//    search) and the Wolfe form (the first-order methods with the
+//    quasi-Newton form (L-BFGS with every search) and the Wolfe form (the first-order methods with the
 //    Wolfe-family searches: the same code without L-BFGS's, so that its
 //    registers do not cost those methods resident warps), both in
 //    driver_qn.cu, the dense form (QN and QNB with every search, in driver_dense.cu) and
@@ -168,20 +163,22 @@
 #include "dense_slab.cuh"
 #include "objectives.cuh"
 
-// Phase counters of the dense form (QN, QNB) and the quasi-Newton form,
-// compiled in only with -DK3_PROFILE (tools/k3_phase_profile.py builds such
-// a copy; the kernel as shipped has none).  Lane 0 of the instance's warp
-// adds the clock64 cycles of every iteration's phases to k3_prof[0..5] (the
-// phases in that tool's PHASES order for the dense form, QN_PHASES for the
-// quasi-Newton form, which uses [0..4]); [6] counts instance-iterations,
-// [7] search trials, [8] instances, [9] the dense form's updates of the
-// slab and the quasi-Newton form's steps that kept the accepted trial's
-// evaluation, [10] the cycles of whole instances (set-up and epilogue
-// included).  Each source that builds a form has its own copy; the sources
-// of the dense and the quasi-Newton forms read theirs.
+// Phase counters of the dense form (QN, QNB), the quasi-Newton form and
+// the first-order form, compiled in only with -DK3_PROFILE
+// (tools/k3_phase_profile.py builds such a copy; the kernel as shipped has
+// none).  Lane 0 of the instance's warp adds the clock64 cycles of every
+// iteration's phases to k3_prof[0..5] (the phases in that tool's PHASES
+// order for the dense form, QN_PHASES for the quasi-Newton form, which uses
+// [0..4], FO_PHASES for the first-order form, which uses [0..3], [5] and
+// [11]); [6] counts instance-iterations, [7] search trials, [8] instances,
+// [9] the dense form's updates of the slab and the other forms' steps that
+// kept the accepted trial's evaluation, [10] the cycles of whole instances
+// (set-up and epilogue included), and the first-order form's [16 + k] the
+// iterations that made k trials (k = 15: 15 or more).  Each source that
+// builds a form has its own copy; the sources of the forms read theirs.
 #ifdef K3_PROFILE
 namespace {
-__device__ unsigned long long k3_prof[16];
+__device__ unsigned long long k3_prof[32];
 }
 #define K3_PROF(...) __VA_ARGS__
 #else
@@ -220,10 +217,10 @@ enum MethodCode {
   kQNB = 7, kLBFGS = 8, kNewton = 9, kPN = 10, kSPN = 11
 };
 // the template's forms.  The Wolfe form is the quasi-Newton form without
-// L-BFGS's code, for the first-order methods with a Wolfe-family search
-enum Form {
-  kFirstOrderForm = 0, kQnForm = 1, kNewtonForm = 2, kDenseForm = 3, kWolfeForm = 4
-};
+// L-BFGS's code, for the first-order methods with a Wolfe-family search;
+// the first-order methods with an Armijo-family search run in the
+// first-order form, driver_first.cuh's kernel, not one of this template
+enum Form { kQnForm = 1, kNewtonForm = 2, kDenseForm = 3, kWolfeForm = 4 };
 enum SearchCode {
   kNoSearch = 0, kBT = 1, kBTB = 2, kGLL = 3, kMT = 4, kMTB = 5, kHZ = 6,
   kHZB = 7, kSW = 8
@@ -290,11 +287,11 @@ constexpr int kLaneM = kWarp;
 constexpr int kStepSlots = 4;
 constexpr int kUnroll = 4;      // coordinates a lane of the direction's pass holds
 
-// a warp's shared memory in the first-order and quasi-Newton forms: X, G,
-// GN, D, XT, GP, DP, the GLL ring, L-BFGS's S and Y and by slot VAL and
-// rho (the two-loop) or S^T g (the compact form), the two-loop's alphas or
-// Y^T g; the compact form adds u and p by slot and the tables S^T Y and
-// Y^T Y
+// a warp's shared memory in the quasi-Newton and Wolfe forms: X, G, GN, D,
+// XT, GP, DP, the GLL ring, L-BFGS's S and Y and by slot VAL and rho (the
+// two-loop) or S^T g (the compact form), the two-loop's alphas or Y^T g;
+// the compact form adds u and p by slot and the tables S^T Y and Y^T Y.
+// At m = 0, 7 n + ring: the first-order form's shared layout too
 __host__ __device__ inline long long two_loop_elems(int n, int ring, int m) {
   return 7LL * n + ring + 2LL * m * n + 3LL * m;
 }
@@ -776,7 +773,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     return small;
   };
 
-  K3_PROF(long long prof_acc[15] = {0}; long long prof_t = clock64(); long long sub_t = 0;
+  K3_PROF(long long prof_acc[32] = {0}; long long prof_t = clock64(); long long sub_t = 0;
           const long long prof_t0 = prof_t;
           const bool prof_on = kDense || kQn;)
   bool active = isfinite(Fv) && !converged();
@@ -1129,7 +1126,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
           t = t * prm.beta;
         }
       }
-    } else if constexpr (kForm != kFirstOrderForm) {
+    } else {
       // the Wolfe family: value-and-gradient trials.  phi: value and
       // directional derivative at X + t D (trial point in XT, its gradient
       // in GN)
@@ -1535,22 +1532,20 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
       ss = warp_sum(ss);
       yy = warp_sum(yy);
     } else {
-      if constexpr (kForm != kFirstOrderForm) {
-        if (method >= kQN) {
-          for (int i = lane; i < n; i += kWarp) {
-            const T s = XT[i] - X[i], y = GN[i] - G[i];
-            GP[i] = s;
-            DP[i] = y;
-            sy += s * y;
-            ss += s * s;
-            yy += y * y;
-            moved = moved || s != T(0);
-          }
-          sy = warp_sum(sy);
-          ss = warp_sum(ss);
-          yy = warp_sum(yy);
-          moved = __any_sync(kFull, moved);
+      if (method >= kQN) {
+        for (int i = lane; i < n; i += kWarp) {
+          const T s = XT[i] - X[i], y = GN[i] - G[i];
+          GP[i] = s;
+          DP[i] = y;
+          sy += s * y;
+          ss += s * s;
+          yy += y * y;
+          moved = moved || s != T(0);
         }
+        sy = warp_sum(sy);
+        ss = warp_sum(ss);
+        yy = warp_sum(yy);
+        moved = __any_sync(kFull, moved);
       }
       for (int i = lane; i < n; i += kWarp) {
         if (method == kNCG) {
@@ -1712,7 +1707,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     prof_acc[7] = nfev;
     prof_acc[8] = 1;
     prof_acc[10] = clock64() - prof_t0;
-    for (int k = 0; k < 15; ++k) atomicAdd(&k3_prof[k], (unsigned long long)prof_acc[k]);
+    for (int k = 0; k < 32; ++k) atomicAdd(&k3_prof[k], (unsigned long long)prof_acc[k]);
   })
   if constexpr (kBlock) {
     __syncwarp();
@@ -1723,7 +1718,7 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
   }
 }
 
-// the first-order and quasi-Newton forms: one warp per instance, up to
+// the quasi-Newton and Wolfe forms: one warp per instance, up to
 // kMaxWarpsPerBlock instances per block
 template <typename T, class Obj, int kForm>
 __global__ void __launch_bounds__(kWarp * kMaxWarpsPerBlock)

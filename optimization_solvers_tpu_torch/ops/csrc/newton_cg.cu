@@ -63,6 +63,7 @@
 // butterflies, so every branch is warp-uniform.
 
 #include "common.cuh"
+#include "lanes.cuh"
 #include "objectives.cuh"
 
 // Phase counters, compiled in only with -DK4_PROFILE (tools/k4_phase_profile.py
@@ -104,84 +105,9 @@ constexpr int kRegN = K4_REG_N;
 constexpr int kE = kRegN > 0 ? kRegN / kWarp : 1;   // coordinates a lane holds
 static_assert(kRegN % kWarp == 0 && kRegN <= 4 * kWarp, "K4_REG_N");
 
-// ---- where an instance's vectors live.  A layout gives the coordinates
-// lane `lane` holds (slots e < count, coordinate index(lane, e)), a vector
-// type indexed by slot, its neighbours' values (next / prev: slot e holds
-// coordinate index + 1 / index - 1; read only where that coordinate
-// exists) and the barrier a write needs before another lane reads it.
-
-// lane l holds coordinates kE l + e in registers; a slot past n holds 0
-// and is never written or summed
-struct InRegs {
-  static constexpr bool kRegs = true;
-  template <typename T> struct Vec {
-    T a[kE];
-    __device__ __forceinline__ T& operator[](int e) { return a[e]; }
-    __device__ __forceinline__ const T& operator[](int e) const { return a[e]; }
-  };
-  __host__ __device__ static constexpr long long work_elems(int) { return 0; }
-  __device__ static constexpr int count(int, int) { return kE; }
-  __device__ static int index(int lane, int e) { return lane * kE + e; }
-  __device__ static void sync() {}
-  template <typename T> __device__ static Vec<T> alloc(T*&, int, int) { return Vec<T>{}; }
-  template <typename T> __device__ static Vec<T> load(const T* src, int n, int lane) {
-    Vec<T> v{};
-#pragma unroll
-    for (int e = 0; e < kE; ++e)
-      if (index(lane, e) < n) v[e] = src[index(lane, e)];
-    return v;
-  }
-  template <typename T> __device__ static Vec<T> next(const Vec<T>& v, int lane) {
-    Vec<T> o;
-#pragma unroll
-    for (int e = 0; e + 1 < kE; ++e) o[e] = v[e + 1];
-    o[kE - 1] = __shfl_sync(kFull, v[0], lane + 1);
-    return o;
-  }
-  template <typename T> __device__ static Vec<T> prev(const Vec<T>& v, int lane) {
-    Vec<T> o;
-    o[0] = __shfl_sync(kFull, v[kE - 1], lane - 1);
-#pragma unroll
-    for (int e = 1; e < kE; ++e) o[e] = v[e - 1];
-    return o;
-  }
-};
-
-// coordinate i on lane i % 32, each vector n elements of the warp's shared
-// memory (a Vec points at the lane's first coordinate)
-struct InShared {
-  static constexpr bool kRegs = false;
-  template <typename T> struct Vec {
-    T* p;
-    __device__ __forceinline__ T& operator[](int e) const { return p[e * kWarp]; }
-  };
-  __host__ __device__ static constexpr long long work_elems(int n) { return 8LL * n; }
-  __device__ static int count(int n, int lane) { return (n - lane + kWarp - 1) / kWarp; }
-  __device__ static int index(int lane, int e) { return lane + kWarp * e; }
-  __device__ static void sync() { __syncwarp(); }
-  template <typename T> __device__ static Vec<T> alloc(T*& work, int n, int lane) {
-    Vec<T> v{work + lane};
-    work += n;
-    return v;
-  }
-  template <typename T> __device__ static Vec<const T> load(const T* src, int, int lane) {
-    return Vec<const T>{src + lane};
-  }
-  template <typename T> __device__ static Vec<T> next(const Vec<T>& v, int) { return Vec<T>{v.p + 1}; }
-  template <typename T> __device__ static Vec<T> prev(const Vec<T>& v, int) { return Vec<T>{v.p - 1}; }
-};
-
-#define K4_FOR(L, e, i)                                  \
-  _Pragma("unroll") for (int e = 0; e < L::count(n, lane); ++e) \
-    if (const int i = L::index(lane, e); i < n)
-
-// slot e's neighbourhood as objectives.cuh's accessors read it: v(d) is
-// the value at coordinate i + d, from v and its neighbour views vn, vp
-// (L::next, L::prev)
-template <class V>
-__device__ __forceinline__ auto slot_at(const V& v, const V& vn, const V& vp, int e) {
-  return [&v, &vn, &vp, e](int d) { return d == 0 ? v[e] : d > 0 ? vn[e] : vp[e]; };
-}
+// ---- where an instance's vectors live (lanes.cuh): InRegs, lane l
+// holding coordinates kE l + e in registers, or InShared
+struct InRegs : LanesInRegs<kE> {};
 
 // what InRegs keeps of the Hessian for one Newton step: the diagonal and
 // (Rosenbrock) the couplings H_{i,i+1}, with x_{i-1} of slot 0 (the
@@ -235,14 +161,14 @@ template <typename T> struct K4Eval<T, Rosenbrock<T>> {
   __device__ static T value_grad(const Obj&, const V& x, V& g, int n, int lane, T& extra) {
     const V xn = L::next(x, lane), xp = L::prev(x, lane);
     T s = 0;
-    K4_FOR(L, e, i) g[e] = Obj::grad_at(slot_at(x, xn, xp, e), i, n, s);
+    LANES_FOR(L, e, i) g[e] = Obj::grad_at(slot_at(x, xn, xp, e), i, n, s);
     return with_extra(s, extra, lane);
   }
   template <class L, class V>
   __device__ static void prepare(const Obj&, Coefs<L, T>& c, const V& x, int n, int lane) {
     if constexpr (L::kRegs) {
       const V xn = L::next(x, lane), xp = L::prev(x, lane);
-      K4_FOR(L, e, i) {
+      LANES_FOR(L, e, i) {
         c.diag[e] = Obj::hess_diag_at(slot_at(x, xn, xp, e), i, n);
         c.up[e] = Obj::hess_off(x[e]);
       }
@@ -253,7 +179,7 @@ template <typename T> struct K4Eval<T, Rosenbrock<T>> {
   __device__ static void product(const Obj&, const Coefs<L, T>& c, const V& x, const V& p,
                                  V& q, const V& fr, int n, int lane, T& pq, T& pp) {
     const V pn = L::next(p, lane), pv = L::prev(p, lane);
-    K4_FOR(L, e, i) {
+    LANES_FOR(L, e, i) {
       const auto pe = slot_at(p, pn, pv, e);
       T o;
       if constexpr (L::kRegs) {
@@ -277,19 +203,19 @@ template <typename T> struct K4Eval<T, WeightedSquares<T>> {
   template <class L, class V>
   __device__ static T value_grad(const Obj& obj, const V& x, V& g, int n, int lane, T& extra) {
     T s = 0;
-    K4_FOR(L, e, i) g[e] = obj.grad_at(x[e], i, s);
+    LANES_FOR(L, e, i) g[e] = obj.grad_at(x[e], i, s);
     return T(0.5) * with_extra(s, extra, lane);
   }
   template <class L, class V>
   __device__ static void prepare(const Obj& obj, Coefs<L, T>& c, const V&, int n, int lane) {
     if constexpr (L::kRegs) {
-      K4_FOR(L, e, i) c.diag[e] = obj.hess_diag_at(i);
+      LANES_FOR(L, e, i) c.diag[e] = obj.hess_diag_at(i);
     }
   }
   template <class L, class V>
   __device__ static void product(const Obj& obj, const Coefs<L, T>& c, const V&, const V& p,
                                  V& q, const V& fr, int n, int lane, T& pq, T& pp) {
-    K4_FOR(L, e, i) {
+    LANES_FOR(L, e, i) {
       T h;
       if constexpr (L::kRegs) h = c.diag[e];
       else h = obj.hess_diag_at(i);
@@ -315,7 +241,7 @@ template <typename T> struct K4Eval<T, Quadratic<T>> {
   __device__ static void product(const Obj& obj, const Coefs<L, T>&, const V& x, const V& p,
                                  V& q, const V& fr, int n, int lane, T& pq, T& pp) {
     obj.hvp(&x[0] - lane, &p[0] - lane, &q[0] - lane, n, lane);
-    K4_FOR(L, e, i) masked(q[e], p, q, fr, e, pq, pp);
+    LANES_FOR(L, e, i) masked(q[e], p, q, fr, e, pq, pp);
   }
 };
 
@@ -370,7 +296,7 @@ newton_cg_kernel(const K4Params<T> prm) {
   const Obj obj{prm.d0, prm.d1};
 
   const T* x0 = prm.x0 + (long long)inst * n;
-  K4_FOR(L, e, i) X[e] = jclip(x0[i], LO[e], UP[e]);
+  LANES_FOR(L, e, i) X[e] = jclip(x0[i], LO[e], UP[e]);
   L::sync();
   T none = 0;
   T F = E::template value_grad<L>(obj, X, G, n, lane, none);
@@ -382,7 +308,7 @@ newton_cg_kernel(const K4Params<T> prm) {
   // max_i |x_i - P(x - g)_i| (pallas_newton_cg.py:98-100)
   auto pg_inf = [&]() -> T {
     T mx = 0;
-    K4_FOR(L, e, i) mx = jmax(mx, (T)fabs(X[e] - jclip(X[e] - G[e], LO[e], UP[e])));
+    LANES_FOR(L, e, i) mx = jmax(mx, (T)fabs(X[e] - jclip(X[e] - G[e], LO[e], UP[e])));
     return warp_max(mx);
   };
   auto converged = [&](T pg) -> bool {
@@ -398,7 +324,7 @@ newton_cg_kernel(const K4Params<T> prm) {
     // subspace (pallas_newton_cg.py:126-202)
     const T w = jmin(pg, T(1e-2));
     T gn2 = 0;
-    K4_FOR(L, e, i) {
+    LANES_FOR(L, e, i) {
       const T g = G[e];
       const bool act = (X[e] - LO[e] <= w && g > T(0)) || (UP[e] - X[e] <= w && g < T(0));
       const T fr = act ? T(0) : T(1);
@@ -434,7 +360,7 @@ newton_cg_kernel(const K4Params<T> prm) {
       const bool restart = negc && steps == 0;
       const T alpha = negc ? T(0) : rr / pq;
       T rn = 0;
-      K4_FOR(L, e, i) {
+      LANES_FOR(L, e, i) {
         const T dv = restart ? -(G[e] * FR[e]) : D[e];
         D[e] = dv + alpha * P[e];
         const T r = R[e] + alpha * Q[e];
@@ -446,7 +372,7 @@ newton_cg_kernel(const K4Params<T> prm) {
       K4_PHASE(3);
       if (!negc) {
         const T beta = rr_new / jmax(rr, prm.eps);
-        K4_FOR(L, e, i) P[e] = -R[e] + beta * P[e];
+        LANES_FOR(L, e, i) P[e] = -R[e] + beta * P[e];
         rr = rr_new;
         ++steps;
       }
@@ -457,7 +383,7 @@ newton_cg_kernel(const K4Params<T> prm) {
     // epsilon-active coordinates move along -g; a zero direction falls back
     // to -g
     T dn = 0;
-    K4_FOR(L, e, i) {
+    LANES_FOR(L, e, i) {
       const T d = FR[e] > T(0) ? D[e] : -G[e];
       D[e] = d;
       dn += d * d;
@@ -466,7 +392,7 @@ newton_cg_kernel(const K4Params<T> prm) {
     const bool zero = !(warp_sum(dn) > T(0));
     K4_PHASE(3);
     if (zero) {
-      K4_FOR(L, e, i) D[e] = -G[e];
+      LANES_FOR(L, e, i) D[e] = -G[e];
     }
     K4_PHASE(1);
 
@@ -478,7 +404,7 @@ newton_cg_kernel(const K4Params<T> prm) {
     for (int k = 0; k < prm.max_iter_ls && !taken; ++k) {
       T gs = 0;
       fin = true;
-      K4_FOR(L, e, i) {
+      LANES_FOR(L, e, i) {
         const T xt = jclip(X[e] + t * D[e], LO[e], UP[e]);
         XT[e] = xt;
         gs += G[e] * (xt - X[e]);
@@ -501,7 +427,7 @@ newton_cg_kernel(const K4Params<T> prm) {
     // advances only then
     if (!taken) {
       fin = true;
-      K4_FOR(L, e, i) {
+      LANES_FOR(L, e, i) {
         const T xn = jclip(X[e] + t * D[e], LO[e], UP[e]);
         XT[e] = xn;
         fin = fin && isfinite(xn);
@@ -530,7 +456,7 @@ newton_cg_kernel(const K4Params<T> prm) {
   const bool conv = converged(pg_inf());
   const bool finite = isfinite(F);
   const int status = (conv && finite) ? 1 : (!finite ? 3 : 2);
-  K4_FOR(L, e, i) prm.x_out[(long long)inst * n + i] = X[e];
+  LANES_FOR(L, e, i) prm.x_out[(long long)inst * n + i] = X[e];
   if (lane == 0) {
     prm.f_out[inst] = F;
     prm.it_out[inst] = iters;

@@ -25,8 +25,10 @@
 // expressions in the same order.
 //
 // Rosenbrock's and WeightedSquares' expressions at one coordinate are their
-// `_at` members, which every loop here calls; K4 (newton_cg.cu), which
-// holds a lane's coordinates in registers, calls the same members.  A
+// `_at` members (WeightedSquares' grad_of from the coordinate's data), which
+// every loop here calls; K4 (newton_cg.cu), K3's first-order form and K8
+// (through lanes.cuh), which hold a lane's coordinates in registers, call
+// the same members.  A
 // coordinate's neighbours come through an accessor: x(d) is x_{i+d} for d
 // = -1, 0, 1, read only where that coordinate exists (x(1) where i < n - 1,
 // x(-1) where i > 0); `in_memory` makes one for a vector in memory.
@@ -135,13 +137,15 @@ template <typename T> struct Rosenbrock {
 template <typename T> struct WeightedSquares {
   const T* d0;
   const T* d1;
-  // g_i = d_i (x_i - t_i), adding d_i (x_i - t_i)^2 to s
-  __device__ T grad_at(T xi, int i, T& s) const {
-    const T r = xi - d1[i];
-    const T gi = d0[i] * r;
+  // g_i = d_i (x_i - t_i) from the coordinate's data d_i and t_i, adding
+  // d_i (x_i - t_i)^2 to s
+  __device__ static T grad_of(T xi, T di, T ti, T& s) {
+    const T r = xi - ti;
+    const T gi = di * r;
     s += gi * r;
     return gi;
   }
+  __device__ T grad_at(T xi, int i, T& s) const { return grad_of(xi, d0[i], d1[i], s); }
   // H_ii = d_i, the whole Hessian's only non-zero in row i
   __device__ T hess_diag_at(int i) const { return d0[i]; }
   __device__ T value(const T* x, int n, int lane) const {

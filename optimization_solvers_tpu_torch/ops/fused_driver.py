@@ -40,9 +40,11 @@ or outside case 4 are not made, so ``nfev`` counts fewer, and every step
 is the same.
 
 :func:`fused_minimize` takes the plain version for a CPU ``x0`` and
-launches ``csrc/driver.cu`` (the kernel template in ``csrc/driver.cuh``,
-the quasi-Newton form built in ``csrc/driver_qn.cu``, the dense form of QN
-and QNB in ``csrc/driver_dense.cu``, the Newton form in
+launches ``csrc/driver.cu`` (the first-order form's kernel in
+``csrc/driver_first.cuh`` on the lane layouts of ``csrc/lanes.cuh``, the
+kernel template of the other forms in ``csrc/driver.cuh``, the
+quasi-Newton form built in ``csrc/driver_qn.cu``, the dense form of QN and
+QNB in ``csrc/driver_dense.cu``, the Newton form in
 ``csrc/driver_newton.cu``) for a CUDA ``x0``; it never falls back from one
 to the other.  The dense form runs one block per instance and keeps the
 instance's slab (``csrc/dense_slab.cuh``: the packed upper triangle of the
@@ -317,6 +319,29 @@ def fits(n: int, ring: int, itemsize: int, m: int = 0,
          method: Optional[int] = None) -> bool:
     """Whether an instance of width ``n`` fits a block's shared memory."""
     return smem_per_instance(n, ring, itemsize, m, method) <= SMEM_PER_BLOCK
+
+
+def first_order_info(dtype, B, n, method, ring=0):
+    """The launch of K3's first-order form for a ``(B, n)`` batch of
+    ``dtype``, method code ``method`` and a GLL ring of ``ring`` (the
+    weighted-squares functor's kernel, in the layout n takes and of the
+    method's class) and its compiled resources: warps per block, resident
+    blocks and warps per SM (the card's occupancy calculator), registers
+    and local (spill) bytes per thread, dynamic shared memory per block,
+    and the coordinates a lane holds in registers (0: the shared-memory
+    layout)."""
+    from . import _build
+
+    out = (ctypes.c_int * 6)()
+    rc = _build.load().driver_first_info(
+        1 if dtype == torch.float64 else 0, B, n, ring, method, out)
+    if rc != 0:
+        raise RuntimeError(f"driver_first_info failed: "
+                           f"{_build.error_string(rc)} (code {rc})")
+    wpb, blocks, regs, local, smem, lanes = list(out)
+    return dict(warps_per_block=wpb, blocks_per_sm=blocks,
+                warps_per_sm=wpb * blocks, registers=regs, local_bytes=local,
+                smem_per_block=smem, lane_coordinates=lanes)
 
 
 def _check_fits(n, ring, itemsize, m=0, method=None):
@@ -650,10 +675,21 @@ def _matvec(Bm, v, transpose=False):
 
 
 def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
-                 max_iter_ls):
+                 max_iter_ls, ties=None):
     B, n = x0.shape
     dt = x0.dtype
     dev = x0.device
+    # the rounding bound of a sum of n terms in any order (n - 1 roundings
+    # of at most eps / 2 of the sum of their magnitudes), with room for the
+    # terms' own roundings
+    tie_eps = (n + 2) * torch.finfo(dt).eps
+
+    def note_ties(live, gap, scale):
+        """Where a live instance's decision ``gap <= 0`` (or ``< 0``) lies
+        within ``tie_eps * scale`` of flipping, and ``ties`` has no entry
+        yet, enter the iterations it has completed."""
+        near = live & (torch.abs(gap) <= tie_eps * scale) & (ties < 0)
+        ties.copy_(torch.where(near, iters, ties))
     bvg = batched_value_and_grad(f, consts)
     bval = batched_value(f, consts)
     method, search = spec.method, spec.search
@@ -818,7 +854,10 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             period = spec.restart_every if spec.restart_every > 0 else n
             periodic = ks >= period
             d = -G + torch.where(periodic, 0.0, beta)[:, None] * Dp
-            descent = torch.sum(G * d, dim=-1) < 0.0
+            gd = torch.sum(G * d, dim=-1)
+            if ties is not None:
+                note_ties(active, gd, torch.sum(torch.abs(G * d), dim=-1))
+            descent = gd < 0.0
             d = torch.where(descent[:, None], d, -G)
             ks = torch.where(active & (periodic | ~descent), 0, ks)
             return d
@@ -856,6 +895,8 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         if search == GLL:
             fhist = torch.cat([fhist[:, 1:], Fv[:, None]], dim=1)
             f_ref = torch.amax(fhist, dim=-1)
+        if ties is not None:
+            gd_abs = torch.sum(torch.abs(G * d), dim=-1)
         done = ~active
         for _ in range(max_iter_ls):
             if bool(done.all()):
@@ -867,9 +908,18 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             nfev.add_((~done).to(torch.int32))
             if search == BTB:
                 diff = xt - X
-                ok = ft - Fv <= (-spec.c1 / t) * torch.sum(diff * diff, -1)
+                rhs = (-spec.c1 / t) * torch.sum(diff * diff, -1)
+                ok = ft - Fv <= rhs
             else:
-                ok = ft - f_ref <= spec.c1 * t * g0d
+                rhs = spec.c1 * t * g0d
+                ok = ft - f_ref <= rhs
+            if ties is not None:
+                ref = Fv if search == BTB else f_ref
+                # BackTrackingB's sum has terms of one sign: |rhs| is theirs
+                rhs_mags = (rhs.abs() if search == BTB
+                            else spec.c1 * t * gd_abs)
+                note_ties(~done & torch.isfinite(ft), ft - ref - rhs,
+                          ft.abs() + ref.abs() + rhs_mags)
             keep = done | (ok & torch.isfinite(ft))
             if search == GLL:
                 t_half = t * 0.5
@@ -1048,17 +1098,29 @@ def _solve_plain(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
 
 
 def fused_minimize_plain(method, line_search, f, x0, lower=None, upper=None,
-                         consts=(), *, max_iter=1000, max_iter_ls=32):
+                         consts=(), *, max_iter=1000, max_iter_ls=32,
+                         ties=None):
     """K3's algorithm in plain batched PyTorch, on x0's device.
 
     Arguments as :func:`fused_minimize`.  Returns ``(x, f, iterations,
     status, nfev)`` without the epilogue; ``nfev`` counts each instance's
     trial evaluations (value only in the Armijo family, value and gradient
-    in the Wolfe family)."""
+    in the Wolfe family).
+
+    ``ties``, where given, is an int32 (B,) tensor filled with -1.  An
+    instance whose run takes a decision that the order of a sum could
+    flip gets there the iterations it had completed before the first
+    such decision: an Armijo-family test (NoSearch has none) or NCG's
+    descent test whose two sides lie within (n + 2) eps times the sum of
+    the magnitudes they add up, which bounds the rounding of any order of
+    summation (a bound on f where its terms share one sign, as the
+    weighted squares' and Rosenbrock's do).  Another implementation, such
+    as a kernel whose lanes sum in another order, may take such a
+    decision the other way and follow another path from there."""
     spec = _spec_for(method, line_search)
     _check_bounds(spec, method, lower, upper)
     return _solve_plain(spec, f, x0, lower, upper, tuple(consts), max_iter,
-                        max_iter_ls)
+                        max_iter_ls, ties)
 
 
 def _slots(spec: K3Spec, dtype):

@@ -88,18 +88,33 @@ def as_device_batch(x0):
     return as_batch(x0)
 
 
-def armijo_steps(bval, X, d, fref, g0d, active, c1, max_iter_ls):
+def armijo_steps(bval, X, d, fref, g0d, active, c1, max_iter_ls, nfev=None,
+                 ties=None, iters=None):
     """Value-only Armijo backtracking: per instance t halves from 1 until
     ``f(X + t d) <= fref + c1 t g0d`` with a finite trial value, for at most
     ``max_iter_ls`` trials; a rejected last trial leaves the halved t.
-    Instances not ``active`` keep ``t = 1`` and take no trial."""
+    Instances not ``active`` keep ``t = 1`` and take no trial.  Each
+    instance's trials are added to the int32 tensor ``nfev`` where one is
+    given.  Where ``ties`` (int32, -1 where unset) is given, an instance
+    whose test's two sides lie within (n + 2) eps (|f_t| + |fref| + c1 t
+    |g0d|) gets ``iters`` there, as ``fused_driver.fused_minimize_plain``'s
+    ``ties`` does (|g0d| is the sum of the magnitudes of its terms where
+    they share one sign, as they do for a projected gradient step)."""
     t = torch.ones_like(fref)
     done = ~active
+    tie_eps = (X.shape[-1] + 2) * torch.finfo(X.dtype).eps
     for _ in range(max_iter_ls):
         if bool(done.all()):
             break
+        if nfev is not None:
+            nfev.add_((~done).to(torch.int32))
         fv_t = bval(X + t[:, None] * d)
         ok = (fv_t <= fref + c1 * t * g0d) & torch.isfinite(fv_t)
+        if ties is not None:
+            scale = fv_t.abs() + fref.abs() + c1 * t * g0d.abs()
+            near = (~done & torch.isfinite(fv_t) & (ties < 0)
+                    & ((fv_t - fref - c1 * t * g0d).abs() <= tie_eps * scale))
+            ties.copy_(torch.where(near, iters, ties))
         keep = done | ok
         t = torch.where(keep, t, t * 0.5)
         done = keep

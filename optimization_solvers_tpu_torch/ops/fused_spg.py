@@ -51,12 +51,38 @@ def smem_per_instance(n: int, gll_m: int, itemsize: int) -> int:
     return (7 * n + gll_m) * itemsize
 
 
+def kernel_info(dtype, B, n, gll_m=10):
+    """The CUDA kernel's launch for a ``(B, n)`` batch of ``dtype`` with a
+    GLL history of ``gll_m`` (the weighted-squares functor's kernel, in the
+    layout n takes) and its compiled resources: warps per block, resident
+    blocks and warps per SM (the card's occupancy calculator), registers
+    and local (spill) bytes per thread, dynamic shared memory per block,
+    and the coordinates a lane holds in registers (0: the shared-memory
+    layout)."""
+    from . import _build
+
+    out = (ctypes.c_int * 6)()
+    rc = _build.load().spg_fused_info(
+        1 if dtype == torch.float64 else 0, B, n, gll_m, out)
+    if rc != 0:
+        raise RuntimeError(f"spg_fused_info failed: "
+                           f"{_build.error_string(rc)} (code {rc})")
+    wpb, blocks, regs, local, smem, lanes = list(out)
+    return dict(warps_per_block=wpb, blocks_per_sm=blocks,
+                warps_per_sm=wpb * blocks, registers=regs, local_bytes=local,
+                smem_per_block=smem, lane_coordinates=lanes)
+
+
 def spg_solve_plain(obj, x0, lower, upper, data=(), *, tol=1e-5,
                     lam_min=1e-3, lam_max=1e3, gll_m=10, c1=1e-4,
-                    max_iter=1000, max_iter_ls=24):
+                    max_iter=1000, max_iter_ls=24, nfev=None, ties=None):
     """Plain batched PyTorch SPG + GLL, the algorithm of the CUDA kernel.
     ``lower``/``upper`` are ``(n,)``.  Returns ``(x, f, iterations,
-    status)``; the caller adds the epilogue."""
+    status)``; the caller adds the epilogue.  Each instance's trials (the
+    kernel's count) are added to the int32 (B,) tensor ``nfev`` where one
+    is given.  ``ties``, where given, is filled as
+    ``fused_driver.fused_minimize_plain``'s is: the iterations completed
+    before the first GLL test that the order of a sum could flip."""
     B, n = x0.shape
     dt, dev = x0.dtype, x0.device
     lo = lower.to(dt)
@@ -88,7 +114,8 @@ def spg_solve_plain(obj, x0, lower, upper, data=(), *, tol=1e-5,
         fhist = torch.cat([fhist[:, 1:], Fv[:, None]], dim=1)
         f_max = torch.amax(fhist, dim=-1)
         g0d = torch.sum(G * d, dim=-1)
-        t = armijo_steps(bval, X, d, f_max, g0d, active, c1, max_iter_ls)
+        t = armijo_steps(bval, X, d, f_max, g0d, active, c1, max_iter_ls,
+                         nfev, ties, iters)
         X_new = X + t[:, None] * d
         f_new, g_new = bvg(X_new)
 

@@ -5,9 +5,9 @@ kernel's own source, thread by thread, where the card is not there.  K1
 (``lbfgsb_fused.cu``: one warp per instance), K9 (``bfgs_fused.cu``), K3's
 dense form (``driver_dense.cu``) and K5 (``qn_update.cu``: one block of
 several warps per instance, whose warps meet at block barriers), K7
-(``lbfgs_fused.cu``), K4 (``newton_cg.cu``) and K3's first-order and
-quasi-Newton forms (``driver.cu``, ``driver_qn.cu``), one warp per
-instance.  A test-only harness: the port never calls it."""
+(``lbfgs_fused.cu``), K4 (``newton_cg.cu``), K8 (``spg_fused.cu``) and K3's
+first-order and quasi-Newton forms (``driver.cu``, ``driver_qn.cu``), one
+warp per instance.  A test-only harness: the port never calls it."""
 
 import ctypes
 import glob
@@ -445,11 +445,13 @@ template int launch_newton<double>(const Params<double>&, int, cudaStream_t);
 """
 
 
-def build_k3(out_dir):
-    """K3's first-order, quasi-Newton and dense forms (``driver.cu``,
-    ``driver_qn.cu``, ``driver_dense.cu``) for the emulator."""
+def build_k3(out_dir, extra_flags=()):
+    """K3's first-order, quasi-Newton and dense forms (``driver.cu`` with
+    ``driver_first.cuh``, ``driver_qn.cu``, ``driver_dense.cu``) for the
+    emulator."""
     lib = build_sources(out_dir, ["driver.cu", "driver_qn.cu",
-                                  "driver_dense.cu"], "driver", NEWTON_STUB)
+                                  "driver_dense.cu"], "driver", NEWTON_STUB,
+                        flags=extra_flags)
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.driver_launch.restype = i
     lib.driver_launch.argtypes = [
@@ -462,6 +464,45 @@ def build_k3(out_dir):
     lib.driver_workspace_elems.restype = ctypes.c_longlong
     lib.driver_workspace_elems.argtypes = [ctypes.c_longlong, i, i, i, i, i]
     return lib
+
+
+def build_k8(out_dir, extra_flags=()):
+    """K8's source (``spg_fused.cu``) for the emulator."""
+    lib = build_sources(out_dir, ["spg_fused.cu"], "spg_fused",
+                        flags=extra_flags)
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.spg_fused_launch.restype = i
+    lib.spg_fused_launch.argtypes = [
+        i, i, vp, vp, vp, vp, vp, i, i, d, d, d, i, d, i, i,
+        vp, vp, vp, vp, vp, vp]
+    lib.spg_fused_smem_per_warp.restype = ctypes.c_longlong
+    lib.spg_fused_smem_per_warp.argtypes = [i, i, i]
+    return lib
+
+
+def spg_solve(lib, obj, x0, lower, upper, data=(), *, tol=1e-5,
+              lam_min=1e-3, lam_max=1e3, gll_m=10, c1=1e-4, max_iter=1000,
+              max_iter_ls=24, seed=1):
+    """K8 on CPU tensors through the emulated library, with the arguments
+    ``fused_spg._launch_cuda`` passes; the warps take turns in the order
+    ``seed`` draws.  Returns ``(x, f, iterations, status, trials)``."""
+    from optimization_solvers_tpu_torch.ops import fused_spg
+
+    x0 = x0.contiguous()
+    B, n = x0.shape
+    lo = lower.to(x0.dtype).contiguous()
+    up = upper.to(x0.dtype).contiguous()
+    code, _arrays, (d0, d1), outs = fused_spg.kernel_call_operands(
+        obj, data, x0, fused_spg.KERNEL, fused_spg.K8_OBJECTIVES)
+    lib.emu_set_seed(seed)
+    rc = lib.spg_fused_launch(
+        1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(),
+        lo.data_ptr(), up.data_ptr(), d0, d1, B, n, float(tol),
+        float(lam_min), float(lam_max), int(gll_m), float(c1), int(max_iter),
+        int(max_iter_ls), *(t.data_ptr() for t in outs), None)
+    if rc != 0:
+        raise RuntimeError(f"spg_fused_launch returned {rc}")
+    return outs
 
 
 def build_k9(out_dir):
@@ -667,6 +708,8 @@ def driver_solve(lib, method, search, obj, x0, lower=None, upper=None,
         bstride = n if lo.dim() == 2 else 0
     code, arrays = kernel_operands(obj, data, x0)
     arrays = [a.contiguous() for a in arrays]
+    pinv = (None if spec.pinv is None else
+            spec.pinv.to(x0.dtype).contiguous())
     elems = fused_driver.workspace_elems(B, n, spec.method, spec.ring,
                                          x0.element_size(), spec.qn_update)
     work = torch.empty((elems,), dtype=x0.dtype) if elems else None
@@ -682,7 +725,7 @@ def driver_solve(lib, method, search, obj, x0, lower=None, upper=None,
     rc = lib.driver_launch(
         1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(), ptr(lo),
         ptr(up), bstride, ptr(arrays[0] if arrays else None),
-        ptr(arrays[1] if len(arrays) > 1 else None), None, B, n, ints,
+        ptr(arrays[1] if len(arrays) > 1 else None), ptr(pinv), B, n, ints,
         doubles, int(max_iter), int(max_iter_ls), ptr(work), x.data_ptr(),
         f.data_ptr(), it.data_ptr(), st.data_ptr(), nfev.data_ptr(), None)
     if rc != 0:

@@ -602,6 +602,150 @@ def test_config6_shape_float32_quality(cuda):
     assert bool(torch.isfinite(r.x).all())
 
 
+def _first_order_cases():
+    spg = solvers.SpectralProjectedGradient
+    return {
+        "gd_bt": (solvers.GradientDescent, ls.BackTracking, {}),
+        "gd_gll": (solvers.GradientDescent, ls.GLLQuadratic, {}),
+        "cd_bt": (solvers.CoordinateDescent, ls.BackTracking, {}),
+        "pnorm_bt": (solvers.PnormDescent, ls.BackTracking, {}),
+        "pgd_btb": (solvers.ProjectedGradientDescent, ls.BackTrackingB, {}),
+        "spg_gll": (spg, ls.GLLQuadratic, {"bb_variant": "alternate"}),
+        "spg_btb": (spg, ls.BackTrackingB, {}),
+        "ncg_bt": (solvers.NonlinearCG, ls.BackTracking, {"variant": "pr+"}),
+    }
+
+
+def _held_through_ties(kernel, plain, max_iter):
+    """float64, kernel against plain version, each a function of the
+    iteration budget returning ``(x, f, iterations, status, trials)``:
+    status equal; counts equal and x within 1e-9 on every instance whose
+    plain run takes no decision that the order of a sum could flip (the
+    plain version's ``ties``), and on the others through the iterations
+    before the first such decision."""
+    x, _, it, st, nfev = kernel(max_iter)
+    torch.cuda.synchronize()
+    ties = torch.full_like(it, -1)
+    xp, _, itp, stp, nfevp = plain(max_iter, ties)
+    free = ties < 0
+    assert torch.equal(st, stp)
+    assert torch.equal(it[free], itp[free])
+    assert torch.equal(nfev[free], nfevp[free])
+    torch.testing.assert_close(x[free], xp[free], rtol=0, atol=1e-9)
+    for k in sorted(set(ties[~free].tolist()) - {0}):
+        rows = ties == k
+        xk, _, itk, _, nfk = kernel(k)
+        torch.cuda.synchronize()
+        xq, _, itq, _, nfq = plain(k)
+        assert torch.equal(itk[rows], itq[rows])
+        assert torch.equal(nfk[rows], nfq[rows])
+        torch.testing.assert_close(xk[rows], xq[rows], rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("n", [64, 100, 160])
+@pytest.mark.parametrize("case", sorted(_first_order_cases()))
+def test_first_order_layouts_match_plain(case, n, dtype, cuda):
+    """K3's first-order form in each layout (two coordinates a lane at n =
+    64, four at 100, the warp's shared memory at 160) on 64 instances of
+    the weighted squares (d = linspace(1, 10)), box [-0.5, 0.5] for the
+    bounded methods: float64 over 40 iterations, status equal, iterations
+    and trials equal and x within 1e-9 (where the plain version takes a
+    decision that the order of a sum could flip, through the iterations
+    before it); float32 full solves at tol 1e-2, converged fractions at
+    least 0.99 and within 0.01."""
+    make, search, extra = _first_order_cases()[case]
+    d = np.linspace(1.0, 10.0, n)
+    if make is solvers.PnormDescent:
+        extra = {"inverse_p": np.diag(1.0 / d) + 1e-3}
+    f64 = dtype == torch.float64
+    method = make(grad_tol=1e-6 if f64 else 1e-2, **extra)
+    spec = fused_driver.build_spec(method, search())
+    x0, lo, up, dd, t = interop.tensors_from_numpy(
+        np.random.RandomState(n).uniform(-2, 2, (64, n)), np.full(n, -0.5),
+        np.full(n, 0.5), d, np.linspace(-1.0, 1.0, n), device=cuda,
+        dtype=dtype)
+    box = (lo, up) if spec.bounded else (None, None)
+    obj = problems.weighted_squares()
+
+    def kernel(iters):
+        return fused_driver._launch_cuda(spec, obj, x0, *box, (dd, t),
+                                         max_iter=iters, max_iter_ls=40)
+
+    def plain(iters, ties=None):
+        return fused_driver.fused_minimize_plain(
+            method, search(), obj, x0, *box, (dd, t), max_iter=iters,
+            max_iter_ls=40, ties=ties)
+
+    info = fused_driver.first_order_info(dtype, 64, n, spec.method, spec.ring)
+    assert info["lane_coordinates"] == (2 if n <= 64 else 4 if n <= 128
+                                        else 0), info
+    if f64:
+        _held_through_ties(kernel, plain, 40)
+    else:
+        st, stp = kernel(1500)[3], plain(1500)[3]
+        conv, cp = ((v == 1).float().mean().item() for v in (st, stp))
+        assert min(conv, cp) >= 0.99 and abs(conv - cp) <= 0.01, (conv, cp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("n", [64, 100, 160])
+def test_k8_layouts_match_plain(n, dtype, cuda):
+    """K8 in each layout on the inputs of the test above: float64 over 40
+    iterations, status, iterations and trials equal and x within 1e-9;
+    float32 full solves, converged fractions within 0.01."""
+    f64 = dtype == torch.float64
+    x0, lo, up, dd, t = interop.tensors_from_numpy(
+        np.random.RandomState(n).uniform(-2, 2, (64, n)), np.full(n, -0.5),
+        np.full(n, 0.5), np.linspace(1.0, 10.0, n), np.linspace(-1.0, 1.0, n),
+        device=cuda, dtype=dtype)
+    kw = dict(tol=1e-6 if f64 else 1e-4, max_iter=40 if f64 else 1000,
+              max_iter_ls=30)
+    obj = problems.weighted_squares()
+    x, _, it, st, nfev = fused_spg._launch_cuda(
+        obj, x0, lo, up, (dd, t), lam_min=1e-3, lam_max=1e3, gll_m=10,
+        c1=1e-4, **kw)
+    torch.cuda.synchronize()
+    nfevp = torch.zeros_like(nfev)
+    xp, _, itp, stp = fused_spg.spg_solve_plain(obj, x0, lo, up, (dd, t),
+                                                nfev=nfevp, **kw)
+    assert fused_spg.kernel_info(dtype, 64, n)["lane_coordinates"] == (
+        2 if n <= 64 else 4 if n <= 128 else 0)
+    if f64:
+        assert torch.equal(st, stp) and torch.equal(it, itp)
+        assert torch.equal(nfev, nfevp)
+        torch.testing.assert_close(x, xp, rtol=0, atol=1e-9)
+    else:
+        conv, cp = ((v == 1).float().mean().item() for v in (st, stp))
+        assert abs(conv - cp) <= 0.01, (conv, cp)
+
+
+def test_first_order_and_k8_resources_by_width(cuda):
+    """The layout each kernel takes by width, and its shared memory: the
+    register layouts hold the GLL ring alone (and Pnorm's stage of g), the
+    shared layout 7 n + ring elements a warp.  Registers and residency are
+    the compiler's and the profiler's to report (tools/k3_phase_profile.py
+    --first-order), not held here."""
+    for dtype in (torch.float32, torch.float64):
+        size = torch.finfo(dtype).bits // 8
+        for n, lanes in ((64, 2), (100, 4), (160, 0)):
+            for method, ring in ((fused_driver.GD, 0), (fused_driver.SPG, 10),
+                                 (fused_driver.PNORM, 0)):
+                info = fused_driver.first_order_info(dtype, 4096, n, method,
+                                                     ring)
+                per_warp = (7 * n + ring if not lanes else ring + (
+                    n if method == fused_driver.PNORM else 0)) * size
+                assert info["lane_coordinates"] == lanes, (n, info)
+                assert info["smem_per_block"] == (
+                    info["warps_per_block"] * per_warp), (n, method, info)
+            info = fused_spg.kernel_info(dtype, 4096, n)
+            assert info["lane_coordinates"] == lanes, (n, info)
+            assert info["smem_per_block"] == info["warps_per_block"] * (
+                (7 * n if not lanes else 0) + 10) * size, (n, info)
+
+
 # ---- the generic driver K3, quasi-Newton slice ----------------------------
 
 @pytest.mark.parametrize("name", sorted(k3_qn_geometries()))

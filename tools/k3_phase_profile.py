@@ -52,8 +52,34 @@ starts, the form's other workloads (QN_OTHER: NCG + More-Thuente in
 float32, L-BFGS + Hager-Zhang in float64), with each build's residency
 where it reports one.
 
+``--first-order`` profiles K3's first-order form and K8 instead, at
+``chip_smoke.py``'s inputs: config 6 (GD + BackTracking, 4,096 x the
+100-dim diagonal quadratic, float32, starts ``RandomState(0)`` uniform(-5,
+5)), config 3 in both policies (SPG + GLL, 10,240 x the 64-dim box
+quadratic) and K8's (``WHOLE_K8``, config 3's inputs).  It builds the
+first-order form (``driver.cu``, the other forms stubbed) and K8
+(``spg_fused.cu``) alone (nvcc, ``sm_90a``, every build started together,
+into ``chip_tree/k3_fo/``) from this checkout with ``-DK3_PROFILE
+-DK8_PROFILE`` and as shipped, as shipped from each ``--against``
+checkout, and with the nvcc flags of each ``--variant``; prints each
+build's ``ptxas`` lines, its launch (warps per block, resident warps per
+SM, registers, local bytes, shared memory, the layout), converged
+fraction, median f, the iteration spread (median / p99 / max) and trials
+per iteration; from the counting build each phase's share of the summed
+per-warp cycles (the direction and g.d, the GLL reference, the trials,
+the step's evaluation, the post-step, the convergence test: the
+``FO_PHASES`` slots of ``k3_prof`` / ``k8_prof``), the cycles per
+instance-iteration, the share of steps that kept the accepted trial's
+evaluation and the distribution of trials per iteration (full solves and
+capped at 1 and 10 iterations); a batch sweep of the shipped builds in
+turns (``FO_SWEEP``; CUDA events, median of FO_ROUNDS); and the host's
+share of a config 3 and a config 6 call through ``minimize`` (wall minus
+the launch's device time) on this checkout's package.
+
     python3 tools/k3_phase_profile.py [--breakdown] [--root DIR]
     python3 tools/k3_phase_profile.py --lbfgs [--against DIR ...]
+        [--variant NAME=FLAG[,FLAG] ...]
+    python3 tools/k3_phase_profile.py --first-order [--against DIR ...]
         [--variant NAME=FLAG[,FLAG] ...]
 """
 
@@ -94,6 +120,47 @@ QN_OTHER = (("NCG (PR+) + More-Thuente, float32", "ncg", "float32"),
 QN_OTHER_B = (1024, 10240)
 QN_ROUNDS = 6
 QN_OUT = os.path.join(ROOT, "chip_tree", "k3_qn")
+# --first-order: K3's first-order form and K8.  The counters' slots
+# (driver.cuh's k3_prof, spg_fused.cu's k8_prof) and their phases
+FO_PHASES = {0: "direction and g.d", 11: "GLL reference", 1: "trials",
+             2: "the step's evaluation", 3: "post-step (BB pair, copy)",
+             5: "convergence test"}
+FO_SWEEP = {"config 6": (132, 1056, 4096),
+            "config 3 (fast)": (132, 1056, 10240),
+            "K8": (132, 1056, 10240)}
+FO_ROUNDS = 6
+FO_OUT = os.path.join(ROOT, "chip_tree", "k3_fo")
+# the kernel entries whose ptxas lines --first-order prints
+FO_ENTRIES = ("driver_kernel", "first_order_kernel", "spg_fused_kernel")
+
+
+def fo_short(name):
+    """A kernel entry's demangled name without its namespaces and
+    parameters."""
+    for ns in ("ost_driver::", "(anonymous namespace)::", "<unnamed>::"):
+        name = name.replace(ns, "")
+    end = name.find(">(")
+    return name[:end + 1] if end >= 0 else name
+
+
+# the first-order form's translation unit: driver.cu (the C interface) with
+# the other forms stubbed
+FO_STUB = """#include "driver.cu"
+namespace ost_driver {
+template <typename T>
+int launch_qn(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
+template <typename T>
+int launch_newton(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
+template <typename T>
+int launch_dense(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
+template int launch_qn<float>(const Params<float>&, int, cudaStream_t);
+template int launch_qn<double>(const Params<double>&, int, cudaStream_t);
+template int launch_newton<float>(const Params<float>&, int, cudaStream_t);
+template int launch_newton<double>(const Params<double>&, int, cudaStream_t);
+template int launch_dense<float>(const Params<float>&, int, cudaStream_t);
+template int launch_dense<double>(const Params<double>&, int, cudaStream_t);
+}  // namespace ost_driver
+"""
 # the form of a driver_kernel entry, by the digit of its mangled name
 QN_FORMS = {"1": "quasi-Newton form", "4": "Wolfe form"}
 # the other forms, which driver.cu's C interface reaches, as stubs
@@ -422,6 +489,323 @@ def lbfgs(against, variants=()):
     return 0
 
 
+def build_fo(variants):
+    """Build K3's first-order form (``driver.cu``, the other forms stubbed)
+    and K8 (``spg_fused.cu``) per variant (name -> (checkout, extra nvcc
+    flags)), every compilation started together, into ``chip_tree/k3_fo/``;
+    returns {name: loaded library} after printing ptxas's lines for each
+    build's first-order and K8 kernel entries."""
+    nvcc = os.environ.get("NVCC", "/usr/local/cuda/bin/nvcc")
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+    jobs = {}
+    for name, (root, extra) in variants.items():
+        out = os.path.join(FO_OUT, name)
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        csrc = os.path.join(os.path.abspath(root),
+                            "optimization_solvers_tpu_torch", "ops", "csrc")
+        tu = os.path.join(out, "first_order.cu")
+        with open(tu, "w") as fh:
+            fh.write(FO_STUB)
+        srcs = [tu, os.path.join(csrc, "spg_fused.cu")]
+        objs = [os.path.join(out, f"{k}.o") for k in range(len(srcs))]
+        jobs[name] = (out, objs, [subprocess.Popen(
+            [nvcc, *flags, *extra, "-I", csrc, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)])
+    libs = {}
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    for name, (out, objs, procs) in jobs.items():
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed for {name}:\n" + "\n".join(
+                log[-3000:] for log in logs))
+        entries = []
+        for log in logs:
+            lines = log.splitlines()
+            for j, line in enumerate(lines):
+                if "Compiling entry" not in line:
+                    continue
+                entry = line.split("'")[1]
+                if not any(k in entry for k in FO_ENTRIES):
+                    continue
+                entries.append((entry, "; ".join(
+                    v.split(":", 1)[-1].strip() for v in lines[j + 1:j + 4]
+                    if "spill" in v or "registers" in v)))
+        names = [e for e, _ in entries]
+        if os.path.exists(filt) and names:
+            names = subprocess.run([filt], input="\n".join(names),
+                                   capture_output=True, text=True
+                                   ).stdout.splitlines()
+        for readable, (_, res) in zip(names, entries):
+            print(f"{name}: {fo_short(readable)}: {res}")
+        lib_path = os.path.join(out, "libk3_fo.so")
+        subprocess.run([nvcc, *flags[:2], "-shared", "-o", lib_path, *objs],
+                       check=True)
+        lib = ctypes.CDLL(lib_path)
+        vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.driver_launch.restype = i
+        lib.driver_launch.argtypes = [
+            i, i, vp, vp, vp, i, vp, vp, vp, i, i, ctypes.POINTER(i),
+            ctypes.POINTER(d), i, i, vp, vp, vp, vp, vp, vp, vp]
+        lib.spg_fused_launch.restype = i
+        lib.spg_fused_launch.argtypes = [i, i, vp, vp, vp, vp, vp, i, i, d,
+                                         d, d, i, d, i, i, vp, vp, vp, vp,
+                                         vp, vp]
+        if hasattr(lib, "driver_first_info"):
+            lib.driver_first_info.restype = i
+            lib.driver_first_info.argtypes = [i, i, i, i, i, vp]
+        if hasattr(lib, "spg_fused_info"):
+            lib.spg_fused_info.restype = i
+            lib.spg_fused_info.argtypes = [i, i, i, i, vp]
+        libs[name] = lib
+    return libs
+
+
+def fo_workloads(torch):
+    """{name: workload} of ``--first-order``: chip_smoke.py's config 6,
+    config 3 (both policies) and K8's inputs, each a dict with ``kind``
+    ("k3" or "k8"), the launch's operands and a (max B, n) float32 draw of
+    starts."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from optimization_solvers_tpu_torch import linesearch as ls
+    from optimization_solvers_tpu_torch import problems, solvers
+    from optimization_solvers_tpu_torch.ops import fused_driver
+    from optimization_solvers_tpu_torch.ops.batched_oracle import (
+        kernel_operands)
+
+    dev = torch.device("cuda")
+    c3, c6, c8 = cs.CONFIG3, cs.CONFIG6, cs.WHOLE_K8
+
+    def draw(seed, lo_hi, b, n):
+        return torch.tensor(np.random.RandomState(seed).uniform(
+            *lo_hi, (b, n)), dtype=torch.float32, device=dev)
+
+    def k3(method, search, obj, data, box, c, seed, lo_hi):
+        n = c["n"]
+        x = draw(seed, lo_hi, c["B"], n)
+        code, arrays = kernel_operands(obj, tuple(
+            torch.tensor(a, dtype=torch.float32, device=dev) for a in data),
+            x)
+        bounds = (None, None) if box is None else tuple(
+            torch.full((n,), v, device=dev) for v in (-box, box))
+        return dict(kind="k3", spec=fused_driver.build_spec(method, search),
+                    code=code, arrays=[a.contiguous() for a in arrays],
+                    bounds=bounds, n=n, draw=x, max_iter=c["max_iter"],
+                    max_iter_ls=c["max_iter_ls"], obj=obj, data=data,
+                    box=box, tol=c["tol"])
+
+    n3 = c3["n"]
+    data3 = (np.logspace(0, 3, n3), np.zeros(n3))
+    wl = {}
+    for policy, variant in (("fast", "alternate"), ("reference", "bb1")):
+        wl[f"config 3 ({policy})"] = k3(
+            solvers.SpectralProjectedGradient(grad_tol=c3["tol"],
+                                              bb_variant=variant),
+            ls.GLLQuadratic(), problems.weighted_squares(), data3,
+            c3["box"], c3, 3, (-2.0, 2.0))
+    wl["config 6"] = k3(
+        solvers.GradientDescent(grad_tol=c6["tol"]), ls.BackTracking(),
+        problems.diag_quadratic(np.linspace(1.0, 100.0, c6["n"])), (),
+        None, c6, 0, (-5.0, 5.0))
+    n8 = c8["n"]
+    x8 = draw(3, (-2.0, 2.0), c8["B"], n8)
+    code8, arrays8 = kernel_operands(problems.weighted_squares(), tuple(
+        torch.tensor(a, dtype=torch.float32, device=dev)
+        for a in (np.logspace(0, 3, n8), np.zeros(n8))), x8)
+    wl["K8"] = dict(kind="k8", code=code8,
+                    arrays=[a.contiguous() for a in arrays8],
+                    bounds=tuple(torch.full((n8,), v, device=dev)
+                                 for v in (-c8["box"], c8["box"])),
+                    n=n8, draw=x8, max_iter=c8["max_iter"],
+                    max_iter_ls=c8["max_iter_ls"], tol=c8["tol"])
+    return wl
+
+
+def first_order(against, variants=()):
+    """``--first-order``: K3's first-order form and K8 at chip_smoke.py's
+    inputs (see the module's docstring)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from optimization_solvers_tpu_torch import minimize
+    from optimization_solvers_tpu_torch.ops import _build, fused_driver
+
+    card = card_line()
+    builds = {"profile": (ROOT, ["-DK3_PROFILE", "-DK8_PROFILE"]),
+              "shipped": (ROOT, [])}
+    for k, root in enumerate(against):
+        builds[f"against{k}"] = (root, [])
+    for v in variants:
+        name, flags = v.split("=", 1)
+        builds[name] = (ROOT, flags.split(","))
+    t0 = time.perf_counter()
+    libs = build_fo(builds)
+    print(f"built {len(libs)} copies of the first-order form and K8 in "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    for k, root in enumerate(against):
+        print(f"against{k}: {os.path.abspath(root)}")
+    wl = fo_workloads(torch)
+    dev = torch.device("cuda")
+    slots = {k: fused_driver._slots(w["spec"], torch.float32)
+             for k, w in wl.items() if w["kind"] == "k3"}
+
+    def launch(lib, name, x, max_iter=None):
+        w = wl[name]
+        b, n = x.shape
+        out = [torch.empty_like(x), torch.empty_like(x[:, 0]),
+               *(torch.empty(b, dtype=torch.int32, device=dev)
+                 for _ in range(3))]
+        a = w["arrays"]
+        d0 = a[0].data_ptr() if a else None
+        d1 = a[1].data_ptr() if len(a) > 1 else None
+        lo, up = (None if v is None else v.data_ptr() for v in w["bounds"])
+        mi = w["max_iter"] if max_iter is None else max_iter
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if w["kind"] == "k3":
+            ints, doubles = slots[name]
+            rc = lib.driver_launch(0, w["code"], x.data_ptr(), lo, up, 0, d0,
+                                   d1, None, b, n, ints, doubles, mi,
+                                   w["max_iter_ls"], None,
+                                   *(t.data_ptr() for t in out), stream)
+        else:
+            rc = lib.spg_fused_launch(0, w["code"], x.data_ptr(), lo, up, d0,
+                                      d1, b, n, w["tol"], 1e-3, 1e3, 10,
+                                      1e-4, mi, w["max_iter_ls"],
+                                      *(t.data_ptr() for t in out), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: launch returned {rc}")
+        return out
+
+    def residency(lib, name, b):
+        w = wl[name]
+        fn = "driver_first_info" if w["kind"] == "k3" else "spg_fused_info"
+        if not hasattr(lib, fn):
+            return "no launch report in this build; "
+        v = (ctypes.c_int * 6)()
+        if w["kind"] == "k3":
+            rc = lib.driver_first_info(0, b, w["n"], w["spec"].ring,
+                                       w["spec"].method, ctypes.addressof(v))
+        else:
+            rc = lib.spg_fused_info(0, b, w["n"], 10, ctypes.addressof(v))
+        if rc:
+            return f"launch report rc {rc}; "
+        return (f"{v[0]} warps per block, {v[0] * v[1]} resident warps per "
+                f"SM, {v[2]} registers, {v[3]} local bytes a thread, {v[4]} "
+                f"bytes of shared memory a block, vectors in "
+                f"{'registers' if v[5] else 'shared memory'}; ")
+
+    def in_turns(names, run):
+        ts = {k: [] for k in names}
+        for k in names:
+            run(k)
+        for r in range(FO_ROUNDS):
+            for k in (names if r % 2 == 0 else names[::-1]):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(k)
+                stop.record()
+                torch.cuda.synchronize()
+                ts[k].append(start.elapsed_time(stop))
+        return ts
+
+    def timings(ts):
+        return "; ".join(
+            f"{k} {statistics.median(t):.3f} ms (min {min(t):.3f}, max "
+            f"{max(t):.3f})" for k, t in ts.items()) + (
+            f" (CUDA events, median of {FO_ROUNDS} in turns)  [{card}]")
+
+    for name, w in wl.items():
+        x = w["draw"]
+        for build, lib in libs.items():
+            _, f, it, st, nfev = launch(lib, name, x)
+            torch.cuda.synchronize()
+            itf = it.double()
+            print(f"{name}, {build}: {residency(lib, name, x.shape[0])}"
+                  f"converged {(st == 1).double().mean().item():.4f}, median "
+                  f"f {f.median().item():.4g}, iterations median / p99 / max "
+                  f"{itf.median().item():.0f} / "
+                  f"{torch.quantile(itf, 0.99).item():.1f} / "
+                  f"{int(it.max().item())}, trials per iteration "
+                  f"{nfev.double().sum().item() / itf.sum().item():.4f}")
+
+    prof = libs["profile"]
+    for fn in ("k3_fo_prof_read", "k8_prof_read"):
+        getattr(prof, fn).argtypes = [ctypes.c_void_p]
+    for name, w in wl.items():
+        tag = "k3_fo" if w["kind"] == "k3" else "k8"
+        for cap in (w["max_iter"], 1, 10):
+            getattr(prof, f"{tag}_prof_reset")()
+            launch(prof, name, w["draw"], cap)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 32)()
+            getattr(prof, f"{tag}_prof_read")(ctypes.addressof(buf))
+            v = list(buf)
+            total = sum(v[k] for k in FO_PHASES)
+            its = max(v[6], 1)
+            print(f"{name}, max_iter {cap}: {v[8]} instances, {v[6]} "
+                  f"instance-iterations, {v[7] / its:.4f} trials per "
+                  f"iteration, {v[9] / its:.4f} of the steps kept the "
+                  f"trial's evaluation; cycles per instance-iteration "
+                  f"{total / its:.0f}, the loop {total / max(v[10], 1):.3f} "
+                  f"of the instances' cycles")
+            print("   " + "; ".join(
+                f"{p} {v[k] / max(total, 1):.3f} ({v[k] / its:.0f})"
+                for k, p in FO_PHASES.items()))
+            hist = v[16:32]
+            print("   trials per iteration (share of iterations): " + ", ".join(
+                f"{k if k < 15 else '15+'}: {h / its:.4f}"
+                for k, h in enumerate(hist) if h))
+
+    names = [k for k in libs if k != "profile"]
+    for name, w in wl.items():
+        for b in FO_SWEEP.get(name, ()):
+            xb = w["draw"][:b].contiguous()
+            ts = in_turns(names, lambda k: launch(libs[k], name, xb))
+            print(f"{name}, B = {b}: " + timings(ts))
+
+    # the host's share of a call through minimize: this checkout's package
+    # on the shipped build of this checkout's kernels
+    _build._lib = libs["shipped"]
+    for name, method in (("config 3 (fast)", "spg"), ("config 6", "gd")):
+        w = wl[name]
+        bounds = None if w["box"] is None else (-w["box"], w["box"])
+        data = tuple(torch.tensor(a, dtype=torch.float32, device=dev)
+                     for a in w["data"])
+        x = w["draw"]
+
+        def call():
+            return minimize(w["obj"], x, method=method, bounds=bounds,
+                            data=data, tol=w["tol"], max_iter=w["max_iter"],
+                            max_iter_ls=w["max_iter_ls"])
+
+        walls, devs = [], []
+        call()
+        for _ in range(FO_ROUNDS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(libs["shipped"], name, x)
+            stop.record()
+            torch.cuda.synchronize()
+            devs.append(start.elapsed_time(stop))
+        wm, dm = statistics.median(walls), statistics.median(devs)
+        print(f"{name} through minimize: wall {wm:.3f} ms, the launch alone "
+              f"{dm:.3f} ms (CUDA events), host {wm - dm:.3f} ms a call "
+              f"(median of {FO_ROUNDS})  [{card}]")
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--breakdown", action="store_true",
@@ -433,13 +817,17 @@ def main(argv=None):
     parser.add_argument("--lbfgs", action="store_true",
                         help="profile the quasi-Newton form (L-BFGS + "
                         "Hager-Zhang) instead of the dense kernels")
+    parser.add_argument("--first-order", action="store_true",
+                        help="profile K3's first-order form (configs 6 and "
+                        "3) and K8 instead of the dense kernels")
     parser.add_argument("--against", metavar="DIR", action="append",
-                        default=[], help="with --lbfgs: also build DIR's "
-                        "quasi-Newton form as shipped and time it in turns")
+                        default=[], help="with --lbfgs or --first-order: "
+                        "also build DIR's form as shipped and time it in "
+                        "turns")
     parser.add_argument("--variant", metavar="NAME=FLAG[,FLAG]",
-                        action="append", default=[], help="with --lbfgs: "
-                        "also build this checkout's form with these nvcc "
-                        "flags and time it in turns")
+                        action="append", default=[], help="with --lbfgs or "
+                        "--first-order: also build this checkout's form "
+                        "with these nvcc flags and time it in turns")
     args = parser.parse_args(argv)
     import torch
 
@@ -448,6 +836,8 @@ def main(argv=None):
         return 1
     if args.lbfgs:
         return lbfgs(args.against, args.variant)
+    if args.first_order:
+        return first_order(args.against, args.variant)
     if args.times:
         return times(args.times)
     if args.breakdown:
