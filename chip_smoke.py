@@ -58,7 +58,12 @@ batched L-BFGS-B path and the template-method paths through
   method with each Armijo-family search it takes) and K8 in each of their
   layouts (two coordinates a lane in registers at n = 64, four at 100, the
   warp's shared memory at 160), float64 and float32, held against their
-  plain versions.
+  plain versions;
+* K1's scaled form (``ops.lbfgsb_solve_fused_scaled``, phase 35) on the
+  headline's inputs with the Rosenbrock Hessian's diagonal, and Jacobi
+  preconditioning of a cond-1e6 quadratic; the lockstep L-BFGS-B (phase
+  36, no kernel) on the headline with a plain torch callable through
+  ``minimize``.
 
 It prints, last, a JSON line of per-kernel results, the card's name and
 power limit, and one JSON line naming the device.  Any failed check exits
@@ -268,6 +273,33 @@ DENSE_FIT_F32_AGREE = 0.99
 # case's plain version converges (GD + GLL 255 of 256 at n = 64 and 100)
 LAYOUT_CHECK = dict(B=256, widths=(64, 100, 160), iters=40, tol32=1e-2,
                     max_iter=1500)
+# phase 35: K1's scaled form (ops.lbfgsb_solve_fused_scaled).  (a) the
+# headline's inputs with diag the Rosenbrock Hessian's diagonal at x* = 1
+# (802, 1002, ..., 1002, 200), kernel vs plain on the card by converged
+# fraction (CONV_ATOL) and medians (C2_MED_IT_RTOL, C2_MED_F_RTOL); (b) diag
+# = 1 bit for bit against the unscaled K1; (c) float64 per instance over
+# the first SCALED_CAPPED iterations at SCALED_F64_B of the starts (K1's
+# rule: x within the plain version's own spread, floored at WHOLE_X_FLOOR);
+# (d) Jacobi preconditioning (JAX tests/test_fused_lbfgsb.py:69) at the
+# headline's batch: the cond-1e6 quadratic 0.5 sum d x^2, d = logspace(0,
+# 6), in <= JACOBI["iters"] iterations with f < 1e-12 and max|x| < 1e-6
+SCALED_CAPPED = 10
+SCALED_F64_B = 256
+JACOBI = dict(B=10240, n=100, box=3.0, pgtol=1e-6, factr=0.0, max_iter=600,
+              iters=3)
+# phase 36: the lockstep L-BFGS-B (solvers/lbfgsb.py, no kernel) on the
+# card through minimize: (a) the headline's inputs with Rosenbrock as a
+# plain torch callable, converged >= CONV_FLOOR and median f <= 1e-4 (the
+# JAX package's lockstep solve of the headline: converged 1.0, median f
+# 7.5e-6, BENCH_NOTES.md:15-20), the host share over its first
+# LS_PROFILE_ITERS iterations; (b) ls_c2 = 0.5 with the objective's kernel
+# form, over its first LS_PROFILE_ITERS iterations; (c) a 1-D float64 x0
+# of the active-bounds quadratic at n = 100 (JAX tests/test_lbfgs.py:73
+# widened: targets 2 and 3, x <= 1, with weights linspace(1, 10) and
+# every third target 0.5, inside) on the card against the CPU, x within
+# LOCKSTEP_1D_ATOL
+LOCKSTEP_B = 10240
+LOCKSTEP_1D_ATOL = 1e-8
 CONV_FLOOR = 0.99
 WHOLE_K7_CAPPED = 10
 WHOLE_K8_CAPPED = 30
@@ -618,6 +650,8 @@ def main(argv=None):
     k9["max_abs_err"] = max(k9["max_abs_err"], k9_fit_err)
     k3_layout_err, k8_layout_err = layouts_slice(dev, card, tensors)
     k8["max_abs_err"] = max(k8["max_abs_err"], k8_layout_err)
+    k1s = scaled_slice(dev, card, tensors, sync_time)
+    lockstep_lbfgsb_slice(dev, card, tensors, sync_time)
     if breakdown:
         k1_breakdown(dev, card, tensors, sync_time)
         tall_breakdown(dev, card, tensors, sync_time)
@@ -646,8 +680,8 @@ def main(argv=None):
         "library_ms": None,
         "paths": paths,
     }
-    log(json.dumps({"kernels": [k1, tall, driver, newton_form, newton_cg, k5,
-                                k6, k7, k8, k9]}))
+    log(json.dumps({"kernels": [k1, k1s, tall, driver, newton_form,
+                                newton_cg, k5, k6, k7, k8, k9]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2284,6 +2318,7 @@ def kernel_wrappers():
         fused_spg)
 
     return {"K1": fused_lbfgsb.lbfgsb_solve_fused,
+            "K1s": fused_lbfgsb.lbfgsb_solve_fused_scaled,
             "K2": fused_lbfgsb_tall.lbfgsb_solve_fused_tall,
             "K3": fused_driver.fused_minimize,
             "K4": fused_newton_cg.newton_cg_solve_fused,
@@ -2504,12 +2539,9 @@ def lockstep_slice(dev, card, tensors, sync_time):
           f"K5 path: success {success(r5)} vs unfused {success(ru)}")
     medians_agree("K5 path", r5, ru.f, ru.iterations, C2_MED_IT_RTOL,
                   C2_MED_F_RTOL, kernel="K5")
-    (x7,) = tensors(np.random.RandomState(7).uniform(-2.0, 2.0, (B, n)),
-                    dtype=torch.float32)
-    r7, wall7 = sync_time(lambda: qn_path(x7))
-    log(f"K5 path, distinct inputs: {wall7:.3f} s, {B / wall7:.1f} solves/s, "
-        f"{int(r7.iterations.max())} lockstep iterations, "
-        f"{1e3 * wall7 / int(r7.iterations.max()):.3f} ms per lockstep "
+    # one timed run: a second on distinct inputs (9.9-13 s, host-bound) was
+    # cut to keep the script's time as phases 35-36 were added
+    log(f"K5 path: {1e3 * wall5 / lockstep_iters:.3f} ms per lockstep "
         f"iteration  [{card}]")
     capped = dict(max_iter=LS_PROFILE_ITERS)
     _, wall_cap = sync_time(lambda: qn_path(x32, **capped))
@@ -3268,6 +3300,262 @@ def whole_solve_slice(dev, card, tensors, sync_time):
             **({"placements": placements} if placements else {}),
         })
     return entries
+
+
+
+def rosenbrock_diag(n):
+    """The Rosenbrock Hessian's diagonal at x* = 1: 1200 - 400 + 2 = 802
+    from term i, plus 200 from term i - 1."""
+    d = np.full(n, 1002.0)
+    d[0], d[-1] = 802.0, 200.0
+    return d
+
+
+def scaled_slice(dev, card, tensors, sync_time):
+    """Phase 35: K1's scaled form (``Scaled<Obj>`` in ``lbfgsb_fused.cu``)
+    through ``ops.lbfgsb_solve_fused_scaled``: the headline's inputs with
+    the Rosenbrock Hessian's diagonal against the plain version, diag = 1
+    against the unscaled kernel bit for bit, float64 per instance over the
+    first iterations, and Jacobi preconditioning beside the unscaled
+    kernel.  Returns the entry of the ``kernels`` line."""
+    import torch
+
+    from optimization_solvers_tpu_torch import ops, problems
+    from optimization_solvers_tpu_torch.ops import fused_lbfgsb
+
+    f = problems.rosenbrock()
+    n, B = HEADLINE["n"], HEADLINE["B"]
+    kw = dict(m=HEADLINE["m"], pgtol=HEADLINE["pgtol"],
+              factr=HEADLINE["factr"], max_iter=HEADLINE["max_iter"])
+    starts = np.random.RandomState(42).uniform(-2.0, 2.0, (B, n))
+    x0, lo, up, diag = tensors(starts, np.full(n, -BOX), np.full(n, BOX),
+                               rosenbrock_diag(n), dtype=torch.float32)
+    for k, v in fused_lbfgsb.kernel_info(torch.float32, B, n, HEADLINE["m"],
+                                         scaled=True).items():
+        log(f"  K1 scaled launch at the headline: {k} {v}")
+
+    # ---- 35a. the main path: the scaled form at the headline
+    r, first_s, launches = drive(
+        "35a K1 scaled at the headline (diag = Rosenbrock's Hessian diagonal)",
+        lambda: ops.lbfgsb_solve_fused_scaled(f, x0, lo, up, diag, **kw),
+        "K1s", sync_time)
+    conv = report("35a K1 scaled", r, first_s)
+    s = torch.sqrt(diag)
+    scaled = fused_lbfgsb.ScaledObjective(f, (), s)
+    (_, fp, itp, stp), plain_s = sync_time(
+        lambda: fused_lbfgsb.lbfgsb_solve_plain(scaled, x0 * s, lo * s,
+                                                up * s, **kw))
+    cp = (stp == 1).float().mean().item()
+    log(f"35a plain on the card: converged {cp:.4f}, median f "
+        f"{fp.median().item():.4g}, median iterations "
+        f"{itp.float().median().item():.0f}, {plain_s:.3f} s  [{card}]")
+    check(conv >= CONV_FLOOR, f"35a: converged {conv} < {CONV_FLOOR}")
+    check(abs(conv - cp) <= CONV_ATOL, f"35a: converged {conv} vs plain {cp}")
+    medians_agree("35a", r, fp, itp, C2_MED_IT_RTOL, C2_MED_F_RTOL,
+                  kernel="K1 scaled")
+    # CUDA events, the scaled and the unscaled kernel in turns, medians
+    scaled_ms, unscaled_ms = [], []
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        for fn, times in (
+                (lambda: ops.lbfgsb_solve_fused_scaled(f, x0, lo, up, diag,
+                                                       **kw), scaled_ms),
+                (lambda: ops.lbfgsb_solve_fused(f, x0, lo, up, **kw),
+                 unscaled_ms)):
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+    ms, ms_unscaled = (statistics.median(v) for v in (scaled_ms,
+                                                      unscaled_ms))
+    ru = ops.lbfgsb_solve_fused(f, x0, lo, up, **kw)
+    log(f"35a times (CUDA events, medians of 3 in turns): scaled {ms:.3f} "
+        f"ms (median {r.iterations.float().median().item():.0f} "
+        f"iterations), unscaled {ms_unscaled:.3f} ms (median "
+        f"{ru.iterations.float().median().item():.0f}, converged "
+        f"{(ru.status == 1).float().mean().item():.4f}), plain "
+        f"{1e3 * plain_s:.1f} ms  [{card}]")
+    # K1's bound (phase 4) plus the scaled form's divisions: z / s at each
+    # coordinate of every evaluation and g / s of each gradient (3n per
+    # iteration: a value-and-gradient and a value-only trial), and s read
+    bound_ms, bound_by = bound(
+        2 * B * n * 4 + 3 * n * 4 + 3 * B * 4,
+        r.iterations.double().sum().item() * (18 * kw["m"] * n + 44 * n)
+        + B * 17 * n)
+    log(f"35a K1 scaled bound: {bound_ms:.4f} ms ({bound_by}); kernel "
+        f"{ms:.3f} ms  [{card}]")
+
+    # ---- 35b. diag = 1: the unscaled K1's numbers bit for bit
+    one = torch.ones_like(diag)
+    ra = ops.lbfgsb_solve_fused_scaled(f, x0, lo, up, one, **kw)
+    same = [bool(torch.equal(a, b)) for a, b in zip(ra[:5], ru[:5])]
+    log(f"35b diag = 1 against the unscaled K1, float32 headline: x, f, g, "
+        f"iterations, status equal {same}")
+    check(all(same), "35b: diag = 1 differs from the unscaled kernel")
+
+    # ---- 35c. float64 per instance over the first iterations
+    Bd = SCALED_F64_B
+    xd, lod, upd, dd = tensors(starts[:Bd], np.full(n, -BOX),
+                               np.full(n, BOX), rosenbrock_diag(n))
+    sd = torch.sqrt(dd)
+    capped = dict(kw, max_iter=SCALED_CAPPED)
+    rk = ops.lbfgsb_solve_fused_scaled(f, xd, lod, upd, dd, **capped)
+    torch.cuda.synchronize()
+    plain_d = fused_lbfgsb.ScaledObjective(f, (), sd)
+
+    def plain64(x):
+        z, _, it, st = fused_lbfgsb.lbfgsb_solve_plain(
+            plain_d, x * sd, lod * sd, upd * sd, **capped)
+        return z / sd, it, st
+
+    xp, itp, stp = plain64(xd)
+    spread = 0.0
+    for k in range(3):
+        noise = np.random.RandomState(100 + k).standard_normal((Bd, n))
+        (xq,) = tensors(starts[:Bd] * (1 + 1e-15 * noise))
+        spread = max(spread, (plain64(xq)[0] - xp).abs().max().item())
+    err = (rk.x - xp).abs().max().item()
+    st_same = (rk.status == stp).float().mean().item()
+    it_same = (rk.iterations == itp).float().mean().item()
+    log(f"35c K1 scaled vs plain f64 at {Bd} x {n}, {SCALED_CAPPED} "
+        f"iterations: status equal {st_same:.5f}, iterations equal "
+        f"{it_same:.5f}, max|dx| {err:.3g}; plain vs plain with x0 moved by "
+        f"1e-15 relative: max|dx| {spread:.3g}")
+    check(st_same == 1.0, "35c: status differs")
+    check(err <= max(spread, WHOLE_X_FLOOR),
+          f"35c: max|dx| {err} beyond the plain spread {spread}")
+
+    # ---- 35d. Jacobi preconditioning, beside the unscaled kernel
+    j = JACOBI
+    d = np.logspace(0, 6, j["n"])
+    xj, loj, upj, dj, tj = tensors(
+        np.random.RandomState(0).uniform(-2.0, 2.0, (j["B"], j["n"])),
+        np.full(j["n"], -j["box"]), np.full(j["n"], j["box"]), d,
+        np.zeros(j["n"]))
+    ws = problems.weighted_squares()
+    kwj = dict(m=5, pgtol=j["pgtol"], factr=j["factr"],
+               max_iter=j["max_iter"])
+    rj, tj_s = sync_time(lambda: ops.lbfgsb_solve_fused_scaled(
+        ws, xj, loj, upj, dj, (dj, tj), **kwj))
+    ruj, tu_s = sync_time(lambda: ops.lbfgsb_solve_fused(
+        ws, xj, loj, upj, (dj, tj), **kwj))
+    jconv = (rj.status == 1).float().mean().item()
+    log(f"35d Jacobi, {j['B']} x {j['n']} float64, d = logspace(0, 6): "
+        f"scaled converged {jconv:.4f}, iterations max "
+        f"{rj.iterations.max().item()}, max f {rj.f.max().item():.3g}, "
+        f"max|x| {rj.x.abs().max().item():.3g}, {1e3 * tj_s:.3f} ms; "
+        f"unscaled converged {(ruj.status == 1).float().mean().item():.4f}, "
+        f"median iterations {ruj.iterations.float().median().item():.0f} "
+        f"(max {ruj.iterations.max().item()}), {1e3 * tu_s:.3f} ms  "
+        f"[{card}]")
+    check(jconv == 1.0, f"35d: converged {jconv}")
+    check(rj.iterations.max().item() <= j["iters"],
+          f"35d: {rj.iterations.max().item()} iterations")
+    check(rj.f.max().item() < 1e-12, "35d: f >= 1e-12")
+    check(rj.x.abs().max().item() < 1e-6, "35d: max|x| >= 1e-6")
+    return {
+        "name": "lbfgsb_fused_scaled",
+        "route": "cuda",
+        "source": "optimization_solvers_tpu_torch/ops/csrc/lbfgsb_fused.cu",
+        "replaces": "optimization_solvers_tpu/ops/pallas_lbfgsb.py:993",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": 1e3 * plain_s,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def lockstep_lbfgsb_slice(dev, card, tensors, sync_time):
+    """Phase 36: the lockstep L-BFGS-B (``solvers/lbfgsb.py``; no kernel) on
+    the card through ``minimize(method="lbfgsb")``: the headline with a
+    plain torch callable, ``ls_c2`` with the objective's kernel form, and a
+    single float64 instance on the card against the CPU."""
+    import torch
+
+    from optimization_solvers_tpu_torch import minimize, problems
+
+    counted = kernel_wrappers()
+
+    def no_kernel(what, fn):
+        for k in counted.values():
+            k.launches = 0
+        r, wall = sync_time(fn)
+        counts = {name: k.launches for name, k in counted.items()}
+        log(f"{what}: launches {counts}, {wall:.3f} s")
+        check(not any(counts.values()), f"{what}: a kernel launched")
+        check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.f).all()),
+              f"{what}: non-finite result")
+        return r, wall
+
+    def rosen(x):
+        return torch.sum(100.0 * (x[1:] - x[:-1] ** 2) ** 2
+                         + (1.0 - x[:-1]) ** 2)
+
+    n, B = HEADLINE["n"], LOCKSTEP_B
+    (x0,) = tensors(np.random.RandomState(42).uniform(-2.0, 2.0, (B, n)),
+                    dtype=torch.float32)
+    kw = dict(bounds=(-BOX, BOX), tol=HEADLINE["pgtol"], m=HEADLINE["m"],
+              factr=HEADLINE["factr"], max_iter=HEADLINE["max_iter"])
+
+    # ---- 36a. a torch callable without a kernel form
+    r, wall = no_kernel(
+        f"36a lockstep L-BFGS-B, {B} x Rosenbrock-{n} as a torch callable",
+        lambda: minimize(rosen, x0, method="lbfgsb", **kw))
+    conv = report("36a lockstep", r, wall)
+    med_f = r.f.median().item()
+    log(f"36a lockstep: {B / wall:.1f} solves/s, {int(r.iterations.max())} "
+        f"lockstep iterations, {1e3 * wall / int(r.iterations.max()):.3f} ms "
+        f"per lockstep iteration  [{card}]")
+    check(conv >= CONV_FLOOR, f"36a: converged {conv} < {CONV_FLOOR}")
+    check(med_f <= 1e-4, f"36a: median f {med_f} > 1e-4")
+    capped = dict(kw, max_iter=LS_PROFILE_ITERS)
+    _, wall_cap = sync_time(lambda: minimize(rosen, x0, method="lbfgsb",
+                                             **capped))
+    host_share(f"36a lockstep, first {LS_PROFILE_ITERS} iterations",
+               lambda: minimize(rosen, x0, method="lbfgsb", **capped),
+               wall_cap, card, sync_time)
+
+    # ---- 36b. ls_c2 with the objective's kernel form: the lockstep solver,
+    # over its first LS_PROFILE_ITERS iterations (the full solve took 23.5
+    # s on an H100 at 700 W: the loop is host-bound, so a smaller batch
+    # would not shorten it)
+    rb, wall_b = no_kernel(
+        f"36b ls_c2 = 0.5, the headline's objective with its kernel form, "
+        f"first {LS_PROFILE_ITERS} iterations",
+        lambda: minimize(problems.rosenbrock(), x0, method="lbfgsb",
+                         ls_c2=0.5, **capped))
+    report("36b lockstep, ls_c2 = 0.5", rb, wall_b)
+    check(bool((rb.iterations == LS_PROFILE_ITERS).any()),
+          "36b: the capped run ended early")
+
+    # ---- 36c. one float64 instance, on the card and on the CPU
+    target = np.array([2.0, 3.0, 0.5])[np.arange(n) % 3]
+    weight = np.linspace(1.0, 10.0, n)
+
+    def shifted(x):
+        c, w = (torch.as_tensor(v, dtype=x.dtype, device=x.device)
+                for v in (target, weight))
+        return torch.sum(w * (x - c) ** 2)
+
+    kw1 = dict(bounds=(np.full(n, -np.inf), np.full(n, 1.0)), tol=1e-8,
+               factr=10.0, max_iter=200)
+    (x1,) = tensors(np.zeros(n))
+    rc, _ = no_kernel("36c one float64 instance on the card",
+                      lambda: minimize(shifted, x1, method="lbfgsb", **kw1))
+    rh = minimize(shifted, x1.cpu(), method="lbfgsb", **kw1)
+    dx = (rc.x.cpu() - rh.x).abs().max().item()
+    log(f"36c card vs CPU: status {int(rc.status)} / {int(rh.status)}, "
+        f"iterations {int(rc.iterations)} / {int(rh.iterations)}, f "
+        f"{rc.f.item():.12g} / {rh.f.item():.12g}, max|dx| {dx:.3g}")
+    check(rc.x.shape == (n,) and rc.x.device.type == "cuda", "36c: shape")
+    check(int(rc.status) == int(rh.status) == 1, "36c: status")
+    check(dx <= LOCKSTEP_1D_ATOL, f"36c: max|dx| {dx}")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ mirrors its layout and module names:
   ops/       -- batched oracle, seven whole-solve kernels and two kernels of
                 the lockstep loop, each a plain PyTorch version (CPU) and
                 a hand-written CUDA kernel (GPU): K1
-                ops/csrc/lbfgsb_fused.cu (L-BFGS-B, small n), the tall K2
+                ops/csrc/lbfgsb_fused.cu (L-BFGS-B, small n, and its
+                diagonally scaled form), the tall K2
                 ops/csrc/lbfgsb_tall.cu (L-BFGS-B, large n, config 4), the
                 generic driver K3 ops/csrc/driver.cu (template methods:
                 first-order, configs 3 and 6; dense quasi-Newton and
@@ -26,13 +27,17 @@ mirrors its layout and module names:
   solvers/   -- the first-order, dense quasi-Newton, L-BFGS and Newton
                 methods, the lockstep driver (minimize, minimize_recorded,
                 make_step, lockstep_loop) and batch_minimize (the route to
-                K3 or the lockstep loop), LbfgsbConfig, NewtonCGConfig and
-                newton_cg_batch_minimize (the route to K4)
+                K3 or the lockstep loop), the lockstep L-BFGS-B
+                (lbfgsb_minimize, lbfgsb_batch_minimize,
+                lbfgsb_minimize_scaled) and LbfgsbConfig, NewtonCGConfig
+                and newton_cg_batch_minimize (the route to K4)
+  utils/     -- the package logger and the per-iteration tracer
   frontend   -- minimize(f, x0, method=..., ...)
   interop    -- numpy hand-over between the two packages
 
 Ported so far: the batched box-constrained L-BFGS-B main path at small and
-large n, the template methods gd, cd, pgd, pnorm, spg, ncg, bfgs, dfp,
+large n, its scaled form (ops.lbfgsb_solve_fused_scaled), the lockstep
+L-BFGS-B (single, batched and scaled), the template methods gd, cd, pgd, pnorm, spg, ncg, bfgs, dfp,
 broyden, bfgsb, dfpb, broydenb, sr1b, lbfgs, newton, pn and spn with every
 line search, batched (K3 or the lockstep loop) and single-instance,
 newton_cg, and the whole-solve entries lbfgs_solve_fused, spg_solve_fused

@@ -12,7 +12,10 @@ ported:
   device memory): config 4's 10,000-dim log-sum-exp, any ``quadratic``.
   The JAX front end picks by the TPU kernels' VMEM footprint instead
   (``frontend.py:391-425`` there): the two chips hold different amounts on
-  chip, so the boundary moves.
+  chip, so the boundary moves.  The lockstep solver
+  (:mod:`.solvers.lbfgsb`, no kernel) takes what the kernels do not, as in
+  JAX (:func:`lockstep_lbfgsb`): a 1-D ``x0``, an oracle, an option only it
+  honours, and on CUDA an objective without a ``kernel_form``.
 * the template methods -- first-order ``gd``, ``cd``, ``pgd``, ``pnorm``,
   ``spg`` and ``ncg``, dense quasi-Newton ``bfgs``, ``dfp``, ``broyden``,
   ``bfgsb``, ``dfpb``, ``broydenb`` and ``sr1b``, ``lbfgs``, and the Newton
@@ -65,11 +68,13 @@ from .ops.fused_lbfgsb_tall import lbfgsb_solve_fused_tall
 from .solvers import lbfgs, newton, nonlinear_cg, quasi_newton, steepest
 from .solvers.driver import as_batch, batch_minimize
 from .solvers.driver import minimize as minimize_single
-from .solvers.lbfgsb import LbfgsbConfig
+from .solvers.lbfgsb import (LbfgsbConfig, lbfgsb_batch_minimize,
+                             lbfgsb_minimize)
 from .solvers.newton_cg import (NewtonCGConfig, newton_cg_batch_minimize,
                                 newton_cg_minimize)
 
-# LbfgsbConfig fields only the lockstep dcsrch solver honours
+# LbfgsbConfig fields only the lockstep dcsrch solver honours: a value
+# other than the default routes the call there
 _LOCKSTEP_ONLY = ("ls_c2", "rel_pg_stop", "verbose", "curvature_eps")
 # keywords of the JAX front end whose machinery is not ported yet
 _NOT_PORTED = {"precision": "item 10", "polish_max_iter": "item 10"}
@@ -123,15 +128,17 @@ def takes_k1(f, x0, m) -> bool:
 
 
 def _bounds(bounds, x0):
-    B, n = x0.shape
+    """``(lower, upper)``: ``(n,)``, or ``(B, n)`` per instance."""
+    n = x0.shape[-1]
     if bounds is None:
         inf = torch.full((n,), float("inf"), dtype=x0.dtype, device=x0.device)
         return -inf, inf
     lo, up = (torch.as_tensor(b, dtype=x0.dtype, device=x0.device)
               for b in bounds)
-    if lo.dim() == 2 or up.dim() == 2:
+    if x0.dim() == 2 and (lo.dim() == 2 or up.dim() == 2):
         # per-instance (B, n) boxes
-        return (lo.expand(B, n).contiguous(), up.expand(B, n).contiguous())
+        return (lo.expand(x0.shape).contiguous(),
+                up.expand(x0.shape).contiguous())
     return lo.expand(n).contiguous(), up.expand(n).contiguous()
 
 
@@ -154,8 +161,12 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
     (float32); ``"reference"`` runs the tall kernel's line search as MINPACK
     dcsrch unless ``tall_line_search`` is given; ``max_iter_ls`` defaults to
     20; extra options name :class:`LbfgsbConfig` fields (``m``, ``pgtol``,
-    ``ls_c1``, ``tall_line_search``, ...).  It runs its own line search, so
-    a ``search`` raises ``ValueError``.
+    ``ls_c1``, ``tall_line_search``, ``ls_c2``, ...).  It runs its own line
+    search, so a ``search`` raises ``ValueError``.  A 1-D ``x0``, an
+    oracle, a non-default ``ls_c2``, ``rel_pg_stop``, ``verbose`` or
+    ``curvature_eps``, or a CUDA ``x0`` with a callable that has no
+    ``kernel_form`` run the lockstep solver (``solvers.lbfgsb_minimize`` /
+    ``lbfgsb_batch_minimize``) on x0's device.
 
     Template methods (``gd``, ``cd``, ``pgd``, ``pnorm``, ``spg``,
     ``ncg``, ``bfgs``, ``dfp``, ``broyden``, ``bfgsb``, ``dfpb``,
@@ -186,12 +197,13 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
     It runs its own line search, so a ``search`` raises ``ValueError``.
 
     A 1-D ``x0`` is one instance: the template methods run it through
-    :func:`.solvers.minimize` and the result has no batch axis.
+    :func:`.solvers.minimize`, ``lbfgsb`` through
+    :func:`.solvers.lbfgsb_minimize`, and the result has no batch axis.
 
     An unknown option raises ``TypeError``, as in the JAX front end; a
     method, search or option whose machinery is not ported yet raises
     ``NotImplementedError`` naming its ROADMAP item; so does a 1-D ``x0``
-    for ``lbfgsb`` and ``newton_cg`` (their single-instance solvers)."""
+    for ``newton_cg`` (its single-instance solver)."""
     if policy not in ("fast", "reference"):
         raise ValueError(
             f"policy must be 'fast' or 'reference', got {policy!r}")
@@ -227,11 +239,22 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
                      search, policy, options)
 
 
+def lockstep_lbfgsb(f, x0, cfg) -> bool:
+    """Whether ``minimize`` runs this L-BFGS-B call on the lockstep solver
+    (:mod:`.solvers.lbfgsb`) rather than on K1 or K2, as JAX
+    ``frontend.py:327-433`` routes: one instance (a 1-D ``x0``), an
+    oracle, an option only the lockstep solver honours (``ls_c2``,
+    ``rel_pg_stop``, ``verbose``, ``curvature_eps`` other than the
+    default), or a CUDA ``x0`` whose objective has no ``kernel_form`` (the
+    kernels compile functors)."""
+    default = LbfgsbConfig()
+    return (x0.dim() != 2 or isinstance(f, Oracle)
+            or any(getattr(cfg, k) != getattr(default, k)
+                   for k in _LOCKSTEP_ONLY)
+            or (x0.device.type == "cuda" and not hasattr(f, "kernel_form")))
+
+
 def _lbfgsb(f, x0, bounds, data, tol, max_iter, max_iter_ls, policy, options):
-    if x0.dim() != 2:
-        raise NotImplementedError(
-            "single-instance (1-D x0) L-BFGS-B runs the lockstep solver, "
-            "not ported yet (ROADMAP.md Queue 1 item 3); pass x0 as (1, n)")
     lower, upper = _bounds(bounds, x0)
     factr = options.pop("factr", 1e7 if x0.dtype == torch.float64 else 100.0)
     if policy == "reference":
@@ -243,18 +266,11 @@ def _lbfgsb(f, x0, bounds, data, tol, max_iter, max_iter_ls, policy, options):
         **{k: options.pop(k) for k in list(options) if k in fields})
     if options:
         raise TypeError(f"unknown lbfgsb option(s) {sorted(options)}")
-    default = LbfgsbConfig()
-    lockstep = [k for k in _LOCKSTEP_ONLY
-                if getattr(cfg, k) != getattr(default, k)]
-    if lockstep:
-        raise NotImplementedError(
-            f"option(s) {lockstep} need the lockstep dcsrch L-BFGS-B, not "
-            "ported yet (ROADMAP.md Queue 1 item 3)")
-    if x0.device.type == "cuda" and not hasattr(f, "kernel_form"):
-        raise NotImplementedError(
-            "on CUDA the objective needs a kernel_form (core.problems); "
-            "arbitrary torch callables wait for the lockstep solver "
-            "(ROADMAP.md Queue 1 item 3)")
+    if lockstep_lbfgsb(f, x0, cfg):
+        oracle = f if isinstance(f, Oracle) else make_oracle(f, data=data)
+        if x0.dim() == 2:
+            return lbfgsb_batch_minimize(oracle, x0, lower, upper, cfg)
+        return lbfgsb_minimize(oracle, x0, lower, upper, cfg)
     kw = dict(m=cfg.m, pgtol=cfg.pgtol, factr=cfg.factr,
               max_iter=cfg.max_iter, max_iter_ls=max(cfg.max_iter_ls, 20),
               c1=cfg.ls_c1)

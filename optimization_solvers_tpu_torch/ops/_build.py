@@ -96,6 +96,7 @@ def load() -> ctypes.CDLL:
                 i, i, i,                 # dtype, objective, unbounded
                 vp, vp, vp, i,           # x0, lower, upper, bound stride
                 vp, vp,                  # objective data
+                vp,                      # scale (null: unscaled)
                 i, i, i,                 # B, n, m
                 d, d, i, i, d,           # pgtol, factr, max_iter, ls, c1
                 vp, vp, vp, vp,          # x, f, iterations, status
@@ -103,7 +104,7 @@ def load() -> ctypes.CDLL:
             ]
             lib.lbfgsb_fused_kernel_info.restype = i
             lib.lbfgsb_fused_kernel_info.argtypes = [
-                i, i, i,                 # dtype, objective, unbounded
+                i, i, i, i,              # dtype, objective, unbounded, scaled
                 i, i, i,                 # B, n, m
                 ctypes.POINTER(i),       # out: 5 ints
             ]

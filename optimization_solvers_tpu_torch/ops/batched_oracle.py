@@ -83,13 +83,14 @@ def batched_hvp(f: Callable, data=()):
 
 
 def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",
-                    lockstep: str = "ROADMAP.md Queue 1 item 3"):
+                    lockstep: str = "solvers.lbfgsb_batch_minimize, which "
+                    "minimize(method='lbfgsb') routes such a callable to"):
     """The kernel form of ``f``: its functor code and its data arrays as
     contiguous tensors of x0's dtype on x0's device, each of the shape its
     functor reads (``(n,)``; ``Q (n, n)``; ``A (rows, n)``, ``b (rows,)``).
     Raises ``NotImplementedError`` for an objective without a kernel form
-    (naming ``kernel``, the kernel that asked, and ``lockstep``, the item of
-    the lockstep solver that would take such a callable) or whose functor
+    (naming ``kernel``, the kernel that asked, and ``lockstep``, the lockstep
+    solver that takes such a callable) or whose functor
     no kernel compiles (``exp_bowl``), and ``ValueError`` for data of
     another shape."""
     form = getattr(f, "kernel_form", None)
@@ -97,7 +98,7 @@ def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",
         raise NotImplementedError(
             f"{kernel} needs an objective with a kernel_form "
             "(optimization_solvers_tpu_torch.core.problems); arbitrary torch "
-            f"callables on CUDA need the lockstep solver ({lockstep})")
+            f"callables on CUDA run on a lockstep solver ({lockstep})")
     name, arrays = form(*data)
     if name not in KERNEL_OBJECTIVES:
         raise NotImplementedError(

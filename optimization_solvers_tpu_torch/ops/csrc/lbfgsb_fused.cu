@@ -1,7 +1,11 @@
 // Whole batched L-BFGS-B solves on Hopper (sm_90a), one warp per instance.
 //
 // Replaces the TPU kernel optimization_solvers_tpu/ops/pallas_lbfgsb.py
-// (lbfgsb_solve_fused, kernel body _make_kernel, pl.pallas_call at :938).
+// (lbfgsb_solve_fused, kernel body _make_kernel, pl.pallas_call at :938),
+// and its scaled form (lbfgsb_solve_fused_scaled, :993): the same kernel
+// on Scaled<Obj> (objectives.cuh), whose evaluations read x = z / s with
+// s = sqrt(diag) the launch's operand Params::s; the unscaled instances
+// never read it.
 // The plain PyTorch version of the same algorithm is lbfgsb_solve_plain in
 // ../fused_lbfgsb.py; the two are held against each other on the card.
 //
@@ -193,6 +197,7 @@ template <typename T> struct Params {
   T* f_out;
   int* it_out;
   int* st_out;
+  const T* s;           // the scaled form's sqrt(diag), (n,); null otherwise
 };
 
 template <typename T, class Obj, bool UNBOUNDED>
@@ -238,7 +243,7 @@ lbfgsb_fused_kernel(const Params<T> prm) {
   const T* lo = prm.lo + (long long)inst * prm.bstride;
   const T* up = prm.up + (long long)inst * prm.bstride;
   const T* x0 = prm.x0 + (long long)inst * n;
-  const Obj obj{prm.d0, prm.d1};
+  const Obj obj = Bind<Obj>::make(prm.d0, prm.d1, prm.s);
 
   int oldest = 0;             // ring slot of the chronologically oldest pair
   int nvalid = 0;             // the newest nvalid pairs are valid
@@ -1087,11 +1092,19 @@ int kernel_info(int B, int n, int m, int* out) {
 
 template <typename T>
 int dispatch(int objective, int unbounded, const Params<T>& prm, cudaStream_t stream) {
-  if (objective == kRosenbrock)
+  const bool scaled = prm.s != nullptr;
+  if (objective == kRosenbrock) {
+    if (scaled)
+      return unbounded ? launch<T, Scaled<Rosenbrock<T>>, true>(prm, stream)
+                       : launch<T, Scaled<Rosenbrock<T>>, false>(prm, stream);
     return unbounded ? launch<T, Rosenbrock<T>, true>(prm, stream)
                      : launch<T, Rosenbrock<T>, false>(prm, stream);
+  }
   if (objective == kWeightedSquares) {
     if (prm.d0 == nullptr || prm.d1 == nullptr) return kErrArgs;
+    if (scaled)
+      return unbounded ? launch<T, Scaled<WeightedSquares<T>>, true>(prm, stream)
+                       : launch<T, Scaled<WeightedSquares<T>>, false>(prm, stream);
     return unbounded ? launch<T, WeightedSquares<T>, true>(prm, stream)
                      : launch<T, WeightedSquares<T>, false>(prm, stream);
   }
@@ -1099,22 +1112,30 @@ int dispatch(int objective, int unbounded, const Params<T>& prm, cudaStream_t st
 }
 
 template <typename T>
-int info_dispatch(int objective, int unbounded, int B, int n, int m, int* out) {
-  if (objective == kRosenbrock)
+int info_dispatch(int objective, int unbounded, int scaled, int B, int n, int m, int* out) {
+  if (objective == kRosenbrock) {
+    if (scaled)
+      return unbounded ? kernel_info<T, Scaled<Rosenbrock<T>>, true>(B, n, m, out)
+                       : kernel_info<T, Scaled<Rosenbrock<T>>, false>(B, n, m, out);
     return unbounded ? kernel_info<T, Rosenbrock<T>, true>(B, n, m, out)
                      : kernel_info<T, Rosenbrock<T>, false>(B, n, m, out);
-  if (objective == kWeightedSquares)
+  }
+  if (objective == kWeightedSquares) {
+    if (scaled)
+      return unbounded ? kernel_info<T, Scaled<WeightedSquares<T>>, true>(B, n, m, out)
+                       : kernel_info<T, Scaled<WeightedSquares<T>>, false>(B, n, m, out);
     return unbounded ? kernel_info<T, WeightedSquares<T>, true>(B, n, m, out)
                      : kernel_info<T, WeightedSquares<T>, false>(B, n, m, out);
+  }
   return kErrArgs;
 }
 
 template <typename T>
 int run(int objective, int unbounded, const void* x0, const void* lo,
-        const void* up, int bstride, const void* d0, const void* d1, int B,
-        int n, int m, double pgtol, double factr, int max_iter,
-        int max_iter_ls, double c1, void* x, void* f, void* it, void* st,
-        void* stream) {
+        const void* up, int bstride, const void* d0, const void* d1,
+        const void* s, int B, int n, int m, double pgtol, double factr,
+        int max_iter, int max_iter_ls, double c1, void* x, void* f, void* it,
+        void* st, void* stream) {
   Params<T> prm;
   prm.x0 = static_cast<const T*>(x0);
   prm.lo = static_cast<const T*>(lo);
@@ -1135,6 +1156,7 @@ int run(int objective, int unbounded, const void* x0, const void* lo,
   prm.f_out = static_cast<T*>(f);
   prm.it_out = static_cast<int*>(it);
   prm.st_out = static_cast<int*>(st);
+  prm.s = static_cast<const T*>(s);
   return dispatch<T>(objective, unbounded, prm, static_cast<cudaStream_t>(stream));
 }
 
@@ -1144,33 +1166,36 @@ extern "C" long long lbfgsb_fused_smem_per_warp(int n, int m, int elem_size) {
   return work_bytes(n, m, elem_size);
 }
 
-// dtype 0: float32, 1: float64.  Returns 0, a cudaError_t, or a negative
+// dtype 0: float32, 1: float64; s: the scaled form's sqrt(diag), (n,), or
+// null for the unscaled kernel.  Returns 0, a cudaError_t, or a negative
 // ErrorCode; launches on `stream` and does not synchronise.
 extern "C" int lbfgsb_fused_launch(
     int dtype, int objective, int unbounded, const void* x0, const void* lo,
-    const void* up, int bstride, const void* d0, const void* d1, int B, int n,
-    int m, double pgtol, double factr, int max_iter, int max_iter_ls,
-    double c1, void* x, void* f, void* it, void* st, void* stream) {
+    const void* up, int bstride, const void* d0, const void* d1,
+    const void* s, int B, int n, int m, double pgtol, double factr,
+    int max_iter, int max_iter_ls, double c1, void* x, void* f, void* it,
+    void* st, void* stream) {
   if (B < 1 || n < 1 || m < 1 || m > kMaxM || (bstride != 0 && bstride != n))
     return kErrArgs;
   if (dtype == 0)
-    return run<float>(objective, unbounded, x0, lo, up, bstride, d0, d1, B, n,
-                      m, pgtol, factr, max_iter, max_iter_ls, c1, x, f, it,
-                      st, stream);
+    return run<float>(objective, unbounded, x0, lo, up, bstride, d0, d1, s, B,
+                      n, m, pgtol, factr, max_iter, max_iter_ls, c1, x, f,
+                      it, st, stream);
   if (dtype == 1)
-    return run<double>(objective, unbounded, x0, lo, up, bstride, d0, d1, B,
-                       n, m, pgtol, factr, max_iter, max_iter_ls, c1, x, f,
-                       it, st, stream);
+    return run<double>(objective, unbounded, x0, lo, up, bstride, d0, d1, s,
+                       B, n, m, pgtol, factr, max_iter, max_iter_ls, c1, x,
+                       f, it, st, stream);
   return kErrArgs;
 }
 
 // the launch configuration and the compiled kernel's resources for one
-// call's shape (see kernel_info); returns 0, a cudaError_t or an ErrorCode
+// call's shape (see kernel_info), of the scaled form if `scaled`; returns
+// 0, a cudaError_t or an ErrorCode
 extern "C" int lbfgsb_fused_kernel_info(int dtype, int objective, int unbounded,
-                                        int B, int n, int m, int* out) {
+                                        int scaled, int B, int n, int m, int* out) {
   if (B < 1 || n < 1 || m < 1 || m > kMaxM) return kErrArgs;
-  if (dtype == 0) return info_dispatch<float>(objective, unbounded, B, n, m, out);
-  if (dtype == 1) return info_dispatch<double>(objective, unbounded, B, n, m, out);
+  if (dtype == 0) return info_dispatch<float>(objective, unbounded, scaled, B, n, m, out);
+  if (dtype == 1) return info_dispatch<double>(objective, unbounded, scaled, B, n, m, out);
   return kErrArgs;
 }
 

@@ -32,6 +32,7 @@
 // coordinate's neighbours come through an accessor: x(d) is x_{i+d} for d
 // = -1, 0, 1, read only where that coordinate exists (x(1) where i < n - 1,
 // x(-1) where i > 0); `in_memory` makes one for a vector in memory.
+// Scaled<Obj> (at the end) is K1's scaled form of the first two.
 
 #pragma once
 
@@ -287,6 +288,62 @@ template <typename T> struct Quadratic {
       rowcol(v, i, n, qv, qtv);
       out[i] = T(0.5) * (qv + qtv);
     }
+  }
+};
+
+// K1's scaled form (ops.lbfgsb_solve_fused_scaled): the objective at x =
+// z / s and its gradient in z, g_i / s_i, for the change of variables z =
+// s x with s = sqrt(diag) in device memory, (n,) and shared by the batch.
+// The inner functor's `_at` members evaluate at coordinate i through an
+// accessor of z[i + d] / s[i + d], and each gradient entry is divided by
+// s_i, as JAX's z / s and its derivative divide: at s = 1 every number is
+// the inner functor's bit for bit.
+template <typename T> __device__ __forceinline__ auto unscaled(const T* z, const T* s, int i) {
+  return [z, s, i](int d) { return z[i + d] / s[i + d]; };
+}
+
+template <class Inner> struct Scaled;
+
+template <typename T> struct Scaled<Rosenbrock<T>> {
+  Rosenbrock<T> inner;
+  const T* s;
+  __device__ T value(const T* z, int n, int lane) const {
+    T acc = 0;
+    for (int i = lane; i < n - 1; i += kWarp) acc += Rosenbrock<T>::term_at(unscaled(z, s, i));
+    return warp_sum(acc);
+  }
+  __device__ T value_grad(const T* z, T* g, int n, int lane) const {
+    T acc = 0;
+    for (int i = lane; i < n; i += kWarp)
+      g[i] = Rosenbrock<T>::grad_at(unscaled(z, s, i), i, n, acc) / s[i];
+    return warp_sum(acc);
+  }
+};
+
+template <typename T> struct Scaled<WeightedSquares<T>> {
+  WeightedSquares<T> inner;
+  const T* s;
+  __device__ T value(const T* z, int n, int lane) const {
+    T acc = 0;
+    for (int i = lane; i < n; i += kWarp) inner.grad_at(z[i] / s[i], i, acc);
+    return T(0.5) * warp_sum(acc);
+  }
+  __device__ T value_grad(const T* z, T* g, int n, int lane) const {
+    T acc = 0;
+    for (int i = lane; i < n; i += kWarp) g[i] = inner.grad_at(z[i] / s[i], i, acc) / s[i];
+    return T(0.5) * warp_sum(acc);
+  }
+};
+
+// a functor of a kernel from its data pointers and, for Scaled, the scale
+template <class Obj> struct Bind {
+  template <typename T> __device__ static Obj make(const T* d0, const T* d1, const T*) {
+    return Obj{d0, d1};
+  }
+};
+template <class Inner> struct Bind<Scaled<Inner>> {
+  template <typename T> __device__ static Scaled<Inner> make(const T* d0, const T* d1, const T* s) {
+    return Scaled<Inner>{Inner{d0, d1}, s};
   }
 };
 

@@ -24,7 +24,12 @@ run the same algorithm, instance by instance:
 
 :func:`lbfgsb_solve_fused` takes the plain version for a CPU ``x0`` and
 launches the CUDA kernel ``csrc/lbfgsb_fused.cu`` for a CUDA ``x0``; it
-never falls back from one to the other.
+never falls back from one to the other.  :func:`lbfgsb_solve_fused_scaled`
+(JAX ``pallas_lbfgsb.py:993``) is the diagonally scaled solve around the
+same algorithm: the change of variables ``z = sqrt(diag) x``, the kernel
+evaluating the objective at ``z / sqrt(diag)`` through its ``Scaled<Obj>``
+functors (``csrc/objectives.cuh``), the plain version through
+:class:`ScaledObjective`.
 """
 
 from __future__ import annotations
@@ -381,10 +386,32 @@ def lbfgsb_solve_plain(obj, x0, lower, upper, data=(), *, m=5, pgtol=1e-5,
     return X, Fv, iters, status.to(torch.int32)
 
 
+class ScaledObjective:
+    """``obj`` at ``z / s`` with the gradient in z, ``g / s``: the plain
+    counterpart of the kernel's ``Scaled<Obj>`` functors and of JAX's
+    ``fz(z, s, *cs) = f(z / s, *cs)``, whose derivative divides by s.  Its
+    batched forms take no data (``data`` is bound here)."""
+
+    def __init__(self, obj, data, s):
+        self._vg = batched_value_and_grad(obj, data)
+        self._value = batched_value(obj, data)
+        self.s = s
+
+    def value(self, Z):
+        return self._value(Z / self.s)
+
+    def value_and_grad(self, Z):
+        f, g = self._vg(Z / self.s)
+        return f, g / self.s
+
+
 def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
-                 max_iter_ls, c1):
+                 max_iter_ls, c1, scale=None):
     """Check the operands, launch ``csrc/lbfgsb_fused.cu`` on the current
-    stream and return ``(x, f, iterations, status)``."""
+    stream and return ``(x, f, iterations, status)``.  ``scale`` (the
+    scaled form's ``sqrt(diag)``, ``(n,)`` of x0's dtype on x0's device, as
+    :func:`lbfgsb_solve_fused_scaled` makes it) launches the scaled kernel,
+    with x0 and the bounds already in z."""
     from . import _build
 
     if x0.dim() != 2 or x0.dtype not in EPS_MACH:
@@ -434,30 +461,37 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
         rc = lib.lbfgsb_fused_launch(
             1 if x0.dtype == torch.float64 else 0, code, int(unbounded),
             x0.data_ptr(), lo.data_ptr(), up.data_ptr(),
-            n if lo.dim() == 2 else 0, d0, d1, B, n, m,
+            n if lo.dim() == 2 else 0, d0, d1,
+            None if scale is None else scale.contiguous().data_ptr(), B, n,
+            m,
             float(pgtol), float(factr), int(max_iter), int(max_iter_ls),
             float(c1), x.data_ptr(), f.data_ptr(), it.data_ptr(),
             st.data_ptr(), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"lbfgsb_fused_launch failed: "
                            f"{_build.error_string(rc)} (code {rc})")
-    lbfgsb_solve_fused.launches += 1
+    if scale is None:
+        lbfgsb_solve_fused.launches += 1
+    else:
+        lbfgsb_solve_fused_scaled.launches += 1
     return x, f, it, st
 
 
-def kernel_info(dtype, B, n, m, objective="ROSENBROCK", unbounded=False):
+def kernel_info(dtype, B, n, m, objective="ROSENBROCK", unbounded=False,
+                scaled=False):
     """The CUDA kernel's launch for a ``(B, n)`` batch of ``dtype`` at
-    history ``m`` with the functor ``objective`` (one of ``K1_OBJECTIVES``),
-    and its compiled resources: warps per block, resident blocks and warps
-    per SM (the card's occupancy calculator), registers and local (spill)
-    bytes per thread, dynamic shared memory per block."""
+    history ``m`` with the functor ``objective`` (one of ``K1_OBJECTIVES``;
+    its ``Scaled<...>`` form if ``scaled``), and its compiled resources:
+    warps per block, resident blocks and warps per SM (the card's occupancy
+    calculator), registers and local (spill) bytes per thread, dynamic
+    shared memory per block."""
     from . import _build
 
     code = KERNEL_OBJECTIVES[objective]
     out = (ctypes.c_int * 5)()
     rc = _build.load().lbfgsb_fused_kernel_info(
-        1 if dtype == torch.float64 else 0, code, int(unbounded), B, n, m,
-        out)
+        1 if dtype == torch.float64 else 0, code, int(unbounded),
+        int(scaled), B, n, m, out)
     if rc != 0:
         raise RuntimeError(f"lbfgsb_fused_kernel_info failed: "
                            f"{_build.error_string(rc)} (code {rc})")
@@ -492,3 +526,40 @@ def lbfgsb_solve_fused(obj, x0, lower, upper, data=(), *, m=5, pgtol=1e-5,
 
 
 lbfgsb_solve_fused.launches = 0
+
+
+def lbfgsb_solve_fused_scaled(obj, x0, lower, upper, diag, data=(), *, m=5,
+                              pgtol=1e-5, factr=1e7, max_iter=500,
+                              max_iter_ls=20, c1=1e-3):
+    """Diagonally scaled batched solves: ``B0 = theta diag(diag)`` in place
+    of ``theta I`` through ``z = s x``, ``s = sqrt(diag)`` (JAX
+    ``pallas_lbfgsb.py:993-1046``).  ``diag`` is ``(n,)`` and positive;
+    ``lower``/``upper`` are ``(n,)`` or ``(B, n)`` (infinite bounds stay
+    infinite); the options are :func:`lbfgsb_solve_fused`'s.  A CPU
+    ``x0`` runs :func:`lbfgsb_solve_plain` on :class:`ScaledObjective`; a
+    CUDA ``x0`` launches the kernel's scaled form (the objective needs a
+    ``kernel_form``) or raises.  Returns x and g in the original
+    coordinates (``x / s``, ``g * s``), f, and ``pg_norm`` in the scaled
+    metric, the one ``pgtol`` and ``factr`` act in."""
+    n = x0.shape[-1]
+    s = torch.sqrt(torch.as_tensor(diag, dtype=x0.dtype, device=x0.device))
+    if tuple(s.shape) != (n,):
+        raise ValueError(f"diag must be ({n},), got {tuple(s.shape)}")
+    lo = lower.to(x0.dtype) * s
+    up = upper.to(x0.dtype) * s
+    z0 = x0 * s
+    scaled = ScaledObjective(obj, data, s)
+    opts = dict(m=m, pgtol=pgtol, factr=factr, max_iter=max_iter,
+                max_iter_ls=max_iter_ls, c1=c1)
+    if x0.device.type == "cpu":
+        z, f, it, st = lbfgsb_solve_plain(scaled, z0, lo, up, (), **opts)
+    elif x0.device.type == "cuda":
+        z, f, it, st = _launch_cuda(obj, z0, lo, up, data, scale=s, **opts)
+    else:
+        raise ValueError(f"no L-BFGS-B route for device {x0.device}")
+    _, gz = scaled.value_and_grad(z)
+    return SolveResult(z / s, f, gz * s, it, st,
+                       pg_norm=batched_pg_inf_norm(z, gz, lo, up))
+
+
+lbfgsb_solve_fused_scaled.launches = 0

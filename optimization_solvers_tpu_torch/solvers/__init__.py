@@ -2,14 +2,17 @@
 L-BFGS and Newton) with their lockstep bodies, the generic driver
 (``minimize``, ``minimize_recorded``, ``batch_minimize``, which routes a
 batch to the whole-solve kernel K3 or the lockstep loop, ``make_step``,
-``make_solver``, ``lockstep_loop``), the L-BFGS-B config, and the
-Newton-CG solver (the kernel K4)."""
+``make_solver``, ``lockstep_loop``), the lockstep L-BFGS-B
+(``make_lbfgsb_step``, ``lbfgsb_minimize``, ``lbfgsb_batch_minimize``,
+``lbfgsb_minimize_scaled``) and its config, and the Newton-CG solver (the
+kernel K4)."""
 
 from .base import BoundedMethod, Method
 from .driver import (SolverCarry, batch_minimize, lockstep_loop, make_solver,
                      make_step, minimize, minimize_recorded)
 from .lbfgs import LBFGS, LbfgsState
-from .lbfgsb import LbfgsbConfig
+from .lbfgsb import (LbfgsbConfig, lbfgsb_batch_minimize, lbfgsb_minimize,
+                     lbfgsb_minimize_scaled, make_lbfgsb_step)
 from .newton import Newton, ProjectedNewton, SpectralProjectedNewton
 from .newton_cg import (NewtonCGConfig, newton_cg_batch_minimize,
                         newton_cg_minimize)
@@ -22,7 +25,8 @@ from .steepest import (CoordinateDescent, GradientDescent, PnormDescent,
 __all__ = ["BoundedMethod", "Method", "SolverCarry", "batch_minimize",
            "lockstep_loop", "make_solver", "make_step", "minimize",
            "minimize_recorded", "LBFGS", "LbfgsState",
-           "LbfgsbConfig", "Newton", "ProjectedNewton",
+           "LbfgsbConfig", "lbfgsb_batch_minimize", "lbfgsb_minimize",
+           "lbfgsb_minimize_scaled", "make_lbfgsb_step", "Newton", "ProjectedNewton",
            "SpectralProjectedNewton", "NewtonCGConfig",
            "newton_cg_batch_minimize", "newton_cg_minimize", "NonlinearCG",
            "BFGS", "BFGSB", "DFP", "DFPB", "SR1B", "Broyden", "BroydenB", "QuasiNewton", "QuasiNewtonB",

@@ -425,7 +425,7 @@ def build(out_dir):
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.lbfgsb_fused_launch.restype = i
     lib.lbfgsb_fused_launch.argtypes = [
-        i, i, i, vp, vp, vp, i, vp, vp, i, i, i, d, d, i, i, d,
+        i, i, i, vp, vp, vp, i, vp, vp, vp, i, i, i, d, d, i, i, d,
         vp, vp, vp, vp, vp]
     lib.lbfgsb_fused_smem_per_warp.restype = ctypes.c_longlong
     lib.lbfgsb_fused_smem_per_warp.argtypes = [i, i, i]
@@ -632,27 +632,33 @@ def qn_update(lib, B, s, y, g, *, tol=1e-8, kind="bfgs", seed=1):
 
 
 def solve(lib, obj, x0, lower, upper, data=(), *, m=5, pgtol=1e-5,
-          factr=1e7, max_iter=500, max_iter_ls=20, c1=1e-3):
+          factr=1e7, max_iter=500, max_iter_ls=20, c1=1e-3, scale=None,
+          seed=1):
     """K1 on CPU tensors through the emulated library, with the arguments
-    ``fused_lbfgsb._launch_cuda`` passes; returns ``(x, f, iterations,
-    status)`` as ``lbfgsb_solve_plain`` does."""
+    ``fused_lbfgsb._launch_cuda`` passes (``scale``: the scaled form's
+    sqrt(diag), ``(n,)``, with x0 and the bounds already in z = scale x);
+    the warps take turns in the order ``seed`` draws.  Returns ``(x, f,
+    iterations, status)`` as ``lbfgsb_solve_plain`` does."""
     x0 = x0.contiguous()
     B, n = x0.shape
     lo = lower.to(x0.dtype).contiguous()
     up = upper.to(x0.dtype).contiguous()
     code, arrays = kernel_operands(obj, data, x0)
     arrays = [a.contiguous() for a in arrays]
+    s = None if scale is None else scale.to(x0.dtype).contiguous()
     x = torch.empty_like(x0)
     f = torch.empty((B,), dtype=x0.dtype)
     it = torch.empty((B,), dtype=torch.int32)
     st = torch.empty((B,), dtype=torch.int32)
     unbounded = bool(torch.isneginf(lo).all() and torch.isposinf(up).all())
+    lib.emu_set_seed(seed)
     rc = lib.lbfgsb_fused_launch(
         1 if x0.dtype == torch.float64 else 0, code, int(unbounded),
         x0.data_ptr(), lo.data_ptr(), up.data_ptr(),
         n if lo.dim() == 2 else 0,
         arrays[0].data_ptr() if arrays else None,
-        arrays[1].data_ptr() if len(arrays) > 1 else None, B, n, m,
+        arrays[1].data_ptr() if len(arrays) > 1 else None,
+        None if s is None else s.data_ptr(), B, n, m,
         float(pgtol), float(factr), int(max_iter), int(max_iter_ls),
         float(c1), x.data_ptr(), f.data_ptr(), it.data_ptr(), st.data_ptr(),
         None)

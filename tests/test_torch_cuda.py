@@ -122,15 +122,19 @@ def test_headline_float32_quality(cuda):
 
 def test_route_launches_the_kernel(cuda):
     """A CUDA x0 runs the kernel, and an objective without a kernel form
-    is refused rather than run elsewhere."""
+    takes the lockstep solver on the card, with no launch of K1."""
     x0 = torch.zeros((8, 12), dtype=torch.float64, device=cuda)
     before = fused_lbfgsb.lbfgsb_solve_fused.launches
     r = minimize(problems.rosenbrock(), x0, method="lbfgsb",
                  bounds=(-1.5, 1.5), tol=1e-7, factr=10.0)
     assert fused_lbfgsb.lbfgsb_solve_fused.launches == before + 1
     assert r.x.device.type == "cuda" and (r.status == 1).all()
-    with pytest.raises(NotImplementedError, match="kernel_form"):
-        minimize(lambda x: x.sum(), x0, method="lbfgsb", bounds=(-1.0, 1.0))
+    r = minimize(lambda x: ((x - 0.5) ** 2).sum(), x0, method="lbfgsb",
+                 bounds=(-1.0, 1.0))
+    assert fused_lbfgsb.lbfgsb_solve_fused.launches == before + 1
+    assert r.x.device.type == "cuda" and (r.status == 1).all()
+    torch.testing.assert_close(r.x, torch.full_like(x0, 0.5), rtol=0,
+                               atol=1e-6)
 
 
 def test_refuses_what_does_not_fit(cuda):
@@ -211,6 +215,97 @@ def test_kernel_launch_keeps_warps_resident(cuda):
     assert info["warps_per_block"] == 8 and info["warps_per_sm"] >= 16
     assert info["smem_per_block"] == 8 * fused_lbfgsb.smem_per_instance(
         100, 5, 4)
+
+
+# ---- K1's scaled form and the lockstep L-BFGS-B ------------------------------
+
+@pytest.mark.parametrize("name", sorted(k1_geometries()))
+def test_scaled_kernel_matches_plain(name, cuda):
+    """The ``Scaled<Obj>`` kernels against the plain version on
+    ``ScaledObjective``, K1's tolerances.  Rosenbrock under the random
+    scale is chaotic (on the CPU a 1e-15 change of x0 moves the plain
+    version's counts by up to ~100 and x by ~5e-7): there the full solve is
+    held by status and each side's distance to x* = 1 (2e-6), and per
+    instance over its first 25 iterations (counts equal, x within 1e-9)."""
+    obj, x0, lo, up, data, opts = k1_geometries()[name]
+    x0, lo, up = tiled(x0, lo, up, ROWS)
+    diag = np.random.RandomState(11).uniform(0.25, 4.0, x0.shape[-1])
+    lo_t, up_t, d_t, *data_t = interop.tensors_from_numpy(
+        lo, up, diag, *data, device=cuda)
+    s = torch.sqrt(d_t)
+    scaled = fused_lbfgsb.ScaledObjective(obj, tuple(data_t), s)
+
+    def plain(x, **kw):
+        (xt,) = interop.tensors_from_numpy(x, device=cuda)
+        return fused_lbfgsb.lbfgsb_solve_plain(scaled, xt * s, lo_t * s,
+                                               up_t * s, (), m=5,
+                                               **dict(opts, **kw))
+
+    def kernel(**kw):
+        return fused_lbfgsb.lbfgsb_solve_fused_scaled(
+            obj, x0_t, lo_t, up_t, d_t, tuple(data_t), m=5,
+            **dict(opts, **kw))
+
+    (x0_t,) = interop.tensors_from_numpy(x0, device=cuda)
+    before = (fused_lbfgsb.lbfgsb_solve_fused.launches,
+              fused_lbfgsb.lbfgsb_solve_fused_scaled.launches)
+    r = kernel()
+    torch.cuda.synchronize()
+    assert (fused_lbfgsb.lbfgsb_solve_fused.launches,
+            fused_lbfgsb.lbfgsb_solve_fused_scaled.launches) == (
+                before[0], before[1] + 1)
+    z, _, it, st = plain(x0)
+    assert torch.equal(r.status, st)
+    if "rosenbrock" in name or name == "unbounded_body":
+        assert (r.x - 1.0).abs().max().item() <= 2e-6
+        assert (z / s - 1.0).abs().max().item() <= 2e-6
+        r = kernel(max_iter=25)
+        z, _, it, st = plain(x0, max_iter=25)
+        assert torch.equal(r.status, st) and torch.equal(r.iterations, it)
+        assert (r.x - z / s).abs().max().item() <= 1e-9
+        return
+    spread = perturbation_spread(lambda v: plain(v)[2].cpu().numpy(), x0)
+    assert (r.x - z / s).abs().max().item() <= 1e-6
+    dit = (r.iterations.long() - it.long()).abs().max().item()
+    assert dit <= max(2, spread), (dit, spread)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_scaled_kernel_unit_diag_is_unscaled_bit_for_bit(dtype, cuda):
+    f = problems.rosenbrock()
+    x0 = torch.tensor(np.random.RandomState(42).uniform(-2, 2, (256, 100)),
+                      dtype=dtype, device=cuda)
+    lo = torch.full((100,), -5.0, dtype=dtype, device=cuda)
+    kw = dict(m=5, pgtol=1e-3, factr=100.0, max_iter=600)
+    a = fused_lbfgsb.lbfgsb_solve_fused_scaled(f, x0, lo, -lo,
+                                               torch.ones_like(lo), **kw)
+    b = fused_lbfgsb.lbfgsb_solve_fused(f, x0, lo, -lo, **kw)
+    for u, v in zip(a[:5], b[:5]):
+        assert torch.equal(u, v)
+    info = fused_lbfgsb.kernel_info(dtype, 256, 100, 5, scaled=True)
+    assert info["warps_per_block"] == 8 and info["registers"] > 0
+
+
+def test_lockstep_lbfgsb_on_the_card_matches_the_cpu(cuda):
+    """The lockstep solver runs on x0's device: a 1-D float64 x0 of the
+    active-bounds quadratic, and a batch with a raw callable, on the card
+    as on the CPU, with no kernel launch."""
+    n = 100
+    d = torch.linspace(1.0, 10.0, n, dtype=torch.float64)
+
+    def f(x):
+        return torch.sum(d.to(x.device) * (x - 2.0) ** 2)
+
+    x0 = torch.zeros(n, dtype=torch.float64)
+    kw = dict(bounds=(-1.0, 1.0), tol=1e-10, factr=10.0)
+    before = fused_lbfgsb.lbfgsb_solve_fused.launches
+    on_card = minimize(f, x0.to(cuda), method="lbfgsb", **kw)
+    on_cpu = minimize(f, x0, method="lbfgsb", **kw)
+    assert fused_lbfgsb.lbfgsb_solve_fused.launches == before
+    assert on_card.x.device.type == "cuda"
+    assert int(on_card.status) == int(on_cpu.status) == 1
+    assert (on_card.x.cpu() - on_cpu.x).abs().max().item() <= 1e-8
 
 
 # ---- the tall kernel K2 and the route by fit ---------------------------------

@@ -154,15 +154,30 @@ def test_bounds_and_data_forms(spy):
     assert spy["lower"].shape == (3, 4) and spy["upper"].shape == (3, 4)
 
 
-def test_unknown_and_unported_options_raise(spy):
+def test_unknown_and_unported_options_raise(spy, monkeypatch):
     x0 = torch.zeros((3, 4), dtype=torch.float64)
     f = ostt.problems.rosenbrock()
     with pytest.raises(TypeError, match="unknown lbfgsb option"):
         ostt.minimize(f, x0, method="lbfgsb", no_such_option=1)
+    # the options only the lockstep solver honours, and a single instance,
+    # run the lockstep solver (JAX frontend.py:395-433)
+    lockstep = []
+
+    def route(name):
+        def fake(oracle, x, lower, upper, cfg):
+            lockstep.append((name, tuple(x.shape), cfg))
+            return "lockstep"
+        return fake
+
+    monkeypatch.setattr(frontend, "lbfgsb_batch_minimize", route("batch"))
+    monkeypatch.setattr(frontend, "lbfgsb_minimize", route("single"))
     for opt in (dict(ls_c2=0.5), dict(rel_pg_stop=True), dict(verbose=1),
                 dict(curvature_eps=1e-8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ostt.minimize(f, x0, method="lbfgsb", **opt)
+        assert ostt.minimize(f, x0, method="lbfgsb", **opt) == "lockstep"
+        name, shape, cfg = lockstep.pop()
+        assert (name, shape) == ("batch", (3, 4))
+        (k, v), = opt.items()
+        assert getattr(cfg, k) == v
     # the Newton rows run K3's Newton form, its plain version on the CPU;
     # a single instance of newton_cg needs the lockstep loop
     r = ostt.minimize(f, x0, method="newton", max_iter=5)
@@ -171,8 +186,8 @@ def test_unknown_and_unported_options_raise(spy):
     assert r.x.shape == x0.shape and bool((r.x.abs() <= 1.0).all())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ostt.minimize(f, x0[0], method="newton_cg")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ostt.minimize(f, x0[0], method="lbfgsb")
+    assert ostt.minimize(f, x0[0], method="lbfgsb") == "lockstep"
+    assert lockstep.pop()[:2] == ("single", (4,))
     for opt in (dict(precision="f32x2"), dict(polish_max_iter=10)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ostt.minimize(f, x0, method="lbfgsb", **opt)

@@ -48,13 +48,23 @@ def tensors(*arrays):
     return tuple(torch.as_tensor(np.asarray(a, np.float64)) for a in arrays)
 
 
-def held(k1, obj, x0, lo, up, data, kw):
+def held(k1, obj, x0, lo, up, data, kw, diag=None, seed=1):
+    """The emulated kernel against the plain version; with ``diag``, the
+    scaled form (``Scaled<Obj>``) against the plain version on
+    ``ScaledObjective``, x0 and the box taken to z = sqrt(diag) x."""
+    plain_obj, plain_data, scale = obj, tensors(*data), None
+    if diag is not None:
+        (scale,) = tensors(np.sqrt(diag))
+        plain_obj = fused_lbfgsb.ScaledObjective(obj, tensors(*data), scale)
+        plain_data = ()
+        x0, lo, up = (np.asarray(v) * np.sqrt(diag) for v in (x0, lo, up))
     x, _, it, st = emulator.solve(k1, obj, *tensors(x0, lo, up),
-                                  tensors(*data), **kw)
+                                  tensors(*data), scale=scale, seed=seed,
+                                  **kw)
 
     def plain(v):
-        return fused_lbfgsb.lbfgsb_solve_plain(obj, *tensors(v, lo, up),
-                                               tensors(*data), **kw)
+        return fused_lbfgsb.lbfgsb_solve_plain(
+            plain_obj, *tensors(v, lo, up), plain_data, **kw)
 
     xp, _, itp, stp = plain(x0)
     spread = perturbation_spread(lambda v: plain(v)[2].numpy(), x0)
@@ -69,6 +79,28 @@ def test_emulated_kernel_matches_plain(name, k1):
     obj, x0, lo, up, data, opts = k1_geometries()[name]
     x0, lo, up = tiled(x0, lo, up, ROWS)
     held(k1, obj, x0, lo, up, data, dict(m=5, **opts))
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("name", sorted(k1_geometries()))
+def test_emulated_scaled_kernel_matches_plain(name, seed, k1):
+    """The ``Scaled<Rosenbrock>`` and ``Scaled<WeightedSquares>`` instances,
+    bounded and unbounded, with the block's warps taking turns lowest
+    first (seed 1) and highest first (seed 2)."""
+    obj, x0, lo, up, data, opts = k1_geometries()[name]
+    x0, lo, up = tiled(x0, lo, up, ROWS)
+    diag = np.random.RandomState(11).uniform(0.25, 4.0, x0.shape[-1])
+    held(k1, obj, x0, lo, up, data, dict(m=5, **opts), diag=diag, seed=seed)
+
+
+def test_emulated_scaled_unit_diag_is_unscaled_bit_for_bit(k1):
+    for name in ("bounded_rosenbrock", "per_lane_boxes", "unbounded_body"):
+        obj, x0, lo, up, data, opts = k1_geometries()[name]
+        args = (*tensors(x0, lo, up), tensors(*data))
+        one = torch.ones(x0.shape[-1], dtype=torch.float64)
+        a = emulator.solve(k1, obj, *args, scale=one, m=5, **opts)
+        b = emulator.solve(k1, obj, *args, m=5, **opts)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 @pytest.mark.parametrize("name", EDGES)
