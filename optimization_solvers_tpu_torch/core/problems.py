@@ -21,15 +21,15 @@ data arrays that functor reads.  Four functors cover the library:
 
 The K1 kernel (``ops/csrc/lbfgsb_fused.cu``), the SPG kernel K8
 (``spg_fused.cu``) and the first-order and quasi-Newton forms of K3
-(``ops/csrc/driver.cu``, ``driver_qn.cu``) compile the first two; K3's
-Newton form (``driver_newton.cu``) and the Newton-CG kernel K4
-(``newton_cg.cu``) the first three, with their Hessian and HVP functors;
-the L-BFGS and dense BFGS kernels K7 and K9 (``lbfgs_fused.cu``,
-``bfgs_fused.cu``) the first three; the K2 kernel
+(``ops/csrc/driver.cu``, ``driver_qn.cu``) compile the first two; the
+L-BFGS and dense BFGS kernels K7 and K9 (``lbfgs_fused.cu``,
+``bfgs_fused.cu``) the first three; K3's Newton form
+(``driver_newton.cu``) and the Newton-CG kernel K4 (``newton_cg.cu``) all
+four, with their Hessian and HVP functors; the K2 kernel
 (``ops/csrc/lbfgsb_tall.cu``) all four.  The
 second derivatives are written in the expressions and order of the CUDA
-functors (``ops/csrc/objectives.cuh``); ``log_sum_exp`` has them only here,
-in plain PyTorch.  ``exp_bowl`` has PyTorch forms only: its kernel form
+functors (``ops/csrc/objectives.cuh``).  ``exp_bowl`` has PyTorch forms
+only: its kernel form
 names the ``EXP_BOWL`` functor, which no kernel compiles, so a CUDA call
 with it raises.
 """

@@ -22,15 +22,19 @@ ported:
   family ``newton``, ``pn`` (alias ``projected_newton``) and ``spn`` -- with
   their default searches or a ``search=`` of :mod:`.linesearch`, through
   :func:`.solvers.batch_minimize` onto the generic driver kernel K3
-  (:mod:`.ops.fused_driver`; the Newton family runs its Newton form);
+  (:mod:`.ops.fused_driver`; the Newton family runs its Newton form).
   A single instance (a 1-D ``x0``) runs the lockstep loop of
   :func:`.solvers.minimize` (JAX ``frontend.py:503``), as does a batch
-  that ``batch_minimize`` does not send to K3;
+  that ``batch_minimize`` does not send to K3: on a CUDA ``x0`` also a
+  callable without a kernel form, or an objective whose functor the chosen
+  form of K3 does not compile (JAX ``solvers/driver.py:318-365`` takes the
+  lockstep loop for what its kernel cannot take);
 * ``method="newton_cg"`` through :func:`.solvers.newton_cg_batch_minimize`
-  onto the Newton-CG kernel K4 (:mod:`.ops.fused_newton_cg`).  The JAX
-  front end runs the XLA twin of the same algorithm there
-  (``solvers/newton_cg.py:newton_cg_batch_minimize``); its own tests hold
-  the twin and its TPU kernel together.
+  onto the Newton-CG kernel K4 (:mod:`.ops.fused_newton_cg`) where K4
+  compiles the objective's functor and an instance fits, else onto the
+  lockstep Newton-CG loop, the XLA twin's port, which the JAX front end
+  runs for every batch (``solvers/newton_cg.py:newton_cg_batch_minimize``
+  there); a 1-D ``x0`` runs :func:`.solvers.newton_cg_minimize`.
 
 The rule is the same on both devices; x0's device then picks the version:
 a CPU tensor runs the plain PyTorch version of the chosen kernel, a CUDA
@@ -185,9 +189,10 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
     with ``approx_wolfe=True``.  The bounded methods (``pgd``, ``spg``,
     ``pn``, ``spn`` and the ``...b`` quasi-Newton methods) need
     ``bounds``, the others refuse them.  Dense quasi-Newton instances may
-    exit STALLED (6).  On CUDA the Newton family needs an objective with a
-    Hessian functor (``rosenbrock``, ``weighted_squares``, ``quadratic``
-    and those built on them); ``log_sum_exp`` raises.
+    exit STALLED (6).  On CUDA a batch whose objective the chosen form of
+    K3 does not compile (a torch callable; ``quadratic`` and
+    ``log_sum_exp`` outside the Newton family) runs the lockstep loop on
+    the card.
 
     ``method="newton_cg"``: bounds are scalars or ``(n,)`` (``None``:
     unbounded; per-instance boxes raise ``ValueError``, as JAX's branch
@@ -195,15 +200,18 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
     (float32), ``pgtol`` to ``tol``; ``max_iter_ls`` passes through; extra
     options name :class:`NewtonCGConfig` fields (``cg_max``, ``c1``, ...).
     It runs its own line search, so a ``search`` raises ``ValueError``.
+    K4 takes a batch whose objective has a K4 functor and whose instance
+    fits a block's shared memory; an oracle, a torch callable and a wider
+    batch run the lockstep Newton-CG loop on x0's device.
 
     A 1-D ``x0`` is one instance: the template methods run it through
     :func:`.solvers.minimize`, ``lbfgsb`` through
-    :func:`.solvers.lbfgsb_minimize`, and the result has no batch axis.
+    :func:`.solvers.lbfgsb_minimize`, ``newton_cg`` through
+    :func:`.solvers.newton_cg_minimize`, and the result has no batch axis.
 
-    An unknown option raises ``TypeError``, as in the JAX front end; a
-    method, search or option whose machinery is not ported yet raises
-    ``NotImplementedError`` naming its ROADMAP item; so does a 1-D ``x0``
-    for ``newton_cg`` (its single-instance solver)."""
+    An unknown option raises ``TypeError``, as in the JAX front end; an
+    option whose machinery is not ported yet raises
+    ``NotImplementedError`` naming its ROADMAP item."""
     if policy not in ("fast", "reference"):
         raise ValueError(
             f"policy must be 'fast' or 'reference', got {policy!r}")
@@ -281,7 +289,8 @@ def _lbfgsb(f, x0, bounds, data, tol, max_iter, max_iter_ls, policy, options):
 
 
 def _newton_cg(f, x0, bounds, data, tol, max_iter, max_iter_ls, options):
-    """JAX ``frontend.py:435-458``; the batch runs K4."""
+    """JAX ``frontend.py:435-458``; a batch runs K4 or the lockstep loop
+    (:func:`.solvers.newton_cg_batch_minimize`)."""
     n = x0.shape[-1]
     if bounds is None:
         inf = torch.full((n,), float("inf"), dtype=x0.dtype, device=x0.device)

@@ -129,7 +129,7 @@ def load() -> ctypes.CDLL:
             lib.driver_smem_per_warp.restype = ctypes.c_longlong
             lib.driver_smem_per_warp.argtypes = [i, i, i, i]
             lib.driver_smem_newton.restype = ctypes.c_longlong
-            lib.driver_smem_newton.argtypes = [i, i, i]
+            lib.driver_smem_newton.argtypes = [i, i, i, i]
             lib.driver_workspace_elems.restype = ctypes.c_longlong
             lib.driver_workspace_elems.argtypes = [
                 ctypes.c_longlong, i, i,  # B, n, method
@@ -161,7 +161,7 @@ def load() -> ctypes.CDLL:
                 vp,                      # stream
             ]
             lib.newton_cg_smem_per_warp.restype = ctypes.c_longlong
-            lib.newton_cg_smem_per_warp.argtypes = [i, i]
+            lib.newton_cg_smem_per_warp.argtypes = [i, i, i]
             lib.newton_cg_kernel_info.restype = i
             lib.newton_cg_kernel_info.argtypes = [
                 i, i, i,                 # dtype, B, n
@@ -171,7 +171,7 @@ def load() -> ctypes.CDLL:
             lib.newton_cg_launch.argtypes = [
                 i, i,                    # dtype, objective
                 vp, vp, vp,              # x0, lower, upper
-                vp, vp,                  # objective data
+                vp, vp, i,               # objective data, LOG_SUM_EXP rows
                 i, i,                    # B, n
                 d, d, d,                 # pgtol, factr * eps, eps
                 i, i, i, d,              # max_iter, cg_max, ls, c1

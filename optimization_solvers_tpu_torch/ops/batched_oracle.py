@@ -20,9 +20,10 @@ import torch
 
 # objective functors of the CUDA kernels (enum ObjectiveCode in ops/csrc);
 # K1 (lbfgsb_fused.cu), K8 (spg_fused.cu) and K3's first-order and
-# quasi-Newton forms (driver.cu, driver_qn.cu) compile the first two, K3's
-# Newton form (driver_newton.cu), K4 (newton_cg.cu), K7 (lbfgs_fused.cu)
-# and K9 (bfgs_fused.cu) the first three, K2 (lbfgsb_tall.cu) all four
+# quasi-Newton forms (driver.cu, driver_qn.cu) compile the first two, K7
+# (lbfgs_fused.cu) and K9 (bfgs_fused.cu) the first three, K2
+# (lbfgsb_tall.cu), K3's Newton form (driver_newton.cu) and K4
+# (newton_cg.cu) all four
 KERNEL_OBJECTIVES = {"ROSENBROCK": 0, "WEIGHTED_SQUARES": 1, "QUADRATIC": 2,
                      "LOG_SUM_EXP": 3}
 
@@ -80,6 +81,21 @@ def batched_hvp(f: Callable, data=()):
 
     bh = torch.func.vmap(hvp, in_dims=(0, 0) + (None,) * len(data))
     return lambda X, V: bh(X, V, *data)
+
+
+def kernel_functor(f, data=()):
+    """``(name, rows)``: the functor ``f``'s kernel form names (``None``
+    for a callable without one) and, for ``LOG_SUM_EXP``, the rows of its
+    ``A`` (0 otherwise).  What the routes decide on before a launch."""
+    form = getattr(f, "kernel_form", None)
+    if form is None:
+        return None, 0
+    name, arrays = form(*data)
+    rows = 0
+    if name == "LOG_SUM_EXP" and arrays:
+        shape = tuple(torch.as_tensor(arrays[0]).shape)
+        rows = shape[0] if shape else 0
+    return name, rows
 
 
 def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",

@@ -39,6 +39,7 @@ int run(int objective, const void* x0, const void* lo, const void* up,
   prm.approx_wolfe = ip[iApproxWolfe];
   prm.search_bounded = ip[iSearchBounded];
   prm.precond_bb = ip[iPrecondBB];
+  prm.rows = objective == kLogSumExp ? ip[iRows] : 0;
   prm.tol = (T)dp[dTol];
   prm.lam_min = (T)dp[dLamMin];
   prm.lam_max = (T)dp[dLamMax];
@@ -77,8 +78,9 @@ int run(int objective, const void* x0, const void* lo, const void* up,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool newton = newton_method(prm.method);
   if (objective != kRosenbrock && objective != kWeightedSquares &&
-      !(newton && objective == kQuadratic))
+      !(newton && (objective == kQuadratic || objective == kLogSumExp)))
     return kErrArgs;
+  if (objective == kLogSumExp && prm.rows < 1) return kErrArgs;
   if (objective != kRosenbrock && (d0 == nullptr || d1 == nullptr)) return kErrArgs;
   if (newton) return launch_newton<T>(prm, objective, s);
   if (dense_method(prm.method)) return launch_dense<T>(prm, objective, s);
@@ -125,10 +127,11 @@ extern "C" long long driver_smem_per_warp(int n, int ring, int m, int elem_size)
   return work_elems(n, ring, m, elem_size) * (long long)elem_size;
 }
 
-// shared memory of the Newton form's block (one instance), in bytes
-extern "C" long long driver_smem_newton(int n, int ring, int elem_size) {
-  return (elem_size == 8 ? newton_smem_elems<double>(n, ring)
-                         : newton_smem_elems<float>(n, ring)) * (long long)elem_size;
+// shared memory of the Newton form's block (one instance), in bytes;
+// rows: LOG_SUM_EXP's (0 for the other functors)
+extern "C" long long driver_smem_newton(int n, int ring, int rows, int elem_size) {
+  return (elem_size == 8 ? newton_smem_elems<double>(n, ring, rows)
+                         : newton_smem_elems<float>(n, ring, rows)) * (long long)elem_size;
 }
 
 // shared memory of the dense form's block (one instance), in bytes: its

@@ -233,7 +233,7 @@ enum QnUpdate { kBFGS = 0, kDFP = 1, kBroyden = 2, kSR1 = 3 };
 enum IntSlot {
   iMethod, iSearch, iAlternate, iNcgVariant, iRestartEvery, iRing, iQnUpdate,
   iScaleB0, iRestart, iLbfgsM, iApproxWolfe, iSearchBounded, iPrecondBB,
-  kIntSlots
+  iRows, kIntSlots
 };
 enum DoubleSlot {
   dTol, dLamMin, dLamMax, dC1, dBeta, dSigma1, dSigma2, dLbfgsEps, dC2,
@@ -340,7 +340,9 @@ __host__ __device__ inline long long workspace_elems(long long B, int n, int met
 
 // the Newton form: the panel width of its factorization (as K6's), its
 // command words, and its block's shared memory in elements: the region of
-// D, GN, XT and the factorization's scratch, X, G, the words, the GLL ring
+// D, GN, XT and the factorization's scratch, X, G, the words, the GLL ring,
+// and LOG_SUM_EXP's buffer z of `rows` elements (rows 0 for the others; its
+// Hessian's scratch lies in the region)
 template <typename T> struct NewtonPanel;
 template <> struct NewtonPanel<float> { static constexpr int kNB = 64; };
 template <> struct NewtonPanel<double> { static constexpr int kNB = 32; };
@@ -356,8 +358,8 @@ __host__ __device__ inline long long newton_region_elems(int n) {
 }
 
 template <typename T>
-__host__ __device__ inline long long newton_smem_elems(int n, int ring) {
-  return newton_region_elems<T>(n) + 2LL * n + kNewtonWords + ring;
+__host__ __device__ inline long long newton_smem_elems(int n, int ring, int rows) {
+  return newton_region_elems<T>(n) + 2LL * n + kNewtonWords + ring + rows;
 }
 
 // Rust's f64::min/max: a NaN operand is discarded
@@ -405,6 +407,7 @@ template <typename T> struct Params {
   int ring;             // GLL history length (0 for the other searches)
   int qn_update, scale_b0, restart, m;
   int precond_bb;       // SPN: the Barzilai-Borwein pair in the Newton metric
+  int rows;             // the Newton form's LOG_SUM_EXP rows (0 otherwise)
   T lbfgs_eps;
   T c2, t_min, t_max, delta, aw_eps;
   int approx_wolfe, search_bounded;
@@ -635,7 +638,10 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
   if constexpr (kNewt) Bm = prm.work + (long long)inst * n * n;
   if constexpr (kDense)
     Bm = prm.slab_shared ? region : prm.work + (long long)inst * slab_elems(n, prm.qn_update);
-  const Obj obj{prm.d0, prm.d1};
+  // LOG_SUM_EXP's z past the Newton form's GLL ring (K3 reads no p)
+  T* const no_rows = nullptr;
+  const Obj obj = BindRows<Obj>::make(prm.d0, prm.d1, prm.rows,
+                                      kNewt ? H + prm.ring : no_rows, no_rows);
   const DenseBlock<T> dense{prm.slab_shared ? nullptr : Bm,
                             kDense ? (int)(region - reinterpret_cast<T*>(smem_raw)) : 0,
                             G, D, XT, GP, DP, words, n, prm.qn_update};
@@ -1745,16 +1751,18 @@ driver_dense_kernel(const Params<T> prm) {
 template <typename T, class Obj, int kForm>
 int launch(const Params<T>& prm, cudaStream_t stream) {
   if constexpr (kForm == kNewtonForm) {
-    const long long smem = newton_smem_elems<T>(prm.n, prm.ring) * (long long)sizeof(T);
+    const long long smem =
+        newton_smem_elems<T>(prm.n, prm.ring, prm.rows) * (long long)sizeof(T);
     if (smem > kSmemPerBlock) return kErrSmem;
+    if constexpr (BindRows<Obj>::kRowBuffers > 0)
+      if (Obj::hessian_scratch_elems(prm.n) > newton_region_elems<T>(prm.n)) return kErrSmem;
     auto kernel = driver_newton_kernel<T, Obj>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<prm.B, kCholThreads, smem, stream>>>(prm);
     return (int)cudaGetLastError();
-  }
-  if constexpr (kForm == kDenseForm) {
+  } else if constexpr (kForm == kDenseForm) {
     const int kind = prm.qn_update, es = (int)sizeof(T);
     Params<T> p = prm;
     p.slab_shared = dense_in_shared(prm.n, prm.ring, kind, es);
@@ -1767,21 +1775,25 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     kernel<<<p.B, kDenseThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
+  } else {
+    // the one-warp forms (not instantiated for the block forms: each such
+    // kernel cost a minute of the build, never launched)
+    const int m = prm.method == kLBFGS ? prm.m : 0;
+    const long long per_warp =
+        work_elems(prm.n, prm.ring, m, (int)sizeof(T)) * (long long)sizeof(T);
+    long long wpb = kSmemPerBlock / per_warp;
+    if (wpb > kMaxWarpsPerBlock) wpb = kMaxWarpsPerBlock;
+    if (wpb > prm.B) wpb = prm.B;
+    if (wpb < 1) return kErrSmem;
+    const int smem = (int)(per_warp * wpb);
+    auto kernel = driver_kernel<T, Obj, kForm>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int grid = (int)((prm.B + wpb - 1) / wpb);
+    kernel<<<grid, (int)wpb * kWarp, smem, stream>>>(prm);
+    return (int)cudaGetLastError();
   }
-  const int m = prm.method == kLBFGS ? prm.m : 0;
-  const long long per_warp = work_elems(prm.n, prm.ring, m, (int)sizeof(T)) * (long long)sizeof(T);
-  long long wpb = kSmemPerBlock / per_warp;
-  if (wpb > kMaxWarpsPerBlock) wpb = kMaxWarpsPerBlock;
-  if (wpb > prm.B) wpb = prm.B;
-  if (wpb < 1) return kErrSmem;
-  const int smem = (int)(per_warp * wpb);
-  auto kernel = driver_kernel<T, Obj, kForm>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (int)((prm.B + wpb - 1) / wpb);
-  kernel<<<grid, (int)wpb * kWarp, smem, stream>>>(prm);
-  return (int)cudaGetLastError();
 }
 
 // the quasi-Newton form of every objective (driver_qn.cu)

@@ -12,6 +12,7 @@ template <typename T>
 int launch_newton(const Params<T>& prm, int objective, cudaStream_t stream) {
   if (objective == kRosenbrock) return launch<T, Rosenbrock<T>, kNewtonForm>(prm, stream);
   if (objective == kQuadratic) return launch<T, Quadratic<T>, kNewtonForm>(prm, stream);
+  if (objective == kLogSumExp) return launch<T, LogSumExp<T>, kNewtonForm>(prm, stream);
   return launch<T, WeightedSquares<T>, kNewtonForm>(prm, stream);
 }
 

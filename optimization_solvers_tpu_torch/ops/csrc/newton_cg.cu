@@ -38,9 +38,10 @@
 //    lane l holds coordinates 4l .. 4l + 3 of every vector in registers;
 //    the Rosenbrock stencil takes one shuffle per neighbour; no shared
 //    memory; 24 resident warps per SM at 80 registers in float32.
-//    InShared (the quadratic, and wider instances): every vector in the
-//    warp's shared memory, coordinate i on lane i % 32, 8 n elements,
-//    which decides the widest instance K4 takes;
+//    InShared (the quadratic, the log-sum-exp, and wider instances): every
+//    vector in the warp's shared memory, coordinate i on lane i % 32, 8 n
+//    elements (the log-sum-exp's z and p 2 rows more), which decides the
+//    widest instance K4 takes;
 //  * the Hessian's coefficients (Rosenbrock: H_ii, H_{i,i+1} = -400 x_i,
 //    H_{i,i-1} = -400 x_{i-1}; weighted squares: d_i) are computed once
 //    per Newton step in InRegs; every value, gradient, coefficient and
@@ -61,6 +62,11 @@
 // The step's P update cannot join the D/R pass: beta needs that pass's sum.
 // Scalars (f, f_prev, rr, t, ...) are replicated on every lane after the
 // butterflies, so every branch is warp-uniform.
+//
+// The log-sum-exp (A rows x n, shared by the batch) is bound by its passes
+// over A instead: 2 rows n per product and per trial, rows n per Newton
+// step for p; every warp reads A from L2 (2 MB at n = 1,000, 512 rows in
+// float32), its columns coalesced across the lanes.
 
 #include "common.cuh"
 #include "lanes.cuh"
@@ -245,6 +251,37 @@ template <typename T> struct K4Eval<T, Quadratic<T>> {
   }
 };
 
+// the log-sum-exp reads all of x and p, and A's rows: InShared only,
+// through the functor, with its buffers z and p (2 rows elements) after the
+// warp's vectors; p = softmax(A x + b) once per Newton step (prepare), so
+// that each product is two passes over A (A p, then A^T of the weights)
+template <typename T> struct K4Eval<T, LogSumExp<T>> {
+  using Obj = LogSumExp<T>;
+  static constexpr bool kRegs = false;
+  template <class L, class V>
+  __device__ static T value_grad(const Obj& obj, const V& x, V& g, int n, int lane, T& extra) {
+    const T f = obj.value_grad(&x[0] - lane, &g[0] - lane, n, lane);
+    extra = warp_sum(extra);
+    return f;
+  }
+  template <class L, class V>
+  __device__ static void prepare(const Obj& obj, Coefs<L, T>&, const V& x, int n, int lane) {
+    obj.prepare(&x[0] - lane, n, lane);
+  }
+  template <class L, class V>
+  __device__ static void product(const Obj& obj, const Coefs<L, T>&, const V& x, const V& p,
+                                 V& q, const V& fr, int n, int lane, T& pq, T& pp) {
+    obj.hvp(&x[0] - lane, &p[0] - lane, &q[0] - lane, n, lane);
+    LANES_FOR(L, e, i) masked(q[e], p, q, fr, e, pq, pp);
+  }
+};
+
+// shared memory of one warp's instance in elements: the layout's vectors,
+// then the functor's row buffers (LogSumExp: z and p)
+template <class L, class Obj> __host__ __device__ long long k4_warp_elems(int n, int rows) {
+  return L::work_elems(n) + (long long)BindRows<Obj>::kRowBuffers * rows;
+}
+
 template <typename T, class L> constexpr int k4_min_blocks() {
   return L::kRegs ? (sizeof(T) == 4 ? K4_MIN_BLOCKS : 2) : 1;
 }
@@ -255,6 +292,7 @@ template <typename T> struct K4Params {
   const T* up;
   const T* d0;
   const T* d1;
+  int rows;             // LOG_SUM_EXP rows (0 otherwise)
   int B, n;
   T pgtol, f_rtol, eps, c1;
   int max_iter, cg_max, max_iter_ls;
@@ -281,7 +319,7 @@ newton_cg_kernel(const K4Params<T> prm) {
   K4_PROF(long long prof_acc[11] = {0}; const long long prof_t0 = clock64();
           long long prof_t = prof_t0;)
 
-  T* work = reinterpret_cast<T*>(smem_raw) + (long long)warp * L::work_elems(n);
+  T* work = reinterpret_cast<T*>(smem_raw) + (long long)warp * k4_warp_elems<L, Obj>(n, prm.rows);
   V X = L::template alloc<T>(work, n, lane);
   V G = L::template alloc<T>(work, n, lane);
   V D = L::template alloc<T>(work, n, lane);
@@ -293,7 +331,8 @@ newton_cg_kernel(const K4Params<T> prm) {
   const auto LO = L::load(prm.lo, n, lane);
   const auto UP = L::load(prm.up, n, lane);
   Coefs<L, T> C;
-  const Obj obj{prm.d0, prm.d1};
+  // work now points past the vectors: the functor's row buffers
+  const Obj obj = BindRows<Obj>::make(prm.d0, prm.d1, prm.rows, work, work + prm.rows);
 
   const T* x0 = prm.x0 + (long long)inst * n;
   LANES_FOR(L, e, i) X[e] = jclip(x0[i], LO[e], UP[e]);
@@ -476,8 +515,9 @@ newton_cg_kernel(const K4Params<T> prm) {
 
 // the launch of a (B, n) batch: warps per block and dynamic shared memory
 // per block (0 warps: an instance does not fit)
-template <typename T, class L> void k4_shape(int B, int n, int& wpb, int& smem) {
-  const long long per_warp = L::work_elems(n) * (long long)sizeof(T);
+template <typename T, class L, class Obj>
+void k4_shape(int B, int n, int rows, int& wpb, int& smem) {
+  const long long per_warp = k4_warp_elems<L, Obj>(n, rows) * (long long)sizeof(T);
   long long w = per_warp > 0 ? kSmemPerBlock / per_warp : kMaxWarpsK4;
   if (w > kMaxWarpsK4) w = kMaxWarpsK4;
   if (w > B) w = B;
@@ -488,7 +528,7 @@ template <typename T, class L> void k4_shape(int B, int n, int& wpb, int& smem) 
 template <typename T, class Obj, class L>
 int k4_launch(const K4Params<T>& prm, cudaStream_t stream) {
   int wpb, smem;
-  k4_shape<T, L>(prm.B, prm.n, wpb, smem);
+  k4_shape<T, L, Obj>(prm.B, prm.n, prm.rows, wpb, smem);
   if (wpb < 1) return kErrSmem;
   auto kernel = newton_cg_kernel<T, Obj, L>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -510,7 +550,7 @@ template <typename T, class Obj> int k4_route(const K4Params<T>& prm, cudaStream
 // (spill) bytes per thread, dynamic shared memory per block
 template <typename T, class L> int k4_info(int B, int n, int* out) {
   int wpb, smem;
-  k4_shape<T, L>(B, n, wpb, smem);
+  k4_shape<T, L, Rosenbrock<T>>(B, n, 0, wpb, smem);
   if (wpb < 1) return kErrSmem;
   auto kernel = newton_cg_kernel<T, Rosenbrock<T>, L>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -531,8 +571,8 @@ template <typename T, class L> int k4_info(int B, int n, int* out) {
 
 template <typename T>
 int k4_run(int objective, const void* x0, const void* lo, const void* up,
-           const void* d0, const void* d1, int B, int n, double pgtol,
-           double f_rtol, double eps, int max_iter, int cg_max,
+           const void* d0, const void* d1, int rows, int B, int n,
+           double pgtol, double f_rtol, double eps, int max_iter, int cg_max,
            int max_iter_ls, double c1, void* x, void* f, void* it, void* st,
            void* ncg, void* nfev, void* stream) {
   K4Params<T> prm;
@@ -541,6 +581,7 @@ int k4_run(int objective, const void* x0, const void* lo, const void* up,
   prm.up = static_cast<const T*>(up);
   prm.d0 = static_cast<const T*>(d0);
   prm.d1 = static_cast<const T*>(d1);
+  prm.rows = objective == kLogSumExp ? rows : 0;
   prm.B = B;
   prm.n = n;
   prm.pgtol = (T)pgtol;
@@ -559,6 +600,7 @@ int k4_run(int objective, const void* x0, const void* lo, const void* up,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (objective == kRosenbrock) return k4_route<T, Rosenbrock<T>>(prm, s);
   if (objective == kQuadratic) return k4_route<T, Quadratic<T>>(prm, s);
+  if (objective == kLogSumExp) return k4_route<T, LogSumExp<T>>(prm, s);
   return k4_route<T, WeightedSquares<T>>(prm, s);
 }
 
@@ -574,10 +616,11 @@ extern "C" int k4_prof_reset() {
 }
 #endif
 
-// shared memory one instance takes in the InShared layout (8 n elements),
-// which decides the widest instance K4 takes; InRegs takes none
-extern "C" long long newton_cg_smem_per_warp(int n, int elem_size) {
-  return InShared::work_elems(n) * (long long)elem_size;
+// shared memory one instance takes in the InShared layout (8 n elements,
+// and LOG_SUM_EXP's 2 rows; rows 0 for the other functors), which decides
+// the widest instance K4 takes; InRegs takes none
+extern "C" long long newton_cg_smem_per_warp(int n, int rows, int elem_size) {
+  return (InShared::work_elems(n) + 2LL * rows) * (long long)elem_size;
 }
 
 // the launch for one call's shape and the compiled kernel's resources (see
@@ -593,27 +636,30 @@ extern "C" int newton_cg_kernel_info(int dtype, int B, int n, int* out) {
 }
 
 // dtype 0: float32, 1: float64.  lo and up are (n,) device arrays; d0 and
-// d1 the objective's data (WeightedSquares: d, t; Quadratic: Q, b).  f_rtol
+// d1 the objective's data (WeightedSquares: d, t; Quadratic: Q, b;
+// LogSumExp: A (rows, n), b (rows,), with `rows` its rows).  f_rtol
 // is factr * eps.  ncg and nfev receive each instance's Hessian-vector
 // products and line-search trials.  Returns 0, a cudaError_t, or a negative
 // ErrorCode; launches on `stream` and does not synchronise.
 extern "C" int newton_cg_launch(
     int dtype, int objective, const void* x0, const void* lo, const void* up,
-    const void* d0, const void* d1, int B, int n, double pgtol, double f_rtol,
-    double eps, int max_iter, int cg_max, int max_iter_ls, double c1, void* x,
-    void* f, void* it, void* st, void* ncg, void* nfev, void* stream) {
+    const void* d0, const void* d1, int rows, int B, int n, double pgtol,
+    double f_rtol, double eps, int max_iter, int cg_max, int max_iter_ls,
+    double c1, void* x, void* f, void* it, void* st, void* ncg, void* nfev,
+    void* stream) {
   if (B < 1 || n < 1 || x0 == nullptr || lo == nullptr || up == nullptr ||
       (objective != kRosenbrock && objective != kWeightedSquares &&
-       objective != kQuadratic) ||
-      (objective != kRosenbrock && (d0 == nullptr || d1 == nullptr)))
+       objective != kQuadratic && objective != kLogSumExp) ||
+      (objective != kRosenbrock && (d0 == nullptr || d1 == nullptr)) ||
+      (objective == kLogSumExp && rows < 1))
     return kErrArgs;
   if (dtype == 0)
-    return k4_run<float>(objective, x0, lo, up, d0, d1, B, n, pgtol, f_rtol,
-                         eps, max_iter, cg_max, max_iter_ls, c1, x, f, it, st,
-                         ncg, nfev, stream);
+    return k4_run<float>(objective, x0, lo, up, d0, d1, rows, B, n, pgtol,
+                         f_rtol, eps, max_iter, cg_max, max_iter_ls, c1, x, f,
+                         it, st, ncg, nfev, stream);
   if (dtype == 1)
-    return k4_run<double>(objective, x0, lo, up, d0, d1, B, n, pgtol, f_rtol,
-                          eps, max_iter, cg_max, max_iter_ls, c1, x, f, it, st,
-                          ncg, nfev, stream);
+    return k4_run<double>(objective, x0, lo, up, d0, d1, rows, B, n, pgtol,
+                          f_rtol, eps, max_iter, cg_max, max_iter_ls, c1, x, f,
+                          it, st, ncg, nfev, stream);
   return kErrArgs;
 }

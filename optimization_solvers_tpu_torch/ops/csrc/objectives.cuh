@@ -8,7 +8,8 @@
 // coordinates of g and of the product).  K1, K8 and the first-order and
 // quasi-Newton forms of K3 compile Rosenbrock and WeightedSquares (the
 // quasi-Newton form's Wolfe trials through value_grad<true>); K7 and
-// K9 all three (values and gradients); K3's Newton form and K4 all three,
+// K9 the first three (values and gradients); K3's Newton form and K4 all
+// four (LogSumExp bound by BindRows, with its shared-memory buffers),
 // with the second derivatives: hvp(x, v, out, n, lane) writes H v into out,
 // and hessian(x, H, n, tid, scratch) is block-level (K3's Newton form runs
 // one block of ost_chol::kCholThreads threads per instance; every thread
@@ -291,6 +292,204 @@ template <typename T> struct Quadratic {
   }
 };
 
+// log sum_r exp(z_r) with z = A x + b, A = d0 (rows x n, row-major, in
+// device memory and shared by every warp) and b = d1, in the max-shifted
+// form z_max + log sum_r exp(z_r - z_max); gradient A^T p with p =
+// softmax(z) = exp(z - z_max) / sum_r exp(z_r - z_max); Hessian A^T
+// (diag(p) - p p^T) A; HVP A^T (p .* (A v - p . A v)): the expressions and
+// order of core/problems.py:log_sum_exp.  The functor holds two buffers of
+// `rows` elements in the caller's shared memory: z (each evaluation's z,
+// then its p) and p (K4: p at the Newton step's x, set by prepare and read
+// by every hvp).  A z pass (rows_dot) gives lane l the rows r0 + l of a
+// chunk of 32: its lanes walk the columns j (coalesced), 32 partial sums a
+// lane, reduced in one transposed butterfly (warp_sums<32>).  A gradient
+// pass walks the rows in order for the lane's columns.  hessian is
+// block-level (K3's Newton form): z and p by the block into z, A^T p into
+// the scratch, then the upper triangle of A^T diag(p) A - (A^T p)(A^T p)^T
+// tile by tile (CholTile's tile and micro-tile: every thread a micro-tile of
+// sums, kLseRows rows of A's two column strips staged in the scratch at a
+// time).  The members are not inlined: each is a pass over A (rows n
+// multiply-adds), against which a call costs nothing, and K3's Newton form
+// evaluates at many sites (inlined there, the build took a minute longer).
+constexpr int kLseRows = 32;
+
+template <typename T> struct LogSumExp {
+  const T* d0;
+  const T* d1;
+  int rows;
+  T* z;
+  T* p;
+
+  // out[r] = a_r . v (+ b_r with kBias) for every row, by the warp; the
+  // chunks of 32 rows from r_first every r_step (K3's Newton form splits
+  // them over its warps)
+  template <bool kBias>
+  __device__ __noinline__ void rows_dot(const T* v, T* out, int n, int lane, int r_first = 0,
+                                        int r_step = kWarp) const {
+    for (int r0 = r_first; r0 < rows; r0 += r_step) {
+      T acc[kWarp];
+#pragma unroll
+      for (int k = 0; k < kWarp; ++k) acc[k] = 0;
+      for (int j = lane; j < n; j += kWarp) {
+        const T vj = v[j];
+        const T* col = d0 + (long long)r0 * n + j;
+#pragma unroll
+        for (int k = 0; k < kWarp; ++k)
+          if (r0 + k < rows) acc[k] += col[(long long)k * n] * vj;
+      }
+      const T s = warp_sums<kWarp>(acc, lane);
+      const int r = r0 + lane;
+      if (r < rows) out[r] = kBias ? s + d1[r] : s;
+    }
+  }
+  // w = A x + b, the value z_max + log sum_r exp(z_r - z_max) on every
+  // lane and, with kSoftmax, w = softmax(A x + b) in place
+  template <bool kSoftmax> __device__ __noinline__ T lse_pass(const T* x, T* w, int n, int lane) const {
+    rows_dot<true>(x, w, n, lane);
+    __syncwarp();
+    T m = -(T)INFINITY;
+    for (int r = lane; r < rows; r += kWarp) m = jmax(m, w[r]);
+    const T mx = warp_max(m);
+    T e = 0;
+    for (int r = lane; r < rows; r += kWarp) e += exp(w[r] - mx);
+    const T s = warp_sum(e);
+    if constexpr (kSoftmax) {
+      __syncwarp();
+      for (int r = lane; r < rows; r += kWarp) w[r] = exp(w[r] - mx) / s;
+    }
+    __syncwarp();
+    return mx + log(s);
+  }
+  __device__ T value(const T* x, int n, int lane) const { return lse_pass<false>(x, z, n, lane); }
+  // out[j] = sum_r w_r A[r][j] for the lane's columns, the rows in order
+  __device__ __noinline__ void cols_dot(const T* w, T* out, int n, int lane) const {
+    for (int j = lane; j < n; j += kWarp) {
+      T acc = 0;
+      for (int r = 0; r < rows; ++r) acc += w[r] * d0[(long long)r * n + j];
+      out[j] = acc;
+    }
+  }
+  // with kDot, g.d for a direction d into *gd in the same pass
+  template <bool kDot = false>
+  __device__ T value_grad(const T* x, T* g, int n, int lane, const T* d = nullptr,
+                          T* gd = nullptr) const {
+    const T f = lse_pass<true>(x, z, n, lane);
+    cols_dot(z, g, n, lane);
+    if constexpr (kDot) {
+      T q = 0;
+      for (int j = lane; j < n; j += kWarp) q += g[j] * d[j];
+      *gd = warp_sum(q);
+    }
+    __syncwarp();
+    return f;
+  }
+  // p = softmax(A x + b) at x, for the hvps of one Newton step
+  __device__ void prepare(const T* x, int n, int lane) const { lse_pass<true>(x, p, n, lane); }
+  // H v at prepare's x: A^T (p .* (A v - p . A v)), A v and then the
+  // weights in z
+  __device__ __noinline__ void hvp(const T*, const T* v, T* out, int n, int lane) const {
+    rows_dot<false>(v, z, n, lane);
+    __syncwarp();
+    T pav = 0;
+    for (int r = lane; r < rows; r += kWarp) pav += p[r] * z[r];
+    pav = warp_sum(pav);
+    for (int r = lane; r < rows; r += kWarp) z[r] = p[r] * (z[r] - pav);
+    __syncwarp();
+    cols_dot(z, out, n, lane);
+    __syncwarp();
+  }
+
+  // ---- block-level (kCholThreads threads; every thread calls these)
+  static constexpr bool kBlockEval = false;
+  // the scratch hessian takes: 16 reduction words, A^T p (n, rounded up to
+  // 4) and the two staged strips (kLseRows x kTile each)
+  __host__ __device__ static long long hessian_scratch_elems(int n) {
+    return 16 + (n + 3) / 4 * 4 + 2LL * kLseRows * ost_chol::CholTile<T>::kTile;
+  }
+  // the block's max (kMax) or sum of one value a thread, on every thread
+  template <bool kMax> __device__ static T block_reduce(T v, T* words, int tid) {
+    v = kMax ? warp_max(v) : warp_sum(v);
+    if ((tid & (kWarp - 1)) == 0) words[tid / kWarp] = v;
+    ost_chol::chol_bar();
+    T r = words[0];
+    for (int q = 1; q < ost_chol::kCholWarps; ++q) r = kMax ? jmax(r, words[q]) : r + words[q];
+    ost_chol::chol_bar();
+    return r;
+  }
+  __device__ __noinline__ void hessian(const T* x, T* H, int n, int tid, T* scratch) const {
+    using ost_chol::kCholThreads;
+    using ost_chol::kCholWarps;
+    constexpr int kT = ost_chol::CholTile<T>::kTile, kM = ost_chol::CholTile<T>::kMicro;
+    constexpr int kG = kT / kM;   // micro-tiles along a tile's side
+    const int lane = tid & (kWarp - 1), warp = tid / kWarp;
+    T* words = scratch;
+    T* pa = scratch + 16;
+    T* si = pa + (n + 3) / 4 * 4;   // p_r A[r][i0 + c]
+    T* sj = si + kLseRows * kT;     // A[r][j0 + c]
+    // z by the warps, 32 rows a chunk each in turn, then p
+    rows_dot<true>(x, z, n, lane, warp * kWarp, kCholThreads);
+    ost_chol::chol_bar();
+    T m = -(T)INFINITY;
+    for (int r = tid; r < rows; r += kCholThreads) m = jmax(m, z[r]);
+    const T mx = block_reduce<true>(m, words, tid);
+    T e = 0;
+    for (int r = tid; r < rows; r += kCholThreads) e += exp(z[r] - mx);
+    const T s = block_reduce<false>(e, words, tid);
+    for (int r = tid; r < rows; r += kCholThreads) z[r] = exp(z[r] - mx) / s;
+    ost_chol::chol_bar();
+    // A^T p, the rows in order
+    for (int i = tid; i < n; i += kCholThreads) {
+      T acc = 0;
+      for (int r = 0; r < rows; ++r) acc += z[r] * d0[(long long)r * n + i];
+      pa[i] = acc;
+    }
+    // the upper triangle's tiles (ti <= tj), each thread its micro-tile
+    const int ty = tid / kG, tx = tid % kG;
+    const int tiles = (n + kT - 1) / kT;
+    for (int ti = 0; ti < tiles; ++ti)
+      for (int tj = ti; tj < tiles; ++tj) {
+        const int i0 = ti * kT, j0 = tj * kT;
+        T acc[kM][kM];
+#pragma unroll
+        for (int u = 0; u < kM; ++u)
+#pragma unroll
+          for (int v = 0; v < kM; ++v) acc[u][v] = 0;
+        for (int r0 = 0; r0 < rows; r0 += kLseRows) {
+          ost_chol::chol_bar();
+          for (int e2 = tid; e2 < kLseRows * kT; e2 += kCholThreads) {
+            const int r = r0 + e2 / kT, c = e2 % kT;
+            const bool in = r < rows;
+            const T* ar = d0 + (long long)r * n;
+            si[e2] = in && i0 + c < n ? z[r] * ar[i0 + c] : T(0);
+            sj[e2] = in && j0 + c < n ? ar[j0 + c] : T(0);
+          }
+          ost_chol::chol_bar();
+          for (int r = 0; r < kLseRows; ++r) {
+            T a[kM], b[kM];
+#pragma unroll
+            for (int u = 0; u < kM; ++u) {
+              a[u] = si[r * kT + ty * kM + u];
+              b[u] = sj[r * kT + tx * kM + u];
+            }
+#pragma unroll
+            for (int u = 0; u < kM; ++u)
+#pragma unroll
+              for (int v = 0; v < kM; ++v) acc[u][v] += a[u] * b[v];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kM; ++u) {
+          const int i = i0 + ty * kM + u;
+#pragma unroll
+          for (int v = 0; v < kM; ++v) {
+            const int j = j0 + tx * kM + v;
+            if (i < n && j < n && j >= i) H[(long long)i * n + j] = acc[u][v] - pa[i] * pa[j];
+          }
+        }
+      }
+  }
+};
+
 // K1's scaled form (ops.lbfgsb_solve_fused_scaled): the objective at x =
 // z / s and its gradient in z, g_i / s_i, for the change of variables z =
 // s x with s = sqrt(diag) in device memory, (n,) and shared by the batch.
@@ -344,6 +543,23 @@ template <class Obj> struct Bind {
 template <class Inner> struct Bind<Scaled<Inner>> {
   template <typename T> __device__ static Scaled<Inner> make(const T* d0, const T* d1, const T* s) {
     return Scaled<Inner>{Inner{d0, d1}, s};
+  }
+};
+
+// a second-order kernel's functor (K3's Newton form, K4) from its data
+// pointers and, for LogSumExp, its rows and its buffers z and p of `rows`
+// elements each; kRowBuffers is how many of them the functor reads (0 for
+// the others, whose kernels then leave no room for them)
+template <class Obj> struct BindRows {
+  static constexpr int kRowBuffers = 0;
+  template <typename T> __device__ static Obj make(const T* d0, const T* d1, int, T*, T*) {
+    return Obj{d0, d1};
+  }
+};
+template <typename T> struct BindRows<LogSumExp<T>> {
+  static constexpr int kRowBuffers = 2;
+  __device__ static LogSumExp<T> make(const T* d0, const T* d1, int rows, T* z, T* p) {
+    return LogSumExp<T>{d0, d1, rows, z, p};
   }
 };
 

@@ -92,18 +92,18 @@ QN_UPDATES = {"bfgs": 0, "dfp": 1, "broyden": 2, "sr1": 3}
 QN_EPS = {torch.float32: 1.2e-7, torch.float64: 2.3e-16}
 # kSmemPerBlock of csrc/common.cuh, and the functors each form of K3
 # compiles: the first-order and quasi-Newton forms (driver.cu, driver_qn.cu)
-# two, the Newton form (driver_newton.cu) three, with their Hessians
+# two, the Newton form (driver_newton.cu) all four, with their Hessians
 SMEM_PER_BLOCK = 232448
 NEWTON_WORDS = 32          # csrc/driver.cuh kNewtonWords
 DENSE_WORDS = 8            # csrc/driver.cuh kDenseWords
 LANE_M = 32                # csrc/driver.cuh kLaneM: pairs the compact form holds
 DENSE_METHODS = (QN, QNB)
 K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
-K3_NEWTON_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC")
+K3_NEWTON_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC",
+                        "LOG_SUM_EXP")
 KERNEL = "the CUDA driver kernel K3"
-LOCKSTEP = "solvers.batch_minimize with fused=False"
-# the LOG_SUM_EXP Hessian and HVP functors
-SECOND_ORDER_LSE = "ROADMAP.md Queue 2 item 8"
+LOCKSTEP = ("solvers.batch_minimize, whose fused='auto' takes it on a CUDA "
+            "x0")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -275,7 +275,7 @@ def dense_in_shared(n: int, ring: int, itemsize: int, qn_update: int) -> bool:
 
 def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
                       method: Optional[int] = None,
-                      qn_update: int = 0) -> int:
+                      qn_update: int = 0, rows: int = 0) -> int:
     """Shared memory one instance takes in the CUDA kernel, mirrored here so
     that the route can decide without the library.  The first-order and
     quasi-Newton forms: ``work_elems`` of ``csrc/driver.cuh`` (7 n, the
@@ -290,7 +290,9 @@ def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
     SPN; one block per instance): ``newton_smem_elems``, the region of D,
     GN, XT and the solves' staged NB x (NB + 1) block, over which the
     blocked factorization's scratch lies (the larger of the two, rounded up
-    to 4), X and G, 32 command words and the GLL history."""
+    to 4), X and G, 32 command words, the GLL history and a log-sum-exp's z
+    (``rows`` elements, 0 for the other objectives; its Hessian's scratch
+    lies in the region)."""
     if method in DENSE_METHODS:
         slab = (dense_slab_elems(n, qn_update)
                 if dense_in_shared(n, ring, itemsize, qn_update) else 0)
@@ -300,7 +302,7 @@ def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
                                 else torch.float64]
         region = (max(3 * n + nb * (nb + 1),
                       fused_newton.scratch_elems(itemsize, nb)) + 3) // 4 * 4
-        return (region + 2 * n + NEWTON_WORDS + ring) * itemsize
+        return (region + 2 * n + NEWTON_WORDS + ring + rows) * itemsize
     extra = 2 * m * m + 2 * m if compact_fits(n, ring, itemsize, m) else 0
     return (7 * n + ring + 2 * m * n + 3 * m + extra) * itemsize
 
@@ -316,9 +318,18 @@ def compact_fits(n: int, ring: int, itemsize: int, m: int) -> bool:
 
 
 def fits(n: int, ring: int, itemsize: int, m: int = 0,
-         method: Optional[int] = None) -> bool:
-    """Whether an instance of width ``n`` fits a block's shared memory."""
-    return smem_per_instance(n, ring, itemsize, m, method) <= SMEM_PER_BLOCK
+         method: Optional[int] = None, rows: int = 0) -> bool:
+    """Whether an instance of width ``n`` fits a block's shared memory
+    (``rows``: a log-sum-exp's, which the Newton form holds)."""
+    return smem_per_instance(n, ring, itemsize, m, method,
+                             rows=rows) <= SMEM_PER_BLOCK
+
+
+def compiled_functors(spec: "K3Spec"):
+    """The functors the form of ``spec`` compiles on the card: the Newton
+    form's four, or the other forms' two."""
+    return (K3_NEWTON_OBJECTIVES if spec.method in NEWTON_METHODS
+            else K3_OBJECTIVES)
 
 
 def first_order_info(dtype, B, n, method, ring=0):
@@ -344,13 +355,14 @@ def first_order_info(dtype, B, n, method, ring=0):
                 smem_per_block=smem, lane_coordinates=lanes)
 
 
-def _check_fits(n, ring, itemsize, m=0, method=None):
-    if not fits(n, ring, itemsize, m, method):
+def _check_fits(n, ring, itemsize, m=0, method=None, rows=0):
+    if not fits(n, ring, itemsize, m, method, rows):
+        need = smem_per_instance(n, ring, itemsize, m, method, rows=rows)
         raise NotImplementedError(
-            f"n={n} needs {smem_per_instance(n, ring, itemsize, m, method)} "
-            f"bytes of shared memory per instance in {KERNEL}, more than a "
-            f"block's {SMEM_PER_BLOCK}; such a batch needs the lockstep loop "
-            f"({LOCKSTEP}, which batch_minimize's fused='auto' takes)")
+            f"n={n} needs {need} bytes of shared memory per instance in "
+            f"{KERNEL}, more than a block's {SMEM_PER_BLOCK}; such a batch "
+            f"needs the lockstep loop (solvers.batch_minimize's fused='auto' "
+            f"takes it)")
 
 
 def workspace_elems(B: int, n: int, method: int, ring: int = 0,
@@ -1123,13 +1135,14 @@ def fused_minimize_plain(method, line_search, f, x0, lower=None, upper=None,
                         max_iter_ls, ties)
 
 
-def _slots(spec: K3Spec, dtype):
+def _slots(spec: K3Spec, dtype, rows: int = 0):
     """The int and double parameter arrays of ``driver_launch`` (slots
-    ``IntSlot`` and ``DoubleSlot`` of ``csrc/driver.cuh``)."""
+    ``IntSlot`` and ``DoubleSlot`` of ``csrc/driver.cuh``); ``rows`` is a
+    log-sum-exp's."""
     ints = [spec.method, spec.search, int(spec.alternate), spec.ncg_variant,
             spec.restart_every, spec.ring, spec.qn_update, int(spec.scale_b0),
             int(spec.restart), spec.lbfgs_m, int(spec.approx_wolfe),
-            int(spec.search_bounded), int(spec.precond_bb)]
+            int(spec.search_bounded), int(spec.precond_bb), int(rows)]
     doubles = [spec.tol, spec.lam_min, spec.lam_max, spec.c1, spec.beta,
                spec.sigma1, spec.sigma2, max(spec.curv_eps, QN_EPS[dtype]),
                spec.c2, spec.t_min, spec.t_max, spec.delta, spec.aw_eps,
@@ -1143,9 +1156,8 @@ def _slots(spec: K3Spec, dtype):
 def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
                  max_iter_ls):
     """Check the operands, launch ``csrc/driver.cu`` on the current stream
-    and return ``(x, f, iterations, status, nfev)``.  The Newton methods
-    need a functor of the Newton form (with its Hessian); a
-    ``log_sum_exp`` objective has none yet."""
+    and return ``(x, f, iterations, status, nfev)``.  The objective needs a
+    functor of the chosen form (:func:`compiled_functors`)."""
     from . import _build
 
     if x0.dim() != 2 or x0.dtype not in (torch.float32, torch.float64):
@@ -1171,17 +1183,12 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
     code, arrays = kernel_operands(f, consts, x0, kernel=KERNEL,
                                    lockstep=LOCKSTEP)
     name = next(k for k, v in KERNEL_OBJECTIVES.items() if v == code)
-    newton_form = spec.method in NEWTON_METHODS
-    compiled = K3_NEWTON_OBJECTIVES if newton_form else K3_OBJECTIVES
+    compiled = compiled_functors(spec)
     if name not in compiled:
-        if newton_form and name == "LOG_SUM_EXP":
-            raise NotImplementedError(
-                f"the Newton form of {KERNEL} has no LOG_SUM_EXP Hessian "
-                f"functor yet ({SECOND_ORDER_LSE}); the plain version takes "
-                f"such an objective on a CPU tensor")
         raise NotImplementedError(
-            f"{KERNEL} compiles the functors {compiled}, not {name}; "
-            f"other objectives need the lockstep loop ({LOCKSTEP})")
+            f"{KERNEL} compiles the functors {compiled} in this form, not "
+            f"{name}; other objectives need the lockstep loop ({LOCKSTEP})")
+    rows = arrays[0].shape[0] if name == "LOG_SUM_EXP" else 0
     pinv = None
     if spec.method == PNORM:
         pinv = spec.pinv.to(device=x0.device, dtype=x0.dtype).contiguous()
@@ -1189,7 +1196,7 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
             raise ValueError(f"inverse_p must be ({n}, {n}), got "
                              f"{tuple(pinv.shape)}")
     itemsize = x0.element_size()
-    _check_fits(n, spec.ring, itemsize, spec.lbfgs_m, spec.method)
+    _check_fits(n, spec.ring, itemsize, spec.lbfgs_m, spec.method, rows)
     _check_workspace(B, n, spec, itemsize, x0.device)
     x0 = x0.contiguous()
     lib = _build.load()
@@ -1201,7 +1208,7 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
                             spec.qn_update)
     work = (torch.empty((elems,), dtype=x0.dtype, device=x0.device)
             if elems else None)
-    ints, doubles = _slots(spec, x0.dtype)
+    ints, doubles = _slots(spec, x0.dtype, rows)
 
     def ptr(v):
         return None if v is None else v.data_ptr()

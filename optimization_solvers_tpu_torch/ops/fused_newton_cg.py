@@ -31,8 +31,9 @@ differently).  :func:`newton_cg_solve_fused` takes the plain version for a
 CPU ``x0`` and launches ``csrc/newton_cg.cu`` for a CUDA ``x0``; it never
 falls back from one to the other.  The JAX front end's ``newton_cg``
 method runs the XLA twin of this algorithm
-(``solvers/newton_cg.py:newton_cg_batch_minimize`` there); the port's runs
-this kernel.
+(``solvers/newton_cg.py:newton_cg_batch_minimize`` there); the port's
+``solvers.newton_cg_batch_minimize`` runs this kernel where :func:`takes`
+says so, and that twin, its lockstep loop, for every other batch.
 """
 
 from __future__ import annotations
@@ -44,30 +45,44 @@ import torch
 from ..core.numerics import batched_pg_inf_norm
 from ..core.types import SolveResult, Status
 from .batched_oracle import (KERNEL_OBJECTIVES, batched_hvp, batched_value,
-                             batched_value_and_grad, kernel_operands)
+                             batched_value_and_grad, kernel_functor,
+                             kernel_operands)
 
 # kSmemPerBlock of csrc/common.cuh, and the functors csrc/newton_cg.cu
 # compiles
 SMEM_PER_BLOCK = 232448
-K4_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC")
+K4_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC",
+                 "LOG_SUM_EXP")
 KERNEL = "the CUDA Newton-CG kernel K4"
-LOCKSTEP = "ROADMAP.md Queue 1 item 7a"
-SECOND_ORDER_LSE = "ROADMAP.md Queue 2 item 8"
+LOCKSTEP = ("solvers.newton_cg_batch_minimize, which routes such a batch to "
+            "the lockstep Newton-CG loop")
 
 
-def smem_per_instance(n: int, itemsize: int) -> int:
+def smem_per_instance(n: int, itemsize: int, rows: int = 0) -> int:
     """Shared memory one instance takes in the CUDA kernel's shared-memory
     layout (``InShared`` of ``csrc/newton_cg.cu``): X, G, D, R, P, the
     product Hp (also the trial's gradient), the trial point and the free
-    mask, 8 n elements.  It decides the widest instance the kernel takes;
-    the register layout (Rosenbrock and weighted squares up to n = 128)
-    takes none."""
-    return 8 * n * itemsize
+    mask, 8 n elements, and the log-sum-exp's z and p, 2 ``rows`` elements
+    (``rows`` 0 for the other objectives).  It decides the widest instance
+    the kernel takes; the register layout (Rosenbrock and weighted squares
+    up to n = 128) takes none."""
+    return (8 * n + 2 * rows) * itemsize
 
 
-def fits(n: int, itemsize: int) -> bool:
-    """Whether an instance of width ``n`` fits a block's shared memory."""
-    return smem_per_instance(n, itemsize) <= SMEM_PER_BLOCK
+def fits(n: int, itemsize: int, rows: int = 0) -> bool:
+    """Whether an instance of width ``n`` (and a log-sum-exp's ``rows``)
+    fits a block's shared memory."""
+    return smem_per_instance(n, itemsize, rows) <= SMEM_PER_BLOCK
+
+
+def takes(f, consts, x0) -> bool:
+    """Whether ``solvers.newton_cg_batch_minimize`` runs this batch on K4
+    (the plain version for a CPU ``x0``) rather than on the lockstep loop:
+    ``f`` has a functor K4 compiles and one instance fits a block's shared
+    memory.  A static decision on shapes, the same on both devices."""
+    name, rows = kernel_functor(f, consts)
+    return name in K4_OBJECTIVES and fits(x0.shape[-1], x0.element_size(),
+                                          rows)
 
 
 def kernel_info(dtype, B, n):
@@ -237,20 +252,17 @@ def _launch_cuda(f, x0, lower, upper, consts, *, pgtol, factr, max_iter,
     code, arrays = kernel_operands(f, consts, x0, kernel=KERNEL,
                                    lockstep=LOCKSTEP)
     name = next(k for k, v in KERNEL_OBJECTIVES.items() if v == code)
-    if name == "LOG_SUM_EXP":
-        raise NotImplementedError(
-            f"{KERNEL} has no LOG_SUM_EXP Hessian-vector functor yet "
-            f"({SECOND_ORDER_LSE}); the plain version takes such an "
-            f"objective on a CPU tensor")
     if name not in K4_OBJECTIVES:
         raise NotImplementedError(
             f"{KERNEL} compiles the functors {K4_OBJECTIVES}, not {name}")
-    if not fits(n, x0.element_size()):
+    rows = arrays[0].shape[0] if name == "LOG_SUM_EXP" else 0
+    if not fits(n, x0.element_size(), rows):
         raise NotImplementedError(
-            f"n={n} needs {smem_per_instance(n, x0.element_size())} bytes of "
+            f"n={n}" + (f" with {rows} rows" if rows else "") + " needs "
+            f"{smem_per_instance(n, x0.element_size(), rows)} bytes of "
             f"shared memory per instance in {KERNEL}, more than a block's "
-            f"{SMEM_PER_BLOCK}; such a batch waits for the lockstep Newton-CG "
-            f"solver ({LOCKSTEP})")
+            f"{SMEM_PER_BLOCK}; such a batch runs on the lockstep Newton-CG "
+            f"loop ({LOCKSTEP})")
     x0 = x0.contiguous()
     lo, up = (v.to(x0.dtype).contiguous() for v in (lower, upper))
     lib = _build.load()
@@ -267,7 +279,7 @@ def _launch_cuda(f, x0, lower, upper, consts, *, pgtol, factr, max_iter,
     with torch.cuda.device(x0.device):
         rc = lib.newton_cg_launch(
             1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(),
-            lo.data_ptr(), up.data_ptr(), ptr(0), ptr(1), B, n,
+            lo.data_ptr(), up.data_ptr(), ptr(0), ptr(1), rows, B, n,
             float(pgtol), float(factr) * eps, eps, int(max_iter), int(cg_max),
             int(max_iter_ls), float(c1), x.data_ptr(), fv.data_ptr(),
             it.data_ptr(), st.data_ptr(), ncg.data_ptr(), nfev.data_ptr(),
@@ -286,7 +298,8 @@ def newton_cg_solve_fused(f, x0, lower, upper, consts=(), *, pgtol=1e-5,
 
     ``f(x, *consts)`` is the objective (on CUDA an objective of
     :mod:`..core.problems` with a K4 functor: ``rosenbrock``,
-    ``weighted_squares``, ``quadratic`` and those built on them); ``x0`` is
+    ``weighted_squares``, ``quadratic``, ``log_sum_exp`` and those built on
+    them); ``x0`` is
     ``(B, n)``; ``lower``/``upper`` are ``(n,)`` tensors on x0's device
     (``+-inf`` for a free coordinate).  ``cg_max`` bounds the CG steps per
     Newton step, each one Hessian-vector product.  A CPU ``x0`` runs

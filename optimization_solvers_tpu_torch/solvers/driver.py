@@ -25,11 +25,15 @@ exit state bit for bit while the others go on.  As in JAX:
 line search) pair that K3 has a form for, with an oracle that keeps its raw
 objective (:func:`..core.oracle.make_oracle`) and instances that fit a
 block's shared memory, to K3 (:mod:`..ops.fused_driver`: the plain version
-for a CPU ``x0``, the kernel for a CUDA ``x0``), on both devices.
-Everything else runs the lockstep loop: ``fused=False``, a ``callback``,
-``batched_bounds=True``, ``unroll`` other than 1, an oracle without a raw
-objective, ``MoreThuente(reference_quirks=True)`` and any pair K3 has no
-form for.  Where this differs from JAX: on the CPU the JAX package's
+for a CPU ``x0``, the kernel for a CUDA ``x0``), on both devices; on a
+CUDA ``x0`` only where the chosen form also compiles the objective's
+functor (:func:`..ops.fused_driver.compiled_functors`), a static decision
+taken before the launch.  Everything else runs the lockstep loop:
+``fused=False``, a ``callback``, ``batched_bounds=True``, ``unroll`` other
+than 1, an oracle without a raw objective,
+``MoreThuente(reference_quirks=True)``, any pair K3 has no form for, and
+on a CUDA ``x0`` a callable without a kernel form or a functor the form
+lacks.  Where this differs from JAX: on the CPU the JAX package's
 ``"auto"`` takes the lockstep loop and K3 only on a TPU, so a CPU solve
 that K3 takes here differs from JAX's ``"auto"`` where K3 and the lockstep
 loop differ by design (``pallas_driver.py:38-43``: a lane that converges
@@ -52,6 +56,7 @@ from ..core.oracle import Oracle, ensure_oracle
 from ..core.types import FuncEval, SolveResult, Status
 from ..linesearch.base import Bounds, LineSearch, tree_where
 from ..ops import fused_driver
+from ..ops.batched_oracle import kernel_functor
 from ..ops.fused_driver import apply_stall_status, exit_pg_norm
 from .base import Method
 
@@ -244,6 +249,22 @@ def _lockstep(method, line_search, oracle, x0, bounds, *, max_iter=1000,
     return _result(final, max_iter, bounds, method)
 
 
+def _k3_fit(spec, oracle, x0):
+    """``(fits, compiled)`` for K3's ``spec`` (``None``: no form): an
+    instance fits a block's shared memory (a log-sum-exp's rows counted in
+    the Newton form), and on a CUDA ``x0`` the form compiles the oracle's
+    raw objective's functor (always on the CPU, whose plain version takes
+    any callable)."""
+    if spec is None:
+        return False, False
+    functor, rows = kernel_functor(getattr(oracle, "raw_f", None),
+                                   getattr(oracle, "data", ()))
+    fits = fused_driver.fits(x0.shape[-1], spec.ring, x0.element_size(),
+                             spec.lbfgs_m, spec.method, rows)
+    return fits, (x0.device.type != "cuda"
+                  or functor in fused_driver.compiled_functors(spec))
+
+
 def batch_minimize(method, line_search, oracle, x0, *, bounds: Bounds = None,
                    batched_bounds: bool = False, fused="auto",
                    **kwargs) -> SolveResult:
@@ -257,12 +278,13 @@ def batch_minimize(method, line_search, oracle, x0, *, bounds: Bounds = None,
     steps per host check); any other raises ``TypeError``.
 
     Routing (see the module docstring): ``fused="auto"`` takes K3 where it
-    applies and the lockstep loop elsewhere; ``fused=False`` always takes
-    the lockstep loop; ``fused=True`` takes K3 or raises ``ValueError``
-    (also with a ``callback``).  On a CUDA ``x0``, K3 needs an objective
-    with a kernel functor, and a batch of dense quasi-Newton or Newton
-    slabs (``B n^2`` elements) larger than the device's free memory
-    raises."""
+    applies and the lockstep loop elsewhere (on a CUDA ``x0`` also for an
+    objective whose functor the chosen form does not compile);
+    ``fused=False`` always takes the lockstep loop; ``fused=True`` takes K3
+    or raises ``ValueError`` (also with a ``callback``), and on a CUDA
+    ``x0`` ``NotImplementedError`` for an objective without a functor of
+    the chosen form.  A batch of dense quasi-Newton or Newton slabs (``B
+    n^2`` elements) larger than the device's free memory raises."""
     unknown = set(kwargs) - _KWARGS
     if unknown:
         raise TypeError(
@@ -282,16 +304,15 @@ def batch_minimize(method, line_search, oracle, x0, *, bounds: Bounds = None,
     raw_f = getattr(oracle, "raw_f", None)
     spec = (fused_driver.build_spec(method, line_search)
             if fused is not False and raw_f is not None else None)
-    fits = spec is not None and fused_driver.fits(
-        x0.shape[-1], spec.ring, x0.element_size(), spec.lbfgs_m, spec.method)
+    fits, compiled = _k3_fit(spec, oracle, x0)
     if fused is True:
         if not fits:
             raise ValueError(
                 "fused=True but no fused kernel applies (unsupported combo, "
                 "the oracle lacks a raw scalar objective, or an instance "
                 "too wide for a block's shared memory)")
-    elif (fused is False or not fits or batched_bounds or callback is not None
-          or kwargs.get("unroll", 1) != 1):
+    elif (fused is False or not fits or not compiled or batched_bounds
+          or callback is not None or kwargs.get("unroll", 1) != 1):
         if batched_bounds and bounds is not None:
             B, n = x0.shape
             for b in bounds:

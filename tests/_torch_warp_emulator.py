@@ -7,7 +7,10 @@ dense form (``driver_dense.cu``) and K5 (``qn_update.cu``: one block of
 several warps per instance, whose warps meet at block barriers), K7
 (``lbfgs_fused.cu``), K4 (``newton_cg.cu``), K8 (``spg_fused.cu``) and K3's
 first-order and quasi-Newton forms (``driver.cu``, ``driver_qn.cu``), one
-warp per instance.  A test-only harness: the port never calls it."""
+warp per instance; K3's Newton form (``driver_newton.cu``, one block of 256
+threads per instance), whose blocked Cholesky's ``cp.async`` copies become
+plain copies here (:data:`CP_ASYNC_STANDIN`).  A test-only harness: the
+port never calls it."""
 
 import ctypes
 import glob
@@ -384,6 +387,30 @@ void emu_launch(K kernel, int grid, int block, int smem, const P& prm) {
 LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<([^,;]+), ([^,;]+), ([^,;]+), "
                     r"([^,;>]+)>>>\(([^;]*)\);")
 
+# chol_blocked.cuh's cp.async helpers as plain copies: on the card the copy
+# completes by the wait that precedes every read of its tile, here at once
+CP_ASYNC_STANDIN = """__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  memcpy(dst, src, 16);
+}
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) { *dst = *src; }
+__device__ __forceinline__ void cp_async_commit() {}
+__device__ __forceinline__ void cp_async_wait_one() {}
+__device__ __forceinline__ void cp_async_wait_all() {}
+
+"""
+
+
+def _host_text(name, text):
+    """A source of ops/csrc as the emulated build compiles it."""
+    text = re.sub(r"\n\s*extern __shared__ [^\n]*smem_raw\[\];", "\n", text)
+    text = LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \6);", text)
+    if name == "chol_blocked.cuh":
+        start = text.index("__device__ __forceinline__ void cp_async16(")
+        end = text.index("// kMicro consecutive elements")
+        text = text[:start] + CP_ASYNC_STANDIN + text[end:]
+    return text
+
 
 def build_sources(out_dir, sources, name, extra="", flags=()):
     """Compile ``sources`` of ``ops/csrc`` (and the C++ text ``extra``) for
@@ -396,10 +423,7 @@ def build_sources(out_dir, sources, name, extra="", flags=()):
         raise RuntimeError("the warp emulator needs a host C++ compiler")
     for path in glob.glob(os.path.join(CSRC, "*.cu*")):
         with open(path) as fh:
-            text = fh.read()
-        text = re.sub(r"\n\s*extern __shared__ [^\n]*smem_raw\[\];", "\n",
-                      text)
-        text = LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \6);", text)
+            text = _host_text(os.path.basename(path), fh.read())
         with open(os.path.join(out_dir, os.path.basename(path)), "w") as fh:
             fh.write(text)
     src = os.path.join(out_dir, f"{name}_emulated.cpp")
@@ -432,9 +456,8 @@ def build(out_dir):
     return lib
 
 
-# K3's C interface (driver.cu) reaches the Newton form, whose blocked
-# Cholesky stages tiles by cp.async: the emulated library builds the other
-# forms and answers the Newton methods with kErrArgs
+# K3's C interface (driver.cu) reaches the Newton form: a build of the
+# other forms alone answers the Newton methods with kErrArgs
 NEWTON_STUB = """
 namespace ost_driver {
 template <typename T>
@@ -445,13 +468,15 @@ template int launch_newton<double>(const Params<double>&, int, cudaStream_t);
 """
 
 
-def build_k3(out_dir, extra_flags=()):
+def build_k3(out_dir, extra_flags=(), newton=False):
     """K3's first-order, quasi-Newton and dense forms (``driver.cu`` with
     ``driver_first.cuh``, ``driver_qn.cu``, ``driver_dense.cu``) for the
-    emulator."""
-    lib = build_sources(out_dir, ["driver.cu", "driver_qn.cu",
-                                  "driver_dense.cu"], "driver", NEWTON_STUB,
-                        flags=extra_flags)
+    emulator; with ``newton`` its Newton form (``driver_newton.cu``) too,
+    else the Newton methods are answered with kErrArgs."""
+    sources = ["driver.cu", "driver_qn.cu", "driver_dense.cu"]
+    lib = build_sources(out_dir, sources + ["driver_newton.cu"] * newton,
+                        "driver_newton" if newton else "driver",
+                        "" if newton else NEWTON_STUB, flags=extra_flags)
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.driver_launch.restype = i
     lib.driver_launch.argtypes = [
@@ -559,10 +584,10 @@ def build_k4(out_dir, extra_flags=()):
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.newton_cg_launch.restype = i
     lib.newton_cg_launch.argtypes = [
-        i, i, vp, vp, vp, vp, vp, i, i, d, d, d, i, i, i, d,
+        i, i, vp, vp, vp, vp, vp, i, i, i, d, d, d, i, i, i, d,
         vp, vp, vp, vp, vp, vp, vp]
     lib.newton_cg_smem_per_warp.restype = ctypes.c_longlong
-    lib.newton_cg_smem_per_warp.argtypes = [i, i]
+    lib.newton_cg_smem_per_warp.argtypes = [i, i, i]
     return lib
 
 
@@ -579,6 +604,7 @@ def newton_cg_solve(lib, obj, x0, lower, upper, data=(), *, pgtol=1e-5,
     up = upper.to(x0.dtype).contiguous()
     code, arrays = kernel_operands(obj, data, x0)
     arrays = [a.contiguous() for a in arrays]
+    rows = arrays[0].shape[0] if code == 3 else 0
     x = torch.empty_like(x0)
     f = torch.empty((B,), dtype=x0.dtype)
     it, st, ncg, nfev = (torch.empty((B,), dtype=torch.int32)
@@ -589,7 +615,7 @@ def newton_cg_solve(lib, obj, x0, lower, upper, data=(), *, pgtol=1e-5,
         1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(),
         lo.data_ptr(), up.data_ptr(),
         arrays[0].data_ptr() if arrays else None,
-        arrays[1].data_ptr() if len(arrays) > 1 else None, B, n,
+        arrays[1].data_ptr() if len(arrays) > 1 else None, rows, B, n,
         float(pgtol), float(factr) * eps, eps, int(max_iter), int(cg_max),
         int(max_iter_ls), float(c1), x.data_ptr(), f.data_ptr(),
         it.data_ptr(), st.data_ptr(), ncg.data_ptr(), nfev.data_ptr(), None)
@@ -714,6 +740,7 @@ def driver_solve(lib, method, search, obj, x0, lower=None, upper=None,
         bstride = n if lo.dim() == 2 else 0
     code, arrays = kernel_operands(obj, data, x0)
     arrays = [a.contiguous() for a in arrays]
+    rows = arrays[0].shape[0] if code == 3 else 0
     pinv = (None if spec.pinv is None else
             spec.pinv.to(x0.dtype).contiguous())
     elems = fused_driver.workspace_elems(B, n, spec.method, spec.ring,
@@ -722,7 +749,7 @@ def driver_solve(lib, method, search, obj, x0, lower=None, upper=None,
     x = torch.empty_like(x0)
     f = torch.empty((B,), dtype=x0.dtype)
     it, st, nfev = (torch.empty((B,), dtype=torch.int32) for _ in range(3))
-    ints, doubles = fused_driver._slots(spec, x0.dtype)
+    ints, doubles = fused_driver._slots(spec, x0.dtype, rows)
 
     def ptr(v):
         return None if v is None else v.data_ptr()

@@ -635,10 +635,17 @@ def test_driver_refuses_rather_than_falls_back(cuda, monkeypatch):
     monkeypatch.setattr(fused_driver, "_solve_plain", plain)
     before = fused_driver.fused_minimize.launches
     x0 = torch.zeros((4, 6), dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="kernel_form"):
-        minimize(lambda x: (x * x).sum(), x0, method="gd")
+    # an objective the chosen form does not compile runs the lockstep loop
+    # on the card (a static route: nothing is launched), and fused=True
+    # still refuses it
+    for f in (lambda x: (x * x).sum(), problems.quadratic(np.eye(6))):
+        r = minimize(f, x0 + 1.0, method="gd", max_iter=50)
+        assert r.x.device.type == "cuda" and bool((r.status == 1).all())
+    assert fused_driver.fused_minimize.launches == before
     with pytest.raises(NotImplementedError, match="compiles the functors"):
-        minimize(problems.quadratic(np.eye(6)), x0, method="gd")
+        solvers.batch_minimize(
+            solvers.GradientDescent(), ls.BackTracking(),
+            make_oracle(problems.quadratic(np.eye(6))), x0, fused=True)
     # what K3 has no form for runs the lockstep loop on the card
     with pytest.raises(NotImplementedError, match="has no step_len"):
         minimize(problems.rosenbrock(), x0, method="gd",
@@ -647,15 +654,15 @@ def test_driver_refuses_rather_than_falls_back(cuda, monkeypatch):
                  search=ls.MoreThuente(reference_quirks=True))
     assert r.x.device.type == "cuda" and r.iterations.max().item() <= 5
     assert fused_driver.fused_minimize.launches == before
-    # the Newton rows launch K3's Newton form; a log-sum-exp has no Hessian
-    # functor there and is refused
+    # the Newton rows launch K3's Newton form, a log-sum-exp too
     r = minimize(problems.rosenbrock(), x0, method="newton", max_iter=5)
     assert fused_driver.fused_minimize.launches == before + 1
     assert r.x.device.type == "cuda"
     lse = problems.log_sum_exp(np.ones((3, 6)), np.zeros(3))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        minimize(lse, x0, method="newton")
-    assert fused_driver.fused_minimize.launches == before + 1
+    r = minimize(lse, x0, method="pn", bounds=(-1.0, 1.0), max_iter=5)
+    torch.cuda.synchronize()
+    assert fused_driver.fused_minimize.launches == before + 2
+    assert bool(torch.isfinite(r.f).all())
 
 
 def test_driver_shared_memory_mirror_matches_the_library(cuda):
@@ -681,9 +688,11 @@ def test_driver_shared_memory_mirror_matches_the_library(cuda):
     for n in (1, 31, 64, 100, 1000, 1024, 4150, 8301):
         for ring in (0, 1, 10):
             for itemsize in (4, 8):
-                assert fused_driver.smem_per_instance(
-                    n, ring, itemsize, method=fused_driver.PN) == (
-                        lib.driver_smem_newton(n, ring, itemsize)), (n, ring)
+                for rows in (0, 512):
+                    assert fused_driver.smem_per_instance(
+                        n, ring, itemsize, method=fused_driver.PN,
+                        rows=rows) == (lib.driver_smem_newton(
+                            n, ring, rows, itemsize)), (n, ring, rows)
 
 
 def test_config6_shape_float32_quality(cuda):
@@ -1109,9 +1118,10 @@ def test_newton_cg_kernel_matches_plain(name, cuda):
 
 
 def test_newton_cg_route_and_refusals(cuda, monkeypatch):
-    """minimize(method="newton_cg") launches K4 once; a log-sum-exp (no HVP
-    functor) and an instance too wide for shared memory are refused, and
-    the plain version never runs on a CUDA tensor."""
+    """minimize(method="newton_cg") launches K4 once per batch K4 takes (a
+    log-sum-exp too); an instance too wide for shared memory runs the
+    lockstep loop on the card, K4 refuses it when called directly, and the
+    plain version never runs on a CUDA tensor."""
     x0 = torch.tensor(np.random.RandomState(42).uniform(-2, 2, (64, 100)),
                       dtype=torch.float32, device=cuda)
     before = fused_newton_cg.newton_cg_solve_fused.launches
@@ -1126,12 +1136,18 @@ def test_newton_cg_route_and_refusals(cuda, monkeypatch):
 
     monkeypatch.setattr(fused_newton_cg, "newton_cg_solve_plain", plain)
     lse = problems.log_sum_exp(np.ones((3, 100)), np.zeros(3))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        minimize(lse, x0, method="newton_cg", bounds=(-1.0, 1.0))
+    r = minimize(lse, x0, method="newton_cg", bounds=(-1.0, 1.0))
+    torch.cuda.synchronize()
+    assert fused_newton_cg.newton_cg_solve_fused.launches == before + 2
+    assert bool(torch.isfinite(r.f).all())
     wide = torch.zeros((2, 8000), dtype=torch.float64, device=cuda)
+    r = minimize(problems.rosenbrock(), wide, method="newton_cg", max_iter=5)
+    assert r.x.device.type == "cuda" and r.iterations.max().item() == 5
+    lo8 = torch.full((8000,), -5.0, dtype=torch.float64, device=cuda)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        minimize(problems.rosenbrock(), wide, method="newton_cg")
-    assert fused_newton_cg.newton_cg_solve_fused.launches == before + 1
+        fused_newton_cg.newton_cg_solve_fused(problems.rosenbrock(), wide,
+                                              lo8, -lo8)
+    assert fused_newton_cg.newton_cg_solve_fused.launches == before + 2
 
 
 @pytest.mark.parametrize("n", [100, 128, 129, 300])
@@ -1152,6 +1168,64 @@ def test_newton_cg_layouts_match_plain(n, cuda):
         problems.rosenbrock(), x0, lo, up, **kw)
     assert torch.equal(st, stp) and torch.equal(it, itp)
     torch.testing.assert_close(x, xp, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,rows", [(40, 8), (20, 70), (300, 100)])
+def test_newton_cg_log_sum_exp_matches_plain(n, rows, cuda):
+    """K4's log-sum-exp functor (the shared-memory layout, A's rows in
+    chunks of 32 and a ragged last chunk), float64, box [-1, 1]: status and
+    every count equal, x within 1e-9, over 30 iterations where n < rows or
+    rows is small (CG ends far from rounding).  At n = 300 past 100 rows 32
+    CG steps a Newton step on the singular Hessian amplify rounding (the
+    plain version's own f after 2 iterations moves from 3.7748 to 3.7496
+    when its instance is solved in a batch of two equal rows, on the CPU),
+    so there the full solves are held: status equal, f within 1e-6
+    relative (the plain version alone against its batch: 6.8e-9)."""
+    A, b = lse_arrays(n, rows)
+    x0, lo, up, tA, tb = interop.tensors_from_numpy(
+        np.random.RandomState(4).uniform(-0.5, 0.5, (64, n)),
+        np.full(n, -1.0), np.full(n, 1.0), A, b, device=cuda)
+    lse = problems.log_sum_exp(tA, tb)
+    kw = dict(pgtol=1e-8, factr=0.0, max_iter=30, cg_max=32,
+              max_iter_ls=25, c1=1e-4)
+    if n > 100:
+        kw.update(pgtol=1e-5, factr=1e3, max_iter=200)
+    x, f, it, st, ncg, nfev = fused_newton_cg._launch_cuda(
+        lse, x0, lo, up, (), **kw)
+    xp, fp, itp, stp, ncgp, nfevp = fused_newton_cg.newton_cg_solve_plain(
+        lse, x0, lo, up, **kw)
+    assert torch.equal(st, stp)
+    if n > 100:
+        assert bool((st == 1).all())
+        torch.testing.assert_close(f, fp, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(it, itp) and torch.equal(nfev, nfevp)
+        assert torch.equal(ncg, ncgp)
+        torch.testing.assert_close(x, xp, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("n,rows", [(16, 32), (64, 300), (128, 64)])
+def test_newton_form_log_sum_exp_matches_plain(n, rows, cuda):
+    """K3's Newton form on the log-sum-exp (the block-level Hessian, A's
+    rows staged 32 at a time; the tiles' ragged edges at n = 16 and 64 in
+    float64), PN + BackTrackingB, box [-1, 1], float64, 10 iterations:
+    status and iterations equal, x within 1e-9; n = 128 past 64 rows is
+    singular, every factor collapses and both versions take the fallback
+    direction."""
+    A, b = lse_arrays(n, rows)
+    x0, lo, up, tA, tb = interop.tensors_from_numpy(
+        np.random.RandomState(5).uniform(-0.5, 0.5, (32, n)),
+        np.full(n, -1.0), np.full(n, 1.0), A, b, device=cuda)
+    lse = problems.log_sum_exp(tA, tb)
+    pn = solvers.ProjectedNewton(grad_tol=1e-9)
+    spec = fused_driver.build_spec(pn, ls.BackTrackingB())
+    x, _, it, st, _ = fused_driver._launch_cuda(spec, lse, x0, lo, up, (),
+                                                10, 40)
+    xp, _, itp, stp, _ = fused_driver.fused_minimize_plain(
+        pn, ls.BackTrackingB(), lse, x0, lo, up, (), max_iter=10,
+        max_iter_ls=40)
+    assert torch.equal(st, stp) and torch.equal(it, itp)
+    torch.testing.assert_close(x, xp, rtol=0, atol=1e-9)
 
 
 def test_newton_cg_resources_at_the_headline(cuda):
@@ -1175,8 +1249,10 @@ def test_newton_cg_shared_memory_mirror_matches_the_library(cuda):
     lib = _build.load()
     for n in (1, 31, 100, 7264, 7265):
         for itemsize in (4, 8):
-            assert fused_newton_cg.smem_per_instance(n, itemsize) == (
-                lib.newton_cg_smem_per_warp(n, itemsize))
+            for rows in (0, 512):
+                assert fused_newton_cg.smem_per_instance(
+                    n, itemsize, rows) == (
+                        lib.newton_cg_smem_per_warp(n, rows, itemsize))
 
 
 # ---- the lockstep loop's kernels K5 (fused QN update) and K6 (Cholesky) ----

@@ -179,13 +179,18 @@ def test_unknown_and_unported_options_raise(spy, monkeypatch):
         (k, v), = opt.items()
         assert getattr(cfg, k) == v
     # the Newton rows run K3's Newton form, its plain version on the CPU;
-    # a single instance of newton_cg needs the lockstep loop
+    # a single instance of newton_cg runs the lockstep Newton-CG loop
     r = ostt.minimize(f, x0, method="newton", max_iter=5)
     assert r.x.shape == x0.shape and r.iterations.max().item() <= 5
     r = ostt.minimize(f, x0, method="spn", bounds=(-1.0, 1.0), max_iter=5)
     assert r.x.shape == x0.shape and bool((r.x.abs() <= 1.0).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ostt.minimize(f, x0[0], method="newton_cg")
+    single = []
+    monkeypatch.setattr(frontend, "newton_cg_minimize",
+                        lambda oracle, x, lo, up, cfg: single.append(
+                            (tuple(x.shape), cfg.max_iter)) or "lockstep")
+    assert ostt.minimize(f, x0[0], method="newton_cg",
+                         max_iter=7) == "lockstep"
+    assert single == [((4,), 7)]
     assert ostt.minimize(f, x0[0], method="lbfgsb") == "lockstep"
     assert lockstep.pop()[:2] == ("single", (4,))
     for opt in (dict(precision="f32x2"), dict(polish_max_iter=10)):

@@ -104,5 +104,8 @@ def test_emulated_k4_overflow(layout, k4):
 def test_shared_memory_mirror_matches_the_source(k4):
     for n in (1, 31, 100, 128, 129, 3632, 3633, 7264, 7265):
         for itemsize in (4, 8):
-            assert fused_newton_cg.smem_per_instance(n, itemsize) == (
-                k4["regs"].newton_cg_smem_per_warp(n, itemsize))
+            for rows in (0, 1, 512):
+                assert fused_newton_cg.smem_per_instance(
+                    n, itemsize, rows) == (
+                        k4["regs"].newton_cg_smem_per_warp(n, rows,
+                                                           itemsize))

@@ -218,8 +218,17 @@ def test_minimize_newton_cg_errors_match_jax():
     with pytest.raises(ValueError, match="its own line search"):
         ostt.minimize(problems.rosenbrock(), tx0, method="newton_cg",
                       search=ostt.linesearch.BackTracking())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ostt.minimize(problems.rosenbrock(), tx0[0], method="newton_cg")
+    # a single instance runs the lockstep loop (newton_cg_minimize), as
+    # JAX's does
+    ref = ost.minimize(jproblems.rosenbrock(), jnp.asarray(X0[0]),
+                       method="newton_cg", bounds=(-2.0, 2.0))
+    r = ostt.minimize(problems.rosenbrock(), tx0[0], method="newton_cg",
+                      bounds=(-2.0, 2.0))
+    assert r.x.shape == (8,) and r.status.dim() == 0
+    assert int(r.status) == int(ref.status)
+    assert int(r.iterations) == int(ref.iterations)
+    np.testing.assert_allclose(r.x.numpy(), np.asarray(ref.x), rtol=0,
+                               atol=1e-9)
 
 
 def test_solver_surface_matches_jax():
@@ -236,10 +245,29 @@ def test_solver_surface_matches_jax():
         jnewton_cg.NewtonCGConfig(pgtol=1e-8, factr=0.0, max_iter=200))
     np.testing.assert_array_equal(r.status.numpy(), np.asarray(ref.status))
     np.testing.assert_allclose(r.x.numpy(), np.asarray(ref.x), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        solvers.newton_cg_minimize(oracle, tx0[0], lo, up, cfg)
-    with pytest.raises(NotImplementedError, match="raw objective"):
-        solvers.newton_cg_batch_minimize(ostt.Oracle(oracle), tx0, lo, up)
+    # one instance: the lockstep loop, JAX's while loop per instance
+    jcfg = jnewton_cg.NewtonCGConfig(pgtol=1e-8, factr=0.0, max_iter=200)
+    one = solvers.newton_cg_minimize(oracle, tx0[0], lo, up, cfg)
+    jone = jnewton_cg.newton_cg_minimize(
+        jmake_oracle(jproblems.rosenbrock()), jnp.asarray(X0[0]),
+        jnp.full(8, -2.0), jnp.full(8, 2.0), jcfg)
+    assert int(one.status) == int(jone.status)
+    assert int(one.iterations) == int(jone.iterations)
+    np.testing.assert_allclose(one.x.numpy(), np.asarray(jone.x), rtol=0,
+                               atol=1e-9)
+    # an oracle without a raw objective runs the lockstep loop where it has
+    # an hvp, and raises ValueError without one, as JAX's does
+    bare = ostt.Oracle(oracle)
+    with pytest.raises(ValueError, match="Hessian-vector products"):
+        solvers.newton_cg_batch_minimize(bare, tx0, lo, up)
+    bare.hvp = oracle.hvp
+    lock = solvers.newton_cg_batch_minimize(bare, tx0, lo, up, cfg)
+    np.testing.assert_array_equal(lock.status.numpy(),
+                                  np.asarray(ref.status))
+    np.testing.assert_array_equal(lock.iterations.numpy(),
+                                  np.asarray(ref.iterations))
+    np.testing.assert_allclose(lock.x.numpy(), np.asarray(ref.x), rtol=0,
+                               atol=1e-9)
     # the oracle's hvp: analytic for a library objective
     (v,) = interop.tensors_from_numpy(np.ones((4, 8)))
     torch.testing.assert_close(oracle.hvp(tx0, v),
@@ -254,17 +282,21 @@ def test_wrapper_refusals():
     with pytest.raises(ValueError, match=r"must be a \(8,\) tensor"):
         fused_newton_cg.newton_cg_solve_fused(
             problems.rosenbrock(), tx0, lo[None].expand(4, 8), up)
-    # no LOG_SUM_EXP HVP functor in the kernel: refused before anything is
-    # built, with the ROADMAP item
+    # the LOG_SUM_EXP functor's rows count in the fit: past it, refused
+    # before anything is built
     A, b = lse_arrays(8, 3)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+    wide = problems.log_sum_exp(*lse_arrays(8, 20000))
+    with pytest.raises(NotImplementedError, match="20000 rows"):
         fused_newton_cg._launch_cuda(
-            problems.log_sum_exp(A, b), tx0, lo, up, (), pgtol=1e-5,
-            factr=1e7, max_iter=5, cg_max=5, max_iter_ls=5, c1=1e-4)
+            wide, tx0, lo, up, (), pgtol=1e-5, factr=1e7, max_iter=5,
+            cg_max=5, max_iter_ls=5, c1=1e-4)
     # the plain version takes it, with its analytic HVP
     r = fused_newton_cg.newton_cg_solve_fused(
         problems.log_sum_exp(A, b), tx0 * 0.1, lo, up, pgtol=1e-9, factr=0.0)
     assert (r.status == Status.CONVERGED).all()
     assert fused_newton_cg.smem_per_instance(100, 4) == 3200
+    assert fused_newton_cg.smem_per_instance(1000, 4, 512) == 36096
     assert fused_newton_cg.fits(7000, 4) and not fused_newton_cg.fits(
         7000, 8)
+    assert fused_newton_cg.fits(7000, 4, 1000) and not fused_newton_cg.fits(
+        7000, 4, 2000)

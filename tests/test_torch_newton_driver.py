@@ -367,19 +367,28 @@ def test_configs_match_jax():
 
 def test_slabs_and_refusals():
     """One (n, n) slab per instance in device memory, 7 n elements of
-    shared memory; a log-sum-exp objective has no Hessian functor in the
-    kernel, and the wrapper refuses it before anything is built."""
+    shared memory; a log-sum-exp's rows count in the Newton form's fit, and
+    the wrapper refuses one past it before anything is built."""
     for method in (fused_driver.NEWTON, fused_driver.PN, fused_driver.SPN):
         assert fused_driver.workspace_elems(256, 1024, method) == (
             256 * 1024 * 1024)
     assert fused_driver.smem_per_instance(1024, 0, 4) == 7 * 1024 * 4
     assert fused_driver.fits(1024, 0, 8)
-    A, b = lse_arrays(6, 3)
+    A, b = lse_arrays(6, 30000)
     spec = fused_driver.build_spec(solvers.Newton(), ls.BackTracking())
     (x0,) = interop.tensors_from_numpy(np.zeros((2, 6)))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+    with pytest.raises(NotImplementedError, match="shared memory"):
         fused_driver._launch_cuda(spec, problems.log_sum_exp(A, b), x0, None,
                                   None, (), 5, 5)
+    newton = fused_driver.NEWTON
+    assert fused_driver.smem_per_instance(
+        256, 0, 4, method=newton, rows=512) == fused_driver.smem_per_instance(
+            256, 0, 4, method=newton) + 512 * 4
+    assert fused_driver.fits(6, 0, 8, 0, newton, 18000)
+    assert not fused_driver.fits(6, 0, 8, 0, newton, 30000)
+    # the other forms hold no rows: a log-sum-exp never runs there
+    assert fused_driver.smem_per_instance(256, 0, 4, rows=512) == (
+        fused_driver.smem_per_instance(256, 0, 4))
     with pytest.raises(ValueError, match="requires bounds"):
         fused_driver.fused_minimize(solvers.ProjectedNewton(),
                                     ls.BackTrackingB(),

@@ -89,10 +89,10 @@ def build(src, variants):
         vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.newton_cg_launch.restype = i
         lib.newton_cg_launch.argtypes = [
-            i, i, vp, vp, vp, vp, vp, i, i, d, d, d, i, i, i, d,
+            i, i, vp, vp, vp, vp, vp, i, i, i, d, d, d, i, i, i, d,
             vp, vp, vp, vp, vp, vp, vp]
         lib.newton_cg_smem_per_warp.restype = ctypes.c_longlong
-        lib.newton_cg_smem_per_warp.argtypes = [i, i]
+        lib.newton_cg_smem_per_warp.argtypes = [i, i, i]
         lib.newton_cg_kernel_info.restype = i
         lib.newton_cg_kernel_info.argtypes = [i, i, i, vp]
         libs[name] = lib
@@ -154,8 +154,8 @@ def main(argv=None):
                *(torch.empty(b, dtype=torch.int32, device=dev)
                  for _ in range(4))]
         rc = lib.newton_cg_launch(
-            0, 0, x.data_ptr(), lo.data_ptr(), up.data_ptr(), None, None, b,
-            N, PGTOL, FACTR * eps, eps, max_iter, CG_MAX, LS, C1,
+            0, 0, x.data_ptr(), lo.data_ptr(), up.data_ptr(), None, None, 0,
+            b, N, PGTOL, FACTR * eps, eps, max_iter, CG_MAX, LS, C1,
             *(t.data_ptr() for t in out),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if rc != 0:
