@@ -71,7 +71,16 @@ batched L-BFGS-B path and the template-method paths through
 * the log-sum-exp's second-order functors: K4 (phase 38) at config 4's A
   and b construction at n = 1,000 (512 rows), and K3's Newton form (phase
   39, PN + BackTrackingB) at n = 256 (512 rows) and past the Hessian's rank
-  (n = 256, 128 rows).
+  (n = 256, 128 rows);
+* the quadratic and log-sum-exp functors of K1 through
+  ``minimize(method="lbfgsb")`` (phase 40: the log-sum-exp at phase 38's
+  shape with config 4's settings, K2 timed beside it on the same inputs,
+  and config 5's quadratic), of K3's quasi-Newton, Wolfe and dense forms
+  through ``solvers.batch_minimize`` (phase 41: L-BFGS + Hager-Zhang, NCG
+  + More-Thuente and BFGS + More-Thuente on the log-sum-exp at phase 39's
+  shape and on config 5's quadratic, the lockstep loop they ran on before
+  timed beside) and of K9 through ``ops.bfgs_solve_fused`` (phase 42, the
+  log-sum-exp at phase 39's shape).
 
 It prints, last, a JSON line of per-kernel results, the card's name and
 power limit, and one JSON line naming the device.  Any failed check exits
@@ -322,8 +331,9 @@ LOCKSTEP_1D_ATOL = 1e-8
 # (c) one float64 log-sum-exp instance with more rows than columns
 # (NCG_1D) through newton_cg_minimize, card against CPU within
 # LOCKSTEP_1D_ATOL; (d) minimize(method="bfgs") with a plain torch callable
-# and minimize(method="lbfgs") with a log-sum-exp, which K3's chosen form
-# does not compile, run the lockstep loop on the card (REPAIR)
+# and minimize(method="gd") with a log-sum-exp, which K3's chosen form (the
+# first-order form, GD + BackTracking) does not compile, run the lockstep
+# loop on the card (REPAIR)
 C4_NCG_F32_RTOL = 1e-2
 # 37a's host share is read over its first NCG_PROFILE_ITERS iterations: the
 # loop is host-bound, and the profiler's own cost grows with the operations
@@ -369,6 +379,50 @@ K3_LSE = dict(B=256, n=256, rows=512, box=1.0, tol=1e-4, max_iter=50,
               max_iter_ls=40)
 K3_LSE_CAPPED = 10
 K3_LSE_SINGULAR = dict(B=64, n=256, rows=128)
+# phases 40-42: the quadratic and log-sum-exp functors of K1, K3's
+# quasi-Newton, Wolfe and dense forms and K9.  Every float64 check holds,
+# over the first iterations, status per instance and x within the plain
+# version's own spread under three 1e-15 relative changes of x0, floored
+# at WHOLE_X_FLOOR, as phases 30-32 hold K7-K9: NCG + More-Thuente on the
+# log-sum-exp amplifies rounding from its first iterations (on an NVIDIA
+# H100 80GB HBM3 at 700 W after 30 iterations, x 4.2e-5 from the plain
+# version's against a spread of 4.8e-5 over the batch, while 131 of 256
+# instances each moved more than their own spread under one change).
+# Phase 40: K1 through minimize(method="lbfgsb") (a) on the log-sum-exp at
+# phase 38's shape and config 4's settings (float32 converged >=
+# CONV_FLOOR and within CONV_ATOL of the plain version's; f of SCIPY_ROWS
+# instances against scipy's float64 L-BFGS-B, float32 within C4_F32_RTOL
+# and float64 within SCIPY_RTOL_F64; float64 over K1_DATA_CAPPED
+# iterations on the first C4_F64_ROWS instances; K2, the route before,
+# timed on the same inputs) and (b) on config 5's quadratic (pgtol 1e-5
+# and factr 0: with factr 100 the float32 f-decrease test stops at max|x|
+# ~ 9e-4 near f = 0, the plain version on the CPU), converged >=
+# CONV_FLOOR and max|x| <= C5_X_ATOL.  Phase 41: K3 through
+# solvers.batch_minimize on the log-sum-exp at phase 39's shape (tol 1e-3:
+# f = 5.48 at the minimizer, which lies at |x| ~ 40, and at 1e-4 NCG +
+# More-Thuente exhausts 300 float32 iterations in the plain version) and on
+# config 5's quadratic at n = 1,024 (tol 1e-4; the dense form at B = 64,
+# its slabs in the workspace); float64 over K3_DATA_CAPPED iterations;
+# float32 converged (the dense form: success class, CONVERGED or STALLED,
+# as config 2) >= CONV_FLOOR and within CONV_ATOL of plain; the lockstep
+# loop's ms per iteration (the route these batches took before) over
+# LOCKSTEP_DATA_ITERS iterations.  Phase 42: K9 through
+# ops.bfgs_solve_fused on phase 39's log-sum-exp, float64 over
+# WHOLE_K9_CAPPED iterations (the triangles in the workspace) and float32
+# capped at K9_DATA_ITERS iterations (BFGS from B0 = I does not reach tol
+# 1e-3 in 600 iterations there, in float64 either, the plain version on the
+# CPU), held by status per instance and median f (MED_F_RTOL)
+K1_LSE = dict(B=512, n=1000, rows=512, box=1.0)
+K1_QUAD = dict(B=256, n=1024, m=5, box=2.0, pgtol=1e-5, factr=0.0,
+               max_iter=200)
+K1_DATA_CAPPED = 10
+K3_DATA = dict(lse=dict(B=256, n=256, rows=512, tol=1e-3),
+               quad=dict(B=256, B_dense=64, n=1024, tol=1e-4),
+               max_iter=1000, max_iter_ls=40)
+K3_DATA_CAPPED = 30
+LOCKSTEP_DATA_ITERS = 20
+K9_DATA = dict(B=256, n=256, rows=512, tol=1e-3)
+K9_DATA_ITERS = 200
 CONV_FLOOR = 0.99
 WHOLE_K7_CAPPED = 10
 WHOLE_K8_CAPPED = 30
@@ -725,6 +779,9 @@ def main(argv=None):
     lockstep_newton_cg_slice(dev, card, tensors, sync_time)
     k4_lse, k3_lse = lse_second_order_slice(dev, card, tensors, sync_time)
     log(f"phases 37-39: {time.perf_counter() - t37:.1f} s wall")
+    t40 = time.perf_counter()
+    data_functors = data_functors_slice(dev, card, tensors, sync_time)
+    log(f"phases 40-42: {time.perf_counter() - t40:.1f} s wall")
     if breakdown:
         k1_breakdown(dev, card, tensors, sync_time)
         tall_breakdown(dev, card, tensors, sync_time)
@@ -755,7 +812,7 @@ def main(argv=None):
     }
     log(json.dumps({"kernels": [k1, k1s, tall, driver, newton_form,
                                 k3_lse, newton_cg, k4_lse, k5, k6, k7, k8,
-                                k9]}))
+                                k9, *data_functors]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3762,11 +3819,12 @@ def lockstep_newton_cg_slice(dev, card, tensors, sync_time):
     (xl,) = tensors(np.random.RandomState(9).uniform(
         -0.5, 0.5, (rp["B"] // 4, rp["lse_n"])), dtype=torch.float32)
     rl, wall_l, _ = no_kernel(
-        f"37d minimize(log_sum_exp, method='lbfgs'), {rp['B'] // 4} x "
-        f"{rp['lse_n']}, first {rp['max_iter']} iterations",
-        lambda: minimize(lsel, xl, method="lbfgs", max_iter=rp["max_iter"]))
-    report("37d lbfgs with a log-sum-exp", rl, wall_l)
-    for what, res in (("bfgs", rb), ("lbfgs", rl)):
+        f"37d minimize(log_sum_exp, method='gd'), {rp['B'] // 4} x "
+        f"{rp['lse_n']}, first {rp['max_iter']} iterations (K3's first-order "
+        f"form compiles Rosenbrock and weighted squares)",
+        lambda: minimize(lsel, xl, method="gd", max_iter=rp["max_iter"]))
+    report("37d gd with a log-sum-exp", rl, wall_l)
+    for what, res in (("bfgs", rb), ("gd", rl)):
         check(res.x.device.type == "cuda", f"37d {what}: x left the card")
     lap("37d")
 
@@ -4009,6 +4067,380 @@ def lse_second_order_slice(dev, card, tensors, sync_time):
     }
     lap("39 float32 solves and times")
     return k4, k3
+
+
+def held_per_instance(what, kernel, plain, x0d, tensors):
+    """float64, the kernel's ``(x, f, iterations, status, ...)`` against the
+    plain version's on ``x0d``, as phases 30-32 hold K7-K9: status equal on
+    every instance, and x within the plain version's own spread under three
+    1e-15 relative changes of x0 (the largest move of any instance),
+    floored at WHOLE_X_FLOOR.  Returns max |dx|."""
+    import torch
+
+    k = kernel(x0d)
+    torch.cuda.synchronize()
+    p = plain(x0d)
+    spread = 0.0
+    for j in range(3):
+        noise = tensors(np.random.RandomState(100 + j).standard_normal(
+            tuple(x0d.shape)))[0]
+        q = plain(x0d * (1 + 1e-15 * noise))
+        spread = max(spread, (q[0] - p[0]).abs().max().item())
+    same = [(a == b).float().mean().item()
+            for a, b in ((k[3], p[3]), (k[2], p[2]))]
+    err = (k[0] - p[0]).abs().max().item()
+    log(f"{what} vs plain f64, {x0d.shape[0]} x {x0d.shape[1]}: status equal "
+        f"{same[0]:.5f}, iterations equal {same[1]:.5f}, max|dx| {err:.3g} "
+        f"(plain vs plain with x0 moved by 1e-15 relative: {spread:.3g}), "
+        f"converged {(p[3] == 1).float().mean().item():.4f}")
+    check(same[0] == 1.0, f"{what} f64: status differs")
+    check(err <= max(spread, WHOLE_X_FLOOR),
+          f"{what} f64: max|dx| {err} beyond the plain spread {spread}")
+    return err
+
+
+def data_entry(name, form, functor, source, replaces, launches, err, ms,
+               plain_ms, bound_ms, bound_by, **extra):
+    return {"name": name, "form": form, "functor": functor, "route": "cuda",
+            "source": f"optimization_solvers_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, **extra}
+
+
+def data_functors_slice(dev, card, tensors, sync_time):
+    """Phases 40-42: the quadratic and log-sum-exp functors of K1 (through
+    ``minimize(method="lbfgsb")``), of K3's quasi-Newton, Wolfe and dense
+    forms (through ``solvers.batch_minimize``) and of K9 (through
+    ``ops.bfgs_solve_fused``), each held against its plain version on the
+    card and its route shown by launch counts.  Returns their entries of
+    the ``kernels`` line."""
+    import torch
+
+    from _torch_geometries import config5_hessian, lse_arrays
+    from optimization_solvers_tpu_torch import (linesearch as ls, minimize,
+                                                problems, solvers)
+    from optimization_solvers_tpu_torch.core.oracle import make_oracle
+    from optimization_solvers_tpu_torch.ops import (fused_bfgs, fused_driver,
+                                                    fused_lbfgsb,
+                                                    fused_lbfgsb_tall)
+
+    lap = stopwatch()
+    K1 = fused_lbfgsb.lbfgsb_solve_fused
+    plain1 = fused_lbfgsb.lbfgsb_solve_plain
+    ls1 = dict(max_iter_ls=20, c1=1e-3)     # minimize's, as the plain call's
+
+    def k1_raw(obj, x, lo, up, **kw):
+        """K1's launch: (x, f, iterations, status) as the plain version."""
+        return fused_lbfgsb._launch_cuda(obj, x, lo, up, (), **ls1, **kw)
+
+    f32 = torch.float32
+    entries = []
+    c4 = CONFIG4
+    K1_SRC = ("lbfgsb_fused", "lbfgsb_fused.cu",
+              "optimization_solvers_tpu/ops/pallas_lbfgsb.py:938")
+
+    # ---- 40a. K1 on the log-sum-exp at phase 38's shape, config 4's
+    # settings
+    g = K1_LSE
+    B, n, rows, box = g["B"], g["n"], g["rows"], g["box"]
+    kw = dict(m=c4["m"], pgtol=c4["pgtol"], factr=c4["factr"],
+              max_iter=c4["max_iter"])
+    A64, b64 = lse_arrays(n, rows)
+    starts = np.random.RandomState(4).uniform(-0.5, 0.5, (B, n))
+    lse64 = problems.log_sum_exp(*tensors(A64, b64))
+    x0d, lod, upd = tensors(starts, np.full(n, -box), np.full(n, box))
+    capped = dict(kw, max_iter=K1_DATA_CAPPED)
+    err_lse = held_per_instance(
+        f"40a K1 log-sum-exp, {K1_DATA_CAPPED} iterations",
+        lambda x: k1_raw(lse64, x, lod, upd, **capped),
+        lambda x: plain1(lse64, x, lod, upd, **capped), x0d[:C4_F64_ROWS],
+        tensors)
+    r64 = K1(lse64, x0d[:SCIPY_ROWS], lod, upd, **kw)
+    lap("40a float64")
+    lse32 = problems.log_sum_exp(*tensors(A64, b64, dtype=f32))
+    x0, lo, up = tensors(starts, np.full(n, -box), np.full(n, box), dtype=f32)
+
+    def solve(xs):
+        return minimize(lse32, xs, method="lbfgsb", bounds=(-box, box),
+                        tol=c4["pgtol"], m=c4["m"], factr=c4["factr"],
+                        max_iter=c4["max_iter"])
+
+    r, wall, launches = drive("40a K1 log-sum-exp via minimize",
+                              lambda: solve(x0), "K1", sync_time)
+    conv = report("40a K1 log-sum-exp f32", r, wall)
+    (_, fp, itp, stp), plain_s = sync_time(
+        lambda: plain1(lse32, x0, lo, up, **kw))
+    cp = (stp == 1).float().mean().item()
+    log(f"40a plain on the card: converged {cp:.4f}, median f "
+        f"{fp.median().item():.7g}, median iterations "
+        f"{itp.float().median().item():.0f}, {plain_s:.3f} s")
+    check(conv >= CONV_FLOOR, f"40a: converged {conv} < {CONV_FLOOR}")
+    check(abs(conv - cp) <= CONV_ATOL, f"40a: converged {conv} vs plain {cp}")
+    for i in range(SCIPY_ROWS):
+        fs = lse_scipy(A64, b64, starts[i], box, c4)
+        e64 = abs(r64.f[i].item() - fs) / abs(fs)
+        e32 = abs(r.f[i].item() - fs) / abs(fs)
+        log(f"40a instance {i} vs scipy f64 (f {fs:.10g}): K1 f64 rel "
+            f"{e64:.3g}, K1 f32 rel {e32:.3g}")
+        check(e64 <= SCIPY_RTOL_F64, f"40a instance {i}: K1 f64 vs scipy {e64}")
+        check(e32 <= C4_F32_RTOL, f"40a instance {i}: K1 f32 vs scipy {e32}")
+    lap("40a float32 and the scipy anchor")
+    # K1 through minimize against K2 (the route before) on the same inputs,
+    # in turns
+    k2 = fused_lbfgsb_tall.lbfgsb_solve_fused_tall
+    t_k1, t_k2 = [], []
+    for _ in range(2):
+        t_k1.append(event_ms(lambda: solve(x0), 1))
+        t_k2.append(event_ms(lambda: k2(lse32, x0, lo, up, **kw), 1))
+    ms = statistics.median(t_k1)
+    its = r.iterations.double().sum().item()
+    # bound: x0, A, b and the box read once, x, f, iterations and status
+    # written once; the least work: a value and gradient (4 rows n) at x0
+    # and per iteration, and the interior path's algebra (18 m n)
+    b_ms, b_by = bound(
+        2 * B * n * 4 + rows * n * 4 + rows * 4 + 2 * n * 4 + 3 * B * 4,
+        (its + B) * 4 * rows * n + its * 18 * c4["m"] * n)
+    info = fused_lbfgsb.kernel_info(f32, B, n, c4["m"], "LOG_SUM_EXP",
+                                    rows=rows)
+    log(f"40a K1 log-sum-exp via minimize: {ms:.2f} ms per call (in turns "
+        f"with K2: K1 {', '.join(f'{t:.2f}' for t in t_k1)}, K2 "
+        f"{', '.join(f'{t:.2f}' for t in t_k2)} ms), {B / (ms / 1e3):.1f} "
+        f"solves/s; plain {1e3 * plain_s:.0f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}); {info['warps_per_sm']} warps per SM, "
+        f"{info['registers']} registers, {info['local_bytes']} local bytes  "
+        f"[{card}]")
+    entries.append(data_entry(
+        K1_SRC[0], "whole solve", "LOG_SUM_EXP", K1_SRC[1], K1_SRC[2],
+        launches, err_lse, ms, 1e3 * plain_s, b_ms, b_by,
+        k2_ms=statistics.median(t_k2)))
+    lap("40a times")
+
+    # ---- 40b. K1 on config 5's quadratic
+    g = K1_QUAD
+    B, n, box = g["B"], g["n"], g["box"]
+    Qm = config5_hessian(n)
+    kwq = dict(m=g["m"], pgtol=g["pgtol"], factr=g["factr"],
+               max_iter=g["max_iter"])
+    startsq = np.random.RandomState(5).uniform(-2.0, 2.0, (B, n))
+    q64 = problems.quadratic(*tensors(Qm, np.zeros(n)))
+    xqd, loqd, upqd = tensors(startsq, np.full(n, -box), np.full(n, box))
+    cappedq = dict(kwq, max_iter=K1_DATA_CAPPED)
+    err_q = held_per_instance(
+        f"40b K1 quadratic, {K1_DATA_CAPPED} iterations",
+        lambda x: k1_raw(q64, x, loqd, upqd, **cappedq),
+        lambda x: plain1(q64, x, loqd, upqd, **cappedq), xqd, tensors)
+    q32 = problems.quadratic(*tensors(Qm, np.zeros(n), dtype=f32))
+    xq, loq, upq = tensors(startsq, np.full(n, -box), np.full(n, box),
+                           dtype=f32)
+
+    def solve_q(xs):
+        return minimize(q32, xs, method="lbfgsb", bounds=(-box, box),
+                        tol=g["pgtol"], m=g["m"], factr=g["factr"],
+                        max_iter=g["max_iter"])
+
+    rq, wallq, launchesq = drive("40b K1 quadratic via minimize",
+                                 lambda: solve_q(xq), "K1", sync_time)
+    convq = report("40b K1 quadratic f32", rq, wallq)
+    max_x = rq.x.abs().max().item()
+    (_, _, _, stq), plain_q = sync_time(
+        lambda: plain1(q32, xq, loq, upq, **kwq))
+    log(f"40b: max|x| {max_x:.3g} (x* = 0); plain converged "
+        f"{(stq == 1).float().mean().item():.4f}, {plain_q:.3f} s")
+    check(convq >= CONV_FLOOR, f"40b: converged {convq} < {CONV_FLOOR}")
+    check(max_x <= C5_X_ATOL, f"40b: max|x| {max_x} > {C5_X_ATOL}")
+    msq = event_ms(lambda: solve_q(xq), 3)
+    itsq = rq.iterations.double().sum().item()
+    # the least work of a value and gradient of this symmetric Q: Q x once,
+    # 2 n^2 (the kernel forms Q x and Q^T x, 4 n^2); Q read once
+    bq_ms, bq_by = bound(
+        2 * B * n * 4 + n * n * 4 + n * 4 + 2 * n * 4 + 3 * B * 4,
+        (itsq + B) * 2 * n * n + itsq * 18 * g["m"] * n)
+    log(f"40b K1 quadratic via minimize: {msq:.2f} ms per call (CUDA events, "
+        f"3 calls); plain {1e3 * plain_q:.0f} ms; bound {bq_ms:.4f} ms ({bq_by})"
+        f"  [{card}]")
+    entries.append(data_entry(
+        K1_SRC[0], "whole solve", "QUADRATIC", K1_SRC[1], K1_SRC[2],
+        launchesq, err_q, msq, 1e3 * plain_q, bq_ms, bq_by))
+    lap("40b")
+
+    # ---- 41. K3's quasi-Newton, Wolfe and dense forms through
+    # solvers.batch_minimize
+    d3 = K3_DATA
+    gl, gq = d3["lse"], d3["quad"]
+    A, b = lse_arrays(gl["n"], gl["rows"])
+    lse3 = {dt: problems.log_sum_exp(*tensors(A, b, dtype=dt))
+            for dt in (torch.float64, f32)}
+    quad3 = {dt: problems.quadratic(*tensors(config5_hessian(gq["n"]),
+                                             np.zeros(gq["n"]), dtype=dt))
+             for dt in (torch.float64, f32)}
+    forms = {"L-BFGS + Hager-Zhang": ("quasi-Newton", "driver_qn_data.cu"),
+             "NCG + More-Thuente": ("Wolfe", "driver_qn_data.cu"),
+             "BFGS + More-Thuente": ("dense", "driver_dense.cu")}
+
+    def methods(tol, dt):
+        aw = dt == f32    # minimize's float32 policy for More-Thuente
+        return {"L-BFGS + Hager-Zhang": (solvers.LBFGS(tol=tol),
+                                         ls.HagerZhang()),
+                "NCG + More-Thuente": (solvers.NonlinearCG(grad_tol=tol),
+                                       ls.MoreThuente(approx_wolfe=aw)),
+                "BFGS + More-Thuente": (solvers.BFGS(tol=tol),
+                                        ls.MoreThuente(approx_wolfe=aw))}
+
+    kw3 = dict(max_iter=d3["max_iter"], max_iter_ls=d3["max_iter_ls"])
+    for fname, objs, gg, xr in (("LOG_SUM_EXP", lse3, gl, 0.5),
+                                ("QUADRATIC", quad3, gq, 2.0)):
+        n = gg["n"]
+        for mname, (form, source) in forms.items():
+            B = gg["B_dense"] if form == "dense" and "B_dense" in gg else gg["B"]
+            what = f"41 {mname} {fname.lower()} ({B} x {n})"
+            starts3 = np.random.RandomState(5).uniform(-xr, xr, (B, n))
+            # tol 1e-13: no instance's stopping test falls within rounding
+            # of tol inside the horizon (the float32 solves below hold the
+            # stop)
+            method, search = methods(1e-13, torch.float64)[mname]
+            spec = fused_driver.build_spec(method, search)
+            obj64 = objs[torch.float64]
+            capped3 = dict(kw3, max_iter=K3_DATA_CAPPED)
+            err = held_per_instance(
+                f"{what}, {K3_DATA_CAPPED} iterations",
+                lambda x: fused_driver._launch_cuda(spec, obj64, x, None,
+                                                    None, (), **capped3),
+                lambda x: fused_driver.fused_minimize_plain(
+                    method, search, obj64, x, None, None, (), **capped3),
+                tensors(starts3)[0], tensors)
+            method, search = methods(gg["tol"], f32)[mname]
+            spec32 = fused_driver.build_spec(method, search)
+            obj32 = objs[f32]
+            (x3,) = tensors(starts3, dtype=f32)
+
+            def solve3(xs):
+                return solvers.batch_minimize(method, search,
+                                              make_oracle(obj32), xs, **kw3)
+
+            fused_driver.fused_minimize.placements = {"shared": 0,
+                                                      "workspace": 0}
+            r3, wall3, launches3 = drive(f"{what} via batch_minimize",
+                                         lambda: solve3(x3), "K3", sync_time)
+            placed = dict(fused_driver.fused_minimize.placements)
+            (_, fp3, itp3, stp3, _), plain3 = sync_time(
+                lambda: fused_driver.fused_minimize_plain(
+                    method, search, obj32, x3, None, None, (), **kw3))
+
+            def ok(st):
+                hit = (1, 6) if form == "dense" else (1,)
+                return torch.isin(st, torch.tensor(hit, device=st.device)
+                                  ).float().mean().item()
+
+            conv3, cp3 = ok(r3.status), ok(stp3)
+            log(f"{what}: {'success class' if form == 'dense' else 'converged'}"
+                f" {conv3:.4f} vs plain {cp3:.4f}, median iterations "
+                f"{r3.iterations.float().median().item():.0f} vs "
+                f"{itp3.float().median().item():.0f}, median f "
+                f"{r3.f.median().item():.7g} vs {fp3.median().item():.7g}; "
+                f"placements {placed}; plain {plain3:.3f} s")
+            check(conv3 >= CONV_FLOOR, f"{what}: {conv3} < {CONV_FLOOR}")
+            check(abs(conv3 - cp3) <= CONV_ATOL, f"{what}: {conv3} vs {cp3}")
+            if form == "dense" and fname == "QUADRATIC":
+                check(placed["workspace"] >= 1 and not placed["shared"],
+                      f"{what}: placements {placed}; the slabs must lie in "
+                      "the workspace at n = 1,024")
+            ms3 = event_ms(lambda: solve3(x3), 3)
+            nfev = fused_driver._launch_cuda(spec32, obj32, x3, None, None,
+                                             (), **kw3)[4]
+            its3 = r3.iterations.double().sum().item()
+            trials = nfev.double().sum().item()
+            # the least work: per Wolfe trial a value and gradient (the
+            # log-sum-exp 4 rows n; the symmetric quadratic Q x, 2 n^2),
+            # per iteration the direction's algebra (L-BFGS's compact form
+            # 8 m n, NCG 6 n, dense BFGS B g 2 n^2 and its update B y and
+            # the rank-2 update 8 n^2); the data read once
+            ev = 4 * gl["rows"] * n if fname == "LOG_SUM_EXP" else 2 * n * n
+            per_it = (8 * method.m * n if form == "quasi-Newton" else
+                      6 * n if form == "Wolfe" else 10 * n * n)
+            data_bytes = ((gl["rows"] * n + gl["rows"]) if fname ==
+                          "LOG_SUM_EXP" else n * n + n) * 4
+            b3_ms, b3_by = bound(2 * B * n * 4 + data_bytes + 4 * B * 4,
+                                 (trials + B) * ev + its3 * per_it)
+            log(f"{what}: K3 {ms3:.2f} ms per call (CUDA events, 3 calls), "
+                f"{B / (ms3 / 1e3):.1f} solves/s; plain {1e3 * plain3:.0f} "
+                f"ms; bound {b3_ms:.4f} ms ({b3_by}); trials per iteration "
+                f"{trials / max(its3, 1):.3f}  [{card}]")
+            extra = {}
+            if fname == "LOG_SUM_EXP" and form == "quasi-Newton":
+                # the route this batch took before: the lockstep loop on
+                # the card, its first LOCKSTEP_DATA_ITERS iterations
+                rl, wall_l, _ = drive(
+                    f"{what}, the lockstep loop (fused=False), first "
+                    f"{LOCKSTEP_DATA_ITERS} iterations",
+                    lambda: solvers.batch_minimize(
+                        method, search, make_oracle(obj32), x3, fused=False,
+                        max_iter=LOCKSTEP_DATA_ITERS,
+                        max_iter_ls=d3["max_iter_ls"]), None, sync_time)
+                per = 1e3 * wall_l / max(1, int(rl.iterations.max()))
+                extra["lockstep_ms_per_iteration"] = per
+                log(f"{what}: the lockstep loop {per:.3f} ms per lockstep "
+                    f"iteration; K3 {ms3 / max(1.0, its3 / B):.3f} ms per "
+                    f"mean instance-iteration  [{card}]")
+            entries.append(data_entry(
+                "driver_dense" if form == "dense" else "driver_qn", form,
+                fname, source,
+                "optimization_solvers_tpu/ops/pallas_driver.py:1874",
+                launches3, err, ms3, 1e3 * plain3, b3_ms, b3_by, **extra))
+        lap(f"41 {fname.lower()}")
+
+    # ---- 42. K9 on the log-sum-exp
+    g = K9_DATA
+    B, n, rows = g["B"], g["n"], g["rows"]
+    A9, b9 = lse_arrays(n, rows)
+    starts9 = np.random.RandomState(5).uniform(-0.5, 0.5, (B, n))
+    kw9 = dict(tol=g["tol"], max_iter=K9_DATA_ITERS, max_iter_ls=24,
+               c1=1e-4)
+    lse9 = problems.log_sum_exp(*tensors(A9, b9))
+    capped9 = dict(kw9, max_iter=WHOLE_K9_CAPPED)
+    fused_bfgs.bfgs_solve_fused.placements = {"shared": 0, "workspace": 0}
+    err9 = held_per_instance(
+        f"42 K9 log-sum-exp, {WHOLE_K9_CAPPED} iterations",
+        lambda x: fused_bfgs._launch_cuda(lse9, x, (), **capped9),
+        lambda x: fused_bfgs.bfgs_solve_plain(lse9, x, (), **capped9),
+        tensors(starts9)[0], tensors)
+    log(f"42 float64 placements {fused_bfgs.bfgs_solve_fused.placements}")
+    lse9_32 = problems.log_sum_exp(*tensors(A9, b9, dtype=f32))
+    (x9,) = tensors(starts9, dtype=f32)
+    fused_bfgs.bfgs_solve_fused.placements = {"shared": 0, "workspace": 0}
+    r9, wall9, launches9 = drive(
+        "42 K9 log-sum-exp via ops.bfgs_solve_fused",
+        lambda: fused_bfgs.bfgs_solve_fused(lse9_32, x9, **kw9), "K9",
+        sync_time)
+    report("42 K9 log-sum-exp f32", r9, wall9)
+    log(f"42 float32 placements {fused_bfgs.bfgs_solve_fused.placements}")
+    (_, fp9, itp9, stp9), plain9 = sync_time(
+        lambda: fused_bfgs.bfgs_solve_plain(lse9_32, x9, (), **kw9))
+    same9 = (r9.status == stp9).float().mean().item()
+    log(f"42 plain on the card: status equal {same9:.4f}, {plain9:.3f} s")
+    medians_agree("42 K9 log-sum-exp", r9, fp9, itp9, kernel="K9")
+    ms9 = event_ms(lambda: fused_bfgs.bfgs_solve_fused(lse9_32, x9, **kw9), 3)
+    _, _, it9, _, tr9, up9 = fused_bfgs._launch_cuda(lse9_32, x9, (), **kw9)
+    its9 = it9.double().sum().item()
+    # the least work: per iteration B g (2 n^2) and the accepted point's
+    # value and gradient (4 rows n), per further trial a value (2 rows n),
+    # per update B y and the rank-2 update (8 n^2); the data read once
+    b9_ms, b9_by = bound(
+        2 * B * n * 4 + rows * n * 4 + rows * 4 + 3 * B * 4,
+        its9 * (2 * n * n + 4 * rows * n) + up9.double().sum().item() * 8 * n
+        * n + max(0.0, tr9.double().sum().item() - its9) * 2 * rows * n
+        + B * 4 * rows * n)
+    log(f"42 K9 log-sum-exp: {ms9:.2f} ms per call (CUDA events, 3 calls); "
+        f"plain {1e3 * plain9:.0f} ms; bound {b9_ms:.4f} ms ({b9_by}); "
+        f"trials per iteration {tr9.sum().item() / max(its9, 1):.3f}  "
+        f"[{card}]")
+    entries.append(data_entry(
+        "bfgs_fused", "whole solve", "LOG_SUM_EXP", "bfgs_fused.cu",
+        "optimization_solvers_tpu/ops/pallas_bfgs.py:221", launches9, err9,
+        ms9, 1e3 * plain9, b9_ms, b9_by))
+    lap("42")
+    return entries
+
 
 if __name__ == "__main__":
     sys.exit(main())

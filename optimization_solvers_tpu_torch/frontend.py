@@ -5,12 +5,13 @@ ported:
 
 * ``method="lbfgsb"`` onto two kernels: K1 (:mod:`.ops.fused_lbfgsb`, one
   warp per instance, the whole instance in shared memory) takes the batch
-  when its objective is one of K1's functors (or, on the CPU, any torch
-  callable) and one instance fits a block's shared memory
-  (:func:`.ops.fused_lbfgsb.fits`); every other batch goes to K2, the tall
+  wherever one instance fits a block's shared memory
+  (:func:`.ops.fused_lbfgsb.fits`, counting a log-sum-exp's rows): K1
+  compiles every functor of the library, and on the CPU its plain version
+  takes any torch callable; every batch past that fit goes to K2, the tall
   kernel (:mod:`.ops.fused_lbfgsb_tall`, one block per instance, state in
-  device memory): config 4's 10,000-dim log-sum-exp, any ``quadratic``.
-  The JAX front end picks by the TPU kernels' VMEM footprint instead
+  device memory): config 4's 10,000-dim log-sum-exp.  The JAX front end
+  routes the same way, by the TPU kernels' VMEM footprint
   (``frontend.py:391-425`` there): the two chips hold different amounts on
   chip, so the boundary moves.  The lockstep solver
   (:mod:`.solvers.lbfgsb`, no kernel) takes what the kernels do not, as in
@@ -67,6 +68,7 @@ import torch
 from . import linesearch as ls
 from .core.oracle import Oracle, make_oracle
 from .ops import fused_lbfgsb
+from .ops.batched_oracle import kernel_functor
 from .ops.fused_lbfgsb import lbfgsb_solve_fused
 from .ops.fused_lbfgsb_tall import lbfgsb_solve_fused_tall
 from .solvers import lbfgs, newton, nonlinear_cg, quasi_newton, steepest
@@ -120,15 +122,16 @@ _FAST_METHOD_OVERLAY = {"spg": {"bb_variant": "alternate"},
                         "spn": {"precond_bb": True}}
 
 
-def takes_k1(f, x0, m) -> bool:
+def takes_k1(f, x0, m, data=()) -> bool:
     """Whether ``minimize`` sends this batch to K1 rather than to the tall
-    kernel K2: K1 compiles ``f``'s functor (a callable without a kernel
-    form runs only on the CPU, where any callable qualifies) and one
-    instance of width n with history m fits a block's shared memory."""
-    functor = getattr(f, "functor", None)
-    if functor is not None and functor not in fused_lbfgsb.K1_OBJECTIVES:
-        return False
-    return fused_lbfgsb.fits(x0.shape[-1], m, x0.element_size())
+    kernel K2, decided by the fit alone, as JAX's route decides by K1's
+    footprint: one instance of width n with history m (and, for a
+    log-sum-exp, the rows of its ``A``) fits a block's shared memory.  K1
+    compiles every functor of the library; a callable without a kernel form
+    reaches here only on the CPU, where K1's plain version takes it."""
+    rows = (kernel_functor(f, data)[1]
+            if getattr(f, "functor", None) == "LOG_SUM_EXP" else 0)
+    return fused_lbfgsb.fits(x0.shape[-1], m, x0.element_size(), rows)
 
 
 def _bounds(bounds, x0):
@@ -191,8 +194,8 @@ def minimize(f, x0, method: str = "lbfgs", *, bounds=None, data=(),
     ``bounds``, the others refuse them.  Dense quasi-Newton instances may
     exit STALLED (6).  On CUDA a batch whose objective the chosen form of
     K3 does not compile (a torch callable; ``quadratic`` and
-    ``log_sum_exp`` outside the Newton family) runs the lockstep loop on
-    the card.
+    ``log_sum_exp`` with a first-order method and an Armijo-family search,
+    K3's first-order form) runs the lockstep loop on the card.
 
     ``method="newton_cg"``: bounds are scalars or ``(n,)`` (``None``:
     unbounded; per-instance boxes raise ``ValueError``, as JAX's branch
@@ -282,7 +285,7 @@ def _lbfgsb(f, x0, bounds, data, tol, max_iter, max_iter_ls, policy, options):
     kw = dict(m=cfg.m, pgtol=cfg.pgtol, factr=cfg.factr,
               max_iter=cfg.max_iter, max_iter_ls=max(cfg.max_iter_ls, 20),
               c1=cfg.ls_c1)
-    if takes_k1(f, x0, cfg.m):
+    if takes_k1(f, x0, cfg.m, data):
         return lbfgsb_solve_fused(f, x0, lower, upper, data, **kw)
     return lbfgsb_solve_fused_tall(f, x0, lower, upper, data,
                                    line_search=cfg.tall_line_search, **kw)

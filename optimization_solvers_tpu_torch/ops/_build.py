@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "ops", "csrc")
@@ -49,7 +50,9 @@ def _sources():
 def build(force: bool = False) -> str:
     """Compile the kernels if the library is missing or older than a
     source; returns the library's path.  The compiler's output, with
-    ``ptxas`` register and spill counts, is kept in ``_build/build.log``."""
+    ``ptxas`` register and spill counts and each source's seconds from the
+    start of the build (``== name: t s``), is kept in
+    ``_build/build.log``."""
     deps = _sources() + sorted(glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
     if not force and os.path.exists(LIB) and all(
             os.path.getmtime(s) <= os.path.getmtime(LIB) for s in deps):
@@ -59,11 +62,24 @@ def build(force: bool = False) -> str:
     tag = f"{os.getpid()}.tmp"
     objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
             for src in _sources()]
+    start = time.monotonic()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for src, obj in zip(_sources(), objs)]
-    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    outs = [None] * len(procs)
+
+    def wait(k):
+        out = procs[k].communicate()[0]
+        outs[k] = (f"{out}== {os.path.basename(_sources()[k])}: "
+                   f"{time.monotonic() - start:.1f} s\n", procs[k].returncode)
+
+    waiters = [threading.Thread(target=wait, args=(k,))
+               for k in range(len(procs))]
+    for t in waiters:
+        t.start()
+    for t in waiters:
+        t.join()
     tmp = f"{LIB}.{tag}"
     if all(rc == 0 for _, rc in outs):
         link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
@@ -90,12 +106,12 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             lib.lbfgsb_fused_smem_per_warp.restype = ctypes.c_longlong
-            lib.lbfgsb_fused_smem_per_warp.argtypes = [i, i, i]
+            lib.lbfgsb_fused_smem_per_warp.argtypes = [i, i, i, i]
             lib.lbfgsb_fused_launch.restype = i
             lib.lbfgsb_fused_launch.argtypes = [
                 i, i, i,                 # dtype, objective, unbounded
                 vp, vp, vp, i,           # x0, lower, upper, bound stride
-                vp, vp,                  # objective data
+                vp, vp, i,               # objective data, LOG_SUM_EXP rows
                 vp,                      # scale (null: unscaled)
                 i, i, i,                 # B, n, m
                 d, d, i, i, d,           # pgtol, factr, max_iter, ls, c1
@@ -105,7 +121,7 @@ def load() -> ctypes.CDLL:
             lib.lbfgsb_fused_kernel_info.restype = i
             lib.lbfgsb_fused_kernel_info.argtypes = [
                 i, i, i, i,              # dtype, objective, unbounded, scaled
-                i, i, i,                 # B, n, m
+                i, i, i, i,              # B, n, m, LOG_SUM_EXP rows
                 ctypes.POINTER(i),       # out: 5 ints
             ]
             lib.lbfgsb_tall_work_elems.restype = ctypes.c_longlong
@@ -127,13 +143,13 @@ def load() -> ctypes.CDLL:
                 vp,                      # stream
             ]
             lib.driver_smem_per_warp.restype = ctypes.c_longlong
-            lib.driver_smem_per_warp.argtypes = [i, i, i, i]
+            lib.driver_smem_per_warp.argtypes = [i, i, i, i, i]
             lib.driver_smem_newton.restype = ctypes.c_longlong
             lib.driver_smem_newton.argtypes = [i, i, i, i]
             lib.driver_workspace_elems.restype = ctypes.c_longlong
             lib.driver_workspace_elems.argtypes = [
                 ctypes.c_longlong, i, i,  # B, n, method
-                i, i, i,                  # ring, update kind, element size
+                i, i, i, i,               # ring, update kind, rows, element size
             ]
             lib.driver_dense_info.restype = i
             lib.driver_dense_info.argtypes = [
@@ -146,7 +162,7 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(i),       # out: 6 ints
             ]
             lib.driver_smem_dense.restype = ctypes.c_longlong
-            lib.driver_smem_dense.argtypes = [i, i, i, i]
+            lib.driver_smem_dense.argtypes = [i, i, i, i, i]
             lib.driver_launch.restype = i
             lib.driver_launch.argtypes = [
                 i, i,                    # dtype, objective
@@ -235,15 +251,15 @@ def load() -> ctypes.CDLL:
             ]
             lib.bfgs_fused_workspace_elems.restype = ctypes.c_longlong
             lib.bfgs_fused_workspace_elems.argtypes = [ctypes.c_longlong,
-                                                       i, i]
+                                                       i, i, i]
             lib.bfgs_fused_smem.restype = ctypes.c_longlong
-            lib.bfgs_fused_smem.argtypes = [i, i]
+            lib.bfgs_fused_smem.argtypes = [i, i, i]
             lib.bfgs_fused_info.restype = i
             lib.bfgs_fused_info.argtypes = [i, i, ctypes.POINTER(i)]
             lib.bfgs_fused_launch.restype = i
             lib.bfgs_fused_launch.argtypes = [
                 i, i,                    # dtype, objective
-                vp, vp, vp,              # x0, objective data
+                vp, vp, vp, i,           # x0, objective data, LOG_SUM_EXP rows
                 i, i,                    # B, n
                 d, i, i, d,              # tol, max_iter, ls, c1
                 vp,                      # workspace (or None: shared memory)

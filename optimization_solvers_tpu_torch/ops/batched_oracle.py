@@ -19,11 +19,12 @@ from typing import Callable
 import torch
 
 # objective functors of the CUDA kernels (enum ObjectiveCode in ops/csrc);
-# K1 (lbfgsb_fused.cu), K8 (spg_fused.cu) and K3's first-order and
-# quasi-Newton forms (driver.cu, driver_qn.cu) compile the first two, K7
-# (lbfgs_fused.cu) and K9 (bfgs_fused.cu) the first three, K2
-# (lbfgsb_tall.cu), K3's Newton form (driver_newton.cu) and K4
-# (newton_cg.cu) all four
+# K8 (spg_fused.cu) and K3's first-order form (driver.cu) compile the first
+# two, K7 (lbfgs_fused.cu) the first three, K1 (lbfgsb_fused.cu; its scaled
+# form the first two), K2 (lbfgsb_tall.cu), K3's quasi-Newton, Wolfe,
+# dense and Newton forms (driver_qn.cu and driver_qn_data.cu,
+# driver_dense.cu, driver_newton.cu), K4 (newton_cg.cu) and K9
+# (bfgs_fused.cu) all four
 KERNEL_OBJECTIVES = {"ROSENBROCK": 0, "WEIGHTED_SQUARES": 1, "QUADRATIC": 2,
                      "LOG_SUM_EXP": 3}
 
@@ -104,11 +105,13 @@ def kernel_operands(f, data, x0: torch.Tensor, kernel: str = "a CUDA kernel",
     """The kernel form of ``f``: its functor code and its data arrays as
     contiguous tensors of x0's dtype on x0's device, each of the shape its
     functor reads (``(n,)``; ``Q (n, n)``; ``A (rows, n)``, ``b (rows,)``).
-    Raises ``NotImplementedError`` for an objective without a kernel form
-    (naming ``kernel``, the kernel that asked, and ``lockstep``, the lockstep
-    solver that takes such a callable) or whose functor
-    no kernel compiles (``exp_bowl``), and ``ValueError`` for data of
-    another shape."""
+    Raises ``NotImplementedError`` for an objective without a kernel form,
+    naming ``kernel``, the kernel that asked, and ``lockstep``, what takes
+    such a callable instead (by default the lockstep L-BFGS-B that
+    ``minimize(method='lbfgsb')`` routes it to; K3's wrapper names
+    ``batch_minimize``'s lockstep loop, K4's the lockstep Newton-CG), or an
+    objective whose functor no kernel compiles (``exp_bowl``), and
+    ``ValueError`` for data of another shape."""
     form = getattr(f, "kernel_form", None)
     if form is None:
         raise NotImplementedError(

@@ -1,8 +1,9 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a): its C interface and its
 // first-order form (driver_first.cuh).  The kernel template, its other
 // forms' design and what bounds them are described in driver.cuh; the
-// quasi-Newton form is built in driver_qn.cu, the dense form in
-// driver_dense.cu, the Newton form in driver_newton.cu.
+// quasi-Newton and Wolfe forms are built in driver_qn.cu and
+// driver_qn_data.cu, the dense form in driver_dense.cu and
+// driver_dense_data.cu, the Newton form in driver_newton.cu.
 
 #include "driver_first.cuh"
 
@@ -77,8 +78,11 @@ int run(int objective, const void* x0, const void* lo, const void* up,
   prm.nfev_out = static_cast<int*>(nfev);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool newton = newton_method(prm.method);
-  if (objective != kRosenbrock && objective != kWeightedSquares &&
-      !(newton && (objective == kQuadratic || objective == kLogSumExp)))
+  // the first-order form compiles Rosenbrock and WeightedSquares, the
+  // other forms all four functors
+  const bool all_four = newton || dense_method(prm.method) || qn_form(prm.method, prm.search);
+  if (objective < kRosenbrock || objective > kLogSumExp ||
+      (!all_four && objective != kRosenbrock && objective != kWeightedSquares))
     return kErrArgs;
   if (objective == kLogSumExp && prm.rows < 1) return kErrArgs;
   if (objective != kRosenbrock && (d0 == nullptr || d1 == nullptr)) return kErrArgs;
@@ -123,8 +127,10 @@ extern "C" int k3_fo_prof_reset() {
 }
 #endif
 
-extern "C" long long driver_smem_per_warp(int n, int ring, int m, int elem_size) {
-  return work_elems(n, ring, m, elem_size) * (long long)elem_size;
+// shared memory of a warp (one instance) of the quasi-Newton and Wolfe
+// forms, in bytes; rows: LOG_SUM_EXP's (0 for the other functors)
+extern "C" long long driver_smem_per_warp(int n, int ring, int m, int rows, int elem_size) {
+  return work_elems(n, ring, m, elem_size, rows) * (long long)elem_size;
 }
 
 // shared memory of the Newton form's block (one instance), in bytes;
@@ -135,14 +141,15 @@ extern "C" long long driver_smem_newton(int n, int ring, int rows, int elem_size
 }
 
 // shared memory of the dense form's block (one instance), in bytes: its
-// vectors, and the slab where dense_in_shared says it fits
-extern "C" long long driver_smem_dense(int n, int ring, int kind, int elem_size) {
-  return dense_smem_elems(n, ring, kind, elem_size) * (long long)elem_size;
+// vectors (with LOG_SUM_EXP's z of `rows`), and the slab where
+// dense_in_shared says it fits
+extern "C" long long driver_smem_dense(int n, int ring, int kind, int rows, int elem_size) {
+  return dense_smem_elems(n, ring, kind, elem_size, rows) * (long long)elem_size;
 }
 
 extern "C" long long driver_workspace_elems(long long B, int n, int method, int ring,
-                                            int kind, int elem_size) {
-  return workspace_elems(B, n, method, ring, kind, elem_size);
+                                            int kind, int rows, int elem_size) {
+  return workspace_elems(B, n, method, ring, kind, elem_size, rows);
 }
 
 // dtype 0: float32, 1: float64.  ip and dp are host arrays of kIntSlots ints
@@ -168,7 +175,8 @@ extern "C" int driver_launch(
       (method == kPnorm && pinv == nullptr) ||
       (method == kLBFGS && ip[iLbfgsM] < 1) ||
       (dense_method(method) && (ip[iQnUpdate] < kBFGS || ip[iQnUpdate] > kSR1)) ||
-      (workspace_elems(B, n, method, ip[iRing], ip[iQnUpdate], dtype == 1 ? 8 : 4) > 0 &&
+      (workspace_elems(B, n, method, ip[iRing], ip[iQnUpdate], dtype == 1 ? 8 : 4,
+                       objective == kLogSumExp ? ip[iRows] : 0) > 0 &&
        work == nullptr))
     return kErrArgs;
   if (dtype == 0)

@@ -6,9 +6,14 @@
 // The forms are compiled in separate sources, so that they build in
 // parallel and the compiler's choices for one form (inlining of the
 // objective, registers) do not depend on another form's code.  The
-// first-order and quasi-Newton forms compile the Rosenbrock and
-// WeightedSquares functors, the Newton form these and Quadratic, with
-// their Hessians (objectives.cuh).
+// first-order form compiles the Rosenbrock and WeightedSquares functors;
+// the quasi-Newton, Wolfe, dense and Newton forms these, Quadratic and
+// LogSumExp (objectives.cuh; the Newton form with their Hessians, the
+// quasi-Newton and Wolfe forms' Quadratic and LogSumExp instances in
+// driver_qn_data.cu, the dense form's in driver_dense_data.cu).  The one-warp forms give a log-sum-exp instance's
+// warp its z of `rows` elements behind its other vectors, the dense form
+// its block, ahead of the slab; the quadratic reads Q from device memory
+// (L2), the dense form's on warp 0 alone: slow, and right.
 //
 // Replaces the TPU kernel optimization_solvers_tpu/ops/pallas_driver.py
 // (fused_minimize, kernel body _make_kernel, pl.pallas_call at :1874) for
@@ -290,50 +295,58 @@ constexpr int kUnroll = 4;      // coordinates a lane of the direction's pass ho
 // a warp's shared memory in the quasi-Newton and Wolfe forms: X, G, GN, D,
 // XT, GP, DP, the GLL ring, L-BFGS's S and Y and by slot VAL and rho (the
 // two-loop) or S^T g (the compact form), the two-loop's alphas or Y^T g;
-// the compact form adds u and p by slot and the tables S^T Y and Y^T Y.
-// At m = 0, 7 n + ring: the first-order form's shared layout too
+// the compact form adds u and p by slot and the tables S^T Y and Y^T Y;
+// last, LOG_SUM_EXP's z of `rows` elements (rows 0 for the other functors).
+// At m = 0 and rows = 0, 7 n + ring: the first-order form's shared layout
+// too
 __host__ __device__ inline long long two_loop_elems(int n, int ring, int m) {
   return 7LL * n + ring + 2LL * m * n + 3LL * m;
 }
 
-__host__ __device__ inline bool compact_fits(int n, int ring, int m, int elem_size) {
+__host__ __device__ inline bool compact_fits(int n, int ring, int m, int elem_size,
+                                             int rows = 0) {
   return m >= 1 && m <= kLaneM &&
-         (two_loop_elems(n, ring, m) + 2LL * m * m + 2LL * m) * elem_size <= kSmemPerBlock;
+         (two_loop_elems(n, ring, m) + 2LL * m * m + 2LL * m + rows) * elem_size <=
+             kSmemPerBlock;
 }
 
-__host__ __device__ inline long long work_elems(int n, int ring, int m, int elem_size) {
+__host__ __device__ inline long long work_elems(int n, int ring, int m, int elem_size,
+                                                int rows = 0) {
   return two_loop_elems(n, ring, m) +
-         (compact_fits(n, ring, m, elem_size) ? 2LL * m * m + 2LL * m : 0);
+         (compact_fits(n, ring, m, elem_size, rows) ? 2LL * m * m + 2LL * m : 0) + rows;
 }
 
 // the dense form's block: its vectors X, G, GN, D, XT, GP (s), DP (y), the
-// GLL ring and kDenseWords command words (the update's six scalars, then
-// the command and its flags as ints from kDenseCtl), then the slab where
-// it fits
+// GLL ring, kDenseWords command words (the update's six scalars, then the
+// command and its flags as ints from kDenseCtl) and LOG_SUM_EXP's z of
+// `rows` elements (warp 0 evaluates; rows 0 for the other functors), then
+// the slab where it fits
 constexpr int kDenseWords = 8;
 constexpr int kDenseCtl = 6;
 enum DenseCmd { kDenseExit = 0, kDenseDirection, kDenseProducts, kDenseUpdate };
 
-__host__ __device__ inline long long dense_vec_elems(int n, int ring) {
-  return 7LL * n + ring + kDenseWords;
+__host__ __device__ inline long long dense_vec_elems(int n, int ring, int rows = 0) {
+  return 7LL * n + ring + kDenseWords + rows;
 }
 
-__host__ __device__ inline bool dense_in_shared(int n, int ring, int kind, int elem_size) {
-  return slab_in_shared(dense_vec_elems(n, ring), n, kind, elem_size);
+__host__ __device__ inline bool dense_in_shared(int n, int ring, int kind, int elem_size,
+                                                int rows = 0) {
+  return slab_in_shared(dense_vec_elems(n, ring, rows), n, kind, elem_size);
 }
 
 __host__ __device__ inline long long dense_smem_elems(int n, int ring, int kind,
-                                                      int elem_size) {
-  return dense_vec_elems(n, ring) +
-         (dense_in_shared(n, ring, kind, elem_size) ? slab_elems(n, kind) : 0);
+                                                      int elem_size, int rows = 0) {
+  return dense_vec_elems(n, ring, rows) +
+         (dense_in_shared(n, ring, kind, elem_size, rows) ? slab_elems(n, kind) : 0);
 }
 
 // the device-memory workspace: the Newton form's (n, n) Hessian slabs, the
 // dense form's slabs where they do not fit a block's shared memory
 __host__ __device__ inline long long workspace_elems(long long B, int n, int method,
-                                                     int ring, int kind, int elem_size) {
+                                                     int ring, int kind, int elem_size,
+                                                     int rows = 0) {
   if (newton_method(method)) return B * n * n;
-  if (dense_method(method) && !dense_in_shared(n, ring, kind, elem_size))
+  if (dense_method(method) && !dense_in_shared(n, ring, kind, elem_size, rows))
     return B * slab_elems(n, kind);
   return 0;
 }
@@ -407,7 +420,7 @@ template <typename T> struct Params {
   int ring;             // GLL history length (0 for the other searches)
   int qn_update, scale_b0, restart, m;
   int precond_bb;       // SPN: the Barzilai-Borwein pair in the Newton metric
-  int rows;             // the Newton form's LOG_SUM_EXP rows (0 otherwise)
+  int rows;             // LOG_SUM_EXP's rows (0 otherwise)
   T lbfgs_eps;
   T c2, t_min, t_max, delta, aw_eps;
   int approx_wolfe, search_bounded;
@@ -586,12 +599,16 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
   const T INF = (T)INFINITY;
   const bool lbfgs = kForm == kQnForm && method == kLBFGS;
   const int m = lbfgs ? prm.m : 0;
-  const bool compact = kQn && compact_fits(n, prm.ring, m, (int)sizeof(T));
+  // LOG_SUM_EXP's z in the one-warp and dense forms (0 at compile time for
+  // the functors that read no row buffer; the Newton form places its own)
+  const int zrows = !kNewt && Bind<Obj>::kRowBuffers > 0 ? prm.rows : 0;
+  const bool compact = kQn && compact_fits(n, prm.ring, m, (int)sizeof(T), zrows);
 
   T *X, *G, *GN, *D, *XT, *GP, *DP, *H, *S, *Y, *RHO, *VAL, *AL;
   T *U = nullptr, *P = nullptr, *SY = nullptr, *YY = nullptr;
   T* region = nullptr;                // the Newton form's block layout
   T* words = nullptr;
+  T* Z = nullptr;                     // LOG_SUM_EXP's z
   if constexpr (kNewt) {
     region = reinterpret_cast<T*>(smem_raw);
     D = region;
@@ -604,8 +621,10 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     GP = DP = GN;                     // unused by the Newton methods
     S = Y = RHO = VAL = AL = nullptr;
   } else {
-    T* p = reinterpret_cast<T*>(smem_raw) +
-           (kBlock ? 0LL : (long long)warp * work_elems(n, prm.ring, m, (int)sizeof(T)));
+    T* const base = reinterpret_cast<T*>(smem_raw) +
+                    (kBlock ? 0LL : (long long)warp * work_elems(n, prm.ring, m, (int)sizeof(T),
+                                                                 zrows));
+    T* p = base;
     X = p; p += n;
     G = p; p += n;
     GN = p; p += n;
@@ -627,7 +646,10 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
     }
     if constexpr (kDense) {
       words = AL;                     // m = 0: the words follow the ring
-      region = words + kDenseWords;   // the slab, where it is in shared memory
+      Z = words + kDenseWords;
+      region = Z + zrows;             // the slab, where it is in shared memory
+    } else {
+      Z = base + work_elems(n, prm.ring, m, (int)sizeof(T), zrows) - zrows;
     }
   }
 
@@ -638,10 +660,9 @@ __device__ __forceinline__ void driver_body(const Params<T>& prm) {
   if constexpr (kNewt) Bm = prm.work + (long long)inst * n * n;
   if constexpr (kDense)
     Bm = prm.slab_shared ? region : prm.work + (long long)inst * slab_elems(n, prm.qn_update);
-  // LOG_SUM_EXP's z past the Newton form's GLL ring (K3 reads no p)
-  T* const no_rows = nullptr;
-  const Obj obj = BindRows<Obj>::make(prm.d0, prm.d1, prm.rows,
-                                      kNewt ? H + prm.ring : no_rows, no_rows);
+  // LOG_SUM_EXP's z (the Newton form's past its GLL ring); K3 reads no p
+  const Obj obj = Bind<Obj>::make(prm.d0, prm.d1, nullptr, prm.rows,
+                                  kNewt ? H + prm.ring : Z, nullptr);
   const DenseBlock<T> dense{prm.slab_shared ? nullptr : Bm,
                             kDense ? (int)(region - reinterpret_cast<T*>(smem_raw)) : 0,
                             G, D, XT, GP, DP, words, n, prm.qn_update};
@@ -1754,7 +1775,7 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
     const long long smem =
         newton_smem_elems<T>(prm.n, prm.ring, prm.rows) * (long long)sizeof(T);
     if (smem > kSmemPerBlock) return kErrSmem;
-    if constexpr (BindRows<Obj>::kRowBuffers > 0)
+    if constexpr (Bind<Obj>::kRowBuffers > 0)
       if (Obj::hessian_scratch_elems(prm.n) > newton_region_elems<T>(prm.n)) return kErrSmem;
     auto kernel = driver_newton_kernel<T, Obj>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -1764,9 +1785,10 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
     return (int)cudaGetLastError();
   } else if constexpr (kForm == kDenseForm) {
     const int kind = prm.qn_update, es = (int)sizeof(T);
+    const int zrows = Bind<Obj>::kRowBuffers > 0 ? prm.rows : 0;
     Params<T> p = prm;
-    p.slab_shared = dense_in_shared(prm.n, prm.ring, kind, es);
-    const long long smem = dense_smem_elems(prm.n, prm.ring, kind, es) * es;
+    p.slab_shared = dense_in_shared(prm.n, prm.ring, kind, es, zrows);
+    const long long smem = dense_smem_elems(prm.n, prm.ring, kind, es, zrows) * es;
     if (smem > kSmemPerBlock) return kErrSmem;
     if (!p.slab_shared && prm.work == nullptr) return kErrArgs;
     auto kernel = driver_dense_kernel<T, Obj>;
@@ -1779,8 +1801,9 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
     // the one-warp forms (not instantiated for the block forms: each such
     // kernel cost a minute of the build, never launched)
     const int m = prm.method == kLBFGS ? prm.m : 0;
+    const int zrows = Bind<Obj>::kRowBuffers > 0 ? prm.rows : 0;
     const long long per_warp =
-        work_elems(prm.n, prm.ring, m, (int)sizeof(T)) * (long long)sizeof(T);
+        work_elems(prm.n, prm.ring, m, (int)sizeof(T), zrows) * (long long)sizeof(T);
     long long wpb = kSmemPerBlock / per_warp;
     if (wpb > kMaxWarpsPerBlock) wpb = kMaxWarpsPerBlock;
     if (wpb > prm.B) wpb = prm.B;
@@ -1796,14 +1819,31 @@ int launch(const Params<T>& prm, cudaStream_t stream) {
   }
 }
 
-// the quasi-Newton form of every objective (driver_qn.cu)
+// L-BFGS in the quasi-Newton form; every other method, a first-order one
+// with a Wolfe-family search, in the Wolfe form.  With L-BFGS's registers
+// (128 in float32, against 80 before its compact form) NCG + More-Thuente
+// at 10,240 x Rosenbrock-100 held 2 blocks of 8 warps per SM, not 3, and
+// took 11% longer on an H100
+template <typename T, class Obj>
+int launch_method(const Params<T>& prm, cudaStream_t stream) {
+  if (prm.method == kLBFGS) return launch<T, Obj, kQnForm>(prm, stream);
+  return launch<T, Obj, kWolfeForm>(prm, stream);
+}
+
+// the quasi-Newton and Wolfe forms of every objective (driver_qn.cu), the
+// quadratic and the log-sum-exp in a source of their own (driver_qn_data.cu)
 template <typename T>
 int launch_qn(const Params<T>& prm, int objective, cudaStream_t stream);
+template <typename T>
+int launch_qn_data(const Params<T>& prm, int objective, cudaStream_t stream);
 // the Newton form of every objective (driver_newton.cu)
 template <typename T>
 int launch_newton(const Params<T>& prm, int objective, cudaStream_t stream);
-// the dense form of every objective (driver_dense.cu)
+// the dense form of every objective (driver_dense.cu), the quadratic and the
+// log-sum-exp in a source of their own (driver_dense_data.cu)
 template <typename T>
 int launch_dense(const Params<T>& prm, int objective, cudaStream_t stream);
+template <typename T>
+int launch_dense_data(const Params<T>& prm, int objective, cudaStream_t stream);
 
 }  // namespace ost_driver

@@ -1,7 +1,9 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a): its dense form (the
 // dense quasi-Newton methods QN and QNB with every update kind and search,
 // one block per instance, the slab in shared memory where it fits), built
-// apart from the other forms.  The kernel is described in driver.cuh, the
+// apart from the other forms, for Rosenbrock and WeightedSquares; the
+// quadratic's and the log-sum-exp's instances are built in
+// driver_dense_data.cu.  The kernel is described in driver.cuh, the
 // slab's layouts and passes in dense_slab.cuh.
 
 #include "driver.cuh"
@@ -11,7 +13,9 @@ namespace ost_driver {
 template <typename T>
 int launch_dense(const Params<T>& prm, int objective, cudaStream_t stream) {
   if (objective == kRosenbrock) return launch<T, Rosenbrock<T>, kDenseForm>(prm, stream);
-  return launch<T, WeightedSquares<T>, kDenseForm>(prm, stream);
+  if (objective == kWeightedSquares)
+    return launch<T, WeightedSquares<T>, kDenseForm>(prm, stream);
+  return launch_dense_data<T>(prm, objective, stream);
 }
 
 template int launch_dense<float>(const Params<float>&, int, cudaStream_t);

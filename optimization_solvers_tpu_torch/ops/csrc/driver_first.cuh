@@ -163,7 +163,7 @@ first_order_kernel(const Params<T> prm) {
                      : BV{};
   const BV UP = kBox ? L::load(bounded ? prm.up + (long long)inst * prm.bstride : x0, n, lane)
                      : BV{};
-  const Obj obj{prm.d0, prm.d1};
+  const Obj obj = Bind<Obj>::make(prm.d0, prm.d1);
   const typename E::template Data<L> dat(obj, n, lane);
 
   LANES_FOR(L, e, i) X[e] = bounded ? jclip(x0[i], LO[e], UP[e]) : x0[i];

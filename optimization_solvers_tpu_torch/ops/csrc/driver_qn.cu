@@ -1,27 +1,18 @@
 // Generic whole-solve driver K3 on Hopper (sm_90a): its quasi-Newton form
 // (L-BFGS, and every first-order method with a Wolfe-family search), built
-// apart from the first-order form in driver.cu.  The kernel is described
-// in driver.cuh.
+// apart from the first-order form in driver.cu, for Rosenbrock and
+// WeightedSquares; the quadratic's and the log-sum-exp's instances are
+// built in driver_qn_data.cu.  The kernel is described in driver.cuh.
 
 #include "driver.cuh"
 
 namespace ost_driver {
 
-// L-BFGS in the quasi-Newton form; every other method, a first-order one
-// with a Wolfe-family search, in the Wolfe form.  With L-BFGS's registers
-// (128 in float32, against 80 before its compact form) NCG + More-Thuente
-// at 10,240 x Rosenbrock-100 held 2 blocks of 8 warps per SM, not 3, and
-// took 11% longer on an H100
-template <typename T, class Obj>
-int launch_method(const Params<T>& prm, cudaStream_t stream) {
-  if (prm.method == kLBFGS) return launch<T, Obj, kQnForm>(prm, stream);
-  return launch<T, Obj, kWolfeForm>(prm, stream);
-}
-
 template <typename T>
 int launch_qn(const Params<T>& prm, int objective, cudaStream_t stream) {
   if (objective == kRosenbrock) return launch_method<T, Rosenbrock<T>>(prm, stream);
-  return launch_method<T, WeightedSquares<T>>(prm, stream);
+  if (objective == kWeightedSquares) return launch_method<T, WeightedSquares<T>>(prm, stream);
+  return launch_qn_data<T>(prm, objective, stream);
 }
 
 template int launch_qn<float>(const Params<float>&, int, cudaStream_t);

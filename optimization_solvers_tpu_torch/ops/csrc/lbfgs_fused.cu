@@ -151,7 +151,7 @@ lbfgs_fused_kernel(const Params<T> prm) {
   T* P = p; p += m;
   T* VAL = p;
 
-  const Obj obj{prm.d0, prm.d1};
+  const Obj obj = Bind<Obj>::make(prm.d0, prm.d1);
   const T* x0 = prm.x0 + (long long)inst * n;
   for (int i = lane; i < n; i += kWarp) X[i] = x0[i];
   for (long long i = lane; i < (long long)m * n; i += kWarp) {

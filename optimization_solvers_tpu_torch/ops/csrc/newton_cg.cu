@@ -279,7 +279,7 @@ template <typename T> struct K4Eval<T, LogSumExp<T>> {
 // shared memory of one warp's instance in elements: the layout's vectors,
 // then the functor's row buffers (LogSumExp: z and p)
 template <class L, class Obj> __host__ __device__ long long k4_warp_elems(int n, int rows) {
-  return L::work_elems(n) + (long long)BindRows<Obj>::kRowBuffers * rows;
+  return L::work_elems(n) + (long long)Bind<Obj>::kRowBuffers * rows;
 }
 
 template <typename T, class L> constexpr int k4_min_blocks() {
@@ -332,7 +332,7 @@ newton_cg_kernel(const K4Params<T> prm) {
   const auto UP = L::load(prm.up, n, lane);
   Coefs<L, T> C;
   // work now points past the vectors: the functor's row buffers
-  const Obj obj = BindRows<Obj>::make(prm.d0, prm.d1, prm.rows, work, work + prm.rows);
+  const Obj obj = Bind<Obj>::make(prm.d0, prm.d1, nullptr, prm.rows, work, work + prm.rows);
 
   const T* x0 = prm.x0 + (long long)inst * n;
   LANES_FOR(L, e, i) X[e] = jclip(x0[i], LO[e], UP[e]);

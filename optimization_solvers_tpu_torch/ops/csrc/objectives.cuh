@@ -1,15 +1,15 @@
 // Warp-level objective functors shared by the one-warp-per-instance kernels
-// (K1 lbfgsb_fused.cu, K3 driver.cu / driver_qn.cu / driver_newton.cu, K4
-// newton_cg.cu, K7 lbfgs_fused.cu, K8 spg_fused.cu, and the first warp of
-// K9 bfgs_fused.cu): one warp evaluates one instance, coordinate i on lane
+// (K1 lbfgsb_fused.cu, K3 driver.cu / driver_qn*.cu / driver_dense.cu /
+// driver_newton.cu, K4 newton_cg.cu, K7 lbfgs_fused.cu, K8 spg_fused.cu,
+// and the first warp of K9 bfgs_fused.cu): one warp evaluates one instance, coordinate i on lane
 // i % 32, and every lane returns the warp-reduced value.  The caller
 // __syncwarp()s before a call (the functors read other lanes' coordinates
 // of x and v) and after value_grad and hvp (each lane writes only its own
-// coordinates of g and of the product).  K1, K8 and the first-order and
-// quasi-Newton forms of K3 compile Rosenbrock and WeightedSquares (the
-// quasi-Newton form's Wolfe trials through value_grad<true>); K7 and
-// K9 the first three (values and gradients); K3's Newton form and K4 all
-// four (LogSumExp bound by BindRows, with its shared-memory buffers),
+// coordinates of g and of the product).  K8 and K3's first-order form
+// compile Rosenbrock and WeightedSquares; K7 the first three (values and
+// gradients); K1, K3's quasi-Newton, Wolfe (the Wolfe trials through
+// value_grad<true>) and dense forms, K9, K3's Newton form and K4 all four
+// (LogSumExp bound by Bind, with its shared-memory buffers), the last two
 // with the second derivatives: hvp(x, v, out, n, lane) writes H v into out,
 // and hessian(x, H, n, tid, scratch) is block-level (K3's Newton form runs
 // one block of ost_chol::kCholThreads threads per instance; every thread
@@ -210,15 +210,21 @@ template <typename T> struct Quadratic {
     }
     return T(0.5) * warp_sum(sq) + warp_sum(sb);
   }
-  __device__ T value_grad(const T* x, T* g, int n, int lane) const {
-    T sq = 0, sb = 0;
+  // with kDot, g.d for a direction d into *gd in the same pass
+  template <bool kDot = false>
+  __device__ T value_grad(const T* x, T* g, int n, int lane, const T* d = nullptr,
+                          T* gd = nullptr) const {
+    T sq = 0, sb = 0, p = 0;
     for (int i = lane; i < n; i += kWarp) {
       T qx, qtx;
       rowcol(x, i, n, qx, qtx);
       sq += x[i] * qx;
       sb += d1[i] * x[i];
-      g[i] = T(0.5) * (qx + qtx) + d1[i];
+      const T gi = T(0.5) * (qx + qtx) + d1[i];
+      g[i] = gi;
+      if constexpr (kDot) p += gi * d[i];
     }
+    if constexpr (kDot) *gd = warp_sum(p);
     return T(0.5) * warp_sum(sq) + warp_sum(sb);
   }
   // the symmetric part's upper triangle through the block's
@@ -534,31 +540,38 @@ template <typename T> struct Scaled<WeightedSquares<T>> {
   }
 };
 
-// a functor of a kernel from its data pointers and, for Scaled, the scale
+// T in a non-deduced context: a null argument there deduces nothing
+template <class T> struct NoDeduce { using type = T; };
+template <class T> using NoDeduce_t = typename NoDeduce<T>::type;
+
+// a kernel's functor from its data pointers, the scale s (Scaled only)
+// and, for LogSumExp, its rows and its buffers z and p of `rows` elements
+// each in the caller's shared memory.  kRowBuffers is how many of them the
+// functor reads: LogSumExp's value and gradient read z, its prepare and hvp
+// p too (2); the others none, and their kernels leave no room for them.
+// A kernel that takes no hvp (K1, K3's one-warp and dense forms, K9)
+// reserves z alone and binds p as null
 template <class Obj> struct Bind {
-  template <typename T> __device__ static Obj make(const T* d0, const T* d1, const T*) {
+  static constexpr int kRowBuffers = 0;
+  template <typename T>
+  __device__ static Obj make(const T* d0, const T* d1, NoDeduce_t<const T*> = nullptr,
+                             int = 0, NoDeduce_t<T*> = nullptr, NoDeduce_t<T*> = nullptr) {
     return Obj{d0, d1};
   }
 };
 template <class Inner> struct Bind<Scaled<Inner>> {
-  template <typename T> __device__ static Scaled<Inner> make(const T* d0, const T* d1, const T* s) {
+  static constexpr int kRowBuffers = 0;
+  template <typename T>
+  __device__ static Scaled<Inner> make(const T* d0, const T* d1, NoDeduce_t<const T*> s,
+                                       int = 0, NoDeduce_t<T*> = nullptr,
+                                       NoDeduce_t<T*> = nullptr) {
     return Scaled<Inner>{Inner{d0, d1}, s};
   }
 };
-
-// a second-order kernel's functor (K3's Newton form, K4) from its data
-// pointers and, for LogSumExp, its rows and its buffers z and p of `rows`
-// elements each; kRowBuffers is how many of them the functor reads (0 for
-// the others, whose kernels then leave no room for them)
-template <class Obj> struct BindRows {
-  static constexpr int kRowBuffers = 0;
-  template <typename T> __device__ static Obj make(const T* d0, const T* d1, int, T*, T*) {
-    return Obj{d0, d1};
-  }
-};
-template <typename T> struct BindRows<LogSumExp<T>> {
+template <typename T> struct Bind<LogSumExp<T>> {
   static constexpr int kRowBuffers = 2;
-  __device__ static LogSumExp<T> make(const T* d0, const T* d1, int rows, T* z, T* p) {
+  __device__ static LogSumExp<T> make(const T* d0, const T* d1, const T*, int rows, T* z,
+                                      T* p) {
     return LogSumExp<T>{d0, d1, rows, z, p};
   }
 };

@@ -155,7 +155,7 @@ spg_fused_kernel(const Params<T> prm) {
   V UP = L::template alloc<T>(work, n, lane);
   T* FH = work;                       // the history, entry j on lane j % 32
 
-  const Obj obj{prm.d0, prm.d1};
+  const Obj obj = Bind<Obj>::make(prm.d0, prm.d1);
   const typename E::template Data<L> dat(obj, n, lane);
   const T* x0 = prm.x0 + (long long)inst * n;
   LANES_FOR(L, e, i) {

@@ -37,12 +37,16 @@ import torch
 
 from ..core.numerics import batched_pg_inf_norm
 from ..core.types import SolveResult
-from .batched_oracle import batched_value, batched_value_and_grad
-from .fused_lbfgs import (EPS_MACH, K7_OBJECTIVES, SMEM_PER_BLOCK,
-                          armijo_steps, as_device_batch, check_launch,
-                          exit_status, kernel_call_operands)
+from .batched_oracle import (KERNEL_OBJECTIVES, batched_value,
+                             batched_value_and_grad)
+from .fused_lbfgs import (EPS_MACH, SMEM_PER_BLOCK, armijo_steps,
+                          as_device_batch, check_launch, exit_status,
+                          kernel_call_operands)
 
 KERNEL = "the CUDA dense BFGS kernel K9"
+# the objective functors csrc/bfgs_fused.cu compiles (K7's three and the
+# log-sum-exp)
+K9_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC", "LOG_SUM_EXP")
 
 
 def slab_elems(n: int) -> int:
@@ -51,27 +55,29 @@ def slab_elems(n: int) -> int:
     return n * (n + 1) // 2
 
 
-def slab_in_shared(n: int, itemsize: int) -> bool:
+def slab_in_shared(n: int, itemsize: int, rows: int = 0) -> bool:
     """Whether the kernel keeps the triangle in the block's shared memory
-    beside the vectors (``csrc/bfgs_fused.cu`` ``in_shared``), else in the
-    device-memory workspace."""
-    return (8 * n + 4 + slab_elems(n)) * itemsize <= SMEM_PER_BLOCK
+    beside the vectors and a log-sum-exp's z of ``rows`` elements
+    (``csrc/bfgs_fused.cu`` ``in_shared``), else in the device-memory
+    workspace."""
+    return (8 * n + 4 + rows + slab_elems(n)) * itemsize <= SMEM_PER_BLOCK
 
 
-def workspace_elems(B: int, n: int, itemsize: int) -> int:
+def workspace_elems(B: int, n: int, itemsize: int, rows: int = 0) -> int:
     """Device-memory workspace of the CUDA kernel, in elements: one
     triangle per instance where it does not fit shared memory, else none
     (``csrc/bfgs_fused.cu`` ``workspace_elems``)."""
-    return 0 if slab_in_shared(n, itemsize) else B * slab_elems(n)
+    return 0 if slab_in_shared(n, itemsize, rows) else B * slab_elems(n)
 
 
-def smem_per_instance(n: int, itemsize: int) -> int:
+def smem_per_instance(n: int, itemsize: int, rows: int = 0) -> int:
     """Shared memory of one instance's block (``smem_elems`` of
     ``csrc/bfgs_fused.cu``): x, g, d, the trial point, the new gradient, s,
-    y and B y, and four scalar slots, then the triangle where it fits."""
-    vecs = 8 * n + 4
-    return (vecs + (slab_elems(n) if slab_in_shared(n, itemsize) else 0)
-            ) * itemsize
+    y and B y, four scalar slots and a log-sum-exp's z of ``rows`` elements
+    (0 for the other objectives), then the triangle where it fits."""
+    vecs = 8 * n + 4 + rows
+    return (vecs + (slab_elems(n) if slab_in_shared(n, itemsize, rows)
+                    else 0)) * itemsize
 
 
 def bfgs_solve_plain(obj, x0, data=(), *, tol=1e-5, max_iter=500,
@@ -134,17 +140,18 @@ def _launch_cuda(obj, x0, data, *, tol, max_iter, max_iter_ls, c1):
     each instance's B was updated)."""
     from . import _build
 
-    code, _arrays, (d0, d1), outs = kernel_call_operands(
-        obj, data, x0, KERNEL, K7_OBJECTIVES)
+    code, arrays, (d0, d1), outs = kernel_call_operands(
+        obj, data, x0, KERNEL, K9_OBJECTIVES)
     B, n = x0.shape
+    rows = arrays[0].shape[0] if code == KERNEL_OBJECTIVES["LOG_SUM_EXP"] else 0
     itemsize = x0.element_size()
-    if smem_per_instance(n, itemsize) > SMEM_PER_BLOCK:
+    if smem_per_instance(n, itemsize, rows) > SMEM_PER_BLOCK:
         raise ValueError(
-            f"n={n} needs {smem_per_instance(n, itemsize)} bytes of shared "
-            f"memory per instance in {KERNEL}, more than a block's "
+            f"n={n} needs {smem_per_instance(n, itemsize, rows)} bytes of "
+            f"shared memory per instance in {KERNEL}, more than a block's "
             f"{SMEM_PER_BLOCK}")
     lib = _build.load()
-    elems = workspace_elems(B, n, itemsize)
+    elems = workspace_elems(B, n, itemsize, rows)
     work = None
     if elems:
         free, _ = torch.cuda.mem_get_info(x0.device)
@@ -160,7 +167,8 @@ def _launch_cuda(obj, x0, data, *, tol, max_iter, max_iter_ls, c1):
     with torch.cuda.device(x0.device):
         rc = lib.bfgs_fused_launch(
             1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(), d0,
-            d1, B, n, float(tol), int(max_iter), int(max_iter_ls), float(c1),
+            d1, rows, B, n, float(tol), int(max_iter), int(max_iter_ls),
+            float(c1),
             None if work is None else work.data_ptr(),
             *(t.data_ptr() for t in outs), ctypes.c_void_p(stream))
     check_launch(rc, "bfgs_fused_launch")
@@ -176,8 +184,8 @@ def bfgs_solve_fused(f, x0, data=(), *, tol=1e-5, max_iter=500,
     ``x0`` is ``(B, n)`` (any B); ``data`` is the objective's problem data,
     shared across instances.  A CPU ``x0`` runs :func:`bfgs_solve_plain`; a
     CUDA ``x0`` (or a non-tensor one, which goes to the card) launches the
-    kernel (the objective needs a ``ROSENBROCK``, ``WEIGHTED_SQUARES`` or
-    ``QUADRATIC`` kernel form) or raises.  The final ``g`` and ``pg_norm``
+    kernel (the objective needs a kernel form of ``K9_OBJECTIVES``) or
+    raises.  The final ``g`` and ``pg_norm``
     (``max|g|``) come from the objective's batched value-and-gradient, as
     in the JAX epilogue."""
     x0 = as_device_batch(x0)

@@ -91,16 +91,17 @@ QN_UPDATES = {"bfgs": 0, "dfp": 1, "broyden": 2, "sr1": 3}
 # not finfo(dtype).eps
 QN_EPS = {torch.float32: 1.2e-7, torch.float64: 2.3e-16}
 # kSmemPerBlock of csrc/common.cuh, and the functors each form of K3
-# compiles: the first-order and quasi-Newton forms (driver.cu, driver_qn.cu)
-# two, the Newton form (driver_newton.cu) all four, with their Hessians
+# compiles: the first-order form (driver.cu) two, the quasi-Newton and
+# Wolfe forms (driver_qn.cu, driver_qn_data.cu), the dense form
+# (driver_dense.cu) and the Newton form (driver_newton.cu, with their
+# Hessians) all four
 SMEM_PER_BLOCK = 232448
 NEWTON_WORDS = 32          # csrc/driver.cuh kNewtonWords
 DENSE_WORDS = 8            # csrc/driver.cuh kDenseWords
 LANE_M = 32                # csrc/driver.cuh kLaneM: pairs the compact form holds
 DENSE_METHODS = (QN, QNB)
-K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
-K3_NEWTON_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC",
-                        "LOG_SUM_EXP")
+K3_FIRST_ORDER_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
+K3_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC", "LOG_SUM_EXP")
 KERNEL = "the CUDA driver kernel K3"
 LOCKSTEP = ("solvers.batch_minimize, whose fused='auto' takes it on a CUDA "
             "x0")
@@ -263,13 +264,14 @@ def dense_slab_elems(n: int, qn_update: int) -> int:
     return n * (n + 1) // 2
 
 
-def dense_in_shared(n: int, ring: int, itemsize: int, qn_update: int) -> bool:
+def dense_in_shared(n: int, ring: int, itemsize: int, qn_update: int,
+                    rows: int = 0) -> bool:
     """Where the dense form (QN, QNB) keeps an instance's slab
     (``csrc/driver.cuh`` ``dense_in_shared``): in the block's shared memory
-    when it fits there beside the vectors (7 n + ring + 8 elements), else
-    in the device-memory workspace.  A route by shape, as K1 against K2:
-    both placements run the same code."""
-    vecs = 7 * n + ring + DENSE_WORDS
+    when it fits there beside the vectors (7 n + ring + 8 elements and a
+    log-sum-exp's z of ``rows``), else in the device-memory workspace.  A
+    route by shape, as K1 against K2: both placements run the same code."""
+    vecs = 7 * n + ring + DENSE_WORDS + rows
     return (vecs + dense_slab_elems(n, qn_update)) * itemsize <= SMEM_PER_BLOCK
 
 
@@ -277,15 +279,17 @@ def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
                       method: Optional[int] = None,
                       qn_update: int = 0, rows: int = 0) -> int:
     """Shared memory one instance takes in the CUDA kernel, mirrored here so
-    that the route can decide without the library.  The first-order and
-    quasi-Newton forms: ``work_elems`` of ``csrc/driver.cuh`` (7 n, the
-    GLL history, and L-BFGS's S and Y rows and three values by slot: 2 m
-    n + 3 m; where :func:`compact_fits`, the compact form's u, p and
-    tables S^T Y and Y^T Y, 2 m + 2 m^2 more) times the element size.
-    Every width the two-loop layout fits keeps fitting: the compact form
-    only takes the room it finds.  The dense form (``method`` QN or QNB; one
-    block per instance): ``dense_smem_elems``, 7 n, the GLL history and 8
-    command words, then the slab of ``qn_update`` where
+    that the route can decide without the library.  ``rows`` is a
+    log-sum-exp's (0 for the other objectives and for the first-order form,
+    which does not compile it).  The first-order and quasi-Newton forms:
+    ``work_elems`` of ``csrc/driver.cuh`` (7 n, the GLL history, and
+    L-BFGS's S and Y rows and three values by slot: 2 m n + 3 m; where
+    :func:`compact_fits`, the compact form's u, p and tables S^T Y and Y^T
+    Y, 2 m + 2 m^2 more; then ``rows``) times the element size.  Every width
+    the two-loop layout fits keeps fitting: the compact form only takes the
+    room it finds.  The dense form (``method`` QN or QNB; one block per
+    instance): ``dense_smem_elems``, 7 n, the GLL history, 8 command words
+    and ``rows``, then the slab of ``qn_update`` where
     :func:`dense_in_shared`.  The Newton form (``method`` Newton, PN or
     SPN; one block per instance): ``newton_smem_elems``, the region of D,
     GN, XT and the solves' staged NB x (NB + 1) block, over which the
@@ -295,40 +299,60 @@ def smem_per_instance(n: int, ring: int, itemsize: int, m: int = 0,
     lies in the region)."""
     if method in DENSE_METHODS:
         slab = (dense_slab_elems(n, qn_update)
-                if dense_in_shared(n, ring, itemsize, qn_update) else 0)
-        return (7 * n + ring + DENSE_WORDS + slab) * itemsize
+                if dense_in_shared(n, ring, itemsize, qn_update, rows) else 0)
+        return (7 * n + ring + DENSE_WORDS + rows + slab) * itemsize
     if method in NEWTON_METHODS:
         nb = fused_newton.PANEL[torch.float32 if itemsize == 4
                                 else torch.float64]
         region = (max(3 * n + nb * (nb + 1),
                       fused_newton.scratch_elems(itemsize, nb)) + 3) // 4 * 4
         return (region + 2 * n + NEWTON_WORDS + ring + rows) * itemsize
-    extra = 2 * m * m + 2 * m if compact_fits(n, ring, itemsize, m) else 0
-    return (7 * n + ring + 2 * m * n + 3 * m + extra) * itemsize
+    extra = (2 * m * m + 2 * m if compact_fits(n, ring, itemsize, m, rows)
+             else 0)
+    return (7 * n + ring + 2 * m * n + 3 * m + extra + rows) * itemsize
 
 
-def compact_fits(n: int, ring: int, itemsize: int, m: int) -> bool:
+def compact_fits(n: int, ring: int, itemsize: int, m: int,
+                 rows: int = 0) -> bool:
     """Whether L-BFGS's direction runs in the compact form of H g
     (``compact_fits`` of ``csrc/driver.cuh``): its m x m algebra on lanes,
-    so m <= LANE_M, and its tables beside the vectors in a block's shared
-    memory; else the two-loop recursion runs."""
+    so m <= LANE_M, and its tables beside the vectors (and a log-sum-exp's
+    z of ``rows``) in a block's shared memory; else the two-loop recursion
+    runs."""
     return 1 <= m <= LANE_M and (
-        7 * n + ring + 2 * m * n + 5 * m + 2 * m * m) * itemsize <= (
+        7 * n + ring + 2 * m * n + 5 * m + 2 * m * m + rows) * itemsize <= (
             SMEM_PER_BLOCK)
 
 
 def fits(n: int, ring: int, itemsize: int, m: int = 0,
          method: Optional[int] = None, rows: int = 0) -> bool:
-    """Whether an instance of width ``n`` fits a block's shared memory
-    (``rows``: a log-sum-exp's, which the Newton form holds)."""
+    """Whether an instance of width ``n`` (and a log-sum-exp's ``rows``)
+    fits a block's shared memory in the form of ``method``."""
     return smem_per_instance(n, ring, itemsize, m, method,
                              rows=rows) <= SMEM_PER_BLOCK
 
 
+def first_order_form(spec: "K3Spec") -> bool:
+    """Whether ``spec`` runs K3's first-order form (``qn_form`` of
+    ``csrc/driver.cuh`` false: a first-order method with an Armijo-family
+    search); the rest run the quasi-Newton, Wolfe, dense or Newton form."""
+    return spec.method < QN and spec.search < MT
+
+
+def k3_rows(spec: "K3Spec", functor, rows: int) -> int:
+    """The log-sum-exp rows that ``spec``'s form holds in shared memory
+    (its z): ``rows`` for a ``LOG_SUM_EXP`` functor outside the first-order
+    form, which does not compile it, else 0."""
+    return (rows if functor == "LOG_SUM_EXP" and not first_order_form(spec)
+            else 0)
+
+
 def compiled_functors(spec: "K3Spec"):
-    """The functors the form of ``spec`` compiles on the card: the Newton
-    form's four, or the other forms' two."""
-    return (K3_NEWTON_OBJECTIVES if spec.method in NEWTON_METHODS
+    """The functors the form of ``spec`` compiles on the card, decided by
+    the form, as ``driver_launch`` (``csrc/driver.cu``) picks it from the
+    method and the search: the first-order form's two, or the quasi-Newton,
+    Wolfe, dense and Newton forms' four."""
+    return (K3_FIRST_ORDER_OBJECTIVES if first_order_form(spec)
             else K3_OBJECTIVES)
 
 
@@ -366,25 +390,27 @@ def _check_fits(n, ring, itemsize, m=0, method=None, rows=0):
 
 
 def workspace_elems(B: int, n: int, method: int, ring: int = 0,
-                    itemsize: int = 8, qn_update: int = 0) -> int:
+                    itemsize: int = 8, qn_update: int = 0,
+                    rows: int = 0) -> int:
     """Device-memory workspace of the CUDA kernel, in elements
     (``csrc/driver.cuh`` ``workspace_elems``): the Newton methods keep one
     (n, n) Hessian slab per instance there, whose Cholesky factor
     overwrites its upper triangle in place; the dense quasi-Newton methods
     one slab of ``qn_update`` per instance where it does not fit the
-    block's shared memory (:func:`dense_in_shared`), else none."""
+    block's shared memory (:func:`dense_in_shared`, counting a
+    log-sum-exp's ``rows``), else none."""
     if method in NEWTON_METHODS:
         return B * n * n
     if method in DENSE_METHODS and not dense_in_shared(n, ring, itemsize,
-                                                       qn_update):
+                                                       qn_update, rows):
         return B * dense_slab_elems(n, qn_update)
     return 0
 
 
-def _check_workspace(B, n, spec, itemsize, device):
+def _check_workspace(B, n, spec, itemsize, device, rows=0):
     method = spec.method
     need = workspace_elems(B, n, method, spec.ring, itemsize,
-                           spec.qn_update) * itemsize
+                           spec.qn_update, rows) * itemsize
     if need == 0:
         return
     free, _ = torch.cuda.mem_get_info(device)
@@ -1188,7 +1214,7 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
         raise NotImplementedError(
             f"{KERNEL} compiles the functors {compiled} in this form, not "
             f"{name}; other objectives need the lockstep loop ({LOCKSTEP})")
-    rows = arrays[0].shape[0] if name == "LOG_SUM_EXP" else 0
+    rows = k3_rows(spec, name, arrays[0].shape[0] if arrays else 0)
     pinv = None
     if spec.method == PNORM:
         pinv = spec.pinv.to(device=x0.device, dtype=x0.dtype).contiguous()
@@ -1197,7 +1223,7 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
                              f"{tuple(pinv.shape)}")
     itemsize = x0.element_size()
     _check_fits(n, spec.ring, itemsize, spec.lbfgs_m, spec.method, rows)
-    _check_workspace(B, n, spec, itemsize, x0.device)
+    _check_workspace(B, n, spec, itemsize, x0.device, rows)
     x0 = x0.contiguous()
     lib = _build.load()
     x = torch.empty_like(x0)
@@ -1205,7 +1231,7 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
     it, st, nfev = (torch.empty((B,), dtype=torch.int32, device=x0.device)
                     for _ in range(3))
     elems = workspace_elems(B, n, spec.method, spec.ring, itemsize,
-                            spec.qn_update)
+                            spec.qn_update, rows)
     work = (torch.empty((elems,), dtype=x0.dtype, device=x0.device)
             if elems else None)
     ints, doubles = _slots(spec, x0.dtype, rows)
@@ -1229,7 +1255,8 @@ def _launch_cuda(spec: K3Spec, f, x0, lower, upper, consts, max_iter,
     fused_minimize.launches += 1
     if spec.method in DENSE_METHODS:
         fused_minimize.placements[
-            "shared" if dense_in_shared(n, spec.ring, itemsize, spec.qn_update)
+            "shared" if dense_in_shared(n, spec.ring, itemsize,
+                                        spec.qn_update, rows)
             else "workspace"] += 1
     return x, fv, it, st, nfev
 

@@ -50,22 +50,26 @@ EPS_MACH = {torch.float64: 2.2e-16, torch.float32: 1.2e-7}
 # reference recommends, and the shared memory a Hopper block may opt into
 MAX_M = 20
 SMEM_PER_BLOCK = 232448
-# the objective functors csrc/lbfgsb_fused.cu compiles
-K1_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
+# the objective functors csrc/lbfgsb_fused.cu compiles: all four, as the
+# TPU kernel traces any objective; its scaled form the first two
+K1_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES", "QUADRATIC", "LOG_SUM_EXP")
+K1_SCALED_OBJECTIVES = ("ROSENBROCK", "WEIGHTED_SQUARES")
 
 
-def smem_per_instance(n: int, m: int, itemsize: int) -> int:
+def smem_per_instance(n: int, m: int, itemsize: int, rows: int = 0) -> int:
     """Shared memory one instance takes in the CUDA kernel: ``work_bytes``
-    of ``csrc/lbfgsb_fused.cu`` ((2m+5) n + 7 m^2 + 13 m elements and a
-    bit mask of 32-bit words, 32 per 1,024 coordinates), mirrored here so
+    of ``csrc/lbfgsb_fused.cu`` ((2m+5) n + 7 m^2 + 13 m elements, a
+    log-sum-exp's z of ``rows`` elements (0 for the other objectives), and
+    a bit mask of 32-bit words, 32 per 1,024 coordinates), mirrored here so
     that the route can decide on a machine without the library."""
-    return (((2 * m + 5) * n + 7 * m * m + 13 * m) * itemsize
+    return (((2 * m + 5) * n + 7 * m * m + 13 * m + rows) * itemsize
             + 4 * 32 * ((n + 1023) // 1024))
 
 
-def fits(n: int, m: int, itemsize: int) -> bool:
-    """Whether an instance of width ``n`` and history ``m`` fits a block."""
-    return smem_per_instance(n, m, itemsize) <= SMEM_PER_BLOCK
+def fits(n: int, m: int, itemsize: int, rows: int = 0) -> bool:
+    """Whether an instance of width ``n`` and history ``m`` (and a
+    log-sum-exp's ``rows``) fits a block."""
+    return smem_per_instance(n, m, itemsize, rows) <= SMEM_PER_BLOCK
 
 
 def _chol(A, eps):
@@ -434,21 +438,22 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
     code, arrays = kernel_operands(obj, data, x0,
                                    kernel="the CUDA L-BFGS-B kernel K1")
     name = next(k for k, v in KERNEL_OBJECTIVES.items() if v == code)
-    if name not in K1_OBJECTIVES:
-        raise ValueError(
-            f"this kernel compiles the functors {K1_OBJECTIVES}, not {name}; "
-            "the tall kernel ops.fused_lbfgsb_tall.lbfgsb_solve_fused_tall "
-            "takes it, and minimize routes it there")
+    if scale is not None and name not in K1_SCALED_OBJECTIVES:
+        raise NotImplementedError(
+            f"K1's scaled form compiles the functors {K1_SCALED_OBJECTIVES}, "
+            f"not {name}; the plain version takes it on a CPU tensor")
+    rows = arrays[0].shape[0] if name == "LOG_SUM_EXP" else 0
     x0 = x0.contiguous()
     lib = _build.load()
     itemsize = x0.element_size()
-    per_warp = lib.lbfgsb_fused_smem_per_warp(n, m, itemsize)
+    per_warp = lib.lbfgsb_fused_smem_per_warp(n, m, itemsize, rows)
     if per_warp > SMEM_PER_BLOCK:
         raise ValueError(
-            f"n={n}, m={m} needs {per_warp} bytes of shared memory per "
-            f"instance, more than a block's {SMEM_PER_BLOCK}; such a batch "
-            "is the tall kernel's (ops.fused_lbfgsb_tall."
-            "lbfgsb_solve_fused_tall), and minimize routes it there")
+            f"n={n}, m={m}" + (f", rows={rows}" if rows else "")
+            + f" needs {per_warp} bytes of shared memory per instance, more "
+            f"than a block's {SMEM_PER_BLOCK}; such a batch is the tall "
+            "kernel's (ops.fused_lbfgsb_tall.lbfgsb_solve_fused_tall), and "
+            "minimize routes it there")
     unbounded = bool(torch.isneginf(lo).all() and torch.isposinf(up).all())
     x = torch.empty_like(x0)
     f = torch.empty((B,), dtype=x0.dtype, device=x0.device)
@@ -461,7 +466,7 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
         rc = lib.lbfgsb_fused_launch(
             1 if x0.dtype == torch.float64 else 0, code, int(unbounded),
             x0.data_ptr(), lo.data_ptr(), up.data_ptr(),
-            n if lo.dim() == 2 else 0, d0, d1,
+            n if lo.dim() == 2 else 0, d0, d1, rows,
             None if scale is None else scale.contiguous().data_ptr(), B, n,
             m,
             float(pgtol), float(factr), int(max_iter), int(max_iter_ls),
@@ -478,10 +483,11 @@ def _launch_cuda(obj, x0, lower, upper, data, *, m, pgtol, factr, max_iter,
 
 
 def kernel_info(dtype, B, n, m, objective="ROSENBROCK", unbounded=False,
-                scaled=False):
+                scaled=False, rows=0):
     """The CUDA kernel's launch for a ``(B, n)`` batch of ``dtype`` at
-    history ``m`` with the functor ``objective`` (one of ``K1_OBJECTIVES``;
-    its ``Scaled<...>`` form if ``scaled``), and its compiled resources:
+    history ``m`` with the functor ``objective`` (one of ``K1_OBJECTIVES``,
+    a log-sum-exp of ``rows`` rows; its ``Scaled<...>`` form if ``scaled``,
+    one of ``K1_SCALED_OBJECTIVES``), and its compiled resources:
     warps per block, resident blocks and warps per SM (the card's occupancy
     calculator), registers and local (spill) bytes per thread, dynamic
     shared memory per block."""
@@ -491,7 +497,7 @@ def kernel_info(dtype, B, n, m, objective="ROSENBROCK", unbounded=False,
     out = (ctypes.c_int * 5)()
     rc = _build.load().lbfgsb_fused_kernel_info(
         1 if dtype == torch.float64 else 0, code, int(unbounded),
-        int(scaled), B, n, m, out)
+        int(scaled), B, n, m, int(rows), out)
     if rc != 0:
         raise RuntimeError(f"lbfgsb_fused_kernel_info failed: "
                            f"{_build.error_string(rc)} (code {rc})")
@@ -538,7 +544,7 @@ def lbfgsb_solve_fused_scaled(obj, x0, lower, upper, diag, data=(), *, m=5,
     infinite); the options are :func:`lbfgsb_solve_fused`'s.  A CPU
     ``x0`` runs :func:`lbfgsb_solve_plain` on :class:`ScaledObjective`; a
     CUDA ``x0`` launches the kernel's scaled form (the objective needs a
-    ``kernel_form``) or raises.  Returns x and g in the original
+    ``ROSENBROCK`` or ``WEIGHTED_SQUARES`` kernel form) or raises.  Returns x and g in the original
     coordinates (``x / s``, ``g * s``), f, and ``pg_norm`` in the scaled
     metric, the one ``pgtol`` and ``factr`` act in."""
     n = x0.shape[-1]

@@ -33,7 +33,9 @@ taken before the launch.  Everything else runs the lockstep loop:
 than 1, an oracle without a raw objective,
 ``MoreThuente(reference_quirks=True)``, any pair K3 has no form for, and
 on a CUDA ``x0`` a callable without a kernel form or a functor the form
-lacks.  Where this differs from JAX: on the CPU the JAX package's
+lacks (the first-order form, a first-order method with an Armijo-family
+search, compiles Rosenbrock and weighted squares; the other forms all four
+functors).  Where this differs from JAX: on the CPU the JAX package's
 ``"auto"`` takes the lockstep loop and K3 only on a TPU, so a CPU solve
 that K3 takes here differs from JAX's ``"auto"`` where K3 and the lockstep
 loop differ by design (``pallas_driver.py:38-43``: a lane that converges
@@ -250,9 +252,10 @@ def _lockstep(method, line_search, oracle, x0, bounds, *, max_iter=1000,
 
 
 def _k3_fit(spec, oracle, x0):
-    """``(fits, compiled)`` for K3's ``spec`` (``None``: no form): an
-    instance fits a block's shared memory (a log-sum-exp's rows counted in
-    the Newton form), and on a CUDA ``x0`` the form compiles the oracle's
+    """``(fits, compiled)`` for K3's ``spec`` (``None``: no form), decided
+    by the form (:func:`..ops.fused_driver.compiled_functors`): an instance
+    fits a block's shared memory (a log-sum-exp's rows counted in every form
+    that compiles it), and on a CUDA ``x0`` the form compiles the oracle's
     raw objective's functor (always on the CPU, whose plain version takes
     any callable)."""
     if spec is None:
@@ -260,7 +263,8 @@ def _k3_fit(spec, oracle, x0):
     functor, rows = kernel_functor(getattr(oracle, "raw_f", None),
                                    getattr(oracle, "data", ()))
     fits = fused_driver.fits(x0.shape[-1], spec.ring, x0.element_size(),
-                             spec.lbfgs_m, spec.method, rows)
+                             spec.lbfgs_m, spec.method,
+                             fused_driver.k3_rows(spec, functor, rows))
     return fits, (x0.device.type != "cuda"
                   or functor in fused_driver.compiled_functors(spec))
 

@@ -599,6 +599,15 @@ def perturbation_spread(iterations_at, x0, runs=3):
     return int((hi - lo).max())
 
 
+def x_spread(x_at, x0, runs=3):
+    """The largest move of ``x_at(x)`` (a numpy array) from its value at
+    x0 over the ``runs`` copies of x0 moved by 1e-15 relative
+    (:func:`perturbed_starts`): a solve's own spread in x."""
+    x = x_at(x0)
+    return max(float(np.abs(x_at(v) - x).max())
+               for v in perturbed_starts(x0, runs)[1:])
+
+
 def range_distance(a, b):
     """Per instance, the gap between two ranges of counts ``a = (lo, hi)``
     and ``b``: 0 where they overlap."""
@@ -825,3 +834,47 @@ def k9_geometries():
             np.random.RandomState(4).uniform(-3, 3, (8, 6)), _ws_data(),
             jax_objective="weighted_squares", tol=1e-8, max_iter=200),
     }
+
+
+# ---- the quadratic and log-sum-exp functors of K1, K3's quasi-Newton, Wolfe
+# and dense forms and K9
+
+def nonsymmetric_quadratic(n=12, seed=7):
+    """Q = M M^T / n + I + 0.3 (K - K^T), b = 3 N(0, 1): the symmetric part
+    is positive definite, and the minimizer has max|x*| 4.9, outside
+    [-2, 2]."""
+    rng = np.random.RandomState(seed)
+    M, K = rng.standard_normal((n, n)), rng.standard_normal((n, n))
+    return (M @ M.T / n + np.eye(n) + 0.3 * (K - K.T),
+            3.0 * rng.standard_normal(n))
+
+
+def data_functor_cases():
+    """name -> (functor, data arrays, box half-width, starts' half-width):
+    the log-sum-exp at config 4's recipe (:func:`lse_arrays`) with 40 rows
+    and n = 24 (a chunk of 32 rows and a partial one) and with 20 rows and
+    n = 40 (n > rows, as in config 4), both unbounded below without their
+    box, and with 40 rows and n = 16, bounded below (the unconstrained
+    methods' case); config 5's quadratic at n = 16 and
+    :func:`nonsymmetric_quadratic`, whose box is active at the solution."""
+    return {
+        "lse_rows40_n24": ("LOG_SUM_EXP", lse_arrays(24, 40), 1.0, 0.5),
+        "lse_rows20_n40": ("LOG_SUM_EXP", lse_arrays(40, 20), 1.0, 0.5),
+        "lse_rows40_n16": ("LOG_SUM_EXP", lse_arrays(16, 40), 1.0, 0.5),
+        "quad_config5_n16": ("QUADRATIC", (config5_hessian(16), np.zeros(16)),
+                             2.0, 2.0),
+        "quad_nonsymmetric": ("QUADRATIC", nonsymmetric_quadratic(), 2.0,
+                              2.0),
+    }
+
+
+def data_functor_case(name, batch=4):
+    """(port objective, data, x0, lower, upper) of
+    :func:`data_functor_cases`' entry ``name``, ``batch`` starts from
+    ``RandomState(3)``."""
+    functor, data, box, half = data_functor_cases()[name]
+    n = data[0].shape[1]
+    x0 = np.random.RandomState(3).uniform(-half, half, (batch, n))
+    obj = (problems.log_sum_exp(*data) if functor == "LOG_SUM_EXP"
+           else problems.quadratic(*data))
+    return obj, data, x0, np.full(n, -box), np.full(n, box)

@@ -444,15 +444,17 @@ def build_sources(out_dir, sources, name, extra="", flags=()):
 
 
 def build(out_dir):
-    """K1's source (``lbfgsb_fused.cu``) for the emulator."""
-    lib = build_sources(out_dir, ["lbfgsb_fused.cu"], "lbfgsb_fused")
+    """K1's sources (``lbfgsb_fused.cu``, ``lbfgsb_fused_data.cu``) for the
+    emulator."""
+    lib = build_sources(out_dir, ["lbfgsb_fused.cu", "lbfgsb_fused_data.cu"],
+                        "lbfgsb_fused")
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.lbfgsb_fused_launch.restype = i
     lib.lbfgsb_fused_launch.argtypes = [
-        i, i, i, vp, vp, vp, i, vp, vp, vp, i, i, i, d, d, i, i, d,
+        i, i, i, vp, vp, vp, i, vp, vp, i, vp, i, i, i, d, d, i, i, d,
         vp, vp, vp, vp, vp]
     lib.lbfgsb_fused_smem_per_warp.restype = ctypes.c_longlong
-    lib.lbfgsb_fused_smem_per_warp.argtypes = [i, i, i]
+    lib.lbfgsb_fused_smem_per_warp.argtypes = [i, i, i, i]
     return lib
 
 
@@ -469,11 +471,13 @@ template int launch_newton<double>(const Params<double>&, int, cudaStream_t);
 
 
 def build_k3(out_dir, extra_flags=(), newton=False):
-    """K3's first-order, quasi-Newton and dense forms (``driver.cu`` with
-    ``driver_first.cuh``, ``driver_qn.cu``, ``driver_dense.cu``) for the
-    emulator; with ``newton`` its Newton form (``driver_newton.cu``) too,
-    else the Newton methods are answered with kErrArgs."""
-    sources = ["driver.cu", "driver_qn.cu", "driver_dense.cu"]
+    """K3's first-order, quasi-Newton, Wolfe and dense forms (``driver.cu``
+    with ``driver_first.cuh``, ``driver_qn.cu``, ``driver_qn_data.cu``,
+    ``driver_dense.cu``, ``driver_dense_data.cu``) for the emulator; with
+    ``newton`` its Newton form (``driver_newton.cu``) too, else the Newton
+    methods are answered with kErrArgs."""
+    sources = ["driver.cu", "driver_qn.cu", "driver_qn_data.cu",
+               "driver_dense.cu", "driver_dense_data.cu"]
     lib = build_sources(out_dir, sources + ["driver_newton.cu"] * newton,
                         "driver_newton" if newton else "driver",
                         "" if newton else NEWTON_STUB, flags=extra_flags)
@@ -483,11 +487,12 @@ def build_k3(out_dir, extra_flags=(), newton=False):
         i, i, vp, vp, vp, i, vp, vp, vp, i, i, ctypes.POINTER(i),
         ctypes.POINTER(d), i, i, vp, vp, vp, vp, vp, vp, vp]
     lib.driver_smem_dense.restype = ctypes.c_longlong
-    lib.driver_smem_dense.argtypes = [i, i, i, i]
+    lib.driver_smem_dense.argtypes = [i, i, i, i, i]
     lib.driver_smem_per_warp.restype = ctypes.c_longlong
-    lib.driver_smem_per_warp.argtypes = [i, i, i, i]
+    lib.driver_smem_per_warp.argtypes = [i, i, i, i, i]
     lib.driver_workspace_elems.restype = ctypes.c_longlong
-    lib.driver_workspace_elems.argtypes = [ctypes.c_longlong, i, i, i, i, i]
+    lib.driver_workspace_elems.argtypes = [ctypes.c_longlong, i, i, i, i, i,
+                                           i]
     return lib
 
 
@@ -531,16 +536,18 @@ def spg_solve(lib, obj, x0, lower, upper, data=(), *, tol=1e-5,
 
 
 def build_k9(out_dir):
-    """K9's source (``bfgs_fused.cu``) for the emulator."""
-    lib = build_sources(out_dir, ["bfgs_fused.cu"], "bfgs_fused")
+    """K9's sources (``bfgs_fused.cu``, ``bfgs_fused_data.cu``) for the
+    emulator."""
+    lib = build_sources(out_dir, ["bfgs_fused.cu", "bfgs_fused_data.cu"],
+                        "bfgs_fused")
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.bfgs_fused_launch.restype = i
     lib.bfgs_fused_launch.argtypes = [
-        i, i, vp, vp, vp, i, i, d, i, i, d, vp, vp, vp, vp, vp, vp, vp, vp]
+        i, i, vp, vp, vp, i, i, i, d, i, i, d, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.bfgs_fused_smem.restype = ctypes.c_longlong
-    lib.bfgs_fused_smem.argtypes = [i, i]
+    lib.bfgs_fused_smem.argtypes = [i, i, i]
     lib.bfgs_fused_workspace_elems.restype = ctypes.c_longlong
-    lib.bfgs_fused_workspace_elems.argtypes = [ctypes.c_longlong, i, i]
+    lib.bfgs_fused_workspace_elems.argtypes = [ctypes.c_longlong, i, i, i]
     return lib
 
 
@@ -671,6 +678,7 @@ def solve(lib, obj, x0, lower, upper, data=(), *, m=5, pgtol=1e-5,
     up = upper.to(x0.dtype).contiguous()
     code, arrays = kernel_operands(obj, data, x0)
     arrays = [a.contiguous() for a in arrays]
+    rows = arrays[0].shape[0] if code == 3 else 0
     s = None if scale is None else scale.to(x0.dtype).contiguous()
     x = torch.empty_like(x0)
     f = torch.empty((B,), dtype=x0.dtype)
@@ -683,7 +691,7 @@ def solve(lib, obj, x0, lower, upper, data=(), *, m=5, pgtol=1e-5,
         x0.data_ptr(), lo.data_ptr(), up.data_ptr(),
         n if lo.dim() == 2 else 0,
         arrays[0].data_ptr() if arrays else None,
-        arrays[1].data_ptr() if len(arrays) > 1 else None,
+        arrays[1].data_ptr() if len(arrays) > 1 else None, rows,
         None if s is None else s.data_ptr(), B, n, m,
         float(pgtol), float(factr), int(max_iter), int(max_iter_ls),
         float(c1), x.data_ptr(), f.data_ptr(), it.data_ptr(), st.data_ptr(),
@@ -701,19 +709,20 @@ def bfgs_solve(lib, obj, x0, data=(), *, tol=1e-5, max_iter=500,
     updates)``."""
     from optimization_solvers_tpu_torch.ops import fused_bfgs
     from optimization_solvers_tpu_torch.ops.fused_lbfgs import (
-        K7_OBJECTIVES, kernel_call_operands)
+        kernel_call_operands)
 
     x0 = x0.contiguous()
     B, n = x0.shape
-    code, _arrays, (d0, d1), outs = kernel_call_operands(
-        obj, data, x0, fused_bfgs.KERNEL, K7_OBJECTIVES)
+    code, arrays, (d0, d1), outs = kernel_call_operands(
+        obj, data, x0, fused_bfgs.KERNEL, fused_bfgs.K9_OBJECTIVES)
+    rows = arrays[0].shape[0] if code == 3 else 0
     outs = outs + (torch.empty_like(outs[4]),)
-    elems = fused_bfgs.workspace_elems(B, n, x0.element_size())
+    elems = fused_bfgs.workspace_elems(B, n, x0.element_size(), rows)
     work = torch.empty((elems,), dtype=x0.dtype) if elems else None
     lib.emu_set_seed(seed)
     rc = lib.bfgs_fused_launch(
-        1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(), d0, d1, B,
-        n, float(tol), int(max_iter), int(max_iter_ls), float(c1),
+        1 if x0.dtype == torch.float64 else 0, code, x0.data_ptr(), d0, d1,
+        rows, B, n, float(tol), int(max_iter), int(max_iter_ls), float(c1),
         None if work is None else work.data_ptr(),
         *(t.data_ptr() for t in outs), None)
     if rc != 0:
@@ -743,8 +752,10 @@ def driver_solve(lib, method, search, obj, x0, lower=None, upper=None,
     rows = arrays[0].shape[0] if code == 3 else 0
     pinv = (None if spec.pinv is None else
             spec.pinv.to(x0.dtype).contiguous())
-    elems = fused_driver.workspace_elems(B, n, spec.method, spec.ring,
-                                         x0.element_size(), spec.qn_update)
+    elems = fused_driver.workspace_elems(
+        B, n, spec.method, spec.ring, x0.element_size(), spec.qn_update,
+        fused_driver.k3_rows(spec, "LOG_SUM_EXP" if code == 3 else None,
+                             rows))
     work = torch.empty((elems,), dtype=x0.dtype) if elems else None
     x = torch.empty_like(x0)
     f = torch.empty((B,), dtype=x0.dtype)

@@ -36,14 +36,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_geometries import (config5_hessian, k1_edge_arrays, k1_edges,
+from _torch_geometries import (config5_hessian, data_functor_case,
+                               k1_edge_arrays, k1_edges,
                                k1_geometries, k2_geometries,
                                k3_geometries, k3_newton_geometries,
                                k3_qn_geometries, k4_geometries, k7_geometries,
                                k8_geometries, k9_geometries,
                                iteration_ranges, lse_arrays,
                                perturbation_spread, qn_update_arrays,
-                               range_distance, spd_arrays, tiled)
+                               range_distance, spd_arrays, tiled,
+                               x_spread)
 from optimization_solvers_tpu_torch import (interop, linesearch as ls,
                                             minimize, problems, solvers)
 from optimization_solvers_tpu_torch.core.oracle import make_oracle
@@ -514,9 +516,16 @@ def test_route_on_cuda_by_fit(cuda):
              bounds=(-5.0, 5.0), tol=1e-3, factr=100.0, max_iter=5)
     torch.cuda.synchronize()
     assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 1)
+    # within K1's fit the log-sum-exp and the quadratic launch K1 too
+    for f in (problems.log_sum_exp(np.ones((3, 8)), np.zeros(3)),
+              problems.quadratic(np.eye(8))):
+        minimize(f, x0[:, :8], method="lbfgsb", bounds=(-1.0, 1.0),
+                 max_iter=5)
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches) == (before[0] + 3, before[1] + 1)
     with pytest.raises(ValueError, match="tall kernel"):
-        k1(problems.log_sum_exp(np.ones((3, 8)), np.zeros(3)), x0[:, :8],
-           x0[0, :8] - 1.0, x0[0, :8] + 1.0)
+        k1(problems.log_sum_exp(np.ones((60_000, 8)), np.zeros(60_000)),
+           x0[:, :8], x0[0, :8] - 1.0, x0[0, :8] + 1.0)
 
 
 def test_shared_memory_mirror_matches_the_library(cuda):
@@ -526,9 +535,11 @@ def test_shared_memory_mirror_matches_the_library(cuda):
     for n in (1, 2, 31, 100, 1000, 1024, 1025, 3404, 3849, 3850, 10_000):
         for m in (1, 5, 10, 20):
             for itemsize in (4, 8):
-                assert fused_lbfgsb.smem_per_instance(n, m, itemsize) == (
-                    lib.lbfgsb_fused_smem_per_warp(n, m, itemsize)), (
-                        n, m, itemsize)
+                for rows in (0, 40, 512):
+                    assert fused_lbfgsb.smem_per_instance(
+                        n, m, itemsize, rows) == (
+                            lib.lbfgsb_fused_smem_per_warp(
+                                n, m, itemsize, rows)), (n, m, itemsize, rows)
 
 
 def test_broken_build_raises(cuda, tmp_path, monkeypatch):
@@ -671,19 +682,22 @@ def test_driver_shared_memory_mirror_matches_the_library(cuda):
         for ring in (0, 1, 10):
             for m in (0, 4, 10):
                 for itemsize in (4, 8):
-                    mirror = fused_driver.smem_per_instance(n, ring, itemsize,
-                                                            m)
-                    assert mirror == lib.driver_smem_per_warp(n, ring, m,
-                                                              itemsize)
+                    for rows in (0, 40, 512):
+                        mirror = fused_driver.smem_per_instance(
+                            n, ring, itemsize, m, rows=rows)
+                        assert mirror == lib.driver_smem_per_warp(
+                            n, ring, m, rows, itemsize)
     # the dense form's block (one per instance): the slab where it fits
     for n in (1, 31, 100, 166, 167, 233, 234, 237, 238, 333, 334, 4000):
         for ring in (0, 10):
             for kind in range(4):
                 for itemsize in (4, 8):
-                    assert fused_driver.smem_per_instance(
-                        n, ring, itemsize, method=fused_driver.QN,
-                        qn_update=kind) == lib.driver_smem_dense(
-                            n, ring, kind, itemsize), (n, ring, kind)
+                    for rows in (0, 40, 512):
+                        assert fused_driver.smem_per_instance(
+                            n, ring, itemsize, method=fused_driver.QN,
+                            qn_update=kind, rows=rows) == lib.driver_smem_dense(
+                                n, ring, kind, rows, itemsize), (
+                            n, ring, kind, rows)
     # the Newton form's block (one per instance)
     for n in (1, 31, 64, 100, 1000, 1024, 4150, 8301):
         for ring in (0, 1, 10):
@@ -988,11 +1002,13 @@ def test_driver_workspace_mirror_matches_the_library(cuda):
             for method in range(12):
                 for ring, kind, itemsize in ((0, 0, 8), (10, 2, 8), (0, 3, 4),
                                              (0, 2, 4)):
-                    assert fused_driver.workspace_elems(
-                        B, n, method, ring, itemsize, kind) == (
-                            lib.driver_workspace_elems(
-                                B, n, method, ring, kind, itemsize)), (
-                        B, n, method, ring, kind, itemsize)
+                    for rows in (0, 512):
+                        assert fused_driver.workspace_elems(
+                            B, n, method, ring, itemsize, kind, rows) == (
+                                lib.driver_workspace_elems(
+                                    B, n, method, ring, kind, rows,
+                                    itemsize)), (
+                            B, n, method, ring, kind, itemsize, rows)
 
 
 def test_config2_shape_float32_quality(cuda):
@@ -1705,11 +1721,12 @@ def test_whole_solve_size_mirrors_match_the_library(cuda):
                     lib.spg_fused_smem_per_warp(n, gll_m, itemsize))
     for n in (1, 100, 232, 233, 332, 333, 1000):
         for itemsize in (4, 8):
-            assert fused_bfgs.smem_per_instance(n, itemsize) == (
-                lib.bfgs_fused_smem(n, itemsize))
-            for B in (1, 1024, 10240):
-                assert fused_bfgs.workspace_elems(B, n, itemsize) == (
-                    lib.bfgs_fused_workspace_elems(B, n, itemsize))
+            for rows in (0, 40, 512):
+                assert fused_bfgs.smem_per_instance(n, itemsize, rows) == (
+                    lib.bfgs_fused_smem(n, rows, itemsize))
+                for B in (1, 1024, 10240):
+                    assert fused_bfgs.workspace_elems(B, n, itemsize, rows) == (
+                        lib.bfgs_fused_workspace_elems(B, n, rows, itemsize))
 
 
 # ---- the dense slabs of K3's dense form and K9: both placements ----------
@@ -1839,10 +1856,136 @@ def test_dense_launch_failures_raise_rather_than_fall_back(cuda,
         fused_driver._launch_cuda(spec, rosen, x0[:, :24], None, None, (),
                                   5, 5)
     # no workspace where the triangle does not fit shared memory
-    monkeypatch.setattr(fused_bfgs, "workspace_elems", lambda B, n, i: 0)
+    monkeypatch.setattr(fused_bfgs, "workspace_elems",
+                        lambda B, n, i, rows=0: 0)
     with pytest.raises(RuntimeError, match="bfgs_fused_launch failed"):
         fused_bfgs.bfgs_solve_fused(rosen, x0, max_iter=5)
     assert (fused_driver.fused_minimize.launches,
             fused_driver.fused_minimize.placements) == k3_before
     assert (fused_bfgs.bfgs_solve_fused.launches,
             fused_bfgs.bfgs_solve_fused.placements) == k9_before
+
+
+# ---- the quadratic and log-sum-exp functors of K1, K3's quasi-Newton,
+# Wolfe and dense forms and K9, float64, against their plain versions with
+# the tolerances of test_torch_data_functors.py (there against the JAX
+# kernels): K1 status equal, x within 1e-6, counts within max(2, spread);
+# K3 and K9 per instance over their first 15 iterations, status and counts
+# equal, x within 1e-9 or ten times the plain version's own spread.  K3's
+# methods take tol 1e-13 here, so that no stopping test is decided inside
+# the horizon
+
+DATA_K1_OPTS = dict(m=5, pgtol=1e-8, factr=10.0, max_iter=200)
+DATA_BOXED = ["lse_rows40_n24", "lse_rows20_n40", "quad_config5_n16",
+              "quad_nonsymmetric"]
+DATA_UNBOXED = ["lse_rows40_n16", "quad_config5_n16", "quad_nonsymmetric"]
+DATA_K3_METHODS = {
+    "lbfgs_hz": (lambda: solvers.LBFGS(tol=1e-13), ls.HagerZhang, False),
+    "ncg_mt": (lambda: solvers.NonlinearCG(grad_tol=1e-13), ls.MoreThuente,
+               False),
+    "bfgs_mt": (lambda: solvers.BFGS(tol=1e-13), ls.MoreThuente, False),
+    "bfgsb_mtb": (lambda: solvers.BFGSB(tol=1e-13), ls.MoreThuenteB, True),
+}
+
+
+def _data_case(name, cuda, batch=ROWS):
+    obj, _, x0, lo, up = data_functor_case(name, batch)
+    return (obj, x0, *interop.tensors_from_numpy(x0, lo, up, device=cuda))
+
+
+def _x_at(solve, cuda):
+    """``solve``'s x at a numpy start, on the card, as a numpy array."""
+    return lambda v: solve(interop.tensors_from_numpy(
+        v, device=cuda)[0])[0].cpu().numpy()
+
+
+@pytest.mark.parametrize("name", DATA_BOXED)
+def test_data_functor_k1_matches_plain(name, cuda):
+    obj, x0, tx0, tlo, tup = _data_case(name, cuda)
+    r = fused_lbfgsb.lbfgsb_solve_fused(obj, tx0, tlo, tup, **DATA_K1_OPTS)
+    xp, _, itp, stp = fused_lbfgsb.lbfgsb_solve_plain(obj, tx0, tlo, tup,
+                                                      **DATA_K1_OPTS)
+    spread = perturbation_spread(
+        lambda v: fused_lbfgsb.lbfgsb_solve_plain(
+            obj, interop.tensors_from_numpy(v, device=cuda)[0], tlo, tup,
+            **DATA_K1_OPTS)[2].cpu().numpy(), x0)
+    assert torch.equal(r.status, stp)
+    assert (r.x - xp).abs().max().item() <= 1e-6
+    assert (r.iterations.long() - itp.long()).abs().max().item() <= max(
+        2, spread)
+
+
+# BFGS + More-Thuente on the non-symmetric quadratic is left to the CPU
+# tests (against JAX's K3 and through the emulator): on the card the plain
+# version, whose sums cuBLAS orders, ended 2 of 64 searches with ||s|| <
+# 1e-13 within 15 iterations, where the kernel and the plain version on
+# the CPU go on (max|g| > 1e-8 there)
+@pytest.mark.parametrize("method_name,name", [
+    (m, c) for m in sorted(DATA_K3_METHODS)
+    for c in (DATA_BOXED if DATA_K3_METHODS[m][2] else DATA_UNBOXED)
+    if (m, c) != ("bfgs_mt", "quad_nonsymmetric")])
+def test_data_functor_k3_forms_match_plain(method_name, name, cuda):
+    make, search, bounded = DATA_K3_METHODS[method_name]
+    method, search = make(), search()
+    obj, x0, tx0, tlo, tup = _data_case(name, cuda)
+    box = (tlo, tup) if bounded else (None, None)
+    spec = fused_driver.build_spec(method, search)
+    x, f, it, st, nfev = fused_driver._launch_cuda(spec, obj, tx0, *box, (),
+                                                   15, 20)
+
+    def plain(v):
+        return fused_driver.fused_minimize_plain(method, search, obj, v, *box,
+                                                 (), max_iter=15,
+                                                 max_iter_ls=20)
+
+    xp, fp, itp, stp, _ = plain(tx0)
+    spread = x_spread(_x_at(plain, cuda), x0)
+    assert torch.equal(st, stp) and torch.equal(it, itp)
+    assert (x - xp).abs().max().item() <= max(1e-9, 10 * spread)
+
+
+@pytest.mark.parametrize("name,max_iter", [("lse_rows40_n16", 200),
+                                           ("lse_rows40_n24", 15)])
+def test_data_functor_k9_matches_plain(name, max_iter, cuda):
+    """K9 on the log-sum-exp: the bounded-below case as a full solve, the
+    weakly unbounded one over 15 iterations."""
+    obj, x0, tx0, _, _ = _data_case(name, cuda)
+    kw = dict(tol=1e-8, max_iter=max_iter, max_iter_ls=24, c1=1e-4)
+    x, _, it, st, _, _ = fused_bfgs._launch_cuda(obj, tx0, (), **kw)
+
+    def plain(v):
+        return fused_bfgs.bfgs_solve_plain(obj, v, (), **kw)
+
+    xp, _, itp, stp = plain(tx0)
+    spread = x_spread(_x_at(plain, cuda), x0)
+    assert torch.equal(st, stp) and torch.equal(it, itp)
+    assert (x - xp).abs().max().item() <= max(1e-9, 10 * spread)
+
+
+def test_data_functor_routes_launch_the_kernels(cuda):
+    """On a CUDA x0: minimize(method="lbfgsb") sends the quadratic and the
+    log-sum-exp to K1 within its fit, batch_minimize sends them to K3's
+    quasi-Newton, Wolfe and dense forms, and an Armijo first-order method on
+    them runs the lockstep loop (no launch)."""
+    k1 = fused_lbfgsb.lbfgsb_solve_fused
+    k2 = fused_lbfgsb_tall.lbfgsb_solve_fused_tall
+    k3 = fused_driver.fused_minimize
+    for name in ("lse_rows40_n24", "quad_config5_n16"):
+        obj, _, tx0, tlo, tup = _data_case(name, cuda, batch=8)
+        before = (k1.launches, k2.launches, k3.launches)
+        minimize(obj, tx0, method="lbfgsb", bounds=(tlo, tup), max_iter=5)
+        for method, search in ((solvers.LBFGS(), ls.HagerZhang()),
+                               (solvers.NonlinearCG(), ls.MoreThuente()),
+                               (solvers.BFGS(), ls.MoreThuente())):
+            solvers.batch_minimize(method, search, make_oracle(obj), tx0,
+                                   max_iter=5)
+        torch.cuda.synchronize()
+        assert (k1.launches, k2.launches, k3.launches) == (
+            before[0] + 1, before[1], before[2] + 3)
+        r = minimize(obj, tx0, method="gd", max_iter=5)
+        assert k3.launches == before[2] + 3 and r.x.device.type == "cuda"
+    # K9 takes the log-sum-exp
+    obj, _, tx0, _, _ = _data_case("lse_rows40_n16", cuda, batch=8)
+    before = fused_bfgs.bfgs_solve_fused.launches
+    fused_bfgs.bfgs_solve_fused(obj, tx0, max_iter=5)
+    assert fused_bfgs.bfgs_solve_fused.launches == before + 1

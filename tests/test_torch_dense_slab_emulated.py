@@ -141,22 +141,26 @@ def test_emulated_k9_at_width(n, k9):
 def test_fit_rules_match_the_sources(k3, k9):
     """The wrappers' shared-memory and workspace mirrors equal the
     functions of ``driver.cu`` and ``bfgs_fused.cu`` compiled from the same
-    sources, across both sides of each fit."""
+    sources, across both sides of each fit, with a log-sum-exp's z of
+    ``rows`` elements (0: the other objectives; 40 and 512 move the
+    fits)."""
     for n in (1, 31, 100, 166, 167, 233, 234, 237, 238, 333, 334, 1000):
         for itemsize in (4, 8):
-            for ring in (0, 10):
-                for kind in range(4):
-                    assert fused_driver.smem_per_instance(
-                        n, ring, itemsize, method=fused_driver.QN,
-                        qn_update=kind) == k3.driver_smem_dense(
-                            n, ring, kind, itemsize)
-                    for method in (fused_driver.QN, fused_driver.QNB,
-                                   fused_driver.LBFGS, fused_driver.GD):
-                        assert fused_driver.workspace_elems(
-                            64, n, method, ring, itemsize, kind) == (
-                                k3.driver_workspace_elems(
-                                    64, n, method, ring, kind, itemsize))
-            assert fused_bfgs.smem_per_instance(n, itemsize) == (
-                k9.bfgs_fused_smem(n, itemsize))
-            assert fused_bfgs.workspace_elems(64, n, itemsize) == (
-                k9.bfgs_fused_workspace_elems(64, n, itemsize))
+            for rows in (0, 40, 512):
+                for ring in (0, 10):
+                    for kind in range(4):
+                        assert fused_driver.smem_per_instance(
+                            n, ring, itemsize, method=fused_driver.QN,
+                            qn_update=kind, rows=rows) == k3.driver_smem_dense(
+                                n, ring, kind, rows, itemsize)
+                        for method in (fused_driver.QN, fused_driver.QNB,
+                                       fused_driver.LBFGS, fused_driver.GD):
+                            assert fused_driver.workspace_elems(
+                                64, n, method, ring, itemsize, kind,
+                                rows) == k3.driver_workspace_elems(
+                                    64, n, method, ring, kind, rows,
+                                    itemsize)
+                assert fused_bfgs.smem_per_instance(n, itemsize, rows) == (
+                    k9.bfgs_fused_smem(n, rows, itemsize))
+                assert fused_bfgs.workspace_elems(64, n, itemsize, rows) == (
+                    k9.bfgs_fused_workspace_elems(64, n, rows, itemsize))

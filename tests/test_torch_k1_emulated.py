@@ -122,9 +122,13 @@ def test_emulated_headline_shape_first_iterations(k1):
 
 def test_shared_memory_mirror_matches_the_kernel(k1):
     """The route's fit (``smem_per_instance``) is the kernel's own
-    ``work_bytes``, built from the same source here as on the card."""
+    ``work_bytes``, built from the same source here as on the card, with a
+    log-sum-exp's z of ``rows`` elements (0 for the other objectives)."""
     for n in (1, 31, 100, 1024, 1025, 3849, 3850):
         for m in (1, 5, 20):
             for itemsize in (4, 8):
-                assert fused_lbfgsb.smem_per_instance(n, m, itemsize) == (
-                    k1.lbfgsb_fused_smem_per_warp(n, m, itemsize))
+                for rows in (0, 40, 512):
+                    assert fused_lbfgsb.smem_per_instance(
+                        n, m, itemsize, rows) == (
+                            k1.lbfgsb_fused_smem_per_warp(n, m, itemsize,
+                                                          rows))

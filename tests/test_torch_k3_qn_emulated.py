@@ -138,9 +138,12 @@ def test_shared_memory_mirror_matches_the_source(k3):
         for ring in (0, 10):
             for m in (0, 1, 10, 20, 32, 33):
                 for itemsize in (4, 8):
-                    assert fused_driver.smem_per_instance(
-                        n, ring, itemsize, m) == k3.driver_smem_per_warp(
-                            n, ring, m, itemsize), (n, ring, m, itemsize)
+                    for rows in (0, 40, 512):
+                        assert fused_driver.smem_per_instance(
+                            n, ring, itemsize, m, rows=rows) == (
+                                k3.driver_smem_per_warp(n, ring, m, rows,
+                                                        itemsize)), (
+                            n, ring, m, itemsize, rows)
     # float64, m = 10: the tables fit up to n = 1,066, the two-loop layout
     # up to 1,075
     assert fused_driver.compact_fits(1066, 0, 8, 10)

@@ -267,10 +267,18 @@ def test_routes_for_a_cuda_x0(monkeypatch):
     callable_oracle = make_oracle(rosen_fn)
     cuda = CudaBatch(256, 64)
     assert route(gd, bt, rosen, cuda) == "K3"
+    # the first-order form (a first-order method, an Armijo-family search)
+    # compiles Rosenbrock and weighted squares; the quasi-Newton, Wolfe and
+    # dense forms all four functors
     assert route(gd, bt, quad, cuda) == "lockstep"
+    assert route(gd, bt, lse256, CudaBatch(256, 256)) == "lockstep"
     assert route(gd, bt, callable_oracle, cuda) == "lockstep"
     assert route(solvers.LBFGS(), ls.HagerZhang(), lse256,
-                 CudaBatch(256, 256)) == "lockstep"
+                 CudaBatch(256, 256)) == "K3"
+    assert route(solvers.LBFGS(), ls.BackTracking(), quad, cuda) == "K3"
+    assert route(solvers.NonlinearCG(), ls.MoreThuente(), quad, cuda) == "K3"
+    assert route(solvers.BFGS(), ls.MoreThuente(), lse256,
+                 CudaBatch(256, 256)) == "K3"
     assert route(pn, btb, quad, cuda) == "K3"
     assert route(pn, btb, lse256, CudaBatch(256, 256)) == "K3"
     assert route(pn, btb, callable_oracle, cuda) == "lockstep"

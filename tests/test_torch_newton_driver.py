@@ -386,9 +386,10 @@ def test_slabs_and_refusals():
             256, 0, 4, method=newton) + 512 * 4
     assert fused_driver.fits(6, 0, 8, 0, newton, 18000)
     assert not fused_driver.fits(6, 0, 8, 0, newton, 30000)
-    # the other forms hold no rows: a log-sum-exp never runs there
+    # the one-warp forms hold a log-sum-exp's z too: it runs there since
+    # the quasi-Newton and Wolfe forms compile it
     assert fused_driver.smem_per_instance(256, 0, 4, rows=512) == (
-        fused_driver.smem_per_instance(256, 0, 4))
+        fused_driver.smem_per_instance(256, 0, 4) + 512 * 4)
     with pytest.raises(ValueError, match="requires bounds"):
         fused_driver.fused_minimize(solvers.ProjectedNewton(),
                                     ls.BackTrackingB(),

@@ -62,9 +62,15 @@ def test_plain_dcsrch_matches_jax_kernel(jax_dcsrch):
 
 
 def test_slice_through_minimize_matches_jax_kernel(jax_dcsrch, monkeypatch):
-    """policy="reference" on the config-4 class: the route takes K2 (its
-    LOG_SUM_EXP functor is not K1's) in dcsrch mode, on the CPU its plain
-    version, and lands where JAX K2 lands."""
+    """policy="reference" on the config-4 class past K1's fit: the route
+    takes K2 in dcsrch mode, on the CPU its plain version, and lands where
+    JAX K2 lands.  The class's n = 400 fits K1's block (K1 compiles the
+    log-sum-exp too), so the test shrinks the block's shared memory to one
+    byte less than an instance takes, as a card with less of it would."""
+    obj, x0, lo, up, _, opts = k2_geometries()[NAME]
+    rows = obj.kernel_form()[1][0].shape[0]
+    need = fused_lbfgsb.smem_per_instance(x0.shape[1], opts["m"], 8, rows)
+    monkeypatch.setattr(fused_lbfgsb, "SMEM_PER_BLOCK", need - 1)
     calls = []
     orig = fused_lbfgsb_tall.lbfgsb_solve_tall_plain
 
@@ -73,7 +79,6 @@ def test_slice_through_minimize_matches_jax_kernel(jax_dcsrch, monkeypatch):
         return orig(*a, **kw)
 
     monkeypatch.setattr(fused_lbfgsb_tall, "lbfgsb_solve_tall_plain", spy)
-    obj, x0, lo, up, _, opts = k2_geometries()[NAME]
     (tx0,) = interop.tensors_from_numpy(x0)
     before = (fused_lbfgsb.lbfgsb_solve_fused.launches,
               fused_lbfgsb_tall.lbfgsb_solve_fused_tall.launches)
@@ -107,6 +112,8 @@ def route(monkeypatch):
 
 
 def test_route_by_fit(route):
+    """K1 takes every functor within its shared-memory fit, as JAX's route
+    takes the lane-last kernel by its footprint; K2 every batch past it."""
     rosen = ostt.problems.rosenbrock()
     headline = torch.zeros((4, 100), dtype=torch.float32)
     assert ostt.minimize(rosen, headline, method="lbfgsb") == "K1"
@@ -119,9 +126,26 @@ def test_route_by_fit(route):
     assert ostt.minimize(lambda x: (x * x).sum(), wide, method="lbfgsb") == "K2"
     assert ostt.minimize(lambda x: (x * x).sum(), headline,
                          method="lbfgsb") == "K1"
-    # K2's functors go to K2 at any width
+    # the quadratic and the log-sum-exp: K1 within its fit, K2 past it
+    # (float64, m = 20: (2m+5) n + 7 m^2 + 13 m elements fit up to n = 577)
     q = ostt.problems.quadratic(np.eye(3))
-    assert ostt.minimize(q, torch.zeros((2, 3)), method="lbfgsb") == "K2"
+    assert ostt.minimize(q, torch.zeros((2, 3)), method="lbfgsb") == "K1"
+    small = ostt.problems.log_sum_exp(*lse_arrays(8, 5))
+    assert ostt.minimize(small, torch.zeros((2, 8)), method="lbfgsb") == "K1"
+    wide_q = ostt.problems.quadratic(np.eye(600))
+    assert ostt.minimize(wide_q, torch.zeros((2, 600), dtype=torch.float64),
+                         method="lbfgsb", m=20) == "K2"
+    # a log-sum-exp's z (rows elements) counts: at n = 570 the last row
+    # that fits, and one more
+    n, m = 570, 20
+    room = (fused_lbfgsb.SMEM_PER_BLOCK
+            - fused_lbfgsb.smem_per_instance(n, m, 8)) // 8
+    x570 = torch.zeros((2, n), dtype=torch.float64)
+    for rows, expect in ((room, "K1"), (room + 1, "K2")):
+        lse_r = ostt.problems.log_sum_exp(*lse_arrays(n, rows))
+        assert ostt.minimize(lse_r, x570, method="lbfgsb", m=m) == expect
+    assert fused_lbfgsb.fits(n, m, 8, room)
+    assert not fused_lbfgsb.fits(n, m, 8, room + 1)
     # the fit boundary follows the kernel's shared memory formula
     # ((2m+5) n + 7 m^2 + 13 m elements and 32 mask words per 1,024
     # coordinates; m = 5, float32: n <= 3,849)
@@ -135,16 +159,18 @@ def test_route_by_fit(route):
 
 
 def test_policy_selects_the_line_search(route):
-    q = ostt.problems.quadratic(np.eye(3))
-    x0 = torch.zeros((2, 3), dtype=torch.float64)
+    """K2's line search by policy, on a quadratic past K1's fit (n = 600,
+    float64, m = 20)."""
+    q = ostt.problems.quadratic(np.eye(600))
+    x0 = torch.zeros((2, 600), dtype=torch.float64)
     for kw, expect in ((dict(), "armijo"), (dict(policy="fast"), "armijo"),
                        (dict(policy="reference"), "dcsrch"),
                        (dict(policy="reference", tall_line_search="armijo"),
                         "armijo"),
                        (dict(tall_line_search="dcsrch"), "dcsrch")):
-        ostt.minimize(q, x0, method="lbfgsb", **kw)
+        ostt.minimize(q, x0, method="lbfgsb", m=20, **kw)
         assert route[-1] == ("K2", dict(
-            m=5, pgtol=1e-6, factr=1e7, max_iter=1000, max_iter_ls=20,
+            m=20, pgtol=1e-6, factr=1e7, max_iter=1000, max_iter_ls=20,
             c1=1e-3, line_search=expect)), kw
 
 

@@ -68,6 +68,7 @@ B, N = 1024, 100
 # K3's C interface reaches the other forms; only the dense form is built
 K3_UNIT = """#include "driver.cu"
 #include "driver_dense.cu"
+#include "driver_dense_data.cu"
 namespace ost_driver {
 template <typename T> int launch_qn(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
 template <typename T> int launch_newton(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
@@ -111,13 +112,15 @@ def build():
         unit = os.path.join(OUT, f"k3_dense_unit_{k}.cu")
         with open(unit, "w") as fh:
             fh.write(K3_UNIT)
-        for kernel, path in (("k3", unit),
-                             ("k9", os.path.join(src, "bfgs_fused.cu"))):
+        for kernel, paths in (("k3", [unit]),
+                              ("k9", [os.path.join(src, "bfgs_fused.cu"),
+                                      os.path.join(src,
+                                                   "bfgs_fused_data.cu")])):
             lib = os.path.join(OUT, f"{kernel}_{k}.so")
             procs[name, kernel] = (lib, subprocess.Popen(
                 [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                  "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-                 "-shared", "-I", src, *defines, "-o", lib, path],
+                 "-shared", "-I", src, *defines, "-o", lib, *paths],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for (name, kernel), (path, proc) in procs.items():
@@ -135,14 +138,14 @@ def build():
             ctypes.POINTER(d), i, i, vp, vp, vp, vp, vp, vp, vp]
         k3.driver_workspace_elems.restype = ctypes.c_longlong
         k3.driver_workspace_elems.argtypes = [ctypes.c_longlong, i, i, i, i,
-                                              i]
+                                              i, i]
         k3.driver_dense_info.argtypes = [i, i, i, i, vp]
         k9.bfgs_fused_launch.restype = i
         k9.bfgs_fused_launch.argtypes = [
-            i, i, vp, vp, vp, i, i, d, i, i, d, vp, vp, vp, vp, vp, vp, vp,
+            i, i, vp, vp, vp, i, i, i, d, i, i, d, vp, vp, vp, vp, vp, vp, vp,
             vp]
         k9.bfgs_fused_workspace_elems.restype = ctypes.c_longlong
-        k9.bfgs_fused_workspace_elems.argtypes = [ctypes.c_longlong, i, i]
+        k9.bfgs_fused_workspace_elems.argtypes = [ctypes.c_longlong, i, i, i]
         k9.bfgs_fused_info.argtypes = [i, i, vp]
     return libs
 
@@ -190,7 +193,7 @@ def main():
     def k3_launch(lib):
         out = outputs()
         elems = lib.driver_workspace_elems(B, N, spec.method, spec.ring,
-                                           spec.qn_update, 4)
+                                           spec.qn_update, 0, 4)
         work = torch.empty(max(elems, 1), device=dev)
         rc = lib.driver_launch(
             0, 0, x0.data_ptr(), None, None, 0, None, None, None, B, N, ints,
@@ -202,10 +205,10 @@ def main():
 
     def k9_launch(lib):
         out = outputs()
-        elems = lib.bfgs_fused_workspace_elems(B, N, 4)
+        elems = lib.bfgs_fused_workspace_elems(B, N, 0, 4)
         work = torch.empty(max(elems, 1), device=dev)
         rc = lib.bfgs_fused_launch(
-            0, 0, x0.data_ptr(), None, None, B, N, 1e-5, 600, 24, 1e-4,
+            0, 0, x0.data_ptr(), None, None, 0, B, N, 1e-5, 600, 24, 1e-4,
             work.data_ptr() if elems else None,
             *(t.data_ptr() for t in out), stream)
         if rc != 0:

@@ -47,7 +47,8 @@ def build():
             [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-shared",
              f"-DK1_MIN_BLOCKS={k}", "-o", lib,
-             os.path.join(SRC, "lbfgsb_fused.cu")],
+             os.path.join(SRC, "lbfgsb_fused.cu"),
+             os.path.join(SRC, "lbfgsb_fused_data.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for k, (path, proc) in procs.items():
@@ -65,10 +66,10 @@ def build():
         vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.lbfgsb_fused_launch.restype = i
         lib.lbfgsb_fused_launch.argtypes = [
-            i, i, i, vp, vp, vp, i, vp, vp, i, i, i, d, d, i, i, d,
+            i, i, i, vp, vp, vp, i, vp, vp, i, vp, i, i, i, d, d, i, i, d,
             vp, vp, vp, vp, vp]
         lib.lbfgsb_fused_kernel_info.restype = i
-        lib.lbfgsb_fused_kernel_info.argtypes = [i, i, i, i, i, i, vp]
+        lib.lbfgsb_fused_kernel_info.argtypes = [i, i, i, i, i, i, i, i, vp]
         libs[k] = lib
     return libs
 
@@ -100,7 +101,7 @@ def main():
                torch.empty(b, dtype=torch.int32, device=dev)]
         rc = lib.lbfgsb_fused_launch(
             0, 0, 0, x.data_ptr(), lo.data_ptr(), up.data_ptr(), 0, None,
-            None, b, N, M, 1e-3, 100.0, 600, 20, 1e-3,
+            None, 0, None, b, N, M, 1e-3, 100.0, 600, 20, 1e-3,
             *(t.data_ptr() for t in out),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if rc != 0:
@@ -109,7 +110,8 @@ def main():
 
     for k, lib in libs.items():
         info = (ctypes.c_int * 5)()
-        lib.lbfgsb_fused_kernel_info(0, 0, 0, B, N, M, ctypes.addressof(info))
+        lib.lbfgsb_fused_kernel_info(0, 0, 0, 0, B, N, M, 0,
+                                     ctypes.addressof(info))
         _, f, _, st = launch(lib, x0)
         torch.cuda.synchronize()
         wpb, blocks, regs, local, _ = list(info)

@@ -163,9 +163,14 @@ template int launch_dense<double>(const Params<double>&, int, cudaStream_t);
 """
 # the form of a driver_kernel entry, by the digit of its mangled name
 QN_FORMS = {"1": "quasi-Newton form", "4": "Wolfe form"}
-# the other forms, which driver.cu's C interface reaches, as stubs
+# the other forms, which driver.cu's C interface reaches, and the
+# quasi-Newton form's quadratic and log-sum-exp instances, as stubs
 QN_STUB = """#include "driver.cuh"
 namespace ost_driver {
+template <typename T>
+int launch_qn_data(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
+template int launch_qn_data<float>(const Params<float>&, int, cudaStream_t);
+template int launch_qn_data<double>(const Params<double>&, int, cudaStream_t);
 template <typename T>
 int launch_newton(const Params<T>&, int, cudaStream_t) { return kErrArgs; }
 template <typename T>

@@ -5,8 +5,10 @@ that ``ops/_build.py`` keeps (``optimization_solvers_tpu_torch/_build/
 build.log`` after a build on a machine with ``nvcc``).  Entry names are
 matched with the hashes of anonymous namespaces taken out, so two builds
 of the same sources in different directories compare equal.  Prints the
-count of identical entries and every entry that differs or exists in one
-build only; exits 1 if any differs.
+count of identical entries, every entry that differs or that the second
+build lacks, and the second build's new entries with their counts; exits
+1 if an entry of the first build differs or is missing in the second (new
+entries alone exit 0).
 
     python3 tools/ptxas_compare.py PARENT_BUILD_LOG NEW_BUILD_LOG
 """
@@ -41,9 +43,11 @@ def main(argv):
     same = sum(1 for k in a if b.get(k) == a[k])
     print(f"ptxas: {len(a)} entries in {argv[1]}, {len(b)} in {argv[2]}, "
           f"{same} identical")
-    differ = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    differ = sorted(k for k in a if b.get(k) != a[k])
     for k in differ:
         print(f"differs: {k}\n   first:  {a.get(k)}\n   second: {b.get(k)}")
+    for k in sorted(set(b) - set(a)):
+        print(f"new: {k}\n   {b[k]}")
     return 1 if differ else 0
 
 
